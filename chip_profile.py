@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's 16 kb main path goes, on one GPU.
+"""Where the time of the port's two paths goes, on one GPU.
 
     python3 chip_profile.py
 
@@ -18,10 +18,15 @@ and prints:
    records one;
 3. the device kernels and copies with the most time, their counts, and
    their summed time against the wall time (the device's busy share;
-   the rest is host time the device idles through).
+   the rest is host time the device idles through);
+4. for the CIM-in-the-loop trainer at full width (d 768, 12 layers,
+   seq 128, batch 8, the codesign pick's macro), after 2 warm-up steps:
+   the mean step time of 5 steps, then 3 steps under the profiler with
+   the device kernels with the most time, the `acim_matmul` kernel's
+   share, and the busy share.
 
 It checks nothing: `chip_smoke.py` holds the results against the
-golden rows.  It imports nothing of JAX.
+golden rows and the trainer's losses.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -34,6 +39,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ARRAY_SIZE = 16384
 STAGE_PREFIX = "layout."
+
+
+def _device_kernels(prof) -> list[tuple[str, int, float]]:
+    """(name, calls, device us) of the device events, most time first.
+    Only device events are summed (a CPU operator's row repeats the
+    time of the kernels it launched), and the layout stage ranges are
+    left out (they span kernels listed on their own)."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith(STAGE_PREFIX)]
+    return sorted(rows, key=lambda r: -r[2])
 
 
 def profile_request(request) -> dict:
@@ -54,7 +74,6 @@ def profile_request(request) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stages: dict[str, dict] = {}
-    kernels = []
     for e in prof.key_averages():
         if e.key.startswith(STAGE_PREFIX):
             # A range appears once on the host and, where the profiler
@@ -65,12 +84,7 @@ def profile_request(request) -> dict:
                 st["device_ms"] = e.device_time_total / 1e3
             else:
                 st["host_ms"] = e.cpu_time_total / 1e3
-        elif (e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0):
-            # Only device events are summed: a CPU operator's row
-            # repeats the time of the kernels it launched.
-            kernels.append((e.key, e.count, e.self_device_time_total))
-    kernels.sort(key=lambda r: -r[2])
+    kernels = _device_kernels(prof)
     device_s = sum(r[2] for r in kernels) / 1e6
     prov = art.provenance
     return {"wall_s": wall, "explore_s": prov.explore_s,
@@ -79,6 +93,48 @@ def profile_request(request) -> dict:
             "busy_share": device_s / wall,
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
                     for k, c, us in kernels[:15]]}
+
+
+def profile_train(steps: int = 3) -> dict:
+    """Full-width trainer steps under the profiler (after warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.models.lm import init_lm
+    from repro_torch.quant.cim_linear import CIMConfig
+    from repro_torch.train import acim_lm
+
+    cfg = acim_lm.build_cfg(768, 12)
+    cim = CIMConfig(acim_lm.pick_macro(cfg).spec)
+    model = init_lm(cfg, seed=0)
+    batches = [batch_for(cfg, 128, 8, i, device="cuda") for i in range(10)]
+    for i in range(2):
+        acim_lm.sgd_step(model, batches[i], cfg, cim, 3e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, 7):
+        acim_lm.sgd_step(model, batches[i], cfg, cim, 3e-3)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(7, 7 + steps):
+            acim_lm.sgd_step(model, batches[i], cfg, cim, 3e-3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    device_s = sum(r[2] for r in kernels) / 1e6
+    acim_s = sum(r[2] for r in kernels if "acim_matmul" in r[0]) / 1e6
+    return {"spec": str(cim.spec), "step_ms": step_ms,
+            "profiled_step_ms": 1e3 * wall / steps,
+            "device_ms_per_step": 1e3 * device_s / steps,
+            "acim_matmul_ms_per_step": 1e3 * acim_s / steps,
+            "busy_share": device_s / wall,
+            "launches_per_step": sum(r[1] for r in kernels) / steps,
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:12]]}
 
 
 def main() -> int:
@@ -114,7 +170,16 @@ def main() -> int:
           f"{prof['busy_share']:.3f}", flush=True)
     for row in prof["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
-    print(json.dumps({"card": card, "profile": prof}))
+    train = profile_train()
+    print(f"trainer (d 768, 12 layers, {train['spec']}): {train['step_ms']:.2f}"
+          f" ms/step unprofiled; profiled {train['profiled_step_ms']:.2f} "
+          f"ms/step, device {train['device_ms_per_step']:.2f} ms/step "
+          f"(acim_matmul {train['acim_matmul_ms_per_step']:.2f}), busy "
+          f"share {train['busy_share']:.3f}, "
+          f"{train['launches_per_step']:.0f} device events/step", flush=True)
+    for row in train["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    print(json.dumps({"card": card, "profile": prof, "train": train}))
     return 0
 
 

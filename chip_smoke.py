@@ -12,7 +12,12 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              and power limit.
 2. kernels — call each kernel's wrapper at the main path's shapes and
              hold it against its plain PyTorch version on the same
-             inputs, exactly (integer outputs); time both.
+             inputs, exactly (integer outputs); time both.  `acim_matmul`
+             runs at the trainer's FFN shapes, (1024, 768) @ (768, 3072)
+             and (1024, 3072) @ (3072, 768), with the codesign pick's
+             (N, B) and with N = 128, B = 5: bit-equal on +-1 operands,
+             and on mismatch-folded weights equal but for ADC flips (a
+             whole number of deltas each) on at most 0.1 % of outputs.
 3. path    — `DesignSession().run(DesignRequest(array_size=16384))` at
              the full default budget (pop 256, 80 generations, coarse
              64, capacity 4): the front must lie inside the golden
@@ -23,7 +28,20 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              dominance-matrix route.  Each path runs with the launch
              counts zeroed just before it and read just after; every
              kernel must have launched on its path.
-4. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
+4. train   — the CIM-in-the-loop trainer at full width (d 768, 12
+             layers, 12 heads, d_ff 3072, vocab 2048, seq 128, batch 8,
+             lr 3e-3): `recommend_macro` at the example's settings, whose
+             pick must be a point of the golden exhaustive front meeting
+             the 3 dB floor (its energy-delay rank among those points is
+             printed), then 20 SGD steps whose losses must be finite and
+             end below the first.  Launch counts, zeroed before the pick
+             and read after the last step: `acim_matmul` 24 per forward,
+             `nds_rank` > 0.  Then step 0's loss on the card is held
+             against the plain PyTorch run on the CPU of the same weights,
+             batch and mismatch draws, at full width and 2 layers (rtol
+             1e-2: the bfloat16 backbone rounds differently on the two
+             devices, and a rounding can flip a binarized activation).
+5. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -47,6 +65,15 @@ GOLDEN = ROOT / "src" / "repro_torch" / "_golden" / "layout_rows_16384.json"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 FLOAT_RTOL = 1e-6
+
+# The trainer's full-width configuration (the reference example's
+# "~125M-class" run) and the checks of phases 2 and 4.
+TRAIN = dict(d_model=768, layers=12, seq=128, batch=8, lr=3e-3, steps=20)
+ACIM_SHAPES = ((1024, 768, 3072), (1024, 3072, 768))
+ACIM_FLIP_SHARE = 1e-3     # mismatch-folded weights: outputs an ADC flip
+                           # may move (measured share printed)
+CPU_CHECK_LAYERS = 2       # depth of the step-0 card-vs-CPU check
+CPU_CHECK_RTOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -281,7 +308,76 @@ def kernel_phase() -> list[dict]:
           f"slot ({int(want[1].sum())} routed, {int(want[2].sum())} failed); "
           f"{rows[-1]['ms']:.4f} ms vs plain {rows[-1]['plain_ms']:.4f} ms",
           flush=True)
+
+    rows.append(acim_kernel_check(dev, rng))
     return rows
+
+
+def _adc_flip_share(got, want, delta: float) -> float:
+    """Share of outputs where kernel and plain version differ; fails
+    unless every difference is a whole number of ADC steps."""
+    steps = (got - want).double() / delta
+    check(bool(((steps - steps.round()).abs() <= 1e-3).all()),
+          "acim_matmul differs from plain by a non-multiple of delta")
+    return float((steps != 0).double().mean())
+
+
+def acim_kernel_check(dev, rng) -> dict:
+    """acim_matmul against its plain version at the trainer's FFN shapes,
+    with the codesign pick's (N, B) and with N = 128, B = 5."""
+    import torch
+
+    from repro_torch.core.acim_numerics import NoiseParams
+    from repro_torch.core.acim_spec import MacroSpec
+    from repro_torch.kernels.acim_matmul import ops as am
+    from repro_torch.kernels.acim_matmul import ref as am_ref
+    from repro_torch.train import acim_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # exact f32 products
+    cfg = acim_lm.build_cfg(TRAIN["d_model"], TRAIN["layers"])
+    pick = acim_lm.pick_macro(cfg).spec
+    row = None
+    for spec in (pick, MacroSpec(256, 64, 2, 5)):
+        n, b = spec.n_caps, spec.b_adc
+        delta = 2.0 * n / 2 ** b
+        for m, k, c in ACIM_SHAPES:
+            x = torch.tensor(rng.choice([-1.0, 1.0], (m, k)),
+                             dtype=torch.float32, device=dev)
+            w = torch.tensor(rng.choice([-1.0, 1.0], (k, c)),
+                             dtype=torch.float32, device=dev)
+            got = am.acim_matmul(x, w, spec)
+            want = am_ref.acim_matmul_ref(x, w, n=n, b_adc=b)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"acim_matmul != plain on +-1 ({m}, {k}, {c}), N={n}, B={b}")
+            eps = torch.randn((k, c), device=dev)
+            wm = am.mismatch_weights(w, spec, eps, NoiseParams.from_cal())
+            share = _adc_flip_share(
+                am.acim_matmul(x, wm, spec),
+                am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b), delta)
+            check(share <= ACIM_FLIP_SHARE,
+                  f"acim_matmul: {share:.2e} of outputs flipped on "
+                  f"mismatch-folded ({m}, {k}, {c}), N={n}, B={b}")
+            ms = cuda_ms(lambda: am.acim_matmul(x, w, spec), 20)
+            plain_ms = cuda_ms(lambda: am_ref.acim_matmul_ref(
+                x, w, n=n, b_adc=b), 5)
+            dense_ms = cuda_ms(lambda: torch.matmul(x, w), 20)
+            b_ms, b_by = bound((m * k + k * c + m * c) * 4, 2 * m * k * c)
+            print(f"kernel acim_matmul: equal to plain on +-1 ({m}, {k}, "
+                  f"{c}), N={n}, B={b}; mismatch-folded: {share:.2e} of "
+                  f"outputs one or more ADC steps apart; {ms:.4f} ms vs "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"dense f32 torch.matmul (reference only) {dense_ms:.4f} "
+                  f"ms", flush=True)
+            if row is None:          # the main path's first shape and pick
+                row = dict(
+                    name="acim_matmul", route="cuda",
+                    source="src/repro_torch/csrc/acim_matmul.cu",
+                    replaces="src/repro/kernels/acim_matmul/kernel.py:60",
+                    max_abs_err=float((got - want).abs().max()), ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None)
+    return row
 
 
 # ----------------------------------------------------------------------
@@ -352,6 +448,109 @@ def path_phase() -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 4: the CIM-in-the-loop trainer
+# ----------------------------------------------------------------------
+def _edp_rank(cfg, pick, golden: list[dict], floor: float) -> tuple[int, int]:
+    """Rank (1 = best) of the pick's workload-weighted energy-delay score
+    (`codesign.edp_scores`) among the golden front's points that meet the
+    SNR floor."""
+    import numpy as np
+
+    from repro_torch.core import codesign
+    from repro_torch.core.acim_spec import MacroSpec
+    from repro_torch.core.explorer import ParetoResult
+
+    # objectives are (-SNR dB, -TOPS, energy fJ/MAC, area)
+    ok = [p_ for p_ in golden if -p_["objectives"][0] >= floor]
+    front = ParetoResult(16384, tuple(MacroSpec(*(p_["row"][k] for k in (
+        "h", "w", "l", "b_adc"))) for p_ in ok), {
+        "tops": np.array([-p_["objectives"][1] for p_ in ok]),
+        "energy_fj_per_mac": np.array([p_["objectives"][2] for p_ in ok])})
+    edp = [sc[3] for sc in codesign.edp_scores(cfg, front)]
+    mine = edp[front.specs.index(pick)]
+    return 1 + sum(int(v < mine) for v in edp), len(edp)
+
+
+def train_phase() -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.lm import init_lm
+    from repro_torch.quant.cim_linear import CIMConfig
+    from repro_torch.train import acim_lm
+
+    golden = golden_points()
+    cfg = acim_lm.build_cfg(TRAIN["d_model"], TRAIN["layers"])
+    floor = acim_lm.PICK["min_snr_db"]
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rec = acim_lm.pick_macro(cfg)
+    torch.cuda.synchronize()
+    pick_s = time.perf_counter() - t0
+    pick = rec.spec
+    keys = {tuple(p_["key"]) for p_ in golden}
+    check((pick.h, pick.l, pick.b_adc) in keys,
+          f"codesign pick {pick} is not on the golden 16 kb front")
+    check(rec.snr_db >= floor, f"pick SNR {rec.snr_db} dB < {floor} dB")
+    rank, n_ok = _edp_rank(cfg, pick, golden, floor)
+    print(f"train pick: {pick} (N={pick.n_caps}, B={pick.b_adc}), SNR "
+          f"{rec.snr_db:.2f} dB, util {rec.utilization:.3f}; on the golden "
+          f"front, energy-delay rank {rank} of {n_ok} points >= {floor} dB; "
+          f"explore {pick_s:.2f} s", flush=True)
+
+    cim = CIMConfig(pick)
+    model = init_lm(cfg, seed=0)
+    log = acim_lm.train(model, cfg, cim, steps=TRAIN["steps"],
+                        seq=TRAIN["seq"], batch=TRAIN["batch"],
+                        lr=TRAIN["lr"], log=lambda s_: print("  " + s_))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    losses = log.losses
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not decrease: {losses}")
+    per_fwd = 2 * cfg.n_layers
+    check(launches.get("acim_matmul", 0) == per_fwd * TRAIN["steps"],
+          f"acim_matmul launched {launches.get('acim_matmul', 0)} times, "
+          f"want {per_fwd} x {TRAIN['steps']} forwards")
+    check(launches.get("nds_rank", 0) > 0, "nds_rank not launched by the pick")
+    steady = log.step_s[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    print(f"train run: {TRAIN['steps']} steps at d {cfg.d_model}, "
+          f"{cfg.n_layers} layers, seq {TRAIN['seq']}, batch "
+          f"{TRAIN['batch']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"step {1e3 * log.step_s[0]:.1f} ms first, {step_ms:.2f} ms mean "
+          f"of steps 1-{TRAIN['steps'] - 1}", flush=True)
+    print(f"train losses: {[round(v, 4) for v in losses]}")
+    print(f"train launches: {launches}", flush=True)
+
+    # step 0 on the card against the plain run on the CPU
+    cut = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS)
+    batch = batch_for(cut, TRAIN["seq"], TRAIN["batch"], 0)
+    losses0 = []
+    for dev in (model.emb.device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        m_ = init_lm(cut, seed=0, device=dev)
+        b_ = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            losses0.append(float(acim_lm.loss_fn(m_, b_, cut, cim)))
+        print(f"  step-0 loss on {dev}: {losses0[-1]:.6f} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    card, host = losses0
+    rel = abs(card - host) / abs(host)
+    check(rel <= CPU_CHECK_RTOL,
+          f"step-0 loss on the card {card} vs CPU {host}: rel {rel:.2e} > "
+          f"{CPU_CHECK_RTOL}")
+    print(f"train check: step-0 loss at {CPU_CHECK_LAYERS} layers, card vs "
+          f"CPU plain, rel diff {rel:.2e} (rtol {CPU_CHECK_RTOL})", flush=True)
+    return {"acim_matmul": launches["acim_matmul"],
+            "nds_rank": launches["nds_rank"]}
+
+
 def main() -> int:
     import torch
 
@@ -364,6 +563,7 @@ def main() -> int:
     card = build_phase()
     rows = kernel_phase()
     launches = path_phase()
+    launches["acim_matmul"] = train_phase()["acim_matmul"]
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,9 +1,11 @@
 """Carry the reference's state into the port.
 
-The system has no weights: its state is the calibration and the
-request.  These two functions take the JAX package's values in plain
-form (numpy arrays, dicts) so the two packages can compute on the same
-operands; they import nothing of the JAX package.
+The design flow has no weights: its state is the calibration and the
+request.  The LM substrate has weights (the reference's `init_lm`
+pytree) and an architecture config.  These functions take the JAX
+package's values in plain form (numpy arrays, dicts) so the two
+packages can compute on the same operands; they import nothing of the
+JAX package.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.request import DesignRequest
+from repro_torch.configs import base as configs
 from repro_torch.core.estimator import CalOperands
 from repro_torch.core.nsga2 import SpaceOperands
 
@@ -41,3 +44,43 @@ def space_operands_from_numpy(d: dict):
 def request_from_dict(d: dict) -> DesignRequest:
     """The reference's `DesignRequest.to_dict()` -> the port's request."""
     return DesignRequest.from_dict(d)
+
+
+_SUB_CONFIGS = {"moe": configs.MoEConfig, "mla": configs.MLAConfig,
+                "ssm": configs.SSMConfig, "xlstm": configs.XLSTMConfig,
+                "hybrid": configs.HybridConfig, "encdec": configs.EncDecConfig,
+                "vlm": configs.VLMConfig}
+
+
+def arch_config_from_dict(d: dict) -> configs.ArchConfig:
+    """`dataclasses.asdict` of the reference's `ArchConfig` -> the port's."""
+    d = dict(d)
+    for k, cls in _SUB_CONFIGS.items():
+        if d.get(k) is not None:
+            d[k] = cls(**d[k])
+    return configs.ArchConfig(**d)
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
+    """The reference's `init_lm` pytree with numpy leaves -> a state dict
+    of `repro_torch.models.lm.LM` (`load_state_dict`).
+
+    `blocks` holds every layer's leaves stacked on a leading n_layers
+    axis; layer i's slice becomes `blocks.<i>.<path>`.  Nested dicts
+    become dotted names; the leaves keep their dtype (float32)."""
+    state = {}
+    for name, leaf in _flatten({k: v for k, v in tree.items()
+                                if k != "blocks"}):
+        state[name] = _tensor(leaf)
+    for path, leaf in _flatten(tree["blocks"]):
+        for i in range(leaf.shape[0]):
+            state[f"blocks.{i}.{path}"] = _tensor(leaf[i])
+    return state

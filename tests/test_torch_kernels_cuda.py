@@ -11,7 +11,11 @@ import torch
 
 from repro_torch.api import DesignRequest, DesignSession, Requirements
 from repro_torch.core import pareto
+from repro_torch.core.acim_numerics import NoiseParams
+from repro_torch.core.acim_spec import MacroSpec
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.acim_matmul import ops as am_ops
+from repro_torch.kernels.acim_matmul import ref as am_ref
 from repro_torch.kernels.maze_route import kernel as mr
 from repro_torch.kernels.maze_route import ref as mr_ref
 from repro_torch.kernels.pareto_dom import ops as pd_ops
@@ -93,3 +97,31 @@ def test_session_on_cuda_equals_cpu_rows(dev):
                                      "trace_paths")) > 0
     cpu = DesignSession(device="cpu").layout(art.pareto.specs)
     assert list(art.layout_rows) == cpu.metrics_rows()
+
+
+@pytest.mark.parametrize("m,k,c", [(1024, 768, 3072), (1024, 3072, 768),
+                                   (37, 100, 70)])
+@pytest.mark.parametrize("spec", [(256, 64, 2, 5), (512, 32, 2, 4),
+                                  (8, 64, 2, 2)], ids=str)
+def test_acim_matmul_matches_plain(m, k, c, spec, dev):
+    """+-1 operands: bit-equal.  Mismatch-folded weights: the chunk sums
+    differ in summation order only, so outputs differ by whole ADC steps
+    where a sum lies within rounding of a decision boundary (<= 0.1 %)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = MacroSpec(*spec)
+    n, b = spec.n_caps, spec.b_adc
+    g = torch.Generator(device=dev).manual_seed(m + k + c)
+    x = torch.where(torch.rand((m, k), generator=g, device=dev) < 0.5,
+                    1.0, -1.0)
+    w = torch.where(torch.rand((k, c), generator=g, device=dev) < 0.5,
+                    1.0, -1.0)
+    n0 = LAUNCHES["acim_matmul"]
+    got = am_ops.acim_matmul(x, w, spec)
+    assert LAUNCHES["acim_matmul"] == n0 + 1
+    assert torch.equal(got, am_ref.acim_matmul_ref(x, w, n=n, b_adc=b))
+    eps = torch.randn((k, c), generator=g, device=dev)
+    wm = am_ops.mismatch_weights(w, spec, eps, NoiseParams.from_cal())
+    steps = (am_ops.acim_matmul(x, wm, spec)
+             - am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b)) / (2 * n / 2 ** b)
+    assert torch.allclose(steps, steps.round(), atol=1e-3)
+    assert float((steps != 0).float().mean()) <= 1e-3
