@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's two paths goes, on one GPU.
+"""Where the time of the port's three paths goes, on one GPU.
 
     python3 chip_profile.py
 
@@ -23,13 +23,20 @@ and prints:
    seq 128, batch 8, the codesign pick's macro), after 2 warm-up steps:
    the mean step time of 5 steps, then 3 steps under the profiler with
    the device kernels with the most time, the `acim_matmul` kernel's
-   share, and the busy share.
+   share, and the busy share;
+5. for the long-context prefill of qwen2.5-3b at full width (36 layers,
+   bf16 serving weights drawn from seed 0, batch 1 x 32768,
+   `make_prefill_step`), after one warm-up prefill: one prefill under the
+   profiler, its device time split into the flash attention kernel, the
+   GEMMs (cuBLAS / CUTLASS kernels) and the rest, with the kernels with
+   the most time and the busy share.
 
 It checks nothing: `chip_smoke.py` holds the results against the
 golden rows and the trainer's losses.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -137,6 +144,53 @@ def profile_train(steps: int = 3) -> dict:
                     for k, c, us in kernels[:12]]}
 
 
+GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def profile_prefill(seq: int = 32768, batch: int = 1) -> dict:
+    """One full-width qwen2.5-3b prefill under the profiler (after a
+    warm-up), its device time by kernel class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm
+
+    cfg = registry.get("qwen2.5-3b")
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16)
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
+    step = make_prefill_step(cfg, shape)
+    tokens = batch_for(cfg, *step.batch_shapes["inputs"][::-1], 0)
+    step.fn(params, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.fn(params, tokens)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.fn(params, tokens)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    flash = sum(r[2] for r in kernels if "flash_attention" in r[0]) / 1e6
+    gemm = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e6
+    device_s = sum(r[2] for r in kernels) / 1e6
+    return {"tokens": batch * seq, "wall_s": wall_s,
+            "profiled_s": prof_s, "device_s": device_s,
+            "flash_attention_s": flash, "gemm_s": gemm,
+            "rest_s": device_s - flash - gemm,
+            "busy_share": device_s / prof_s,
+            "device_events": sum(r[1] for r in kernels),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:12]]}
+
+
 def main() -> int:
     import torch
 
@@ -179,7 +233,19 @@ def main() -> int:
           f"{train['launches_per_step']:.0f} device events/step", flush=True)
     for row in train["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
-    print(json.dumps({"card": card, "profile": prof, "train": train}))
+    pre = profile_prefill()
+    print(f"prefill (qwen2.5-3b, 36 layers, 1 x 32768): {pre['wall_s']:.3f} "
+          f"s unprofiled, {pre['profiled_s']:.3f} s profiled; device "
+          f"{pre['device_s']:.3f} s over {pre['device_events']} events: "
+          f"flash_attention {pre['flash_attention_s']:.3f} s "
+          f"({pre['flash_attention_s'] / pre['device_s']:.3f}), GEMMs "
+          f"{pre['gemm_s']:.3f} s ({pre['gemm_s'] / pre['device_s']:.3f}), "
+          f"rest {pre['rest_s']:.3f} s; busy share {pre['busy_share']:.3f}",
+          flush=True)
+    for row in pre["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    print(json.dumps({"card": card, "profile": prof, "train": train,
+                      "prefill": pre}))
     return 0
 
 

@@ -18,6 +18,14 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              (N, B) and with N = 128, B = 5: bit-equal on +-1 operands,
              and on mismatch-folded weights equal but for ADC flips (a
              whole number of deltas each) on at most 0.1 % of outputs.
+             `flash_attention` runs at the prefill's shape, (1, 32768,
+             16 heads, 2 KV heads, 128) causal bf16, against the
+             blockwise plain version, and at (4, 4096, ...) in bf16 and
+             f32, with a prefix, at S 4001 and at head dims 16-64 also
+             against the naive one: f32 within atol = rtol = 2e-5, bf16
+             within one output ulp plus 2e-5 (both compute in f32 and
+             round once).  Its library yardstick is
+             `scaled_dot_product_attention` on the same bf16 tensors.
 3. path    — `DesignSession().run(DesignRequest(array_size=16384))` at
              the full default budget (pop 256, 80 generations, coarse
              64, capacity 4): the front must lie inside the golden
@@ -41,7 +49,21 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              batch and mismatch draws, at full width and 2 layers (rtol
              1e-2: the bfloat16 backbone rounds differently on the two
              devices, and a rounding can flip a binarized activation).
-5. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
+5. prefill — `make_prefill_step(qwen2.5-3b, prefill_32k)` at full width
+             (36 layers, d 2048, vocab 151,936) with bf16 serving
+             weights drawn from seed 0 (CPU generator), on synthetic tokens
+             at batch 1 x 32768 (the shape's batch of 32 cut to 1: its
+             logits alone are 9.96 GB a sequence): a warm-up prefill and
+             a timed one, then batch 4 x 4096.  Logits must be finite and
+             each prefill must launch `flash_attention` 36 times.  Then
+             one full-width layer at S 4096: `attention_fwd_blockwise`
+             against the dense `attention_fwd` (rel L2 2e-2: the dense
+             path rounds scores and probabilities to bf16); and a
+             2-layer full-width model at seq 512 with the same CPU-drawn
+             weights on the card and on the CPU: last-position logits
+             within rel L2 5e-2 (both backbones are bf16), argmax
+             agreement printed.
+6. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -50,6 +72,8 @@ regenerates and checks them); this script imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -64,6 +88,10 @@ GOLDEN = ROOT / "src" / "repro_torch" / "_golden" / "layout_rows_16384.json"
 # int32 CUDA-core rate, for the roofline bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# The dense bf16 tensor-core peak (same data sheet).  Attention's two
+# products fit on tensor cores, so `flash_attention`'s bound uses this
+# rate: a CUDA-core kernel must not read as near its bound.
+PEAK_BF16_TC_FLOPS = 989.4e12
 FLOAT_RTOL = 1e-6
 
 # The trainer's full-width configuration (the reference example's
@@ -74,6 +102,17 @@ ACIM_FLIP_SHARE = 1e-3     # mismatch-folded weights: outputs an ADC flip
                            # may move (measured share printed)
 CPU_CHECK_LAYERS = 2       # depth of the step-0 card-vs-CPU check
 CPU_CHECK_RTOL = 1e-2
+
+# The prefill phase: qwen2.5-3b at full width, prefill_32k cut to batch 1.
+PREFILL_CONFIG = "qwen2.5-3b"
+PREFILL_BATCH = 1
+SMALL_PREFILL = (4, 4096)  # batch, seq: B > 1
+FLASH_RTOL = 2e-5          # f32 atol = rtol; bf16: one output ulp + this
+DENSE_CHECK_SEQ = 4096     # blockwise vs dense attention, one layer
+DENSE_CHECK_RTOL = 2e-2    # rel L2 (measured 3.8e-3 on the CPU at S 512)
+PREFILL_CPU_LAYERS = 2     # card vs CPU, full width
+PREFILL_CPU_SEQ = 512
+PREFILL_CPU_RTOL = 5e-2    # rel L2 of the last position's logits
 
 
 def fail(msg: str) -> None:
@@ -86,10 +125,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over memory rate or
-    operations over the CUDA-core rate, whichever is larger."""
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    operations over `peak_ops` (default the CUDA-core rate), whichever is
+    larger."""
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -310,6 +351,7 @@ def kernel_phase() -> list[dict]:
           flush=True)
 
     rows.append(acim_kernel_check(dev, rng))
+    rows.append(flash_kernel_check(dev))
     return rows
 
 
@@ -378,6 +420,126 @@ def acim_kernel_check(dev, rng) -> dict:
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=None)
     return row
+
+
+def _visible_pairs(s: int, t: int, causal: bool, prefix_len: int) -> int:
+    """(query, key) pairs the mask lets through: what the function must
+    compute, per batch row and head."""
+    import numpy as np
+
+    if not causal:
+        return s * t
+    r = np.arange(s, dtype=np.int64)
+    seen = np.where(r < prefix_len, np.maximum(r + 1, prefix_len), r + 1)
+    return int(np.minimum(seen, t).sum())
+
+
+def _flash_excess(got, want) -> tuple[float, float]:
+    """(max |got - want|, the largest excess over the tolerance): float32
+    atol = rtol = FLASH_RTOL; bf16 one bf16 ulp of the output plus
+    FLASH_RTOL (both sides compute in float32 and round once)."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.float().abs(), w))
+        tol = torch.ldexp(torch.ones_like(w), e - 8) + FLASH_RTOL
+    else:
+        tol = FLASH_RTOL + FLASH_RTOL * w
+    return float(d.max()), float((d - tol).max())
+
+
+def _heads_first(x, rep: int):
+    """(B, S, n, Dh) -> (B * n * rep, S, Dh), each head repeated `rep`
+    times: the naive oracle's layout."""
+    b, s, n, dh = x.shape
+    return x.permute(0, 2, 1, 3).repeat_interleave(rep, 1).reshape(-1, s, dh)
+
+
+def flash_kernel_check(dev) -> dict:
+    """flash_attention against its plain versions: the prefill's shape
+    against the blockwise one (the naive scores would take 68 GB), the
+    smaller shapes against both; times at the prefill's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # full f32 products
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qkv(b, s, h, kv, dh, dtype):
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh))]
+
+    # (b, s, h, kv, dh, dtype, causal, prefix_len)
+    cases = [(4, 4096, 16, 2, 128, bf16, True, 0),
+             (4, 4096, 16, 2, 128, f32, True, 0),
+             (4, 4096, 16, 2, 128, bf16, True, 1000),
+             (2, 4001, 16, 2, 128, f32, True, 0),
+             (2, 4001, 16, 2, 128, bf16, True, 0),
+             (2, 777, 8, 2, 128, f32, False, 0),
+             (2, 777, 8, 2, 64, f32, True, 300),
+             (2, 777, 8, 2, 32, bf16, True, 0),
+             (2, 777, 8, 2, 16, f32, True, 0)]
+    for b, s, h, kv, dh, dtype, causal, pre in cases:
+        q, k, v = qkv(b, s, h, kv, dh, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, prefix_len=pre)
+        want = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                          prefix_len=pre)
+        naive = fa_ref.attention_ref(
+            _heads_first(q, 1), _heads_first(k, h // kv),
+            _heads_first(v, h // kv), causal=causal, prefix_len=pre)
+        naive = naive.reshape(b, h, s, dh).permute(0, 2, 1, 3)
+        torch.cuda.synchronize()
+        err, excess = _flash_excess(got, want)
+        err_n, excess_n = _flash_excess(got, naive)
+        what = (f"({b}, {s}, {h}, {kv}, {dh}) {str(dtype)[6:]} "
+                f"{'causal' if causal else 'full'} prefix {pre}")
+        check(excess <= 0 and excess_n <= 0,
+              f"flash_attention {what}: max err {err:.3e} vs blockwise plain, "
+              f"{err_n:.3e} vs naive; beyond tolerance by "
+              f"{max(excess, excess_n):.3e}")
+        print(f"kernel flash_attention {what}: max err {err:.3e} vs "
+              f"blockwise plain, {err_n:.3e} vs naive (within tolerance)",
+              flush=True)
+        del q, k, v, got, want, naive
+
+    # the prefill's shape: the main path's row
+    b, s, h, kv, dh = PREFILL_BATCH, 32768, 16, 2, 128
+    q, k, v = qkv(b, s, h, kv, dh, bf16)
+    got = fa.flash_attention(q, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err, excess = _flash_excess(got, want)
+    check(excess <= 0, f"flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16: "
+                       f"max err {err:.3e}, beyond one ulp + {FLASH_RTOL} "
+                       f"by {excess:.3e}")
+    del want
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 3)
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_ref(q, k, v), 1)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True, enable_gqa=True)
+    library_ms = cuda_ms(sdpa, 5)
+    sdpa_err = float((sdpa().transpose(1, 2).float() - got.float()).abs().max())
+    flops = 4 * dh * h * b * _visible_pairs(s, s, True, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
+    print(f"kernel flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16 causal: "
+          f"max err {err:.3e} vs blockwise plain (within one ulp + "
+          f"{FLASH_RTOL}); {ms:.3f} ms vs plain {plain_ms:.3f} ms; SDPA "
+          f"(library) {library_ms:.3f} ms, max |SDPA - kernel| "
+          f"{sdpa_err:.3e}; bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flops, "
+          f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:59",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
 
 
 # ----------------------------------------------------------------------
@@ -551,6 +713,128 @@ def train_phase() -> dict:
             "nds_rank": launches["nds_rank"]}
 
 
+# ----------------------------------------------------------------------
+# Phase 5: long-context prefill of qwen2.5-3b at full width
+# ----------------------------------------------------------------------
+def _prefill(step, params, batch, cfg, what: str) -> tuple[float, int]:
+    """One prefill with the launch counts zeroed just before it and read
+    just after: (seconds, flash_attention launches); the logits must be
+    finite and of the batch's shape."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = step.fn(params, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = LAUNCHES["flash_attention"]
+    b, s = batch["inputs"].shape
+    check(tuple(logits.shape) == (b, s, cfg.vocab),
+          f"prefill {what}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()),
+          f"prefill {what}: non-finite logits")
+    check(n == cfg.n_layers, f"prefill {what}: flash_attention launched "
+                             f"{n} times, want {cfg.n_layers}")
+    return dt, n
+
+
+def prefill_phase(flash_ms: float) -> dict:
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_norm, causal_mask
+    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
+
+    dev = torch.device("cuda")
+    cfg = registry.get(PREFILL_CONFIG)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p_.numel() for p_ in params.parameters())
+    n_bytes = sum(p_.numel() * p_.element_size() for p_ in params.parameters())
+    print(f"prefill init: {cfg.name}, {n_params:,} parameters, "
+          f"{n_bytes / 1e9:.2f} GB serving weights, drawn from seed 0 on the "
+          f"CPU and moved layer by layer in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=PREFILL_BATCH)
+    step = make_prefill_step(cfg, shape)
+    batch = batch_for(cfg, *step.batch_shapes["inputs"][::-1], 0)
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, _ = _prefill(step, params, batch, cfg, "warm-up")
+    dt, launches = _prefill(step, params, batch, cfg, "timed")
+    tokens = shape.batch * shape.seq
+    print(f"prefill run: {shape.batch} x {shape.seq} tokens, {cfg.n_layers} "
+          f"layers: {dt:.3f} s ({warm_s:.3f} s warm-up), {tokens / dt:,.0f} "
+          f"tokens/s; flash_attention {launches} launches; attention share "
+          f"~{cfg.n_layers * flash_ms / 1e3 / dt:.3f} of the wall time "
+          f"({cfg.n_layers} x the kernel's {flash_ms:.1f} ms); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+
+    b4, s4 = SMALL_PREFILL
+    step4 = make_prefill_step(cfg, dataclasses.replace(shape, batch=b4,
+                                                       seq=s4))
+    batch4 = batch_for(cfg, *step4.batch_shapes["inputs"][::-1], 1)
+    dt4, n4 = _prefill(step4, params, batch4, cfg, f"{b4} x {s4}")
+    print(f"prefill run: {b4} x {s4} tokens: {dt4:.3f} s, "
+          f"{b4 * s4 / dt4:,.0f} tokens/s; flash_attention {n4} launches",
+          flush=True)
+
+    # one full-width layer: blockwise (the kernel) against dense attention
+    blk = params.blocks[0]
+    with torch.inference_mode():
+        x = params.emb[batch4["inputs"][:1, :DENSE_CHECK_SEQ].to(dev)].to(
+            torch.bfloat16)
+        h = apply_norm(blk.ln1, x, cfg.norm)
+        pos = torch.arange(DENSE_CHECK_SEQ, device=dev)
+        dense = attn.attention_fwd(blk.attn, h, cfg, positions=pos,
+                                   mask=causal_mask(DENSE_CHECK_SEQ, dev))
+        block = attn.attention_fwd_blockwise(blk.attn, h, cfg, positions=pos)
+    rel = float((block.float() - dense.float()).norm() / dense.float().norm())
+    check(rel <= DENSE_CHECK_RTOL, f"blockwise vs dense attention at S "
+                                   f"{DENSE_CHECK_SEQ}: rel L2 {rel:.3e}")
+    print(f"prefill check: layer 0 at S {DENSE_CHECK_SEQ}, blockwise vs "
+          f"dense attention rel L2 {rel:.3e} (tolerance {DENSE_CHECK_RTOL}), "
+          f"max abs {float((block.float() - dense.float()).abs().max()):.3e}",
+          flush=True)
+    del params, blk, x, h, dense, block
+
+    # the same CPU-drawn weights on the card and on the CPU
+    cut = dataclasses.replace(cfg, n_layers=PREFILL_CPU_LAYERS)
+    t0 = time.perf_counter()
+    host = init_lm(cut, seed=0, device="cpu", dtype=torch.bfloat16)
+    draw_s = time.perf_counter() - t0
+    card = copy.deepcopy(host).to(dev)
+    toks = batch_for(cut, PREFILL_CPU_SEQ, 1, 2)["inputs"]
+    last = []
+    for model, d in ((card, dev), (host, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            hid = lm_hidden(model, toks.to(d), cut, attn_impl="blockwise")
+            last.append(lm_logits(model, hid[:, -1:], cut).float().cpu())
+        print(f"  {PREFILL_CPU_LAYERS}-layer prefill at seq {PREFILL_CPU_SEQ} "
+              f"on {d}: {time.perf_counter() - t0:.2f} s", flush=True)
+    on_card, on_cpu = last
+    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+    check(math.isfinite(rel) and rel <= PREFILL_CPU_RTOL,
+          f"prefill card vs CPU: last-position logits rel L2 {rel:.3e}")
+    print(f"prefill check: {PREFILL_CPU_LAYERS} layers, full width, seq "
+          f"{PREFILL_CPU_SEQ} (weights drawn on the CPU in {draw_s:.1f} s): "
+          f"last-position logits card vs CPU rel L2 {rel:.3e} (tolerance "
+          f"{PREFILL_CPU_RTOL}), argmax "
+          f"{'agrees' if int(on_card.argmax()) == int(on_cpu.argmax()) else 'differs'}"
+          f" ({int(on_card.argmax())} vs {int(on_cpu.argmax())})", flush=True)
+    return {"flash_attention": launches}
+
+
 def main() -> int:
     import torch
 
@@ -564,6 +848,8 @@ def main() -> int:
     rows = kernel_phase()
     launches = path_phase()
     launches["acim_matmul"] = train_phase()["acim_matmul"]
+    flash_ms = next(r["ms"] for r in rows if r["name"] == "flash_attention")
+    launches["flash_attention"] = prefill_phase(flash_ms)["flash_attention"]
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

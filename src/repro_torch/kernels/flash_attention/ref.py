@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the flash attention kernel.
+
+- `attention_ref`: the naive oracle of `repro.kernels.flash_attention.ref`
+  (float32 scores, softmax, float32 P.V; output in q's dtype).  It holds
+  the whole (S, T) score matrix, so it is for small S only.
+- `flash_attention_ref`: the blockwise online softmax with the Pallas
+  kernel's arithmetic (`repro.kernels.flash_attention.kernel._kernel`):
+  q converted to float32 and scaled, S = q K^T in float32, masked
+  scores at -1e30, a running (max, sum, acc) in float32, P.V in float32,
+  acc / max(sum, 1e-30) cast to q's dtype once.  It is the CPU path of
+  `kernel.flash_attention` and what the CUDA kernel is held against.
+
+On a CUDA device the float32 products must be full float32: keep TF32
+off (`torch.backends.cuda.matmul.allow_tf32` stays False, PyTorch's
+default), or the plain version would round its operands to 10 bits.
+
+Mask (both): causal, key k visible to query r when k <= r, plus
+bidirectional over the first `prefix_len` positions (r < P and k < P),
+as `repro.models.attention._blockwise_core`; no mask when not causal.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+KV_TILE = 64          # keys per block: the CUDA kernel's tile
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+    """q: (BH, S, Dh); k/v: (BH, T, Dh).  `prefix_len` (not in the
+    reference, which has no prefix) widens the causal mask."""
+    dh = q.shape[-1]
+    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) / float(np.sqrt(dh))
+    if causal:
+        sq, t = s.shape[1], s.shape[2]
+        ri = torch.arange(sq, device=q.device)[:, None]
+        ci = torch.arange(t, device=q.device)[None, :]
+        mask = (ci <= ri) | ((ri < prefix_len) & (ci < prefix_len))
+        s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, prefix_len: int = 0,
+                        block_k: int = KV_TILE) -> torch.Tensor:
+    """q: (B, S, H, Dh); k/v: (B, T, KV, Dh) with H % KV == 0; query
+    head h reads KV head h // (H // KV).  Returns (B, S, H, Dh) in q's
+    dtype.
+
+    KV blocks of `block_k` keys; the last may be shorter (no padding).
+    When causal, a block is applied only to the query rows that can see
+    one of its keys (rows >= the block's first key, or every row while
+    the block starts inside the prefix): for the other rows every score
+    would be masked, p = exp(-1e30 - m) = 0 and the correction 1, so
+    skipping them changes no bit."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / dh ** 0.5
+    # (B, KV, S*G, Dh): the G query heads of one KV head are adjacent rows
+    qf = (q.float() * scale).reshape(b, s, kvh, g, dh).permute(0, 2, 1, 3, 4)
+    qf = qf.reshape(b, kvh, s * g, dh)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    acc = torch.zeros((b, kvh, s * g, dh), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, kvh, s * g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, s * g), dtype=torch.float32, device=q.device)
+    for j0 in range(0, t, block_k):
+        r0 = 0 if not causal or j0 < prefix_len else j0
+        if r0 >= s:
+            break
+        kj, vj = kf[:, :, j0:j0 + block_k], vf[:, :, j0:j0 + block_k]
+        sc = torch.matmul(qf[:, :, r0 * g:], kj.transpose(-1, -2))
+        if causal:
+            ri = torch.arange(r0, s, device=q.device).repeat_interleave(g)
+            ci = torch.arange(j0, j0 + kj.shape[2], device=q.device)
+            vis = (ci[None] <= ri[:, None]) | (
+                (ri[:, None] < prefix_len) & (ci[None] < prefix_len))
+            sc = torch.where(vis, sc, NEG_INF)
+        m_old = m[:, :, r0 * g:]
+        m_new = torch.maximum(m_old, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m_old - m_new)
+        l_r = l[:, :, r0 * g:]
+        l_r.mul_(corr).add_(p.sum(-1))
+        acc_r = acc[:, :, r0 * g:]
+        acc_r.mul_(corr[..., None]).add_(torch.matmul(p, vj))
+        m_old.copy_(m_new)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.reshape(b, kvh, s, g, dh).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, s, h, dh).to(q.dtype)

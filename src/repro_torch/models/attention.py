@@ -1,9 +1,13 @@
 """GQA / MQA / MHA attention (+bias, +qk_norm): the full-sequence forward
-of training and prefill.
+of training and prefill, dense (`attention_fwd`) and blockwise
+(`attention_fwd_blockwise`, the long-context prefill path).
 
 Counterpart of the GQA part of `repro.models.attention`.  Shapes follow
-(B, S, H, Dh).  The reference's sharding annotations (`logical`) have no
-counterpart here; MLA, the blockwise forward and decode are not ported.
+(B, S, H, Dh).  The blockwise forward runs through the flash attention
+kernel (`repro_torch.kernels.flash_attention`); `_blockwise_core` is the
+plain PyTorch form of the reference's jnp online softmax.  The
+reference's sharding annotations (`logical`) have no counterpart here;
+MLA and decode are not ported.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import common
 from repro_torch.models.common import NEG_INF, apply_rope, dense_init
 
@@ -84,3 +89,62 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(b, s, h * dh)
     return out @ p.wo.to(x.dtype)
+
+
+def attention_fwd_blockwise(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
+                            positions: torch.Tensor, kv_block: int = 1024,
+                            prefix_len: int = 0) -> torch.Tensor:
+    """Flash-style online-softmax attention over KV blocks: never holds
+    the (S, S) score matrix, for the 32k+ prefill shapes.  Mask: causal,
+    plus bidirectional over the first `prefix_len` positions.
+
+    Runs `flash_attention` (the CUDA kernel on the card, its plain
+    version on the CPU), which computes the scores, the softmax and P.V
+    in float32 from x's dtype and rounds the output once; the
+    reference's jnp core (`_blockwise_core`) rounds its products to x's
+    dtype.  `kv_block` is the plain version's KV block; the kernel
+    streams 64-key tiles."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = flash_ops.flash_attention(q, k, v, causal=True,
+                                    prefix_len=prefix_len, block_k=kv_block)
+    return out.reshape(b, s, h * dh) @ p.wo.to(x.dtype)
+
+
+def _blockwise_core(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kv_block: int, prefix_len: int,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """qg: (B,S,KV,G,Dh); k/v: (B,T,KV,Dh).  Returns (B,S,KV,G,Dh).
+
+    The reference's jnp online softmax, op for op: scores and P.V leave
+    their einsums in qg's dtype, the scores are scaled in float32 (the
+    reference multiplies by a float64 NumPy scalar, which promotes), the
+    running (max, sum, acc) are float32."""
+    b, s, kvh, g, dh = qg.shape
+    t = k.shape[1]
+    kv_block = min(kv_block, t)
+    while t % kv_block:           # e.g. 32768 + 256 patches -> block 256
+        kv_block //= 2
+    scale = float(np.float32(1.0 / np.sqrt(dh)))
+    q_idx = torch.arange(s, device=qg.device)
+    acc = torch.zeros((b, s, kvh, g, dh), dtype=torch.float32,
+                      device=qg.device)
+    m = torch.full((b, s, kvh, g), NEG_INF, dtype=torch.float32,
+                   device=qg.device)
+    l = torch.zeros((b, s, kvh, g), dtype=torch.float32, device=qg.device)
+    for j0 in range(0, t, kv_block):
+        kj, vj = k[:, j0:j0 + kv_block], v[:, j0:j0 + kv_block]
+        k_idx = j0 + torch.arange(kv_block, device=qg.device)
+        mask = (k_idx[None, :] <= q_idx[:, None]) | (
+            (q_idx[:, None] < prefix_len) & (k_idx[None, :] < prefix_len))
+        sc = torch.einsum("bskgd,btkd->bskgt", qg, kj).to(torch.float32)
+        sc = torch.where(mask[None, :, None, None, :], sc * scale, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p_ = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p_.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bskgt,btkd->bskgd", p_.to(qg.dtype), vj).to(torch.float32)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(out_dtype)

@@ -4,8 +4,10 @@ Counterpart of the dense family of `repro.models.lm`: `init_lm` builds
 the parameters as `nn.Module`s whose state-dict names follow the
 reference's pytree (`emb`, `blocks.<i>.ln1.scale`, `blocks.<i>.attn.wq`,
 ..., `final_norm.scale`, `head`), with the reference's stacked
-`blocks` axis unrolled into a `ModuleList`.  The forward that runs on
-these parameters is the trainer's (`repro_torch.train.acim_lm`).
+`blocks` axis unrolled into a `ModuleList`.  `lm_hidden` / `lm_logits`
+are the forward of prefill (`repro_torch.launch.steps`), dense or
+blockwise; the CIM-in-the-loop trainer has its own forward
+(`repro_torch.train.acim_lm`).
 """
 from __future__ import annotations
 
@@ -16,7 +18,19 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp
-from repro_torch.models.common import dense_init, embed_init, init_norm
+from repro_torch.models.common import (apply_norm, causal_mask, dense_init,
+                                       embed_init, init_norm)
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """Raise unless the port builds `cfg`: the dense family without MoE,
+    MLA or learned positions."""
+    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError(
+            f"the port builds the dense family only (no MoE, no MLA), not "
+            f"{cfg.name!r} ({cfg.family})")
+    if cfg.pos == "learned":
+        raise NotImplementedError("learned positions are not ported")
 
 
 class Block(nn.Module):
@@ -32,29 +46,97 @@ class Block(nn.Module):
         self.ffn = mlp.init_mlp(d, cfg.d_ff, cfg, generator)
 
 
+def _serving(t: torch.Tensor, device: torch.device,
+             dtype: torch.dtype | None) -> torch.Tensor:
+    """`t` on `device`; a float tensor of >= 2 dims cast to `dtype` when
+    one is given (the reference's `_to_serving_dtype`: serving holds the
+    matrices in bf16, norms and biases stay float32)."""
+    t = t.to(device)
+    if dtype is not None and t.dim() >= 2 and t.is_floating_point():
+        t = t.to(dtype)
+    return t
+
+
+def _place(module: nn.Module, device: torch.device,
+           dtype: torch.dtype | None) -> nn.Module:
+    for prm in module.parameters():
+        prm.data = _serving(prm.data, device, dtype)
+    return module
+
+
 class LM(nn.Module):
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator):
+    """Parameters drawn from the CPU `generator` in a fixed order
+    (embedding, layer 0, ..., layer L-1, final norm, head).  Each part is
+    moved to `device` (default: the CPU) and cast as `_serving` says
+    right after it is drawn, so host memory holds one layer at a time."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device: torch.device | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
-            raise NotImplementedError(
-                f"the port builds the dense family only, not {cfg.family!r}")
-        if cfg.pos == "learned":
-            raise NotImplementedError("learned positions are not ported")
-        self.emb = nn.Parameter(embed_init(generator, (cfg.vocab, cfg.d_model)))
-        self.blocks = nn.ModuleList(Block(cfg, generator)
+        check_dense(cfg)
+        dev = torch.device("cpu" if device is None else device)
+        self.emb = nn.Parameter(_serving(embed_init(
+            generator, (cfg.vocab, cfg.d_model)), dev, dtype))
+        self.blocks = nn.ModuleList(_place(Block(cfg, generator), dev, dtype)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = init_norm(cfg.d_model, cfg.norm)
+        self.final_norm = _place(init_norm(cfg.d_model, cfg.norm), dev, dtype)
         if not cfg.tie_embeddings:
-            self.head = nn.Parameter(dense_init(generator,
-                                                (cfg.d_model, cfg.vocab)))
+            self.head = nn.Parameter(_serving(dense_init(
+                generator, (cfg.d_model, cfg.vocab)), dev, dtype))
 
 
-def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
-    """Parameters from a CPU `torch.Generator` seeded with `seed`, moved
-    to `device` (CUDA when None, raising without it): one seed gives the
-    same weights on every device."""
+def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None,
+            dtype: torch.dtype | None = None) -> LM:
+    """Parameters from a CPU `torch.Generator` seeded with `seed`, on
+    `device` (CUDA when None, raising without it): one seed gives the
+    same weights on every device.  `dtype=torch.bfloat16` gives the
+    serving weights.  The draws stay on the CPU at full width too:
+    qwen2.5-3b's 3.4 G truncated normals take about half a minute on an
+    8-core host with PyTorch 2.11, and each layer is moved as it is
+    drawn."""
     g = torch.Generator().manual_seed(seed)
-    return LM(cfg, g).to(resolve_device(device))
+    return LM(cfg, g, device=resolve_device(device), dtype=dtype)
+
+
+def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
+               mask: torch.Tensor | None, positions: torch.Tensor,
+               attn_impl: str = "dense", prefix_len: int = 0) -> torch.Tensor:
+    """One dense layer.  attn_impl: 'dense' | 'blockwise' (32k+ seqs).
+    (The reference also returns the MoE aux loss, 0 for dense layers.)"""
+    h = apply_norm(p.ln1, x, cfg.norm)
+    if attn_impl == "blockwise":
+        a = attn.attention_fwd_blockwise(p.attn, h, cfg, positions=positions,
+                                         prefix_len=prefix_len)
+    elif attn_impl == "dense":
+        a = attn.attention_fwd(p.attn, h, cfg, mask=mask, positions=positions)
+    else:
+        raise ValueError(f"attn_impl must be 'dense' or 'blockwise', not "
+                         f"{attn_impl!r}")
+    x = x + a
+    h = apply_norm(p.ln2, x, cfg.norm)
+    return x + mlp.mlp_fwd(p.ffn, h, cfg)
+
+
+def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
+              prefix_embeds: torch.Tensor | None = None,
+              attn_impl: str = "dense") -> torch.Tensor:
+    """Embed -> bf16 -> blocks -> final norm.  Returns hidden (B, S, D)
+    (the reference also returns the aux loss, 0 for the dense family).
+    attn_impl='blockwise' never materializes (S, S) scores (32k+
+    prefill)."""
+    check_dense(cfg)
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix embeddings (the VLM prefix) are "
+                                  "not ported")
+    x = params.emb[tokens].to(torch.bfloat16)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    mask = causal_mask(s, x.device) if attn_impl == "dense" else None
+    for blk in params.blocks:
+        x = _block_fwd(blk, x, cfg, mask=mask, positions=positions,
+                       attn_impl=attn_impl)
+    return apply_norm(params.final_norm, x, cfg.norm)
 
 
 def lm_logits(params: LM, hidden: torch.Tensor,

@@ -1,0 +1,226 @@
+"""The port's flash attention (`repro_torch.kernels.flash_attention`, its
+plain path on the CPU) and `_blockwise_core` held against the JAX
+reference's `attention_ref` and `_blockwise_core`.
+
+The reference's Pallas kernel does not run on this JAX (`pl.load` is
+gone), so its oracle partners stand in for it, as in
+`tests/test_flash_attention.py`, whose four cases and three-way
+blockwise case are repeated here.  Inputs are standard normals drawn
+with numpy from a seed and handed to both packages.
+
+Tolerances:
+- float32: atol = rtol = 2e-5, as `tests/test_flash_attention.py`
+  (3e-5 for the three-way blockwise case and the prefix cases held
+  against `_blockwise_core`).  Both sides compute in float32; only the
+  summation order differs (measured <= 1e-6).
+- bfloat16 inputs, port flash attention against the reference's
+  `attention_ref` on the same bf16 values: both compute in float32 and
+  round the output once, so they may differ by one bf16 ulp of the
+  output plus the float32 tolerance of the value before rounding.
+- bfloat16 `_blockwise_core` against the reference's: both round the
+  score and P.V products to bf16, where XLA and torch may round one
+  product an ulp apart; atol = rtol = 1e-2 and rel L2 <= 1e-3 (measured:
+  a single one-ulp difference, rel L2 5e-5).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref as rattention_ref
+from repro.models.attention import _blockwise_core as rblockwise_core
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.models.attention import _blockwise_core
+import torch_port_helpers  # noqa: F401  (one torch thread per test worker)
+
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _qkv(seed, b, s, t, h, kv, dh):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, dh)).astype(np.float32),
+            rng.standard_normal((b, t, kv, dh)).astype(np.float32),
+            rng.standard_normal((b, t, kv, dh)).astype(np.float32))
+
+
+def _jax_oracle(q, k, v, causal, jdt):
+    """The reference's naive oracle on (B*H, S, Dh) with KV heads
+    repeated, as `tests/test_flash_attention.py` calls it."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    q, k, v = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    kx = jnp.repeat(k, g, axis=2).transpose(0, 2, 1, 3).reshape(b * h, t, dh)
+    vx = jnp.repeat(v, g, axis=2).transpose(0, 2, 1, 3).reshape(b * h, t, dh)
+    qf = q.transpose(0, 2, 1, 3).reshape(b * h, s, dh)
+    out = rattention_ref(qf, kx, vx, causal=causal)
+    return np.asarray(out.reshape(b, h, s, dh).transpose(0, 2, 1, 3)
+                      .astype(jnp.float32))
+
+
+def _port(q, k, v, tdt, **kw):
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    return flash_attention(q, k, v, **kw).float().numpy()
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """Spacing of bfloat16 numbers (8 significant bits) at |x|."""
+    _, e = np.frexp(np.abs(x))
+    return np.where(x == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
+def assert_within_one_bf16_ulp(got, want, atol=2e-5):
+    bound = _bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + atol
+    excess = np.abs(got - want) - bound
+    assert excess.max() <= 0, (
+        f"{int((excess > 0).sum())} outputs beyond one bf16 ulp + {atol}; "
+        f"worst by {excess.max()}")
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal", [
+    (1, 128, 4, 4, 64, True),
+    (2, 256, 8, 2, 64, True),
+    (1, 128, 4, 1, 128, True),
+    (2, 64, 2, 2, 32, False),
+    (2, 77, 4, 2, 16, True),          # odd S: tail tiles masked, not padded
+    (1, 77, 4, 1, 32, False),
+])
+def test_matches_oracle(b, s, h, kv, dh, causal):
+    q, k, v = _qkv(b * 31 + s, b, s, s, h, kv, dh)
+    want = _jax_oracle(q, k, v, causal, jnp.float32)
+    np.testing.assert_allclose(_port(q, k, v, torch.float32, causal=causal),
+                               want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("block_k", [16, 64, 1000])
+def test_plain_block_size_changes_rounding_only(block_k):
+    q, k, v = _qkv(3, 2, 150, 150, 4, 2, 32)
+    want = _jax_oracle(q, k, v, True, jnp.float32)
+    np.testing.assert_allclose(
+        _port(q, k, v, torch.float32, block_k=block_k), want,
+        atol=2e-5, rtol=2e-5)
+
+
+def test_matches_model_blockwise_core():
+    """Three-way: the reference's jnp core == the port's torch core == the
+    port's flash attention."""
+    b, s, kv, g, dh = 2, 128, 2, 2, 64
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((b, s, kv, g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    want = np.asarray(rblockwise_core(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), kv_block=32,
+                                      prefix_len=0, out_dtype=jnp.float32))
+    core = _blockwise_core(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), kv_block=32, prefix_len=0,
+                           out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(core, want, atol=3e-5, rtol=3e-5)
+    flash = _port(q.reshape(b, s, kv * g, dh), k, v, torch.float32)
+    np.testing.assert_allclose(flash, want.reshape(b, s, kv * g, dh),
+                               atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("s,prefix_len", [(96, 30), (77, 64), (64, 64)])
+def test_prefix_matches_reference_core(s, prefix_len):
+    """Causal plus bidirectional over the first `prefix_len` positions
+    (the reference's `attention_ref` has no prefix: its blockwise core
+    is the oracle)."""
+    b, kv, g, dh = 2, 2, 4, 32
+    q, k, v = _qkv(s + prefix_len, b, s, s, kv * g, kv, dh)
+    want = np.asarray(rblockwise_core(
+        jnp.asarray(q.reshape(b, s, kv, g, dh)), jnp.asarray(k),
+        jnp.asarray(v), kv_block=32, prefix_len=prefix_len,
+        out_dtype=jnp.float32)).reshape(b, s, kv * g, dh)
+    got = _port(q, k, v, torch.float32, prefix_len=prefix_len)
+    np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5)
+    core = _blockwise_core(
+        torch.from_numpy(q.reshape(b, s, kv, g, dh)), torch.from_numpy(k),
+        torch.from_numpy(v), kv_block=32, prefix_len=prefix_len,
+        out_dtype=torch.float32).numpy().reshape(b, s, kv * g, dh)
+    np.testing.assert_allclose(core, want, atol=3e-5, rtol=3e-5)
+
+    def heads_first(a, rep):           # (B, S, n, Dh) -> (B*n*rep, S, Dh)
+        return torch.from_numpy(a).permute(0, 2, 1, 3).repeat_interleave(
+            rep, 1).reshape(-1, s, dh)
+
+    naive = attention_ref(heads_first(q, 1), heads_first(k, g),
+                          heads_first(v, g), prefix_len=prefix_len)
+    np.testing.assert_allclose(
+        naive.reshape(b, kv * g, s, dh).permute(0, 2, 1, 3).numpy(), want,
+        atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal", [
+    (2, 256, 8, 2, 64, True),
+    (1, 77, 4, 1, 128, True),
+    (2, 64, 2, 2, 32, False),
+])
+def test_bf16_within_one_ulp_of_oracle(b, s, h, kv, dh, causal):
+    q, k, v = _qkv(b + s + dh, b, s, s, h, kv, dh)
+    got = _port(q, k, v, torch.bfloat16, causal=causal)
+    want = _jax_oracle(q, k, v, causal, jnp.bfloat16)
+    assert_within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("prefix_len", [0, 40])
+def test_blockwise_core_matches_reference(dtype, prefix_len):
+    tdt, jdt = DTYPES[dtype]
+    b, s, kv, g, dh = 2, 96, 2, 2, 32
+    rng = np.random.default_rng(prefix_len)
+    q = rng.standard_normal((b, s, kv, g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    want = np.asarray(rblockwise_core(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), kv_block=32,
+        prefix_len=prefix_len, out_dtype=jdt).astype(jnp.float32))
+    got = _blockwise_core(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                          kv_block=32, prefix_len=prefix_len,
+                          out_dtype=tdt).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)
+        assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_matches_reference(causal):
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal((3, n, 32)).astype(np.float32)
+               for n in (50, 50, 50))
+    want = np.asarray(rattention_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal))
+    got = attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    # the blockwise plain version, on the same inputs as one head each
+    flash = flash_attention_ref(*(torch.from_numpy(a)[:, :, None]
+                                  for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(flash[:, :, 0].numpy(), want, atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_wrapper_checks_inputs():
+    q = torch.zeros((1, 8, 4, 64))
+    kv = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(torch.zeros((1, 8, 4, 80)), torch.zeros((1, 8, 2, 80)),
+                        torch.zeros((1, 8, 2, 80)))
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention(torch.zeros((1, 8, 3, 64)), kv, kv)
+    with pytest.raises(ValueError, match="prefix_len"):
+        flash_attention(q, kv, kv, prefix_len=-1)
+    assert kernel.kernel_layout_ok(q)
+    assert not kernel.kernel_layout_ok(q[..., 1:])
+    assert not kernel.kernel_layout_ok(q.transpose(2, 3))
+    assert flash_attention(q[:, :0], kv, kv).shape == (1, 0, 4, 64)

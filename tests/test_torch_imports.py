@@ -58,3 +58,19 @@ def test_session_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DesignSession()
     assert DesignSession(device="cpu").device.type == "cpu"
+
+
+def test_prefill_without_cuda_raises(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.reduced("qwen2.5-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_prefill_step(cfg, SHAPES["prefill_32k"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_lm(cfg, dtype=torch.bfloat16)
+    assert make_prefill_step(cfg, SHAPES["prefill_32k"],
+                             device="cpu").device.type == "cpu"

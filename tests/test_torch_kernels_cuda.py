@@ -10,15 +10,22 @@ import pytest
 import torch
 
 from repro_torch.api import DesignRequest, DesignSession, Requirements
+from repro_torch.configs import registry
 from repro_torch.core import pareto
 from repro_torch.core.acim_numerics import NoiseParams
 from repro_torch.core.acim_spec import MacroSpec
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.acim_matmul import ops as am_ops
 from repro_torch.kernels.acim_matmul import ref as am_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.maze_route import kernel as mr
 from repro_torch.kernels.maze_route import ref as mr_ref
 from repro_torch.kernels.pareto_dom import ops as pd_ops
+from repro_torch.launch.shapes import ShapeSpec
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models.lm import init_lm
 
 pytestmark = pytest.mark.cuda
 
@@ -125,3 +132,62 @@ def test_acim_matmul_matches_plain(m, k, c, spec, dev):
              - am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b)) / (2 * n / 2 ** b)
     assert torch.allclose(steps, steps.round(), atol=1e-3)
     assert float((steps != 0).float().mean()) <= 1e-3
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bfloat16 numbers (8 significant bits) at |x|."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,prefix_len", [
+    (1, 1024, 16, 2, 128, True, 0), (2, 4001, 4, 1, 64, True, 0),
+    (2, 333, 8, 8, 32, False, 0), (3, 200, 4, 2, 16, True, 70),
+    (1, 129, 2, 1, 128, True, 129)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_matches_plain(b, s, h, kv, dh, causal, prefix_len,
+                                       dtype, dev):
+    """float32: atol = rtol = 2e-5.  bf16: both compute in float32 and
+    round once, so one bf16 ulp of the output plus 2e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(s + dh)
+    q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    n0 = LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      prefix_len=prefix_len)
+    if prefix_len == 0:    # strides the kernel cannot read: ops copies
+        wide = torch.randn((b, s, h, dh + 4), generator=g, device=dev)
+        qs = wide.to(dtype)[..., :dh]
+        assert not fa_kernel.kernel_layout_ok(qs)
+        assert torch.equal(
+            fa_ops.flash_attention(qs, k, v, causal=causal),
+            fa_ops.flash_attention(qs.contiguous(), k, v, causal=causal))
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        bound = _bf16_ulp(torch.maximum(got.abs(), want.abs())) + 2e-5
+        assert bool(((got - want).abs() <= bound).all())
+
+
+def test_prefill_step_on_cuda_matches_cpu(dev):
+    """The reduced qwen2.5 prefill on the card: one kernel launch per
+    layer, logits within the bf16 backbone's rounding of the CPU run
+    (rel L2 3e-2, as tests/test_torch_prefill.py holds the CPU run to
+    the reference)."""
+    cfg = registry.reduced("qwen2.5-3b")
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 300),
+                         generator=torch.Generator().manual_seed(0))
+    shape = ShapeSpec("t", "prefill", 300, 2)
+    n0 = LAUNCHES["flash_attention"]
+    got = make_prefill_step(cfg, shape).fn(card, {"inputs": toks})
+    assert LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, {"inputs": toks})
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 3e-2
