@@ -18,14 +18,26 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              (N, B) and with N = 128, B = 5: bit-equal on +-1 operands,
              and on mismatch-folded weights equal but for ADC flips (a
              whole number of deltas each) on at most 0.1 % of outputs.
-             `flash_attention` runs at the prefill's shape, (1, 32768,
-             16 heads, 2 KV heads, 128) causal bf16, against the
-             blockwise plain version, and at (4, 4096, ...) in bf16 and
-             f32, with a prefix, at S 4001 and at head dims 16-64 also
-             against the naive one: f32 within atol = rtol = 2e-5, bf16
-             within one output ulp plus 2e-5 (both compute in f32 and
-             round once).  Its library yardstick is
-             `scaled_dot_product_attention` on the same bf16 tensors.
+             Flash attention has two routes: bf16 at head dims 64 and
+             128 runs `flash_attention_wgmma` (tensor cores), held
+             against `flash_attention_tc_ref`: the kernel's own bf16 P
+             (dumped by a second launch) one bf16 step at most from the
+             plain version's, the plain version fed that P within two
+             bf16 ulps of every output element plus 2e-5, and against
+             the plain version's own P at most 1e-4 of the outputs
+             beyond that, each within one ulp of its row's largest
+             (see `_tc_check`; at 32768 the last check only); against
+             the float32-P plain versions within rel L2 1e-2; f32 and bf16
+             at head dims 16 and 32 run `flash_attention` (CUDA cores),
+             held against `flash_attention_ref` and the naive one (f32
+             within atol = rtol = 2e-5, bf16 within one output ulp plus
+             2e-5).  Cases: (4, 4096, 16 heads, 2 KV heads, 128) in bf16
+             and f32, with a prefix, S 4001, head dims 16-64.  At the
+             prefill's shape, (1, 32768, 16, 2, 128) causal bf16, both
+             kernels (each through its own wrapper) against their
+             blockwise plain versions, then both and the library
+             yardstick `scaled_dot_product_attention` timed in one
+             call, in turns.
 3. path    — `DesignSession().run(DesignRequest(array_size=16384))` at
              the full default budget (pop 256, 80 generations, coarse
              64, capacity 4): the front must lie inside the golden
@@ -55,14 +67,18 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              at batch 1 x 32768 (the shape's batch of 32 cut to 1: its
              logits alone are 9.96 GB a sequence): a warm-up prefill and
              a timed one, then batch 4 x 4096.  Logits must be finite and
-             each prefill must launch `flash_attention` 36 times.  Then
+             each prefill must launch `flash_attention_wgmma` 36 times
+             (and no CUDA-core launch).  Then
              one full-width layer at S 4096: `attention_fwd_blockwise`
              against the dense `attention_fwd` (rel L2 2e-2: the dense
              path rounds scores and probabilities to bf16); and a
              2-layer full-width model at seq 512 with the same CPU-drawn
              weights on the card and on the CPU: last-position logits
              within rel L2 5e-2 (both backbones are bf16), argmax
-             agreement printed.
+             agreement printed.  Last, the CUDA-core route's path: the
+             reduced qwen2.5 (head dim 16) prefill at 2 x 300 on the
+             card, one CUDA-core launch per layer, logits within rel L2
+             5e-2 of the CPU run.
 6. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -108,11 +124,24 @@ PREFILL_CONFIG = "qwen2.5-3b"
 PREFILL_BATCH = 1
 SMALL_PREFILL = (4, 4096)  # batch, seq: B > 1
 FLASH_RTOL = 2e-5          # f32 atol = rtol; bf16: one output ulp + this
+TC_ULPS = 2.0              # tensor-core route vs its plain version fed
+                           # the kernel's own P: bf16 ulps of each output
+                           # element over FLASH_RTOL, every element
+                           # (measured <= 0.995 on an H100)
+TC_FLIP_SHARE = 1e-4       # vs the plain version's own P: share of outputs
+                           # beyond TC_ULPS (a p rounded the other way;
+                           # measured 3.7e-6 to 2.5e-5)
+TC_FLIP_ROW_ULPS = 1.0     # ... each within this many ulps of its row's
+                           # largest output over FLASH_RTOL (measured
+                           # <= 0.427; see _tc_check)
+TC_F32P_REL_L2 = 1e-2      # tensor-core route vs the float32-P versions
+                           # (measured 2.1e-3 to 2.5e-3 on an H100)
 DENSE_CHECK_SEQ = 4096     # blockwise vs dense attention, one layer
 DENSE_CHECK_RTOL = 2e-2    # rel L2 (measured 3.8e-3 on the CPU at S 512)
 PREFILL_CPU_LAYERS = 2     # card vs CPU, full width
 PREFILL_CPU_SEQ = 512
 PREFILL_CPU_RTOL = 5e-2    # rel L2 of the last position's logits
+SMALL_ROUTE_SEQ = 300      # the reduced config's prefill (CUDA-core route)
 
 
 def fail(msg: str) -> None:
@@ -351,7 +380,7 @@ def kernel_phase() -> list[dict]:
           flush=True)
 
     rows.append(acim_kernel_check(dev, rng))
-    rows.append(flash_kernel_check(dev))
+    rows.extend(flash_kernel_check(dev))
     return rows
 
 
@@ -450,6 +479,86 @@ def _flash_excess(got, want) -> tuple[float, float]:
     return float(d.max()), float((d - tol).max())
 
 
+def _ulps(got, want):
+    """(|got - want|, the same less FLASH_RTOL in bf16 ulps of each
+    element, and in ulps of its row's largest output)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    big = torch.maximum(g.abs(), w.abs())
+    _, ee = torch.frexp(big)
+    _, er = torch.frexp(big.amax(-1, keepdim=True))
+    over = torch.clamp(d - FLASH_RTOL, min=0)
+    return (d, over / torch.ldexp(torch.ones_like(d), ee - 8),
+            over / torch.ldexp(torch.ones_like(d[..., :1]), er - 8))
+
+
+def _tc_check(got, q, k, v, causal: bool, prefix_len: int,
+              dump: bool) -> dict:
+    """The tensor-core route against `flash_attention_tc_ref`.  Both round
+    P to bf16 but reach p in float32 by different summation orders and
+    exp2s, so a p within float32 ulps of a bf16 rounding midpoint may round
+    up on one and down on the other; one such flip moves its output row by
+    up to ulp(p) |v - o| / l, many ulps of the row's small elements in a
+    row with few visible keys.  With `dump`, the kernel's own P (from its
+    P-dumping instantiation, whose output must equal `got`) must differ
+    from the plain version's by such flips only (adjacent bf16 values), and
+    the plain version fed the kernel's P must be within TC_ULPS of every
+    output element.  Always: outputs beyond TC_ULPS of the plain version's
+    own result at most TC_FLIP_SHARE of all, each within TC_FLIP_ROW_ULPS
+    of its row's largest output.  Returns the measurements and `ok`."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    kw = dict(causal=causal, prefix_len=prefix_len)
+    want = fa_ref.flash_attention_tc_ref(q, k, v, **kw)
+    d, el, row = _ulps(got, want)
+    exc = el > TC_ULPS
+    r = dict(err=float(d.max()), n_out=got.numel(), n_flip=int(exc.sum()),
+             flip_row_ulps=float(row[exc].max()) if bool(exc.any()) else 0.0)
+    r["ok"] = (r["n_flip"] <= TC_FLIP_SHARE * r["n_out"]
+               and r["flip_row_ulps"] <= TC_FLIP_ROW_ULPS)
+    del want, d, el, row, exc
+    if dump:
+        out_p, p = fk.flash_attention_wgmma_p(q, k, v, **kw)
+        r["dump_equal"] = torch.equal(out_p, got)
+        step = (p.view(torch.int16)
+                - fa_ref.flash_attention_tc_p(q, k, v, **kw).view(torch.int16))
+        step = step.abs_()
+        r["p_flips"], r["p_max_step"] = int((step != 0).sum()), int(step.max())
+        del step
+        fed = fa_ref.flash_attention_tc_ref(q, k, v, p_bf16=p, **kw)
+        r["fed_ulps"] = float(_ulps(got, fed)[1].max())
+        r["ok"] = (r["ok"] and r["dump_equal"] and r["p_max_step"] <= 1
+                   and r["fed_ulps"] <= TC_ULPS)
+    return r
+
+
+def _tc_text(r: dict, pairs: int) -> str:
+    """One line of `_tc_check`'s measurements."""
+    text = ""
+    if "p_flips" in r:
+        same = "equal" if r["dump_equal"] else "NOT equal"
+        text = (f"P: {r['p_flips']} of {pairs} visible entries one bf16 step "
+                f"from the plain version's (largest step {r['p_max_step']}); "
+                f"P-dump launch's output {same}; "
+                f"plain version fed the kernel's P within "
+                f"{r['fed_ulps']:.3f} element ulps (bound {TC_ULPS}); ")
+    return text + (f"vs the plain version's own P: max err {r['err']:.3e}, "
+                   f"{r['n_flip']} of {r['n_out']} outputs "
+                   f"({r['n_flip'] / r['n_out']:.2e}, bound {TC_FLIP_SHARE}) "
+                   f"beyond {TC_ULPS} element ulps, each within "
+                   f"{r['flip_row_ulps']:.3f} row ulps (bound "
+                   f"{TC_FLIP_ROW_ULPS})")
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
 def _heads_first(x, rep: int):
     """(B, S, n, Dh) -> (B * n * rep, S, Dh), each head repeated `rep`
     times: the naive oracle's layout."""
@@ -457,13 +566,17 @@ def _heads_first(x, rep: int):
     return x.permute(0, 2, 1, 3).repeat_interleave(rep, 1).reshape(-1, s, dh)
 
 
-def flash_kernel_check(dev) -> dict:
-    """flash_attention against its plain versions: the prefill's shape
-    against the blockwise one (the naive scores would take 68 GB), the
-    smaller shapes against both; times at the prefill's shape."""
+def flash_kernel_check(dev) -> list[dict]:
+    """Both flash attention routes against their plain versions: the
+    CUDA-core kernel against `flash_attention_ref` (and the naive one),
+    the tensor-core kernel against `flash_attention_tc_ref` (and, by rel
+    L2, the float32-P versions); at the prefill's shape against the
+    blockwise ones (the naive scores would take 68 GB), times of both
+    kernels and SDPA in one call, in turns."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -483,63 +596,112 @@ def flash_kernel_check(dev) -> dict:
              (2, 4001, 16, 2, 128, bf16, True, 0),
              (2, 777, 8, 2, 128, f32, False, 0),
              (2, 777, 8, 2, 64, f32, True, 300),
+             (2, 777, 8, 2, 64, bf16, True, 300),
              (2, 777, 8, 2, 32, bf16, True, 0),
              (2, 777, 8, 2, 16, f32, True, 0)]
     for b, s, h, kv, dh, dtype, causal, pre in cases:
         q, k, v = qkv(b, s, h, kv, dh, dtype)
+        route = fk.route(dtype, dh)
         got = fa.flash_attention(q, k, v, causal=causal, prefix_len=pre)
-        want = fa_ref.flash_attention_ref(q, k, v, causal=causal,
-                                          prefix_len=pre)
+        blockwise = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                               prefix_len=pre)
         naive = fa_ref.attention_ref(
             _heads_first(q, 1), _heads_first(k, h // kv),
             _heads_first(v, h // kv), causal=causal, prefix_len=pre)
         naive = naive.reshape(b, h, s, dh).permute(0, 2, 1, 3)
-        torch.cuda.synchronize()
-        err, excess = _flash_excess(got, want)
-        err_n, excess_n = _flash_excess(got, naive)
         what = (f"({b}, {s}, {h}, {kv}, {dh}) {str(dtype)[6:]} "
                 f"{'causal' if causal else 'full'} prefix {pre}")
-        check(excess <= 0 and excess_n <= 0,
-              f"flash_attention {what}: max err {err:.3e} vs blockwise plain, "
-              f"{err_n:.3e} vs naive; beyond tolerance by "
-              f"{max(excess, excess_n):.3e}")
-        print(f"kernel flash_attention {what}: max err {err:.3e} vs "
-              f"blockwise plain, {err_n:.3e} vs naive (within tolerance)",
-              flush=True)
-        del q, k, v, got, want, naive
+        if route == "wgmma":
+            rel, rel_n = _rel_l2(got, blockwise), _rel_l2(got, naive)
+            r = _tc_check(got, q, k, v, causal, pre, dump=True)
+            text = (f"flash_attention_wgmma {what}: "
+                    f"{_tc_text(r, b * h * _visible_pairs(s, s, causal, pre))}"
+                    f"; rel L2 {rel:.3e} vs float32-P blockwise, {rel_n:.3e} "
+                    f"vs naive")
+            check(r["ok"] and rel <= TC_F32P_REL_L2
+                  and rel_n <= TC_F32P_REL_L2, text)
+            print(f"kernel {text} (within tolerance)", flush=True)
+        else:
+            torch.cuda.synchronize()
+            err, excess = _flash_excess(got, blockwise)
+            err_n, excess_n = _flash_excess(got, naive)
+            check(excess <= 0 and excess_n <= 0,
+                  f"flash_attention {what}: max err {err:.3e} vs blockwise "
+                  f"plain, {err_n:.3e} vs naive; beyond tolerance by "
+                  f"{max(excess, excess_n):.3e}")
+            print(f"kernel flash_attention {what}: max err {err:.3e} vs "
+                  f"blockwise plain, {err_n:.3e} vs naive (within "
+                  f"tolerance)", flush=True)
+        del q, k, v, got, blockwise, naive
 
-    # the prefill's shape: the main path's row
+    # the prefill's shape: both routes, called through their own wrappers
     b, s, h, kv, dh = PREFILL_BATCH, 32768, 16, 2, 128
     q, k, v = qkv(b, s, h, kv, dh, bf16)
-    got = fa.flash_attention(q, k, v)
+    cc = fk.flash_attention_cuda_core(q, k, v)
+    tcg = fk.flash_attention_wgmma(q, k, v)
     want = fa_ref.flash_attention_ref(q, k, v)
+    want_tc = fa_ref.flash_attention_tc_ref(q, k, v)
     torch.cuda.synchronize()
-    err, excess = _flash_excess(got, want)
-    check(excess <= 0, f"flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16: "
-                       f"max err {err:.3e}, beyond one ulp + {FLASH_RTOL} "
-                       f"by {excess:.3e}")
-    del want
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 3)
-    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_ref(q, k, v), 1)
+    cc_err, cc_excess = _flash_excess(cc, want)
+    check(cc_excess <= 0, f"flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16 "
+                          f"(CUDA cores): max err {cc_err:.3e}, beyond one "
+                          f"ulp + {FLASH_RTOL} by {cc_excess:.3e}")
+    rel_tc, rel_f32p = _rel_l2(tcg, want_tc), _rel_l2(tcg, want)
+    rel_cc, rel_tc_cc = _rel_l2(tcg, cc), _rel_l2(want_tc, want)
+    del cc, want, want_tc
+    # P at this shape would take 34 GB: the share check only
+    tc = _tc_check(tcg, q, k, v, True, 0, dump=False)
+    tc_err, tc_text = tc["err"], _tc_text(tc, 0)
+    check(tc["ok"] and rel_f32p <= TC_F32P_REL_L2,
+          f"flash_attention_wgmma ({b}, {s}, {h}, {kv}, {dh}): {tc_text}; "
+          f"rel L2 {rel_f32p:.3e} vs the float32-P plain version")
+    del tcg
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qh, kh, vh, is_causal=True, enable_gqa=True)
-    library_ms = cuda_ms(sdpa, 5)
-    sdpa_err = float((sdpa().transpose(1, 2).float() - got.float()).abs().max())
+    fns = {"cuda_core": (lambda: fk.flash_attention_cuda_core(q, k, v), 3),
+           "wgmma": (lambda: fk.flash_attention_wgmma(q, k, v), 20),
+           "sdpa": (lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, is_causal=True, enable_gqa=True), 20)}
+    times = {n: [] for n in fns}
+    for order in (("cuda_core", "wgmma", "sdpa"), ("sdpa", "wgmma",
+                                                   "cuda_core")):
+        for n in order:
+            times[n].append(cuda_ms(*fns[n]))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    sdpa_out = fns["sdpa"][0]().transpose(1, 2)
+    sdpa_err = float((sdpa_out.float() - fns["wgmma"][0]().float()).abs().max())
+    del sdpa_out
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_ref(q, k, v), 1)
+    tc_plain_ms = cuda_ms(lambda: fa_ref.flash_attention_tc_ref(q, k, v), 1)
     flops = 4 * dh * h * b * _visible_pairs(s, s, True, 0)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
-    print(f"kernel flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16 causal: "
-          f"max err {err:.3e} vs blockwise plain (within one ulp + "
-          f"{FLASH_RTOL}); {ms:.3f} ms vs plain {plain_ms:.3f} ms; SDPA "
-          f"(library) {library_ms:.3f} ms, max |SDPA - kernel| "
-          f"{sdpa_err:.3e}; bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flops, "
-          f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:59",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+    print(f"kernel flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16 causal, "
+          f"one call in turns (ms each: {times}): bound {b_ms:.4f} ms "
+          f"({b_by}: {flops:.3e} flops, {nbytes / 1e6:.1f} MB); SDPA "
+          f"(library) {ms['sdpa']:.3f} ms", flush=True)
+    for n, err, rels in (("cuda_core", cc_err, f"vs float32-P blockwise "
+                          f"plain (within one ulp + {FLASH_RTOL})"),
+                         ("wgmma", tc_err, f"vs tc plain ({tc_text}); rel L2 "
+                          f"{rel_tc:.3e} vs tc plain, {rel_f32p:.3e} vs "
+                          f"float32-P blockwise plain, {rel_cc:.3e} vs the "
+                          f"CUDA-core kernel")):
+        print(f"  {n}: {ms[n]:.3f} ms, {flops / ms[n] / 1e9:.1f} TFLOP/s, "
+              f"{b_ms / ms[n]:.3f} of the bound, {ms[n] / ms['sdpa']:.2f}x "
+              f"SDPA; max err {err:.3e} {rels}", flush=True)
+    print(f"  plain versions: flash_attention_ref {plain_ms:.3f} ms, "
+          f"flash_attention_tc_ref {tc_plain_ms:.3f} ms (rel L2 "
+          f"{rel_tc_cc:.3e} apart); max |SDPA - wgmma| {sdpa_err:.3e}",
+          flush=True)
+    common = dict(replaces="src/repro/kernels/flash_attention/kernel.py:59",
+                  bound_ms=b_ms, bound_by=b_by, library_ms=ms["sdpa"])
+    return [dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 max_abs_err=cc_err, ms=ms["cuda_core"], plain_ms=plain_ms,
+                 **common),
+            dict(name="flash_attention_wgmma", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+                 max_abs_err=tc_err, ms=ms["wgmma"], plain_ms=tc_plain_ms,
+                 **common)]
 
 
 # ----------------------------------------------------------------------
@@ -716,10 +878,13 @@ def train_phase() -> dict:
 # ----------------------------------------------------------------------
 # Phase 5: long-context prefill of qwen2.5-3b at full width
 # ----------------------------------------------------------------------
-def _prefill(step, params, batch, cfg, what: str) -> tuple[float, int]:
+def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
+             keep: bool = False) -> tuple[float, int, object]:
     """One prefill with the launch counts zeroed just before it and read
-    just after: (seconds, flash_attention launches); the logits must be
-    finite and of the batch's shape."""
+    just after: (seconds, flash_attention launches of either route, the
+    logits if `keep` else None); the logits must be finite and of the
+    batch's shape, and every layer must launch the route `tensor_cores`
+    names."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -730,15 +895,17 @@ def _prefill(step, params, batch, cfg, what: str) -> tuple[float, int]:
     logits = step.fn(params, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    n = LAUNCHES["flash_attention"]
+    n, n_tc = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_wgmma"]
     b, s = batch["inputs"].shape
     check(tuple(logits.shape) == (b, s, cfg.vocab),
           f"prefill {what}: logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()),
           f"prefill {what}: non-finite logits")
-    check(n == cfg.n_layers, f"prefill {what}: flash_attention launched "
-                             f"{n} times, want {cfg.n_layers}")
-    return dt, n
+    check(n == cfg.n_layers and n_tc == (n if tensor_cores else 0),
+          f"prefill {what}: flash_attention launched {n} times, "
+          f"flash_attention_wgmma {n_tc}; want {cfg.n_layers} and "
+          f"{cfg.n_layers if tensor_cores else 0}")
+    return dt, n, logits if keep else None
 
 
 def prefill_phase(flash_ms: float) -> dict:
@@ -768,12 +935,12 @@ def prefill_phase(flash_ms: float) -> dict:
     step = make_prefill_step(cfg, shape)
     batch = batch_for(cfg, *step.batch_shapes["inputs"][::-1], 0)
     torch.cuda.reset_peak_memory_stats()
-    warm_s, _ = _prefill(step, params, batch, cfg, "warm-up")
-    dt, launches = _prefill(step, params, batch, cfg, "timed")
+    warm_s, _, _ = _prefill(step, params, batch, cfg, "warm-up")
+    dt, launches, _ = _prefill(step, params, batch, cfg, "timed")
     tokens = shape.batch * shape.seq
     print(f"prefill run: {shape.batch} x {shape.seq} tokens, {cfg.n_layers} "
           f"layers: {dt:.3f} s ({warm_s:.3f} s warm-up), {tokens / dt:,.0f} "
-          f"tokens/s; flash_attention {launches} launches; attention share "
+          f"tokens/s; flash_attention_wgmma {launches} launches; attention share "
           f"~{cfg.n_layers * flash_ms / 1e3 / dt:.3f} of the wall time "
           f"({cfg.n_layers} x the kernel's {flash_ms:.1f} ms); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
@@ -783,10 +950,10 @@ def prefill_phase(flash_ms: float) -> dict:
     step4 = make_prefill_step(cfg, dataclasses.replace(shape, batch=b4,
                                                        seq=s4))
     batch4 = batch_for(cfg, *step4.batch_shapes["inputs"][::-1], 1)
-    dt4, n4 = _prefill(step4, params, batch4, cfg, f"{b4} x {s4}")
+    dt4, n4, _ = _prefill(step4, params, batch4, cfg, f"{b4} x {s4}")
     print(f"prefill run: {b4} x {s4} tokens: {dt4:.3f} s, "
-          f"{b4 * s4 / dt4:,.0f} tokens/s; flash_attention {n4} launches",
-          flush=True)
+          f"{b4 * s4 / dt4:,.0f} tokens/s; flash_attention_wgmma {n4} "
+          f"launches", flush=True)
 
     # one full-width layer: blockwise (the kernel) against dense attention
     blk = params.blocks[0]
@@ -832,7 +999,29 @@ def prefill_phase(flash_ms: float) -> dict:
           f"{PREFILL_CPU_RTOL}), argmax "
           f"{'agrees' if int(on_card.argmax()) == int(on_cpu.argmax()) else 'differs'}"
           f" ({int(on_card.argmax())} vs {int(on_cpu.argmax())})", flush=True)
-    return {"flash_attention": launches}
+
+    # the CUDA-core route: a config whose head dim the tensor-core kernel
+    # does not take (the reduced qwen2.5, head dim 16), card vs CPU
+    small = registry.reduced(PREFILL_CONFIG)
+    s_shape = dataclasses.replace(shape, batch=2, seq=SMALL_ROUTE_SEQ)
+    s_step = make_prefill_step(small, s_shape)
+    s_host = init_lm(small, seed=0, device="cpu", dtype=torch.bfloat16)
+    s_batch = batch_for(small, SMALL_ROUTE_SEQ, 2, 3)
+    _, n_cc, s_logits = _prefill(s_step, copy.deepcopy(s_host).to(dev),
+                                 s_batch, small, "CUDA-core route",
+                                 tensor_cores=False, keep=True)
+    with torch.inference_mode():
+        want = make_prefill_step(small, s_shape, device="cpu").fn(
+            s_host, s_batch)
+    rel = float((s_logits.float().cpu() - want.float()).norm()
+                / want.float().norm())
+    check(rel <= PREFILL_CPU_RTOL, f"CUDA-core route prefill card vs CPU: "
+                                   f"rel L2 {rel:.3e}")
+    print(f"prefill route check: {small.name} (head dim "
+          f"{small.resolved_head_dim}), 2 x {SMALL_ROUTE_SEQ}: flash_attention "
+          f"(CUDA cores) {n_cc} launches; logits card vs CPU rel L2 "
+          f"{rel:.3e} (tolerance {PREFILL_CPU_RTOL})", flush=True)
+    return {"flash_attention_wgmma": launches, "flash_attention": n_cc}
 
 
 def main() -> int:
@@ -848,8 +1037,9 @@ def main() -> int:
     rows = kernel_phase()
     launches = path_phase()
     launches["acim_matmul"] = train_phase()["acim_matmul"]
-    flash_ms = next(r["ms"] for r in rows if r["name"] == "flash_attention")
-    launches["flash_attention"] = prefill_phase(flash_ms)["flash_attention"]
+    flash_ms = next(r["ms"] for r in rows
+                    if r["name"] == "flash_attention_wgmma")
+    launches.update(prefill_phase(flash_ms))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,8 +1,10 @@
 """Public flash attention entry point: bring q, k, v to a layout the
-kernel reads (unit stride on Dh, strides that are multiples of 8, an
-aligned pointer; other inputs are copied) and call the wrapper.  KV heads
-are not repeated: the kernel maps query head h to KV head h // (H // KV).
-Tail tiles are masked in the kernel, so nothing is padded.
+kernels read (unit stride on Dh, strides that are multiples of 8 and not
+0, an aligned pointer; other inputs are copied) and call the wrapper of
+the route `kernel.route` names (bf16 at head dims 64 and 128 on tensor
+cores, the rest on CUDA cores).  KV heads are not repeated: the
+kernels map query head h to KV head h // (H // KV).  Tail tiles are
+masked in the kernels, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -19,13 +21,20 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, prefix_len: int = 0,
-                    block_k: int = ref.KV_TILE) -> torch.Tensor:
+                    block_k: int | None = None) -> torch.Tensor:
     """q: (B, S, H, Dh); k/v: (B, T, KV, Dh) with H % KV == 0.
 
     Returns (B, S, H, Dh) in q's dtype: softmax(q k^T / sqrt(Dh)) v under
     the causal mask (bidirectional over the first `prefix_len`
-    positions), or no mask when not causal, computed in float32.
-    `block_k` is the KV block of the plain version (CPU tensors)."""
-    return kernel.flash_attention(_kernel_layout(q), _kernel_layout(k),
-                                  _kernel_layout(v), causal=causal,
-                                  prefix_len=prefix_len, block_k=block_k)
+    positions), or no mask when not causal, with float32 scores and
+    softmax statistics (P rounded to bf16 before P.V on the tensor-core
+    route).  `block_k` is the KV block of the plain version (CPU
+    tensors; default: the route's kernel tile)."""
+    q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    if kernel.route(q.dtype, q.shape[-1]) == "wgmma":
+        return kernel.flash_attention_wgmma(
+            q, k, v, causal=causal, prefix_len=prefix_len,
+            block_k=block_k or ref.TC_KV_TILE)
+    return kernel.flash_attention_cuda_core(
+        q, k, v, causal=causal, prefix_len=prefix_len,
+        block_k=block_k or ref.KV_TILE)

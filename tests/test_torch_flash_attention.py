@@ -21,6 +21,19 @@ Tolerances:
   score and P.V products to bf16, where XLA and torch may round one
   product an ulp apart; atol = rtol = 1e-2 and rel L2 <= 1e-3 (measured:
   a single one-ulp difference, rel L2 5e-5).
+- `flash_attention_tc_ref` (the tensor-core kernel's arithmetic: float32
+  scores, P rounded to bf16) on bf16 inputs against the reference's bf16
+  `_blockwise_core`, which also rounds P to bf16 but rounds the scores
+  and each block's P.V to bf16 as well: rel L2 <= 1e-2 (measured 3.9e-3
+  to 4.8e-3), max abs <= 0.05 (measured <= 0.016, one bf16 ulp at |out|
+  2-4).  Against the reference's `attention_ref` on the same bf16
+  values (float32 P): rel L2 <= 5e-3 (measured 1.9e-3 to 2.0e-3), max
+  abs <= 0.02 (measured 7.8e-3).
+
+`test_bf16_within_one_ulp_of_oracle` calls `flash_attention_ref` (the
+CUDA-core kernel's arithmetic) by name: on the CPU `flash_attention`
+now takes `flash_attention_tc_ref` for bf16 at head dims 64 and 128,
+whose bf16 P is not within one ulp of the float32-P oracle.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,8 +44,10 @@ from repro.kernels.flash_attention import attention_ref as rattention_ref
 from repro.models.attention import _blockwise_core as rblockwise_core
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
-                                                 flash_attention_ref)
-from repro_torch.kernels.flash_attention import kernel
+                                                 flash_attention_ref,
+                                                 flash_attention_tc_ref)
+from repro_torch.kernels.flash_attention import kernel, ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models.attention import _blockwise_core
 import torch_port_helpers  # noqa: F401  (one torch thread per test worker)
 
@@ -62,9 +77,13 @@ def _jax_oracle(q, k, v, causal, jdt):
                       .astype(jnp.float32))
 
 
-def _port(q, k, v, tdt, **kw):
+def _port(q, k, v, tdt, fn=flash_attention, **kw):
     q, k, v = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
-    return flash_attention(q, k, v, **kw).float().numpy()
+    return fn(q, k, v, **kw).float().numpy()
+
+
+def _rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
 def _bf16_ulp(x: np.ndarray) -> np.ndarray:
@@ -162,9 +181,73 @@ def test_prefix_matches_reference_core(s, prefix_len):
 ])
 def test_bf16_within_one_ulp_of_oracle(b, s, h, kv, dh, causal):
     q, k, v = _qkv(b + s + dh, b, s, s, h, kv, dh)
-    got = _port(q, k, v, torch.bfloat16, causal=causal)
+    got = _port(q, k, v, torch.bfloat16, fn=flash_attention_ref,
+                causal=causal)
     want = _jax_oracle(q, k, v, causal, jnp.bfloat16)
     assert_within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,prefix_len", [
+    (2, 160, 8, 2, 128, 0),
+    (2, 160, 8, 2, 128, 50),
+    (1, 200, 4, 1, 64, 0),
+    (1, 200, 4, 1, 64, 130),
+    (2, 96, 4, 4, 64, 96),            # prefix = S: bidirectional throughout
+])
+def test_tc_ref_matches_reference_blockwise_core(b, s, h, kv, dh,
+                                                 prefix_len):
+    """The tensor-core arithmetic against the reference's bf16 core, the
+    oracle partner that also rounds P to bf16 (tolerances in the module
+    docstring)."""
+    q, k, v = _qkv(s + dh + prefix_len, b, s, s, h, kv, dh)
+    g = h // kv
+    want = np.asarray(rblockwise_core(
+        *(jnp.asarray(a).astype(jnp.bfloat16)
+          for a in (q.reshape(b, s, kv, g, dh), k, v)),
+        kv_block=32, prefix_len=prefix_len, out_dtype=jnp.bfloat16)
+        .astype(jnp.float32)).reshape(b, s, h, dh)
+    got = _port(q, k, v, torch.bfloat16, fn=flash_attention_tc_ref,
+                prefix_len=prefix_len)
+    assert _rel_l2(got, want) <= 1e-2
+    assert np.abs(got - want).max() <= 0.05
+    # the CPU route of flash_attention for bf16 at this head dim
+    np.testing.assert_array_equal(
+        _port(q, k, v, torch.bfloat16, prefix_len=prefix_len), got)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal", [
+    (2, 160, 8, 2, 128, True),
+    (1, 200, 4, 1, 64, True),
+    (2, 77, 8, 8, 64, False),
+])
+def test_tc_ref_matches_reference_oracle(b, s, h, kv, dh, causal):
+    q, k, v = _qkv(s + dh, b, s, s, h, kv, dh)
+    want = _jax_oracle(q, k, v, causal, jnp.bfloat16)
+    got = _port(q, k, v, torch.bfloat16, fn=flash_attention_tc_ref,
+                causal=causal)
+    assert _rel_l2(got, want) <= 5e-3
+    assert np.abs(got - want).max() <= 0.02
+
+
+def test_route():
+    """bf16 at head dims 64 and 128 takes the tensor-core kernel, the rest
+    the CUDA-core one; on the CPU each route runs its own plain version."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert kernel.TC_HEAD_DIMS == (64, 128)
+    assert [kernel.route(bf16, d) for d in kernel.HEAD_DIMS] == [
+        "cuda_core", "cuda_core", "wgmma", "wgmma"]
+    assert {kernel.route(f32, d) for d in kernel.HEAD_DIMS} == {"cuda_core"}
+    for dtype, dh, want in ((bf16, 128, flash_attention_tc_ref),
+                            (bf16, 32, flash_attention_ref),
+                            (f32, 128, flash_attention_ref)):
+        q, k, v = (torch.from_numpy(a).to(dtype)
+                   for a in _qkv(dh, 1, 150, 150, 4, 2, dh))
+        assert torch.equal(flash_attention(q, k, v), want(q, k, v))
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.flash_attention_wgmma(q, k, v)           # float32
+    with pytest.raises(ValueError, match="head dims"):
+        z = torch.zeros((1, 8, 2, 32), dtype=bf16)
+        kernel.flash_attention_wgmma(z, z, z)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -223,4 +306,57 @@ def test_wrapper_checks_inputs():
     assert kernel.kernel_layout_ok(q)
     assert not kernel.kernel_layout_ok(q[..., 1:])
     assert not kernel.kernel_layout_ok(q.transpose(2, 3))
+    # a zero stride on an extent > 1 dimension (GQA heads by `expand`):
+    # a tensor map cannot read it, so ops copies it; extent 1 is fine
+    assert not kernel.kernel_layout_ok(kv[:, :, :1].expand(1, 8, 4, 64))
+    assert kernel.kernel_layout_ok(kv[:, :, :1])
     assert flash_attention(q[:, :0], kv, kv).shape == (1, 0, 4, 64)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,prefix_len", [
+    (2, 300, 4, 2, 64, True, 0),
+    (1, 260, 8, 2, 128, True, 150),
+    (2, 140, 4, 4, 64, True, 140),
+    (1, 150, 4, 1, 128, False, 0),
+])
+def test_tc_ref_takes_and_gives_its_p(b, s, h, kv, dh, causal, prefix_len):
+    """`flash_attention_tc_p` gives the bf16 P that `flash_attention_tc_ref`
+    feeds to P.V, (B, H, S, T): fed back through `p_bf16` it changes no
+    bit, and with one block over all keys it is within one bf16 ulp of
+    exp2((s - max s) c) from float64 scores, and 0 where masked.  On the CPU
+    `kernel.flash_attention_wgmma_p` returns the two."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(s + dh + prefix_len, b, s, s, h, kv, dh))
+    kw = dict(causal=causal, prefix_len=prefix_len)
+    p = fa_ref.flash_attention_tc_p(q, k, v, **kw)
+    assert p.shape == (b, h, s, s) and p.dtype == torch.bfloat16
+    out = flash_attention_tc_ref(q, k, v, **kw)
+    assert torch.equal(flash_attention_tc_ref(q, k, v, p_bf16=p, **kw), out)
+    got_out, got_p = kernel.flash_attention_wgmma_p(q, k, v, **kw)
+    assert torch.equal(got_out, out) and torch.equal(got_p, p)
+
+    sc = torch.einsum("bshd,bthd->bhst", q.double(),
+                      k.double().repeat_interleave(h // kv, 2))
+    vis = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        r, c = torch.arange(s)[:, None], torch.arange(s)[None]
+        vis = (c <= r) | ((r < prefix_len) & (c < prefix_len))
+    sc = torch.where(vis, sc, float("-inf"))
+    c2 = fa_ref.score_scale_log2(dh)
+    want = torch.exp2((sc - sc.amax(-1, keepdim=True)) * c2)
+    one_block = fa_ref.flash_attention_tc_p(q, k, v, block_k=s, **kw).double()
+    assert bool((one_block[..., ~vis] == 0).all())
+    assert bool(((one_block - want).abs()
+                 <= torch.from_numpy(_bf16_ulp(want.numpy())) + 1e-30).all())
+
+
+def test_ops_copies_expanded_kv():
+    """GQA heads made by `expand` (stride 0) go through ops like their
+    copy (on the card, ops copies them for the tensor map)."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(3, 1, 130, 130, 4, 1, 128))
+    kx, vx = (x.expand(1, 130, 2, 128) for x in (k, v))
+    assert not kernel.kernel_layout_ok(kx)
+    assert torch.equal(ops.flash_attention(q, kx, vx),
+                       ops.flash_attention(q, kx.contiguous(),
+                                           vx.contiguous()))

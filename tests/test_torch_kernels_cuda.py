@@ -5,6 +5,8 @@ also runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -140,6 +142,48 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
 
 
+TC_FLIP_SHARE = 1e-4    # as chip_smoke.py
+
+
+def _ulps(got, want):
+    """|got - want| less 2e-5 in bf16 ulps of each element and of its
+    row's largest output."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    over = torch.clamp((got - want).abs() - 2e-5, min=0)
+    _, ee = torch.frexp(big)
+    _, er = torch.frexp(big.amax(-1, keepdim=True))
+    return (over / torch.ldexp(torch.ones_like(over), ee - 8),
+            over / torch.ldexp(torch.ones_like(over[..., :1]), er - 8))
+
+
+def _assert_tc_close(got, q, k, v, **kw):
+    """The tensor-core route against `flash_attention_tc_ref`, as
+    chip_smoke.py's `_tc_check`.  Both round P to bf16, but reach p in
+    float32 by different summation orders and exp2s, so a p near a bf16
+    rounding midpoint may round the other way, which moves a row with few
+    visible keys by many ulps of its small elements.  So: the kernel's own
+    P (its P-dumping launch, same output) is at most one bf16 step from
+    the plain version's; the plain version fed that P is within two bf16
+    ulps of every output element plus 2e-5; against the plain version's
+    own P at most `TC_FLIP_SHARE` of the outputs lie beyond that, each
+    within one ulp of its row's largest output plus 2e-5.  Measured on
+    the H100 by chip_smoke.py: P one step apart on 3.6e-5 to 7.9e-5 of
+    the visible entries; fed the kernel's P, <= 0.995 element ulps;
+    outputs beyond two ulps 3.7e-6 to 2.5e-5, each <= 0.427 row ulps."""
+    out_p, p = fa_kernel.flash_attention_wgmma_p(q, k, v, **kw)
+    assert torch.equal(out_p, got)
+    step = (p.view(torch.int16)
+            - fa_ref.flash_attention_tc_p(q, k, v, **kw).view(torch.int16))
+    assert int(step.abs().max()) <= 1
+    el, _ = _ulps(got, fa_ref.flash_attention_tc_ref(q, k, v, p_bf16=p, **kw))
+    assert float(el.max()) <= 2, float(el.max())
+    el, row = _ulps(got, fa_ref.flash_attention_tc_ref(q, k, v, **kw))
+    exc = el > 2
+    assert int(exc.sum()) <= TC_FLIP_SHARE * got.numel(), int(exc.sum())
+    assert not bool(exc.any()) or float(row[exc].max()) <= 1
+
+
 @pytest.mark.parametrize("b,s,h,kv,dh,causal,prefix_len", [
     (1, 1024, 16, 2, 128, True, 0), (2, 4001, 4, 1, 64, True, 0),
     (2, 333, 8, 8, 32, False, 0), (3, 200, 4, 2, 16, True, 70),
@@ -147,18 +191,23 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_attention_matches_plain(b, s, h, kv, dh, causal, prefix_len,
                                        dtype, dev):
-    """float32: atol = rtol = 2e-5.  bf16: both compute in float32 and
-    round once, so one bf16 ulp of the output plus 2e-5."""
+    """Each route against its own plain version.  float32 (CUDA cores):
+    atol = rtol = 2e-5.  bf16 at head dims 16 and 32 (CUDA cores): both
+    compute in float32 and round once, so one bf16 ulp of the output plus
+    2e-5.  bf16 at head dims 64 and 128 (tensor cores): against
+    `flash_attention_tc_ref` as `_assert_tc_close` holds it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(s + dh)
     q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
     k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev).to(dtype)
             for _ in range(2))
-    n0 = LAUNCHES["flash_attention"]
+    tc = fa_kernel.route(dtype, dh) == "wgmma"
+    n0, n0_tc = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_wgmma"]
     got = fa_ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
     assert LAUNCHES["flash_attention"] == n0 + 1
-    want = fa_ref.flash_attention_ref(q, k, v, causal=causal,
-                                      prefix_len=prefix_len)
+    assert LAUNCHES["flash_attention_wgmma"] == n0_tc + tc
+    plain = fa_ref.flash_attention_tc_ref if tc else fa_ref.flash_attention_ref
+    want = plain(q, k, v, causal=causal, prefix_len=prefix_len)
     if prefix_len == 0:    # strides the kernel cannot read: ops copies
         wide = torch.randn((b, s, h, dh + 4), generator=g, device=dev)
         qs = wide.to(dtype)[..., :dh]
@@ -169,9 +218,67 @@ def test_flash_attention_matches_plain(b, s, h, kv, dh, causal, prefix_len,
     got, want = got.float(), want.float()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    elif tc:
+        _assert_tc_close(got, q, k, v, causal=causal, prefix_len=prefix_len)
     else:
         bound = _bf16_ulp(torch.maximum(got.abs(), want.abs())) + 2e-5
         assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,prefix_len", [
+    (1, 512, 16, 2, 128, True, 0),      # GQA 8, the prefill's ratio
+    (2, 4001, 8, 2, 64, True, 0),       # GQA 4, ragged S
+    (1, 129, 4, 4, 128, True, 0),       # GQA 1, one row past a tile
+    (2, 300, 4, 1, 64, True, 300),      # prefix = S
+    (2, 777, 8, 2, 128, True, 200),     # prefix inside the sequence
+    (2, 333, 8, 2, 64, False, 0),       # no mask
+    (1, 100, 2, 1, 128, False, 0)], ids=str)
+def test_flash_attention_wgmma_matches_tc_plain(b, s, h, kv, dh, causal,
+                                               prefix_len, dev):
+    """The tensor-core kernel against `flash_attention_tc_ref`, also on
+    q and k as RoPE leaves them (heads-major memory read through
+    strides), and its launch counter; rel L2 against the float32-P
+    `flash_attention_ref` at most 1e-2."""
+    g = torch.Generator(device=dev).manual_seed(s + dh + prefix_len)
+    q = torch.randn((b, h, s, dh), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, kv, s, dh), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, s, kv, dh), generator=g, device=dev).bfloat16()
+    q, k = q.transpose(1, 2), k.transpose(1, 2)        # RoPE's layout
+    assert fa_kernel.kernel_layout_ok(q) and not q.is_contiguous()
+    n0 = LAUNCHES["flash_attention_wgmma"]
+    got = fa_kernel.flash_attention_wgmma(q, k, v, causal=causal,
+                                          prefix_len=prefix_len)
+    assert LAUNCHES["flash_attention_wgmma"] == n0 + 1
+    _assert_tc_close(got, q, k, v, causal=causal, prefix_len=prefix_len)
+    assert torch.equal(got, fa_kernel.flash_attention_wgmma(
+        q.contiguous(), k.contiguous(), v, causal=causal,
+        prefix_len=prefix_len))
+    f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      prefix_len=prefix_len).float()
+    assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
+
+
+def test_flash_attention_reads_expanded_kv(dev):
+    """GQA heads made by `expand` (stride 0, which a tensor map cannot
+    take): ops copies them, on both routes."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for dtype, dh in ((torch.bfloat16, 128), (torch.float32, 64)):
+        q = torch.randn((2, 300, 4, dh), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((2, 300, 1, dh), generator=g, device=dev)
+                .to(dtype).expand(2, 300, 2, dh) for _ in range(2))
+        assert not fa_kernel.kernel_layout_ok(k)
+        assert torch.equal(fa_ops.flash_attention(q, k, v),
+                           fa_ops.flash_attention(q, k.contiguous(),
+                                                  v.contiguous()))
+
+
+def test_flash_attention_wgmma_refuses_what_it_does_not_take(dev):
+    z = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_wgmma(z, z, z)
+    z = torch.zeros((1, 8, 2, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention_wgmma(z, z, z)
 
 
 def test_prefill_step_on_cuda_matches_cpu(dev):
@@ -188,6 +295,24 @@ def test_prefill_step_on_cuda_matches_cpu(dev):
     n0 = LAUNCHES["flash_attention"]
     got = make_prefill_step(cfg, shape).fn(card, {"inputs": toks})
     assert LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, {"inputs": toks})
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 3e-2
+
+
+def test_prefill_tensor_core_route_on_cuda_matches_cpu(dev):
+    """The reduced qwen2.5 widened to head dim 128 (2 layers): every layer
+    launches the tensor-core kernel on the card; logits within the bf16
+    backbone's rounding of the CPU run (rel L2 3e-2, as above)."""
+    cfg = dataclasses.replace(registry.reduced("qwen2.5-3b"), head_dim=128)
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 300),
+                         generator=torch.Generator().manual_seed(0))
+    shape = ShapeSpec("t", "prefill", 300, 2)
+    n0 = LAUNCHES["flash_attention_wgmma"]
+    got = make_prefill_step(cfg, shape).fn(card, {"inputs": toks})
+    assert LAUNCHES["flash_attention_wgmma"] == n0 + cfg.n_layers
     want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, {"inputs": toks})
     got, want = got.float().cpu(), want.float()
     assert float((got - want).norm() / want.norm()) <= 3e-2

@@ -37,6 +37,7 @@ from repro.models import lm as rlm
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.launch.shapes import SHAPES, ShapeSpec
+from repro_torch.kernels.flash_attention import kernel as tkernel
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
@@ -180,3 +181,47 @@ def test_lm_hidden_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError, match="dense"):
         make_prefill_step(dataclasses.replace(tcfg, family="vlm"),
                           SHAPES["prefill_32k"], device="cpu")
+
+
+@pytest.mark.parametrize("prefix_len", [0, 20])
+def test_tensor_core_route_matches_jax(prefix_len):
+    """The reduced qwen2.5 widened to head dim 128 takes the tensor-core
+    route (`flash_attention_tc_ref` on the CPU: float32 scores, P in
+    bf16) in bfloat16: `attention_fwd_blockwise` and the 2-layer prefill
+    logits against the reference's jnp core (tolerances measured as
+    below)."""
+    rcfg = dataclasses.replace(rregistry.reduced("qwen2_5_3b"), head_dim=128)
+    tcfg = dataclasses.replace(registry.reduced("qwen2.5-3b"), head_dim=128)
+    assert tkernel.route(torch.bfloat16, tcfg.resolved_head_dim) == "wgmma"
+    rp = rlm.init_lm(jax.random.key(1), rcfg)
+    serve = tlm.LM(tcfg, torch.Generator().manual_seed(0),
+                   dtype=torch.bfloat16)
+    rserve = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
+                          if a.dtype == jnp.float32 and a.ndim >= 2 else a, rp)
+    serve.load_state_dict(convert.lm_params_from_numpy(
+        jax.tree.map(np.asarray, rp)), strict=True)
+    x = np.random.default_rng(4).standard_normal(
+        (BATCH, SEQ, rcfg.d_model)).astype(np.float32)
+    rlayer = jax.tree.map(lambda a: a[0], rserve["blocks"])["attn"]
+    want = np.asarray(rattn.attention_fwd_blockwise(
+        rlayer, jnp.asarray(x).astype(jnp.bfloat16), rcfg,
+        positions=jnp.arange(SEQ), kv_block=32,
+        prefix_len=prefix_len).astype(jnp.float32))
+    with torch.no_grad():
+        got = tattn.attention_fwd_blockwise(
+            serve.blocks[0].attn, torch.from_numpy(x).bfloat16(), tcfg,
+            positions=torch.arange(SEQ), kv_block=32,
+            prefix_len=prefix_len).float().numpy()
+    assert _rel_l2(got, want) <= 1e-2          # measured <= 4.0e-3
+    assert np.abs(got - want).max() <= 0.05    # measured <= 0.016
+    if prefix_len:
+        return
+    toks = _tokens(rcfg)
+    hidden, _ = rlm.lm_hidden(rserve, jnp.asarray(toks), rcfg,
+                              attn_impl="blockwise")
+    want = np.asarray(rlm.lm_logits(rserve, hidden, rcfg).astype(jnp.float32))
+    step = make_prefill_step(tcfg, ShapeSpec("t", "prefill", SEQ, BATCH),
+                             device="cpu")
+    got = step.fn(serve, {"inputs": torch.from_numpy(toks)}).float().numpy()
+    assert _rel_l2(got, want) <= 3e-2          # measured 1.08e-2
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.9   # 0.979
