@@ -15,7 +15,8 @@ and prints:
    `layout.nets`, `layout.route`: the profiler ranges of
    `repro_torch.eda.batched_flow.generate_layouts`), each with its host
    time and the device time of its annotation where the profiler
-   records one;
+   records one; `layout.route` also with the device time of the
+   `route_slots` kernel (one launch per layout bucket) that it runs;
 3. the device kernels and copies with the most time, their counts, and
    their summed time against the wall time (the device's busy share;
    the rest is host time the device idles through);
@@ -93,10 +94,13 @@ def profile_request(request) -> dict:
                 st["host_ms"] = e.cpu_time_total / 1e3
     kernels = _device_kernels(prof)
     device_s = sum(r[2] for r in kernels) / 1e6
+    route = [r for r in kernels if "route_slots" in r[0]]
     prov = art.provenance
     return {"wall_s": wall, "explore_s": prov.explore_s,
             "layout_s": prov.layout_s, "net_slots": prov.route_rounds,
-            "stages": stages, "device_s": device_s,
+            "stages": stages, "route_slots_calls": sum(r[1] for r in route),
+            "route_slots_ms": sum(r[2] for r in route) / 1e3,
+            "device_s": device_s,
             "busy_share": device_s / wall,
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
                     for k, c, us in kernels[:15]]}
@@ -220,6 +224,8 @@ def main() -> int:
         dev = ("not recorded" if st["device_ms"] is None
                else f"{st['device_ms']:.3f} ms")
         print(f"  stage {name:6s} host {st['host_ms']:10.3f} ms, device {dev}")
+    print(f"  layout.route: route_slots_kernel {prof['route_slots_ms']:.3f} ms "
+          f"over {prof['route_slots_calls']} launch(es)")
     print(f"device {prof['device_s']:.3f} s, busy share "
           f"{prof['busy_share']:.3f}", flush=True)
     for row in prof["top"]:

@@ -12,7 +12,18 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              and power limit.
 2. kernels — call each kernel's wrapper at the main path's shapes and
              hold it against its plain PyTorch version on the same
-             inputs, exactly (integer outputs); time both.  `acim_matmul`
+             inputs, exactly (integer outputs); time both.  `route_slots`
+             (every net slot of a layout bucket in one launch) is held
+             against `route_slots_ref` on the 16 kb request's bucket (86
+             grids padded to 1118 x 274, its real nets) at 20 % seeded
+             random occupancy cut to its first 8 slots, where both are
+             timed, and on a bucket of the 65536 array's 241 x 2178
+             (coarse 32: counts and bitsets in device memory) and
+             122 x 1090 (coarse 64: counts in device memory) grids with
+             4 random slots; then timed alone on the whole bucket
+             (`bucket_ms`); the standalone `wavefront` on the same grids
+             and on 241 x 2178 and 122 x 1090, `trace_paths` on one slot
+             of them.  `acim_matmul`
              runs at the trainer's FFN shapes, (1024, 768) @ (768, 3072)
              and (1024, 3072) @ (3072, 768), with the codesign pick's
              (N, B) and with N = 128, B = 5: bit-equal on +-1 operands,
@@ -47,7 +58,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              `use_pallas_dominance=True, layout=False` request drives the
              dominance-matrix route.  Each path runs with the launch
              counts zeroed just before it and read just after; every
-             kernel must have launched on its path.
+             kernel must have launched on its path: the layout exactly
+             one `route_slots` and no `wavefront` or `trace_paths`.  The
+             BFS levels of the grid with the most (the launch's latency
+             count) are printed.
 4. train   — the CIM-in-the-loop trainer at full width (d 768, 12
              layers, 12 heads, d_ff 3072, vocab 2048, seq 128, batch 8,
              lr 3e-3): `recommend_macro` at the example's settings, whose
@@ -142,6 +156,16 @@ PREFILL_CPU_LAYERS = 2     # card vs CPU, full width
 PREFILL_CPU_SEQ = 512
 PREFILL_CPU_RTOL = 5e-2    # rel L2 of the last position's logits
 SMALL_ROUTE_SEQ = 300      # the reduced config's prefill (CUDA-core route)
+
+# The 16 kb request's layout settings, and the route_slots checks' cuts.
+COARSE, CAPACITY = 64, 4
+ROUTE_CHECK_SLOTS = 8      # slots of the request's bucket held against the
+                           # plain version (it sweeps full fields per slot)
+ROUTE_BIG_SLOTS = 4        # slots on the large grids
+# Large grids of the 65536 array: 122 x 1090 at coarse 64 (route_slots keeps
+# its counts in device memory) and 241 x 2178 at coarse 32 (its bitsets
+# too; `wavefront`'s bitsets as well).
+BIG_GRIDS = ((241, 2178), (122, 1090))
 
 
 def fail(msg: str) -> None:
@@ -293,8 +317,9 @@ def kernel_phase() -> list[dict]:
           flush=True)
 
     # -- wavefront: the 86 golden 16 kb grids with random occupancy,
-    # padded to the batch's extent (the main path's bucket), and one
-    # 122 x 1090 grid of the 65536 array (global-memory branch)
+    # padded to the batch's extent (the main path's bucket), and the
+    # large grids one at a time (241 x 2178: bitsets in device memory)
+    gen = torch.Generator(device=dev).manual_seed(0)
     geom = geometry()
     from repro_torch.core.acim_spec import MacroSpec
     specs = [MacroSpec(p_["row"]["h"], p_["row"]["w"], p_["row"]["l"],
@@ -304,22 +329,23 @@ def kernel_phase() -> list[dict]:
     bsz, gh, gw = len(grids), int(grids[:, 0].max()), int(grids[:, 1].max())
     grids_t = torch.tensor(grids, dtype=torch.int32, device=dev)
     outside = mr_ref.outside_grids((bsz, gh, gw), grids_t, dev)
-    occ = (torch.rand((bsz, gh, gw), device=dev) < 0.2) | outside
+    occ = (torch.rand((bsz, gh, gw), generator=gen, device=dev) < 0.2) \
+        | outside
     seed = torch.zeros_like(occ)
     hy = torch.tensor(rng.integers(0, grids[:, 0]), device=dev)
     hx = torch.tensor(rng.integers(0, grids[:, 1]), device=dev)
     seed[torch.arange(bsz, device=dev), hy, hx] = True
-    max_cells = int((grids[:, 0] * grids[:, 1]).max())
-    dist = mr.wavefront(occ, seed, grids_t, max_cells)
+    dist = mr.wavefront(occ, seed, grids_t)
     want = mr_ref.wavefront_distance_ref(occ, seed, grids_t)
     check(torch.equal(dist, want),
           f"wavefront != plain on ({bsz}, {gh}, {gw})")
-    occ65 = torch.rand((1, 122, 1090), device=dev) < 0.2
-    seed65 = torch.zeros_like(occ65)
-    seed65[0, 61, 17] = True
-    check(torch.equal(mr.wavefront(occ65, seed65),
-                      mr_ref.wavefront_distance_ref(occ65, seed65)),
-          "wavefront != plain on (1, 122, 1090) (global-memory branch)")
+    for bh, bw in BIG_GRIDS:
+        occ65 = torch.rand((1, bh, bw), generator=gen, device=dev) < 0.2
+        seed65 = torch.zeros_like(occ65)
+        seed65[0, bh // 2, 17] = True
+        check(torch.equal(mr.wavefront(occ65, seed65),
+                          mr_ref.wavefront_distance_ref(occ65, seed65)),
+              f"wavefront != plain on (1, {bh}, {bw})")
     # The function reads occ and seed of the real cells only (the pad is
     # blocked by definition) and writes the whole int32 plane.
     cells = bsz * gh * gw
@@ -329,12 +355,12 @@ def kernel_phase() -> list[dict]:
         name="wavefront", route="cuda", source="src/repro_torch/csrc/maze_route.cu",
         replaces="src/repro/kernels/maze_route/kernel.py:71",
         max_abs_err=float((dist - want).abs().max()),
-        ms=cuda_ms(lambda: mr.wavefront(occ, seed, grids_t, max_cells), 20),
+        ms=cuda_ms(lambda: mr.wavefront(occ, seed, grids_t), 20),
         plain_ms=cuda_ms(lambda: mr_ref.wavefront_distance_ref(
             occ, seed, grids_t), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"kernel wavefront: equal to plain on ({bsz}, {gh}, {gw}) and "
-          f"(1, 122, 1090); {rows[-1]['ms']:.4f} ms vs plain "
+    print(f"kernel wavefront: equal to plain on ({bsz}, {gh}, {gw}), "
+          f"(1, 241, 2178) and (1, 122, 1090); {rows[-1]['ms']:.4f} ms vs plain "
           f"{rows[-1]['plain_ms']:.4f} ms", flush=True)
 
     # -- trace_paths: one slot on the wavefront above; two star targets
@@ -379,9 +405,133 @@ def kernel_phase() -> list[dict]:
           f"{rows[-1]['ms']:.4f} ms vs plain {rows[-1]['plain_ms']:.4f} ms",
           flush=True)
 
+    rows.append(route_kernel_check(dev, rng, gen, specs))
     rows.append(acim_kernel_check(dev, rng))
     rows.extend(flash_kernel_check(dev))
     return rows
+
+
+def request_bucket(specs, dev):
+    """The routing inputs `batched_route` builds for the 16 kb request's
+    layout of `specs` (one bucket), by the functions `generate_layouts`
+    calls: occ0 (the pad at capacity, 0 on the grids), the nets (B, S,
+    ...), the grids and the pad mask."""
+    from repro_torch.eda import batched_flow as bf
+
+    st = bf.layout_stages(specs, coarse=COARSE, device=dev)
+    _, grids_t, outside, occ0 = bf.route_inputs(
+        st.ops.width.cpu().numpy(), st.ops.height.cpu().numpy(),
+        coarse=COARSE, capacity=CAPACITY, device=dev)
+    return occ0, st.nets, grids_t, outside
+
+
+def _events_ms(fn):
+    """(fn's result, device ms of that one call, from CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _route_bytes(occ0, nets) -> int:
+    """Bytes a route_slots call needs: occ0 read and occ written once, the
+    nets and grids read once."""
+    return (2 * occ0.numel() * 4 + sum(x.numel() * x.element_size()
+                                       for x in nets) + occ0.shape[0] * 8)
+
+
+def route_kernel_check(dev, rng, gen, specs) -> dict:
+    """route_slots against its plain version: the 86 golden grids at 20 %
+    random occupancy (drawn from `gen`) with the request's real nets, cut
+    to the first ROUTE_CHECK_SLOTS slots (the plain version sweeps full
+    fields, seconds a slot), where both are timed; and the large grids in
+    one bucket with random nets (241 x 2178 keeps its counts and bitsets
+    in device memory, 122 x 1090 its counts).  Then the kernel alone on
+    the request's whole bucket (its own occupancy, every slot: the main
+    path's launch, `bucket_ms`), with its BFS levels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.maze_route import kernel as mr
+    from repro_torch.kernels.maze_route import ref as mr_ref
+
+    occ0, nets, grids_t, outside = request_bucket(specs, dev)
+    bsz, gh, gw = occ0.shape
+    slots, targets = nets.tgts.shape[1:3]
+    cut = [x[:, :ROUTE_CHECK_SLOTS].contiguous() for x in nets]
+    busy = torch.where(torch.rand(occ0.shape, generator=gen, device=dev)
+                       < 0.2, CAPACITY, 0)
+    occ_r = torch.where(outside, CAPACITY, busy).to(torch.int32)
+    got = mr.route_slots(occ_r, *cut, grids_t, CAPACITY)
+    want, plain_ms = _events_ms(lambda: mr_ref.route_slots_ref(
+        occ_r, *cut, grids_t, CAPACITY))
+    for g_, w_, what in zip(got, want, ("occupancy", "routed", "failed",
+                                        "wirelength")):
+        check(torch.equal(g_, w_), f"route_slots {what} != plain on the "
+                                   f"({bsz}, {gh}, {gw}) cut")
+    err = float(max((g_ - w_).abs().max() for g_, w_ in zip(got, want)))
+    cut_routed = int(want[1].sum())
+    ms = cuda_ms(lambda: mr.route_slots(occ_r, *cut, grids_t, CAPACITY), 10)
+    b_ms, b_by = bound(_route_bytes(occ_r, cut), 0)
+
+    # the large grids in one bucket: 20 % occupancy, random nets
+    n65 = ROUTE_BIG_SLOTS
+    bh, bw = (max(g_[i] for g_ in BIG_GRIDS) for i in (0, 1))
+    occ65 = torch.where(torch.rand((len(BIG_GRIDS), bh, bw), generator=gen,
+                                   device=dev) < 0.2,
+                        CAPACITY, 0).to(torch.int32)
+    pts = np.stack([np.stack([rng.integers(0, h_, (n65, 1 + targets)),
+                              rng.integers(0, w_, (n65, 1 + targets))], -1)
+                    for h_, w_ in BIG_GRIDS])
+    pts = torch.tensor(pts, dtype=torch.int32, device=dev)
+    big_grids = torch.tensor(BIG_GRIDS, dtype=torch.int32, device=dev)
+    occ65 = torch.where(mr_ref.outside_grids(occ65.shape, big_grids, dev),
+                        CAPACITY, occ65).to(torch.int32)
+    big = (pts[:, :, 0].contiguous(), pts[:, :, 1:].contiguous(),
+           torch.ones((len(BIG_GRIDS), n65, targets), dtype=torch.bool,
+                      device=dev),
+           torch.ones((len(BIG_GRIDS), n65), dtype=torch.bool, device=dev),
+           big_grids)
+    levels65 = torch.zeros(len(BIG_GRIDS), dtype=torch.int32, device=dev)
+    got65 = mr.route_slots(occ65, *big, CAPACITY, levels=levels65)
+    want65 = mr_ref.route_slots_ref(occ65, *big, CAPACITY)
+    for g_, w_, what in zip(got65, want65, ("occupancy", "routed", "failed",
+                                            "wirelength")):
+        check(torch.equal(g_, w_), f"route_slots {what} != plain on "
+                                   f"the large grids {BIG_GRIDS}")
+    big_ms = cuda_ms(lambda: mr.route_slots(occ65, *big, CAPACITY), 3)
+
+    # the main path's launch: every slot, the request's own occupancy.
+    # Latency binds it (one block barrier per BFS level, a dependent walk
+    # per target); its count is printed beside.
+    top, top_nets, all_levels = _bfs_levels(specs)
+    bucket_ms = cuda_ms(lambda: mr.route_slots(occ0, *nets, grids_t,
+                                               CAPACITY), 10)
+    bucket_b_ms, _ = bound(_route_bytes(occ0, nets), 0)
+    print(f"kernel route_slots: equal to plain on ({bsz}, {gh}, {gw}) at 20 % "
+          f"random occupancy with the request's nets cut to the first "
+          f"{ROUTE_CHECK_SLOTS} of {slots} slots ({cut_routed} routed, "
+          f"{int(want[2].sum())} failed; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})) and on the "
+          f"large grids {BIG_GRIDS} with {n65} random slots each (routed "
+          f"{want65[1].tolist()}, BFS levels {levels65.tolist()}, kernel "
+          f"{big_ms:.4f} ms); whole request bucket ({slots} slots, "
+          f"{int(nets.nmask.sum())} real nets, its own occupancy): "
+          f"{bucket_ms:.4f} ms, bound {bucket_b_ms:.4f} ms (bytes); BFS "
+          f"levels: longest grid {top} ({top_nets} nets), all grids "
+          f"{all_levels}", flush=True)
+    return dict(
+        name="route_slots", route="cuda",
+        source="src/repro_torch/csrc/maze_route.cu",
+        replaces="src/repro/kernels/maze_route/kernel.py:71",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, bucket_ms=bucket_ms,
+        bucket_bound_ms=bucket_b_ms)
 
 
 def _adc_flip_share(got, want, delta: float) -> float:
@@ -764,12 +914,38 @@ def path_phase() -> dict:
           f"{dom_launches}", flush=True)
 
     launches = {"nds_rank": main_launches.get("nds_rank", 0),
-                "wavefront": main_launches.get("wavefront", 0),
-                "trace_paths": main_launches.get("trace_paths", 0),
+                "route_slots": main_launches.get("route_slots", 0),
                 "dominance_matrix": dom_launches.get("dominance_matrix", 0)}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
+    # The whole front is one layout bucket: one route_slots launch, and
+    # the standalone wavefront / trace_paths kernels stay off the path.
+    launches.update(wavefront=main_launches.get("wavefront", 0),
+                    trace_paths=main_launches.get("trace_paths", 0))
+    check(launches["route_slots"] == 1 and launches["wavefront"] == 0
+          and launches["trace_paths"] == 0,
+          f"route launches on the path: {main_launches}")
+    levels = _bfs_levels(list(art.pareto.specs))
+    print(f"path route: 1 route_slots launch; BFS levels of the longest grid "
+          f"{levels[0]} ({levels[1]} nets), all grids {levels[2]} "
+          f"(recounted by a second launch on the same bucket)", flush=True)
     return launches
+
+
+def _bfs_levels(specs) -> tuple[int, int, int]:
+    """(BFS levels of the grid with the most, its real nets, levels of all
+    grids) of the route_slots launch that lays out `specs` as one bucket."""
+    import torch
+
+    from repro_torch.kernels.maze_route import kernel as mr
+
+    dev = torch.device("cuda")
+    occ0, nets, grids_t, _ = request_bucket(specs, dev)
+    levels = torch.zeros(len(specs), dtype=torch.int32, device=dev)
+    mr.route_slots(occ0, *nets, grids_t, CAPACITY, levels=levels)
+    lv = levels.cpu().numpy()
+    top = int(lv.argmax())
+    return int(lv[top]), int(nets.nmask[top].sum()), int(lv.sum())
 
 
 # ----------------------------------------------------------------------
@@ -1044,8 +1220,12 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # route_slots' whole-bucket time and bound (its row's own are on the
+    # cut its plain version runs)
+    extra = ("bucket_ms", "bucket_bound_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,44 +1,68 @@
 // Lee maze-router kernels for Hopper (sm_90a), plain C interface.
 //
-// wavefront replaces the Pallas kernel `wavefront_kernel` (body `_kernel`,
-// `_shift`) of src/repro/kernels/maze_route/kernel.py: for each of B grids
-// the BFS distance field from the seed cells, dist = 0 on seeds (even when
-// occupied), dist <- min(dist, 1 + min(4 neighbours)) on free cells until
-// nothing changes, INF = 2^29 where unreachable or blocked.
+// route_slots replaces the reference's `_route_program`
+// (src/repro/eda/batched_flow.py:342-365): every net slot of a layout
+// bucket in order, each slot a BFS from the net's hub (`wavefront_kernel`,
+// src/repro/kernels/maze_route/kernel.py:71) and the backtrace and commit
+// of its star targets (`_dir_field`, `_trace_one` and the commit of
+// `_route_step`, batched_flow.py:313-339), all under one `lax.scan`.  Here
+// it is one persistent launch: one CTA per grid of the bucket loops over
+// the grid's slots itself (grids depend on nothing outside themselves, so
+// no grid-wide barrier is needed) and ends after its own last real net.
 //
-//   Bound on the H100: bytes of the output plane.  The router pads every
-//   grid of a batch to the largest extent on each axis (86 grids of at
-//   most 33,428 real cells padded to 1118 x 274 = 306,332 cells for the
-//   16 kb front).  The function needs occ and seed of the real cells only
-//   (~1.2 M cells, 2 B each) but writes the whole int32 plane, ~105 MB
-//   per call: ~108 MB in all, ~32 us at 3.35 TB/s.  The relaxation itself
-//   is sequential in the path length: one block-wide barrier per sweep.
-//   Design: one CTA per grid.  Given each grid's own (gh, gw) the kernel
-//   touches only the real cells for the relaxation; the field lives in
-//   shared memory when gh*gw int32 fit (both 4096 and 16384 grids, up to
-//   134 KB) and is relaxed in place there (chaotic relaxation: any value
-//   read is an upper bound of a path length, so in-place updates reach the
-//   same unique fixed point as Jacobi sweeps, in fewer sweeps).  A sweep in
-//   which no thread lowered a cell ends the loop (`__syncthreads_or`).  A
-//   grid too large for shared memory (the 65536 array, 122 x 1090) runs the
-//   same loop on the output plane in global memory.  The pad cells beyond
-//   (gh, gw) are written INF once.  Blocked cells hold INF + 1 during the
-//   relaxation so one int32 plane carries both the field and the mask.
+//   Bound on the H100: bytes are small (occ0 read and occ written once,
+//   ~210 MB for the 16 kb bucket of 86 grids padded to 1118 x 274, plus
+//   the nets), so what binds is latency: per slot, one block barrier per
+//   BFS level and a dependent walk of d0 steps per target.  The CTA of the
+//   grid with the most levels over all its slots sets the launch's time.
 //
-// trace_paths has no Pallas counterpart: it is the jnp `_dir_field`,
-// `_trace_one` and the occupancy commit of `_route_step` in
-// src/repro/eda/batched_flow.py, which the reference hides under `jit`.
-// One thread per (grid, star target) lane walks the field from the target
-// back to the hub, stepping to the first NEIGHBORS cell (down, up, right,
-// left) at distance d-1; a blocked target is entered at +1 from its first
-// neighbour at d-1.  When every masked target of a grid is reachable (ok),
-// the walk's cells are added to the int32 occupancy with atomicAdd and the
-// routed / wirelength counters grow; otherwise the failed counter does.
+//   Design:
+//   * State in shared memory for the whole launch: the occupancy count as
+//     uint16 over the grid's own gh x gw cells (offset so it is exact for
+//     any int32 occ0; see `count0`), and bitsets of ceil(gw / 32) words per
+//     row: free, visited, two frontiers, the cells whose arrival resolves a
+//     target, and two planes of each cell's backtrace direction.  No
+//     distance is stored.  A grid whose counts do not fit shared memory
+//     (the 65536 array's 122 x 1090) keeps them in a device-memory scratch
+//     that the wrapper allocates (it stays in L2), its bitsets in shared
+//     memory; a grid whose bitsets do not fit either (65536 at coarse 32,
+//     241 x 2178) keeps both in the scratch.
+//   * Bit-parallel, level-synchronous BFS, the TPU kernel's own plane
+//     shifts (`_shift`, kernel.py:34-45) at one bit a cell:
+//     next = dilate(frontier) & free & ~visited, the dilation by word shifts
+//     with carries across words ORed with the rows above and below.  A
+//     level touches only the window of cells within `level` of the hub.
+//     The hub is seeded at level 0 even when it is occupied.
+//   * The backtrace direction instead of the distance: a cell reached at
+//     level d has its d - 1 neighbours in the previous frontier, so the
+//     reference's choice (the first NEIGHBORS cell, down, up, right, left,
+//     at d - 1) is the first of the four dilation terms that holds its
+//     bit: two bitplanes written a word at a time, no per-cell store.
+//   * Early stop: a slot's BFS ends at the first level at which every masked
+//     target is resolved, or when the frontier empties.  A free target is
+//     resolved when it is reached (d0 = that level); a blocked one when any
+//     of its four neighbours is (level order makes that neighbour the
+//     minimum: d0 = level + 1, entered from the first such neighbour).  The
+//     thread that finds such a cell records d0 and clears the target's bit
+//     in a shared mask, which the level's barrier publishes.  It is exact:
+//     the walk reads only cells at distance below d0, and `ok` and the
+//     wirelength use d0 alone.
+//   * Backtrace and commit on chip, by warp 0 (`trace_slot`): lane t walks
+//     star target t to the hub along the directions into a path buffer,
+//     then the warp commits all lanes' cells at once to the shared count,
+//     clearing the free bit of a cell whose count reaches capacity, for the
+//     next slot.
+//   * The count of the real cells is written once into the (B, H, W) int32
+//     occ at the end, the pad copied from occ0; the counters into (B,).
 //
-//   Bound on the H100: latency of the walk, a dependent chain of one load
-//   per step (a few hundred steps); the bytes are the visited cells only.
-//   Design: the whole slot is one launch, so the per-step work that eager
-//   PyTorch would spend ~6 launches on stays on the device.
+// wavefront, the standalone counterpart of `wavefront_kernel`, runs the
+// same bit-parallel BFS from a seed plane to the full field (no early
+// stop), writing each cell's level into the int32 output: dist = 0 on
+// seeds (even when occupied), INF = 2^29 where unreachable, blocked or
+// beyond the grid's own extent.  Its four bitsets sit in shared memory,
+// or in a device-memory scratch when the plane's do not fit.  trace_paths keeps its entry point, one
+// net slot over a given int32 field, on the same `trace_slot` walk (one
+// warp per grid, atomics into the int32 occupancy).
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -48,70 +72,482 @@
 namespace {
 
 constexpr int kInf = 1 << 29;
-constexpr int kBlocked = kInf + 1;
-constexpr int kWaveThreads = 1024;
-constexpr int kTraceThreads = 128;
-// NEIGHBORS order of the backtrace tie-break: down, up, right, left.
-__constant__ int kDy[4] = {1, -1, 0, 0};
-__constant__ int kDx[4] = {0, 0, 1, -1};
+constexpr int kThreads = 512;
+constexpr int kMaxTargets = 32;   // one warp lane per star target
+constexpr int kPath = 64;         // walk steps a lane takes between commits
+constexpr int kNone = 4;          // no direction
+// Dynamic shared memory a block may use: 232,448 B less room for the
+// kernels' static shared memory (route_slots' `Slot`).
+constexpr int kSmemReserve = 10 * 1024;
+constexpr int kSmemLimit = 232448 - kSmemReserve;
 
-__global__ void __launch_bounds__(kWaveThreads)
-wavefront_kernel(const uint8_t* __restrict__ occ,
-                 const uint8_t* __restrict__ seed,
-                 const int* __restrict__ grids, int* __restrict__ dist,
-                 int H, int W, int smem_cells) {
-  extern __shared__ int sfield[];
-  const int b = blockIdx.x;
-  const int gh = grids ? min(grids[2 * b], H) : H;
-  const int gw = grids ? min(grids[2 * b + 1], W) : W;
-  const int n = gh * gw;
-  const size_t base = (size_t)b * H * W;
-  const uint8_t* ob = occ + base;
-  const uint8_t* sb = seed + base;
-  int* db = dist + base;
-  const bool in_smem = n <= smem_cells;
-  int* d = in_smem ? sfield : db;     // the field being relaxed
-  const int ld = in_smem ? gw : W;    // its row stride
-  const int tid = threadIdx.x, nthr = blockDim.x;
+// The bitsets of one grid, row-major, `wpr` words per row; bit j of word w
+// is column 32 w + j.  (The two frontier buffers are passed beside it as
+// plain pointers: an array of them indexed by level parity would put the
+// struct in local memory.)
+struct Bits {
+  uint32_t* free;   // the cell may be entered
+  uint32_t* vis;    // reached by the current BFS
+  int gh, gw, wpr;
 
-  // Pad cells beyond the grid's own extent: never relaxed, INF.
-  if (gh < H || gw < W) {
-    for (int k = tid; k < H * W; k += nthr) {
-      const int y = k / W, x = k - y * W;
-      if (y >= gh || x >= gw) db[k] = kInf;
+  __device__ bool test(const uint32_t* s, int y, int x) const {
+    return (s[y * wpr + (x >> 5)] >> (x & 31)) & 1u;
+  }
+};
+
+// One word's new frontier cells `m` (word k = row r, word w) and, for each
+// bit, whether its neighbour below / above / right / left was on the
+// previous frontier: the dilation's four terms.
+struct Arrival {
+  int r, w, k;
+  uint32_t m, down, up, right, left;
+};
+
+// One BFS level over rows [r0, r1) and words [w0, w1): the free, unvisited
+// cells next to the frontier `cur` become the frontier `nxt` and visited,
+// and `on_new` sees each word that gained cells.  Words of `nxt` outside
+// the window are left as they are: the window holds every cell the level
+// can reach, and they are zero.  Returns whether this thread found a new
+// cell.
+template <class OnNew>
+__device__ bool bfs_level(const Bits g, const uint32_t* cur, uint32_t* nxt,
+                          int r0, int r1, int w0, int w1, OnNew on_new) {
+  const int nw = w1 - w0, n = (r1 - r0) * nw, wpr = g.wpr;
+  // i / nw through a correctly rounded reciprocal: (i + 1/2) / nw lies at
+  // least 1 / (2 nw) from an integer, and the float product errs by less
+  // than that while i + 1/2 < 2^22.
+  const float inv = __frcp_rn((float)nw);
+  bool found = false;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int dr = __float2int_rz(((float)i + 0.5f) * inv);
+    const int r = r0 + dr, w = w0 + i - dr * nw;
+    const int k = r * wpr + w;
+    const uint32_t c = cur[k];
+    const uint32_t left = (c << 1) | (w > 0 ? cur[k - 1] >> 31 : 0u);
+    const uint32_t right = (c >> 1) | (w + 1 < wpr ? cur[k + 1] << 31 : 0u);
+    const uint32_t up = r > 0 ? cur[k - wpr] : 0u;
+    const uint32_t down = r + 1 < g.gh ? cur[k + wpr] : 0u;
+    const uint32_t v = g.vis[k];
+    const uint32_t m = (left | right | up | down) & g.free[k] & ~v;
+    nxt[k] = m;
+    if (m) {
+      g.vis[k] = v | m;
+      found = true;
+      on_new(Arrival{r, w, k, m, down, up, right, left});
     }
   }
-  for (int k = tid; k < n; k += nthr) {
-    const int y = k / gw, x = k - y * gw;
-    const int g = y * W + x;
-    d[y * ld + x] = sb[g] ? 0 : (ob[g] ? kBlocked : kInf);
-  }
-  __syncthreads();
+  return found;
+}
 
+// NEIGHBORS (down, up, right, left) as offsets of direction k.
+__device__ __forceinline__ int dir_y(int k) { return (k == 0) - (k == 1); }
+__device__ __forceinline__ int dir_x(int k) { return (k == 2) - (k == 3); }
+
+// How the new cells m of word w of row r resolve target (ty, tx): kNone if
+// the target is one of them (it is reached); for a blocked target, the
+// first direction j whose neighbour is one of them (entry from j); -1 when
+// neither holds.
+__device__ __forceinline__ int resolves(int r, int w, uint32_t m, int ty,
+                                        int tx, bool blocked) {
+  auto hit = [&](int y, int x) {
+    return y == r && x >= 0 && (x >> 5) == w && ((m >> (x & 31)) & 1u);
+  };
+  if (hit(ty, tx)) return kNone;
+  if (blocked)
+    for (int j = 0; j < 4; ++j)
+      if (hit(ty + dir_y(j), tx + dir_x(j))) return j;
+  return -1;
+}
+
+// The backtrace and commit of one net slot on one grid, by one warp (the
+// reference's `_trace_one` and the commit of `_route_step`): the lane with
+// `act` set takes the star target (ty, tx), at distance d0 from the hub
+// (kInf if unreachable); `entry` is kNone, or for a blocked target the
+// direction of its first neighbour at d0 - 1.  dir(y, x, d) is the
+// backtrace direction of a cell at distance d (kNone if there is none),
+// commit(y, x) adds one visit.  The slot routes (`ok`) when it is real and
+// every active target is reachable; then each active lane walks from its
+// target to the hub.  The walk only reads: each lane puts up to kPath cells
+// in its row of `path` ((y << 16) | x), then the whole warp commits every
+// lane's cells at once, so the commits' atomics run side by side.  Returns
+// ok on every lane, and in `wl` the slot's path points (sum of d0 + 1).
+template <class Dir, class Commit>
+__device__ bool trace_slot(bool act, int ty, int tx, int d0, int entry,
+                           bool real, Dir dir, Commit commit,
+                           int (*path)[kPath], int& wl) {
+  const int lane = threadIdx.x & 31;
+  const bool ok = __all_sync(0xffffffffu, !act || d0 < kInf) && real;
+  wl = __reduce_add_sync(0xffffffffu, act && ok ? d0 + 1 : 0);
+  if (!ok) return ok;
+  int* mine = path[lane];
+  int y = ty, x = tx, d = d0, n = 0;
+  if (act) {
+    mine[n++] = (y << 16) | x;
+    if (entry != kNone) {
+      y += dir_y(entry);
+      x += dir_x(entry);
+      mine[n++] = (y << 16) | x;
+      d = d0 - 1;
+    }
+  } else {
+    d = 0;
+  }
   for (;;) {
-    int changed = 0;
-    for (int k = tid; k < n; k += nthr) {
-      const int y = k / gw, x = k - y * gw;
-      int* c = d + y * ld + x;
-      const int v = *c;
-      if (v >= kBlocked || v == 0) continue;
-      int best = kBlocked;
-      if (y + 1 < gh) best = min(best, c[ld]);
-      if (y > 0) best = min(best, c[-ld]);
-      if (x + 1 < gw) best = min(best, c[1]);
-      if (x > 0) best = min(best, c[-1]);
-      if (best + 1 < v) {
-        *c = best + 1;
-        changed = 1;
+    while (d > 0 && n < kPath) {
+      const int k = dir(y, x, d);
+      if (k == kNone) {  // unreachable: BFS fields always hold the chain
+        d = 0;
+        break;
+      }
+      y += dir_y(k);
+      x += dir_x(k);
+      mine[n++] = (y << 16) | x;
+      --d;
+    }
+    __syncwarp();
+    for (uint32_t q = __ballot_sync(0xffffffffu, n > 0); q; q &= q - 1) {
+      const int t = __ffs(q) - 1, nt = __shfl_sync(0xffffffffu, n, t);
+      for (int i = lane; i < nt; i += 32)
+        commit(path[t][i] >> 16, path[t][i] & 0xffff);
+    }
+    __syncwarp();
+    if (!__any_sync(0xffffffffu, d > 0)) break;
+    n = 0;
+  }
+  return ok;
+}
+
+// The net slots of a bucket, (B, S, ...) row-major.
+struct Nets {
+  const int* hubs;       // (B, S, 2) (y, x)
+  const int* tgts;       // (B, S, T, 2)
+  const uint8_t* tmask;  // (B, S, T)
+  const uint8_t* nmask;  // (B, S)
+  int S, T;
+  int K;  // one more than the most masked targets a grid routes
+};
+
+// Outputs of route_slots, (B, H, W) and (B,).
+struct Routed {
+  int *occ, *routed, *failed, *wirelen, *levels;
+};
+
+// count0: a cell is blocked when occ0 + visits >= capacity, and a walk
+// enters a cell at most once, so a launch adds at most A visits to a cell,
+// A the most masked targets of real slots a grid has.  So the kernel keeps
+// u = clamp(occ0 - lo, 0, K) + visits with K = A + 1, lo = capacity - K:
+// blocked iff u >= K, at most 2 A + 1 (< 2^16, checked by the wrapper),
+// and occ = occ0 + u - clamp(occ0 - lo, 0, K) at the end.
+__device__ __forceinline__ int count0(int o, long long lo, int K) {
+  return (int)min((long long)K, max(0LL, (long long)o - lo));
+}
+
+// A CTA's per-slot state, in shared memory.
+struct Slot {
+  int tg[kMaxTargets][2];
+  int d0[kMaxTargets];     // distance of each target
+  int entry[kMaxTargets];  // a blocked target's entry direction
+  int path[kMaxTargets][kPath];
+  int hub[2];
+  uint32_t act;      // the slot's masked targets, a bit each
+  uint32_t blocked;  // ... those on a blocked cell
+  // Unresolved targets, by level parity: a level's finders clear bits of
+  // its own word, which no thread writes again until two barriers later.
+  uint32_t unres[2];
+  int real, last;
+};
+static_assert(sizeof(Slot) + 512 <= kSmemReserve, "Slot outgrew its room");
+
+// One grid's slots.  `bits` holds seven bitsets of max_words words: free,
+// visited, the two frontiers, `watch` (the cells whose arrival resolves a
+// target: a free target itself, a blocked one's neighbours) and the two
+// direction planes (bit 0 and bit 1 of each visited cell's NEIGHBORS index
+// towards d - 1).  cnt holds the grid's gh x gw counts; `Cnt` makes it a
+// shared or a global pointer, so its atomics are of the right kind.
+template <class Cnt>
+__device__ __forceinline__ void route_grid(Slot& st, const Nets& nets,
+                           const int* __restrict__ occ0, const Routed& out,
+                           uint32_t* bits, int max_words, int gh, int gw,
+                           Cnt cnt, int H, int W, int capacity) {
+  const Bits g{bits, bits + max_words, gh, gw, (gw + 31) >> 5};
+  uint32_t* const fr0 = bits + 2 * max_words;
+  uint32_t* const fr1 = bits + 3 * max_words;
+  uint32_t* const watch = bits + 4 * max_words;
+  uint32_t* const dlo = bits + 5 * max_words;
+  uint32_t* const dhi = bits + 6 * max_words;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int S = nets.S, T = nets.T, K = nets.K, wpr = g.wpr;
+  const long long lo = (long long)capacity - K;
+  const int words = gh * wpr;
+  const size_t base = (size_t)b * H * W;
+
+  // Counts and free bits of the grid's own cells, one warp per word.
+  for (int i = warp; i < words; i += nwarps) {
+    const int r = i / wpr, x = (i - r * wpr) * 32 + lane;
+    bool enterable = false;
+    if (x < gw) {
+      const int u = count0(occ0[base + (size_t)r * W + x], lo, K);
+      cnt.p[r * gw + x] = (uint16_t)u;
+      enterable = u < K;
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, enterable);
+    if (lane == 0) g.free[i] = word;
+  }
+  if (tid == 0) st.last = -1;
+  __syncthreads();
+  for (int s = tid; s < S; s += blockDim.x)
+    if (nets.nmask[(size_t)b * S + s]) atomicMax(&st.last, s);
+  __syncthreads();
+  const int last = st.last;
+
+  auto dir_at = [=](int y, int x, int) -> int {
+    const int k = y * wpr + (x >> 5), sh = x & 31;
+    return ((dlo[k] >> sh) & 1u) | (((dhi[k] >> sh) & 1u) << 1);
+  };
+  // Counts are uint16 pairs in 32-bit words: one atomic adds to one half.
+  auto commit = [=](int y, int x) {
+    const int c = y * gw + x, sh = (c & 1) << 4;
+    const uint32_t old = cnt.add(c >> 1, 1u << sh);
+    if (((old >> sh) & 0xffffu) + 1 >= (uint32_t)K)
+      atomicAnd(&g.free[y * wpr + (x >> 5)], ~(1u << (x & 31)));
+  };
+
+  int routed = 0, failed = 0, wirelen = 0, levels = 0;  // thread 0's
+  for (int s = 0; s <= last; ++s) {
+    const size_t bs = (size_t)b * S + s;
+    if (warp == 0) {
+      const bool real = nets.nmask[bs] != 0;
+      const bool act = real && lane < T && nets.tmask[bs * T + lane] != 0;
+      if (lane < T) {
+        st.tg[lane][0] = nets.tgts[(bs * T + lane) * 2];
+        st.tg[lane][1] = nets.tgts[(bs * T + lane) * 2 + 1];
+      }
+      const uint32_t m = __ballot_sync(0xffffffffu, act);
+      if (lane == 0) {
+        st.real = real;
+        st.act = m;
+        st.hub[0] = nets.hubs[bs * 2];
+        st.hub[1] = nets.hubs[bs * 2 + 1];
       }
     }
-    if (!__syncthreads_or(changed)) break;
+    for (int i = tid; i < words; i += blockDim.x)
+      g.vis[i] = fr0[i] = fr1[i] = watch[i] = 0;
+    __syncthreads();
+    const bool real = st.real;
+    const uint32_t act = st.act;
+    const int hy = st.hub[0], hx = st.hub[1];
+    if (real && warp == 0) {
+      // Seed the hub (level 0) and mark what resolves each target; a
+      // target at the hub, or a blocked one next to it, is resolved now.
+      const bool mine = (act >> lane) & 1u;
+      const int ty = st.tg[lane][0], tx = st.tg[lane][1];
+      const bool blocked = mine && !g.test(g.free, ty, tx);
+      int now = -1;
+      if (mine) {
+        const int ny[5] = {ty, ty + 1, ty - 1, ty, ty};
+        const int nx[5] = {tx, tx, tx, tx + 1, tx - 1};
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+          if (j > 0 && !blocked) break;
+          if (ny[j] >= 0 && ny[j] < gh && nx[j] >= 0 && nx[j] < gw)
+            atomicOr(&watch[ny[j] * wpr + (nx[j] >> 5)], 1u << (nx[j] & 31));
+        }
+        now = resolves(hy, hx >> 5, 1u << (hx & 31), ty, tx, blocked);
+        st.d0[lane] = now < 0 ? kInf : now == kNone ? 0 : 1;
+        st.entry[lane] = now < 0 ? kNone : now;
+      }
+      const uint32_t bm = __ballot_sync(0xffffffffu, blocked);
+      const uint32_t done = __ballot_sync(0xffffffffu, now >= 0);
+      if (lane == 0) {
+        const uint32_t bit = 1u << (hx & 31);
+        g.vis[hy * wpr + (hx >> 5)] |= bit;
+        fr0[hy * wpr + (hx >> 5)] |= bit;
+        st.blocked = bm;
+        st.unres[0] = st.unres[1] = act & ~done;
+      }
+    }
+    __syncthreads();
+    if (real) {
+      uint32_t unres = st.unres[0];
+      const uint32_t blocked = st.blocked;
+      int level = 0;
+      uint32_t *cur = fr0, *nxt = fr1;
+      while (unres) {
+        ++level;
+        const int r0 = max(0, hy - level), r1 = min(gh, hy + level + 1);
+        const int w0 = max(0, hx - level) >> 5;
+        const int w1 = (min(gw - 1, hx + level) >> 5) + 1;
+        uint32_t* const sres = &st.unres[level & 1];
+        const bool found = bfs_level(
+            g, cur, nxt, r0, r1, w0, w1, [=, &st](const Arrival& a) {
+              // Direction planes: the first of down, up, right, left that
+              // was on the previous frontier.
+              const uint32_t du = a.down | a.up;
+              const uint32_t p0 = (a.up & ~a.down) | ~(du | a.right);
+              dlo[a.k] = (dlo[a.k] & ~a.m) | (a.m & p0);
+              dhi[a.k] = (dhi[a.k] & ~a.m) | (a.m & ~du);
+              if (!(a.m & watch[a.k])) return;
+              for (uint32_t q = unres; q; q &= q - 1) {
+                const int t = __ffs(q) - 1;
+                const int how = resolves(a.r, a.w, a.m, st.tg[t][0],
+                                         st.tg[t][1], (blocked >> t) & 1u);
+                if (how < 0) continue;
+                st.d0[t] = how == kNone ? level : level + 1;
+                if (how != kNone) atomicMin(&st.entry[t], how);
+                atomicAnd(sres, ~(1u << t));
+              }
+            });
+        if (!__syncthreads_or(found)) break;
+        unres &= *(volatile uint32_t*)sres;
+        uint32_t* const t = cur;
+        cur = nxt;
+        nxt = t;
+      }
+      levels += level;
+      if (warp == 0) {
+        const bool mine = (act >> lane) & 1u;
+        int wl;
+        const bool ok = trace_slot(
+            mine, mine ? st.tg[lane][0] : 0, mine ? st.tg[lane][1] : 0,
+            mine ? st.d0[lane] : kInf, mine ? st.entry[lane] : kNone, true,
+            dir_at, commit, st.path, wl);
+        routed += ok;
+        failed += !ok;
+        wirelen += ok ? wl : 0;
+      }
+    }
+    __syncthreads();
   }
 
-  for (int k = tid; k < n; k += nthr) {
-    const int y = k / gw, x = k - y * gw;
-    db[y * W + x] = min(d[y * ld + x], kInf);
+  // occ = occ0 + visits on the grid's own cells, occ0 on the pad.
+  for (int r = warp; r < H; r += nwarps) {
+    for (int x = lane; x < W; x += 32) {
+      const size_t gi = base + (size_t)r * W + x;
+      const int o = occ0[gi];
+      out.occ[gi] = (r < gh && x < gw)
+          ? (int)((long long)o + cnt.p[r * gw + x] - count0(o, lo, K))
+          : o;
+    }
   }
+  if (tid == 0) {
+    out.routed[b] = routed;
+    out.failed[b] = failed;
+    out.wirelen[b] = wirelen;
+    if (out.levels) out.levels[b] = levels;
+  }
+}
+
+// The grid's counts, uint16 in shared or in global memory.  The shared
+// kind names its space to the atomic (a generic atomic on shared memory is
+// several times slower).
+struct SharedCounts {
+  uint16_t* p;
+  __device__ uint32_t add(int word, uint32_t v) const {
+    const unsigned a = static_cast<unsigned>(
+        __cvta_generic_to_shared(reinterpret_cast<uint32_t*>(p) + word));
+    uint32_t old;
+    asm volatile("atom.shared.add.u32 %0, [%1], %2;"
+                 : "=r"(old) : "r"(a), "r"(v) : "memory");
+    return old;
+  }
+};
+struct GlobalCounts {
+  uint16_t* p;
+  __device__ uint32_t add(int word, uint32_t v) const {
+    return atomicAdd(reinterpret_cast<uint32_t*>(p) + word, v);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+route_slots_kernel(Nets nets, const int* __restrict__ occ0,
+                   const int* __restrict__ grids, Routed out,
+                   uint16_t* g_cnt, uint32_t* g_bits, int H, int W,
+                   int capacity, int smem_cells, int smem_words,
+                   long long scratch_cells, long long scratch_words) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ Slot st;
+  const int b = blockIdx.x;
+  const int gh = min(grids[2 * b], H), gw = min(grids[2 * b + 1], W);
+  const GlobalCounts g_counts{g_cnt + b * scratch_cells};
+  // Each branch derives its own pointers, so that the compiler sees which
+  // memory space every bitset access goes to.
+  if (gh * ((gw + 31) >> 5) <= smem_words) {
+    // the bitsets follow smem_cells (even) uint16 counts
+    uint32_t* bits = smem + smem_cells / 2;
+    if (gh * gw <= smem_cells)
+      route_grid(st, nets, occ0, out, bits, smem_words, gh, gw,
+                 SharedCounts{reinterpret_cast<uint16_t*>(smem)}, H, W,
+                 capacity);
+    else
+      route_grid(st, nets, occ0, out, bits, smem_words, gh, gw, g_counts, H,
+                 W, capacity);
+  } else {
+    route_grid(st, nets, occ0, out, g_bits + b * 7 * scratch_words,
+               (int)scratch_words, gh, gw, g_counts, H, W, capacity);
+  }
+}
+
+// The BFS field of grid blockIdx.x; `bits` holds four bitsets of
+// max_words words: free, visited and the two frontiers.
+__device__ __forceinline__ void wavefront_grid(
+    const uint8_t* __restrict__ occ, const uint8_t* __restrict__ seed,
+    const int* __restrict__ grids, int* __restrict__ dist, int H, int W,
+    uint32_t* bits, int max_words) {
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int gh = grids ? min(grids[2 * b], H) : H;
+  const int gw = grids ? min(grids[2 * b + 1], W) : W;
+  const Bits g{bits, bits + max_words, gh, gw, (gw + 31) >> 5};
+  uint32_t* cur = bits + 2 * max_words;
+  uint32_t* nxt = bits + 3 * max_words;
+  const int words = gh * g.wpr;
+  const size_t base = (size_t)b * H * W;
+  int* db = dist + base;
+
+  // Free bits; the seeds are visited at level 0 and are the first frontier.
+  for (int i = warp; i < words; i += nwarps) {
+    const int r = i / g.wpr, x = (i - r * g.wpr) * 32 + lane;
+    const bool in = x < gw;
+    const size_t k = base + (size_t)r * W + x;
+    const bool sd = in && seed[k];
+    const uint32_t enterable = __ballot_sync(0xffffffffu, in && !occ[k]);
+    const uint32_t seeds = __ballot_sync(0xffffffffu, sd);
+    if (sd) db[r * W + x] = 0;
+    if (lane == 0) {
+      g.free[i] = enterable;
+      g.vis[i] = cur[i] = seeds;
+      nxt[i] = 0;
+    }
+  }
+  __syncthreads();
+  for (int level = 1;; ++level) {
+    const bool found =
+        bfs_level(g, cur, nxt, 0, gh, 0, g.wpr, [=](const Arrival& a) {
+          for (uint32_t q = a.m; q; q &= q - 1)
+            db[a.r * W + (a.w << 5) + __ffs(q) - 1] = level;
+        });
+    if (!__syncthreads_or(found)) break;
+    uint32_t* const t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (int r = warp; r < H; r += nwarps)
+    for (int x = lane; x < W; x += 32)
+      if (r >= gh || x >= gw || !g.test(g.vis, r, x)) db[r * W + x] = kInf;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+wavefront_kernel(const uint8_t* __restrict__ occ,
+                 const uint8_t* __restrict__ seed,
+                 const int* __restrict__ grids, int* __restrict__ dist, int H,
+                 int W, uint32_t* g_bits, int max_words) {
+  extern __shared__ __align__(16) uint32_t sbits[];
+  if (g_bits)
+    wavefront_grid(occ, seed, grids, dist, H, W,
+                   g_bits + (size_t)blockIdx.x * 4 * max_words, max_words);
+  else
+    wavefront_grid(occ, seed, grids, dist, H, W, sbits, max_words);
 }
 
 __global__ void trace_paths_kernel(const int* __restrict__ dist,
@@ -121,68 +557,51 @@ __global__ void trace_paths_kernel(const int* __restrict__ dist,
                                    int* __restrict__ occ,
                                    int* __restrict__ routed,
                                    int* __restrict__ failed,
-                                   int* __restrict__ wirelen,
-                                   int B, int T, int H, int W) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B * T) return;
-  const int b = lane / T, t = lane - b * T;
+                                   int* __restrict__ wirelen, int B, int T,
+                                   int H, int W) {
+  const int b = blockIdx.x, lane = threadIdx.x;  // one warp per grid
   const int* db = dist + (size_t)b * H * W;
   int* ob = occ + (size_t)b * H * W;
   const bool real = nmask[b] != 0;
-
-  // d0 of every target of this grid: its field value, or for a blocked
-  // target one more than its best neighbour.
-  bool ok = real;
-  int wl = 0, my_d0 = kInf, my_dv = kInf, my_nd[4] = {kInf, kInf, kInf, kInf};
-  for (int tt = 0; tt < T; ++tt) {
-    if (!tmask[b * T + tt]) continue;
-    const int ty = tgts[(b * T + tt) * 2], tx = tgts[(b * T + tt) * 2 + 1];
-    const int dv = db[ty * W + tx];
+  const bool act = real && lane < T && tmask[b * T + lane] != 0;
+  const int ty = act ? tgts[(b * T + lane) * 2] : 0;
+  const int tx = act ? tgts[(b * T + lane) * 2 + 1] : 0;
+  auto dist_at = [&](int y, int x) {
+    return (y >= 0 && y < H && x >= 0 && x < W) ? db[y * W + x] : kInf;
+  };
+  // d0: the target's field value, or for a blocked target one more than
+  // its best neighbour, entered from the first neighbour at d0 - 1.
+  int d0 = kInf, entry = kNone;
+  if (act) {
+    const int dv = dist_at(ty, tx);
     int nd[4], best = kInf;
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int ny = ty + kDy[k], nx = tx + kDx[k];
-      nd[k] = (ny >= 0 && ny < H && nx >= 0 && nx < W) ? db[ny * W + nx]
-                                                       : kInf;
+      nd[k] = dist_at(ty + dir_y(k), tx + dir_x(k));
       best = min(best, nd[k]);
     }
-    const int d0 = dv < kInf ? dv : min(kInf, best + 1);
-    ok = ok && d0 < kInf;
-    wl += d0 + 1;
-    if (tt == t) {
-      my_d0 = d0;
-      my_dv = dv;
-      for (int k = 0; k < 4; ++k) my_nd[k] = nd[k];
-    }
+    d0 = dv < kInf ? dv : min(kInf, best + 1);
+    if (dv >= kInf)
+      entry = nd[0] == d0 - 1 ? 0 : nd[1] == d0 - 1 ? 1
+            : nd[2] == d0 - 1 ? 2 : 3;
   }
-  if (t == 0) {
+  // the first NEIGHBORS cell at d - 1
+  auto dir = [&](int y, int x, int d) {
+    int k = kNone;
+#pragma unroll
+    for (int j = 3; j >= 0; --j)
+      if (dist_at(y + dir_y(j), x + dir_x(j)) == d - 1) k = j;
+    return k;
+  };
+  auto commit = [&](int y, int x) { atomicAdd(ob + y * W + x, 1); };
+  __shared__ int path[32][kPath];
+  int wl;
+  const bool ok =
+      trace_slot(act, ty, tx, d0, entry, real, dir, commit, path, wl);
+  if (lane == 0) {
     routed[b] += ok ? 1 : 0;
     failed[b] += (real && !ok) ? 1 : 0;
     wirelen[b] += ok ? wl : 0;
-  }
-  if (!ok || !tmask[b * T + t]) return;
-
-  int y = tgts[lane * 2], x = tgts[lane * 2 + 1], d = my_d0;
-  atomicAdd(ob + y * W + x, 1);
-  if (my_dv >= kInf) {  // blocked target: enter from its first d-1 neighbour
-    int k = 0;
-    while (k < 3 && my_nd[k] != my_d0 - 1) ++k;
-    y += kDy[k];
-    x += kDx[k];
-    atomicAdd(ob + y * W + x, 1);
-    d = my_d0 - 1;
-  }
-  while (d > 0) {
-    int k = 0;
-    for (; k < 4; ++k) {
-      const int ny = y + kDy[k], nx = x + kDx[k];
-      if (ny >= 0 && ny < H && nx >= 0 && nx < W && db[ny * W + nx] == d - 1)
-        break;
-    }
-    if (k == 4) break;  // unreachable: BFS fields always hold the chain
-    y += kDy[k];
-    x += kDx[k];
-    atomicAdd(ob + y * W + x, 1);
-    --d;
   }
 }
 
@@ -190,26 +609,55 @@ __global__ void trace_paths_kernel(const int* __restrict__ dist,
 
 extern "C" {
 
-// Largest grid (cells) whose int32 field fits the shared memory of a block.
-int wavefront_smem_cells(void) { return 232448 / 4; }
+// Dynamic shared memory (bytes) a launch of these kernels may ask for.
+int maze_route_smem_limit(void) { return kSmemLimit; }
 
+// The BFS field of B grids.  The four bitsets of an H x W plane,
+// 16 * H * ceil(W / 32) bytes, sit in shared memory when g_bits is null
+// (they must fit maze_route_smem_limit()), else in g_bits, B * 4 *
+// H * ceil(W / 32) words.
 int wavefront(const uint8_t* occ, const uint8_t* seed, const int* grids,
-              int* dist, int B, int H, int W, int smem_cells, void* stream) {
-  const size_t smem = (size_t)smem_cells * 4;
+              int* dist, uint32_t* g_bits, int B, int H, int W,
+              void* stream) {
+  const int max_words = H * ((W + 31) / 32);
+  const int smem = g_bits ? 0 : max_words * 16;
   cudaFuncSetAttribute(wavefront_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  wavefront_kernel<<<B, kWaveThreads, smem, (cudaStream_t)stream>>>(
-      occ, seed, grids, dist, H, W, smem_cells);
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  wavefront_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      occ, seed, grids, dist, H, W, g_bits, max_words);
   return (int)cudaGetLastError();
 }
 
 int trace_paths(const int* dist, const int* tgts, const uint8_t* tmask,
                 const uint8_t* nmask, int* occ, int* routed, int* failed,
                 int* wirelen, int B, int T, int H, int W, void* stream) {
-  const int lanes = B * T;
-  const int blocks = (lanes + kTraceThreads - 1) / kTraceThreads;
-  trace_paths_kernel<<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
+  trace_paths_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
       dist, tgts, tmask, nmask, occ, routed, failed, wirelen, B, T, H, W);
+  return (int)cudaGetLastError();
+}
+
+// All S net slots of B grids.  A grid of gh * ceil(gw / 32) <= smem_words
+// bitset words keeps its seven bitsets in shared memory, and its counts
+// there too when it has at most smem_cells (even) cells; the others keep
+// their counts in g_cnt at b * scratch_cells (even) and, beyond
+// smem_words, their bitsets in g_bits at b * 7 * scratch_words.
+// max_visits is the most masked targets of real slots a grid has (2
+// max_visits + 1 < 2^16); levels may be null.
+int route_slots(const int* occ0, const int* hubs, const int* tgts,
+                const uint8_t* tmask, const uint8_t* nmask, const int* grids,
+                int* occ, int* routed, int* failed, int* wirelen, int* levels,
+                uint16_t* g_cnt, uint32_t* g_bits, int B, int S, int T, int H,
+                int W, int capacity, int max_visits, int smem_cells,
+                int smem_words, long long scratch_cells,
+                long long scratch_words, void* stream) {
+  const int smem = smem_cells * 2 + smem_words * 28;
+  cudaFuncSetAttribute(route_slots_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const Nets nets{hubs, tgts, tmask, nmask, S, T, max_visits + 1};
+  const Routed out{occ, routed, failed, wirelen, levels};
+  route_slots_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      nets, occ0, grids, out, g_cnt, g_bits, H, W, capacity, smem_cells,
+      smem_words, scratch_cells, scratch_words);
   return (int)cudaGetLastError();
 }
 

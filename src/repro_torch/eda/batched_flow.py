@@ -11,11 +11,13 @@ Counterpart of `repro.eda.batched_flow` with its scan routing engine:
   * **nets** — the inter-template nets derived from the rect tensors,
     ordered longest-first by a stable sort, as the sequential router
     orders them;
-  * **route** — net slot by net slot: one `wavefront` kernel launch
-    expands every grid of the batch at once, and one `trace_paths`
-    launch backtraces and commits every grid's targets.  Cells beyond a
-    spec's own routing grid are pre-blocked, so padding a small spec up
-    to the batch's largest grid cannot open new paths.
+  * **route** — every net slot of the bucket in one `route_slots`
+    launch (the reference's `_route_program`): one persistent CTA per
+    grid runs the grid's slots in order, each a BFS from the net's hub
+    that stops at its last target, then the backtrace and the occupancy
+    commit, all on chip.  Cells beyond a spec's own routing grid are
+    pre-blocked, so padding a small spec up to the batch's largest grid
+    cannot open new paths.
 
 The reference's concurrent host engine is not ported yet:
 `engine="concurrent"` raises `NotImplementedError`.
@@ -36,9 +38,8 @@ from repro_torch.eda.placer import (CATEGORIES, BatchDims, LayoutOperands,
                                     PlacerGeometry, geometry, layout_operands,
                                     rect_tensors)
 from repro_torch.eda.router import grid_shape
-from repro_torch.kernels.maze_route import kernel as mr_kernel
 from repro_torch.kernels.maze_route import ref as mr_ref
-from repro_torch.kernels.maze_route.ops import wavefront_distance
+from repro_torch.kernels.maze_route.ops import route_slots
 
 I32 = torch.int32
 
@@ -199,40 +200,8 @@ def _nets_program(tensors, ops: LayoutOperands, *, dims: BatchDims,
 
 
 # ----------------------------------------------------------------------
-# Routing: per net slot, one wavefront launch + one trace launch
+# Routing: every net slot of the bucket in one route_slots launch
 # ----------------------------------------------------------------------
-def _route_step(occ_count, hubs, tgts, tmask, nmask, grids, max_cells,
-                routed, failed, wirelen, *, capacity: int):
-    """Route one net slot across the whole batch, in place.
-
-    occ_count (B, Gh, Gw) int32; hubs (B, 2); tgts (B, 2, 2); tmask
-    (B, 2); nmask (B,); grids (B, 2) each spec's own grid extent."""
-    bsz = occ_count.shape[0]
-    occ = occ_count >= capacity
-    seed = torch.zeros_like(occ)
-    bi = torch.arange(bsz, device=occ.device)
-    seed[bi, hubs[:, 0].long(), hubs[:, 1].long()] = nmask
-    dist = wavefront_distance(occ, seed, grids, max_cells)
-    mr_kernel.trace_paths(dist, tgts, tmask, nmask, occ_count, routed,
-                          failed, wirelen)
-
-
-def _route_program(occ0: torch.Tensor, nets: NetBatch, grids: torch.Tensor,
-                   *, capacity: int):
-    """All net slots in order: the sequential net-by-net data dependence
-    through the occupancy, every grid of the batch per slot."""
-    occ = occ0.clone()
-    bsz = occ.shape[0]
-    zeros = lambda: torch.zeros(bsz, dtype=I32, device=occ.device)  # noqa: E731
-    routed, failed, wirelen = zeros(), zeros(), zeros()
-    hubs, tgts, tmask, nmask = (x.transpose(0, 1).contiguous() for x in nets)
-    max_cells = int((grids[:, 0].long() * grids[:, 1].long()).max())
-    for s in range(hubs.shape[0]):
-        _route_step(occ, hubs[s], tgts[s], tmask[s], nmask[s], grids,
-                    max_cells, routed, failed, wirelen, capacity=capacity)
-    return occ, routed, failed, wirelen
-
-
 class BatchedRouting(NamedTuple):
     routed: np.ndarray          # (B,) int32 — successfully routed nets
     failed: np.ndarray          # (B,) int32
@@ -240,13 +209,28 @@ class BatchedRouting(NamedTuple):
     occ_count: np.ndarray       # (B, Gh, Gw) int32 congestion map
     grids: np.ndarray           # (B, 2) per-spec (gh, gw)
     engine: str = "scan"
-    rounds: int = 0             # wavefront dispatch rounds (net slots)
+    rounds: int = 0             # net slots, routed in order
     collisions: int = 0
 
     @property
     def success_rate(self) -> np.ndarray:
         n = self.routed + self.failed
         return np.where(n > 0, self.routed / np.maximum(n, 1), 1.0)
+
+
+def route_inputs(widths: np.ndarray, heights: np.ndarray, *, coarse: int,
+                 capacity: int, device):
+    """The routing grids of a bucket and its starting occupancy: (grids
+    (B, 2) int64 numpy, the same as int32 on `device`, blocked (B, Gh, Gw)
+    bool beyond each spec's own grid, occ0 int32 = `capacity` there and 0
+    elsewhere)."""
+    grids = np.array([grid_shape(int(w), int(h), coarse)
+                      for w, h in zip(widths, heights)], np.int64)
+    gh_max, gw_max = int(grids[:, 0].max()), int(grids[:, 1].max())
+    grids_t = torch.tensor(grids, dtype=I32, device=device)
+    blocked = mr_ref.outside_grids((len(grids), gh_max, gw_max), grids_t,
+                                   device)
+    return grids, grids_t, blocked, torch.where(blocked, capacity, 0).to(I32)
 
 
 def batched_route(nets: NetBatch, widths: np.ndarray, heights: np.ndarray,
@@ -262,15 +246,11 @@ def batched_route(nets: NetBatch, widths: np.ndarray, heights: np.ndarray,
     if engine not in (None, "scan"):
         raise ValueError(f"engine must be 'scan' or 'concurrent', "
                          f"got {engine!r}")
-    dev = nets.hubs.device
-    grids = np.array([grid_shape(int(w), int(h), coarse)
-                      for w, h in zip(widths, heights)], np.int64)
-    gh_max, gw_max = int(grids[:, 0].max()), int(grids[:, 1].max())
-    grids_t = torch.tensor(grids, dtype=I32, device=dev)
-    blocked = mr_ref.outside_grids((len(grids), gh_max, gw_max), grids_t, dev)
-    occ0 = torch.where(blocked, capacity, 0).to(I32)
-    occ, routed, failed, wirelen = _route_program(occ0, nets, grids_t,
-                                                  capacity=capacity)
+    grids, grids_t, blocked, occ0 = route_inputs(
+        widths, heights, coarse=coarse, capacity=capacity,
+        device=nets.hubs.device)
+    occ, routed, failed, wirelen = route_slots(occ0, *nets, grids_t,
+                                               capacity)
     occ = torch.where(blocked, 0, occ).to(I32)
     return BatchedRouting(routed.cpu().numpy(), failed.cpu().numpy(),
                           wirelen.cpu().numpy(), occ.cpu().numpy(), grids,
@@ -335,6 +315,37 @@ class BatchedLayoutResult:
         return rows
 
 
+class LayoutStages(NamedTuple):
+    """What the stages before routing leave for a spec batch."""
+
+    geom: PlacerGeometry
+    dims: BatchDims
+    ops: LayoutOperands
+    tensors: dict
+    drc_overlaps: torch.Tensor
+    drc_oob: torch.Tensor
+    nets: NetBatch
+
+
+def layout_stages(specs, *, coarse: int = 64, device="cuda") -> LayoutStages:
+    """Place, DRC and nets of a spec batch: `generate_layouts` up to its
+    route stage (`route_inputs` then gives the route call's grids and
+    starting occupancy)."""
+    geom = geometry()
+    dims = BatchDims.for_specs(specs)
+    # Each stage is a profiler range (`layout.<stage>`), so a profile of
+    # a request splits the layout time by stage; free when not profiling.
+    with record_function("layout.place"):
+        ops = stack_layout_operands(specs, geom, torch.device(device))
+        tensors = _place_program(ops, dims=dims, geom=geom)
+    with record_function("layout.drc"):
+        overlaps, oob = _drc_program(tensors, ops, dims=dims, geom=geom)
+    with record_function("layout.nets"):
+        nets = _nets_program(tensors, ops, dims=dims, geom=geom,
+                             coarse=coarse)
+    return LayoutStages(geom, dims, ops, tensors, overlaps, oob, nets)
+
+
 def iter_layout_buckets(buckets, *, engine: str | None = None,
                         device="cuda"):
     """Stream `(specs, coarse, capacity)` buckets through the batched
@@ -355,24 +366,14 @@ def generate_layouts(specs, *, coarse: int = 64, capacity: int = 4,
     if engine == "concurrent":
         raise NotImplementedError(
             "the concurrent routing engine is not ported yet; use 'scan'")
-    geom = geometry()
-    dims = BatchDims.for_specs(specs)
-    # Each stage is a profiler range (`layout.<stage>`), so a profile of
-    # a request splits the layout time by stage; free when not profiling.
-    with record_function("layout.place"):
-        ops = stack_layout_operands(specs, geom, torch.device(device))
-        tensors = _place_program(ops, dims=dims, geom=geom)
-    with record_function("layout.drc"):
-        overlaps, oob = _drc_program(tensors, ops, dims=dims, geom=geom)
-    with record_function("layout.nets"):
-        nets = _nets_program(tensors, ops, dims=dims, geom=geom,
-                             coarse=coarse)
+    st = layout_stages(specs, coarse=coarse, device=device)
     with record_function("layout.route"):
-        routing = batched_route(nets, ops.width.cpu().numpy(),
-                                ops.height.cpu().numpy(), coarse=coarse,
+        routing = batched_route(st.nets, st.ops.width.cpu().numpy(),
+                                st.ops.height.cpu().numpy(), coarse=coarse,
                                 capacity=capacity, engine=engine)
     stats = [nl_mod.stats_for_spec(s) for s in specs]
     return BatchedLayoutResult(
-        specs=specs, dims=dims, geom=geom, ops=ops, tensors=tensors,
-        routing=routing, drc_overlaps=overlaps.cpu().numpy(),
-        drc_oob=oob.cpu().numpy(), netlist_stats=stats)
+        specs=specs, dims=st.dims, geom=st.geom, ops=st.ops,
+        tensors=st.tensors, routing=routing,
+        drc_overlaps=st.drc_overlaps.cpu().numpy(),
+        drc_oob=st.drc_oob.cpu().numpy(), netlist_stats=stats)

@@ -1,21 +1,41 @@
 """`ctypes` wrappers of the maze_route CUDA kernels (`csrc/maze_route.cu`).
 
-`wavefront` replaces `repro.kernels.maze_route.kernel.wavefront_kernel`
-(one CTA per grid, the field in shared memory when it fits);
-`trace_paths` is the port's kernel for the jnp backtrace and occupancy
-commit of `repro.eda.batched_flow._route_step`.  For tensors on the CPU
-a wrapper runs the plain version (`ref.py`); for CUDA tensors it
-launches the kernel, counts the launch in
+`route_slots` replaces the reference's `_route_program`
+(`repro.kernels.maze_route.kernel.wavefront_kernel` plus the jnp
+backtrace and commit of `repro.eda.batched_flow._route_step`, every net
+slot under one `lax.scan`): one persistent launch per layout bucket.
+`wavefront` is the standalone counterpart of `wavefront_kernel` (the
+full BFS field) and `trace_paths` traces and commits one net slot over a
+given field; both run the same device code as `route_slots`.  For
+tensors on the CPU a wrapper runs the plain version (`ref.py`); for CUDA
+tensors it launches the kernel, counts the launch in
 `repro_torch.kernels.LAUNCHES`, and raises on a launch error.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.maze_route import ref
+
+# One warp lane per star target; a walk packs a cell as (y << 16) | x.
+MAX_TARGETS = 32
+_MAX_H, _MAX_W = 2 ** 15, 2 ** 16
+# route_slots keeps occupancy counts in 16 bits: at most 2 A + 1, A the
+# most masked targets of real slots a grid has (a walk enters a cell once).
+_COUNT_MAX = 2 ** 16 - 1
+# Bitsets per grid: four in `wavefront` (free, visited, two frontiers),
+# seven in `route_slots` (and the cells whose arrival resolves a target,
+# two backtrace-direction planes), a 4-byte word per 32 cells of a row;
+# route_slots' counts take 2 bytes a cell.  Each sits in shared memory
+# when it fits, else in a device-memory scratch.
+_WAVE_BITSETS, _ROUTE_BITSETS, _ROUTE_CELL_BYTES = 4, 7, 2
+# The kernels split a word index into (row, word) by a float reciprocal,
+# exact below 2^22 words per grid.
+_MAX_WORDS = 2 ** 22
 
 _LIB = None
 
@@ -25,12 +45,15 @@ def _lib():
     if _LIB is None:
         lib = _build.load("maze_route")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wavefront_smem_cells.argtypes = []
-        lib.wavefront_smem_cells.restype = i
-        lib.wavefront.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.maze_route_smem_limit.argtypes = []
+        lib.maze_route_smem_limit.restype = i
+        lib.wavefront.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.wavefront.restype = i
         lib.trace_paths.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.trace_paths.restype = i
+        lib.route_slots.argtypes = ([p] * 13 + [i] * 9
+                                    + [ctypes.c_longlong] * 2 + [p])
+        lib.route_slots.restype = i
         _LIB = lib
     return _LIB
 
@@ -42,30 +65,50 @@ def _need(t: torch.Tensor, dtype, shape, name: str) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _same_device(**tensors) -> torch.device:
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: "
+                         f"{ {k: str(t.device) for k, t in tensors.items()} }")
+    return devs.pop()
+
+
+def _words(h: int, w: int) -> int:
+    """Bitset words of an h x w grid: ceil(w / 32) per row."""
+    return h * ((w + 31) // 32)
+
+
 def wavefront(occ: torch.Tensor, seed: torch.Tensor,
-              grids: torch.Tensor | None = None,
-              max_cells: int | None = None) -> torch.Tensor:
+              grids: torch.Tensor | None = None) -> torch.Tensor:
     """occ, seed: (B, H, W) bool.  Returns (B, H, W) int32 BFS distances
     (seeds 0 even when occupied, `INF` unreachable or blocked).
 
     `grids` (B, 2) int32 gives each grid's own (gh, gw): the kernel
-    relaxes only those cells and writes `INF` beyond them (cells there
-    count as blocked).  `max_cells`, the largest gh*gw of the batch,
-    sizes the shared memory; without it the whole plane is assumed."""
+    expands only those cells and writes `INF` beyond them (cells there
+    count as blocked)."""
     b, h, w = occ.shape
     _need(occ, torch.bool, (b, h, w), "occ")
     _need(seed, torch.bool, (b, h, w), "seed")
+    named = dict(occ=occ, seed=seed)
     if grids is not None:
         _need(grids, torch.int32, (b, 2), "grids")
-    if occ.device.type == "cpu":
+        named["grids"] = grids
+    if _same_device(**named).type == "cpu":
         return ref.wavefront_distance_ref(occ, seed, grids)
+    words = _words(h, w)
+    if words >= _MAX_WORDS:
+        raise ValueError(f"wavefront: a {h} x {w} plane has {words} bitset "
+                         f"words; the kernel takes fewer than {_MAX_WORDS}")
     lib = _lib()
-    cells = h * w if max_cells is None else max_cells
-    smem_cells = cells if cells <= lib.wavefront_smem_cells() else 0
+    g_bits = None
+    if 4 * _WAVE_BITSETS * words > lib.maze_route_smem_limit():
+        g_bits = torch.empty(b * _WAVE_BITSETS * words, dtype=torch.int32,
+                             device=occ.device)
     dist = torch.empty((b, h, w), dtype=torch.int32, device=occ.device)
     rc = lib.wavefront(occ.data_ptr(), seed.data_ptr(),
                        None if grids is None else grids.data_ptr(),
-                       dist.data_ptr(), b, h, w, smem_cells,
+                       dist.data_ptr(),
+                       None if g_bits is None else g_bits.data_ptr(), b, h, w,
                        _build.stream_ptr(occ))
     _build.check(rc, "wavefront")
     LAUNCHES["wavefront"] += 1
@@ -75,9 +118,9 @@ def wavefront(occ: torch.Tensor, seed: torch.Tensor,
 def trace_paths(dist, tgts, tmask, nmask, occ, routed, failed, wirelen):
     """Trace one net slot on every grid and commit it, in place.
 
-    dist (B, H, W) int32; tgts (B, T, 2) int32 (gy, gx); tmask (B, T)
-    bool; nmask (B,) bool; occ (B, H, W) int32 and routed / failed /
-    wirelen (B,) int32 are updated.  Plain version:
+    dist (B, H, W) int32; tgts (B, T, 2) int32 (gy, gx), T <= 32; tmask
+    (B, T) bool; nmask (B,) bool; occ (B, H, W) int32 and routed /
+    failed / wirelen (B,) int32 are updated.  Plain version:
     `ref.trace_paths_ref`."""
     b, h, w = dist.shape
     t = tgts.shape[1]
@@ -89,13 +132,105 @@ def trace_paths(dist, tgts, tmask, nmask, occ, routed, failed, wirelen):
     for name, x in (("routed", routed), ("failed", failed),
                     ("wirelen", wirelen)):
         _need(x, torch.int32, (b,), name)
-    if dist.device.type == "cpu":
+    dev = _same_device(dist=dist, tgts=tgts, tmask=tmask, nmask=nmask,
+                       occ=occ, routed=routed, failed=failed,
+                       wirelen=wirelen)
+    if dev.type == "cpu":
         ref.trace_paths_ref(dist, tgts, tmask, nmask, occ, routed, failed,
                             wirelen)
         return
+    if t > MAX_TARGETS or h >= _MAX_H or w >= _MAX_W:
+        raise ValueError(f"trace_paths: {t} targets per net on a {h} x {w} "
+                         f"plane; the kernel takes at most {MAX_TARGETS} on "
+                         f"{_MAX_H - 1} x {_MAX_W - 1}")
     rc = _lib().trace_paths(
         dist.data_ptr(), tgts.data_ptr(), tmask.data_ptr(), nmask.data_ptr(),
         occ.data_ptr(), routed.data_ptr(), failed.data_ptr(),
         wirelen.data_ptr(), b, t, h, w, _build.stream_ptr(dist))
     _build.check(rc, "trace_paths")
     LAUNCHES["trace_paths"] += 1
+
+
+def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
+                levels: torch.Tensor | None = None):
+    """Route every net slot of a layout bucket, in one launch.
+
+    occ0 (B, H, W) int32; hubs (B, S, 2) and tgts (B, S, T, 2) int32
+    (gy, gx), inside their grid; tmask (B, S, T) and nmask (B, S) bool;
+    grids (B, 2) int32.  Returns (occ (B, H, W) int32, routed, failed,
+    wirelen (B,) int32); plain version `ref.route_slots_ref`.  On the
+    card, `levels` (B,) int32, if given, receives each grid's BFS levels
+    summed over its slots (the latency the launch runs through)."""
+    b, h, w = occ0.shape
+    s, t = tgts.shape[1], tgts.shape[2]
+    _need(occ0, torch.int32, (b, h, w), "occ0")
+    _need(hubs, torch.int32, (b, s, 2), "hubs")
+    _need(tgts, torch.int32, (b, s, t, 2), "tgts")
+    _need(tmask, torch.bool, (b, s, t), "tmask")
+    _need(nmask, torch.bool, (b, s), "nmask")
+    _need(grids, torch.int32, (b, 2), "grids")
+    named = dict(occ0=occ0, hubs=hubs, tgts=tgts, tmask=tmask, nmask=nmask,
+                 grids=grids)
+    if levels is not None:
+        _need(levels, torch.int32, (b,), "levels")
+        named["levels"] = levels
+    dev = _same_device(**named)
+    ext = torch.minimum(grids, torch.tensor([h, w], dtype=torch.int32,
+                                            device=dev))
+    if bool((ext < 1).any()):
+        raise ValueError("route_slots: empty grid")
+    lim = ext[:, None, :]
+    if bool(((hubs < 0) | (hubs >= lim)).any()
+            | ((tgts < 0) | (tgts >= lim[:, :, None])).any()):
+        raise ValueError("route_slots: a hub or target lies outside its grid")
+    if dev.type == "cpu":
+        if levels is not None:
+            raise ValueError("route_slots: levels are counted on the card only")
+        return ref.route_slots_ref(occ0, hubs, tgts, tmask, nmask, grids,
+                                   capacity)
+    visits = int((tmask & nmask[..., None]).sum((1, 2)).max())
+    if t > MAX_TARGETS or 2 * visits + 1 > _COUNT_MAX or h >= _MAX_H \
+            or w >= _MAX_W:
+        raise ValueError(f"route_slots: {visits} masked targets of {t} per "
+                         f"slot on a {h} x {w} plane exceed the kernel's "
+                         f"limits (T <= {MAX_TARGETS}, 2 A + 1 <= "
+                         f"{_COUNT_MAX} for A masked targets per grid, H < "
+                         f"{_MAX_H}, W < {_MAX_W})")
+    g = ext.cpu().numpy().astype(np.int64)
+    words = g[:, 0] * ((g[:, 1] + 31) // 32)
+    if int(words.max()) >= _MAX_WORDS:
+        raise ValueError(f"route_slots: a grid has {int(words.max())} bitset "
+                         f"words; the kernel takes fewer than {_MAX_WORDS}")
+    lib = _lib()
+    # Shared memory holds the bitsets of the grids whose bitsets fit it,
+    # then the counts of those of them whose counts fit what is left; the
+    # rest goes to the device-memory scratch, one slot per grid.
+    limit = lib.maze_route_smem_limit()
+    bfit = 4 * _ROUTE_BITSETS * words <= limit
+    smem_words = int(words[bfit].max()) if bfit.any() else 0
+    cells = g[:, 0] * g[:, 1]
+    cells += cells % 2                      # counts come in uint16 pairs
+    cfit = bfit & (_ROUTE_CELL_BYTES * cells
+                   <= limit - 4 * _ROUTE_BITSETS * smem_words)
+    smem_cells = int(cells[cfit].max()) if cfit.any() else 0
+    scratch_cells = int(cells[~cfit].max()) if (~cfit).any() else 0
+    scratch_words = int(words[~bfit].max()) if (~bfit).any() else 0
+    g_cnt = torch.empty(b * scratch_cells, dtype=torch.int16, device=dev)
+    g_bits = torch.empty(b * _ROUTE_BITSETS * scratch_words,
+                         dtype=torch.int32, device=dev)
+    occ = torch.empty_like(occ0)
+    routed, failed, wirelen = (torch.empty(b, dtype=torch.int32, device=dev)
+                               for _ in range(3))
+    rc = lib.route_slots(
+        occ0.data_ptr(), hubs.data_ptr(), tgts.data_ptr(), tmask.data_ptr(),
+        nmask.data_ptr(), grids.data_ptr(), occ.data_ptr(), routed.data_ptr(),
+        failed.data_ptr(), wirelen.data_ptr(),
+        None if levels is None else levels.data_ptr(),
+        g_cnt.data_ptr() if scratch_cells else None,
+        g_bits.data_ptr() if scratch_words else None, b, s, t, h, w,
+        int(capacity), visits, smem_cells, smem_words, scratch_cells,
+        scratch_words,
+        _build.stream_ptr(occ0))
+    _build.check(rc, "route_slots")
+    LAUNCHES["route_slots"] += 1
+    return occ, routed, failed, wirelen

@@ -16,6 +16,11 @@ version of the `trace_paths` kernel: the reference's `_dir_field` and
 `_trace_one` of `repro.eda.batched_flow` (one backtrace per star
 target, `NEIGHBORS` first-match tie-break) and the occupancy commit of
 its `_route_step`.
+
+`route_slots_ref` is the plain version of the `route_slots` kernel: the
+reference's `_route_program`, every net slot of a layout bucket in
+order, each a full field by `wavefront_distance_ref` and then
+`trace_paths_ref`.
 """
 from __future__ import annotations
 
@@ -177,3 +182,28 @@ def trace_paths_ref(dist, tgts, tmask, nmask, occ, routed, failed, wirelen):
     failed += (nmask & ~ok).to(torch.int32)
     wirelen += wl.sum(1, dtype=torch.int32) * ok.to(torch.int32)
     return ok
+
+
+def route_slots_ref(occ0, hubs, tgts, tmask, nmask, grids, capacity: int):
+    """Plain version of the `route_slots` kernel: route every net slot of
+    a layout bucket in order.
+
+    occ0 (B, H, W) int32 occupancy counts (a cell with a count >=
+    `capacity` is blocked); hubs (B, S, 2) and tgts (B, S, T, 2) int32
+    (gy, gx); tmask (B, S, T) and nmask (B, S) bool; grids (B, 2) int32,
+    each grid's own extent (cells beyond it are blocked).  Per slot the
+    hub seeds a BFS field (even on an occupied cell) and
+    `trace_paths_ref` traces and commits the targets.  Returns (occ
+    (B, H, W) int32, routed, failed, wirelen (B,) int32)."""
+    occ = occ0.clone()
+    bsz, h, w = occ.shape
+    zeros = lambda: torch.zeros(bsz, dtype=torch.int32, device=occ.device)  # noqa: E731
+    routed, failed, wirelen = zeros(), zeros(), zeros()
+    bi = torch.arange(bsz, device=occ.device)
+    for s in range(hubs.shape[1]):
+        seed = torch.zeros((bsz, h, w), dtype=torch.bool, device=occ.device)
+        seed[bi, hubs[:, s, 0].long(), hubs[:, s, 1].long()] = nmask[:, s]
+        dist = wavefront_distance_ref(occ >= capacity, seed, grids)
+        trace_paths_ref(dist, tgts[:, s], tmask[:, s], nmask[:, s], occ,
+                        routed, failed, wirelen)
+    return occ, routed, failed, wirelen

@@ -28,6 +28,7 @@ from repro_torch.kernels.pareto_dom import ops as pd_ops
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.lm import init_lm
+from route_slots_model import random_bucket, route_slots_model
 
 pytestmark = pytest.mark.cuda
 
@@ -72,13 +73,22 @@ def test_route_kernels_match_plain(dev):
     assert torch.equal(dist, mr_ref.wavefront_distance_ref(o, s))
     grids = torch.tensor([[100, 200], [122, 274], [50, 60], [30, 20]],
                          dtype=torch.int32, device=dev)
-    assert torch.equal(mr.wavefront(o, s, grids, 122 * 274),
+    assert torch.equal(mr.wavefront(o, s, grids),
                        mr_ref.wavefront_distance_ref(o, s, grids))
     big_o = torch.rand((1, 122, 1090), generator=g, device=dev) < 0.2
     big_s = torch.zeros_like(big_o)
-    big_s[0, 60, 500] = True                      # global-memory branch
+    big_s[0, 60, 500] = True
     assert torch.equal(mr.wavefront(big_o, big_s),
                        mr_ref.wavefront_distance_ref(big_o, big_s))
+    # 241 x 2178 (the 65536 array at coarse 32): bitsets in device memory
+    big_o = torch.rand((2, 241, 2178), generator=g, device=dev) < 0.2
+    big_s = torch.zeros_like(big_o)
+    big_s[0, 120, 1000] = big_s[1, 0, 0] = big_s[1, 3, 7] = True
+    big_grids = torch.tensor([[241, 2178], [100, 1500]], dtype=torch.int32,
+                             device=dev)
+    for gr in (None, big_grids):
+        assert torch.equal(mr.wavefront(big_o, big_s, gr),
+                           mr_ref.wavefront_distance_ref(big_o, big_s, gr))
     rng = np.random.default_rng(0)
     tgts = torch.tensor(np.stack([rng.integers(0, 122, (4, 2)),
                                   rng.integers(0, 274, (4, 2))], -1),
@@ -94,6 +104,100 @@ def test_route_kernels_match_plain(dev):
         assert torch.equal(a, b)
 
 
+def _bucket_on(dev, *args, shift=False, **kw):
+    """`route_slots_model.random_bucket` as tensors on `dev`; with
+    `shift`, counts moved by -3..3 (below 0 and above capacity)."""
+    occ0, *rest = random_bucket(*args, **kw)
+    if shift:
+        occ0 = occ0 + np.random.default_rng(1).integers(-3, 4, occ0.shape,
+                                                        dtype=np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (occ0, *rest)]
+
+
+@pytest.mark.parametrize("seed,cap,shift", [(0, 4, False), (1, 1, False),
+                                            (2, 2, True)])
+def test_route_slots_matches_plain(seed, cap, shift, dev):
+    """Small mixed buckets: equal to the plain version, one launch, and
+    the BFS levels of the numpy model of the kernel's algorithm."""
+    bucket = _bucket_on(dev, seed, [(14, 40), (20, 23), (7, 9), (16, 70)],
+                        12, cap, p_full=0.25, shift=shift)
+    levels = torch.zeros(4, dtype=torch.int32, device=dev)
+    n0 = LAUNCHES["route_slots"]
+    got = mr.route_slots(*bucket, cap, levels=levels)
+    assert LAUNCHES["route_slots"] == n0 + 1
+    want = mr_ref.route_slots_ref(*bucket, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    model = route_slots_model(*(x.cpu().numpy() for x in bucket), cap)
+    np.testing.assert_array_equal(levels.cpu().numpy(), model[4])
+
+
+@pytest.mark.parametrize("seed,grids", [
+    (3, [(122, 1090), (30, 50)]),
+    (5, [(241, 2178), (122, 1090), (30, 50)])])
+def test_route_slots_device_memory_branch(seed, grids, dev):
+    """Grids of the 65536 array beside a small one in the same bucket:
+    122 x 1090 (coarse 64) keeps its counts in device memory, 241 x 2178
+    (coarse 32) its bitsets too."""
+    bucket = _bucket_on(dev, seed, grids, 5, 4)
+    levels = torch.zeros(len(grids), dtype=torch.int32, device=dev)
+    got = mr.route_slots(*bucket, 4, levels=levels)
+    want = mr_ref.route_slots_ref(*bucket, 4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[1][0]) > 0
+    model = route_slots_model(*(x.cpu().numpy() for x in bucket), 4)
+    np.testing.assert_array_equal(levels.cpu().numpy(), model[4])
+
+
+def test_route_slots_past_16k_slots(dev):
+    """16,400 slots of two targets (T S = 32,800; 23,540 masked): the
+    counts stay exact in 16 bits.  The same bucket's model equals the
+    plain version on the CPU (`test_torch_route_slots.py`)."""
+    bucket = _bucket_on(dev, 6, [(9, 40)], 16_400, 4, p_full=0.1)
+    levels = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = mr.route_slots(*bucket, 4, levels=levels)
+    model = route_slots_model(*(x.cpu().numpy() for x in bucket), 4)
+    for g, w in zip((*got, levels), model):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+    assert int(got[1][0]) > 0
+
+
+def test_maze_route_refuses_grids_past_the_word_limit(dev):
+    """2^22 bitset words in one grid (4096 x 32768) is past what the
+    kernels' index arithmetic takes: both wrappers raise."""
+    occ = torch.zeros((1, 4096, 32768), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="bitset words"):
+        mr.wavefront(occ, occ)
+    del occ
+    i32 = dict(dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bitset words"):
+        mr.route_slots(torch.zeros((1, 4096, 32768), **i32),
+                       torch.zeros((1, 1, 2), **i32),
+                       torch.zeros((1, 1, 2, 2), **i32),
+                       torch.ones((1, 1, 2), dtype=torch.bool, device=dev),
+                       torch.ones((1, 1), dtype=torch.bool, device=dev),
+                       torch.tensor([[4096, 32768]], **i32), 4)
+
+
+def test_route_slots_refuses_bad_inputs(dev):
+    occ0, hubs, tgts, tmask, nmask, grids = _bucket_on(
+        dev, 4, [(14, 40), (7, 9)], 6, 4)
+    args = [occ0, hubs, tgts, tmask, nmask, grids]
+    bad = {0: occ0.float(), 1: hubs.cpu(), 2: tgts[:, :, :1].contiguous()
+           .expand(-1, -1, 2, -1), 4: nmask.int(), 5: grids.cpu()}
+    for i, x in bad.items():
+        with pytest.raises(ValueError):
+            mr.route_slots(*(x if j == i else a for j, a in enumerate(args)),
+                           4)
+    wide = tgts[:, :, :1].expand(-1, -1, 33, -1).contiguous()
+    with pytest.raises(ValueError):
+        mr.route_slots(occ0, hubs, wide, tmask[:, :, :1].expand(-1, -1, 33)
+                       .contiguous(), nmask, grids, 4)
+    with pytest.raises(ValueError, match="outside"):
+        mr.route_slots(occ0, hubs + 40, tgts, tmask, nmask, grids, 4)
+
+
 def test_session_on_cuda_equals_cpu_rows(dev):
     """Same specs, same rows: the kernels route exactly like the plain
     versions (the fronts may differ: CUDA and CPU Philox streams do)."""
@@ -102,8 +206,8 @@ def test_session_on_cuda_equals_cpu_rows(dev):
                                                   min_tops=0.4))
     LAUNCHES.clear()
     art = DesignSession().run(req)
-    assert min(LAUNCHES[k] for k in ("nds_rank", "wavefront",
-                                     "trace_paths")) > 0
+    assert LAUNCHES["nds_rank"] > 0 and LAUNCHES["route_slots"] == 1
+    assert LAUNCHES["wavefront"] == LAUNCHES["trace_paths"] == 0
     cpu = DesignSession(device="cpu").layout(art.pareto.specs)
     assert list(art.layout_rows) == cpu.metrics_rows()
 
