@@ -10,7 +10,8 @@ the default budget once under `torch.profiler` (CPU + CUDA activity)
 and prints:
 
 1. the request's explore and layout seconds, as its provenance reports
-   them;
+   them, and the device time of the `nsga2_evolve` kernel (one launch
+   per explore dispatch runs every generation) that explore runs;
 2. the layout flow's stages (`layout.place`, `layout.drc`,
    `layout.nets`, `layout.route`: the profiler ranges of
    `repro_torch.eda.batched_flow.generate_layouts`), each with its host
@@ -95,11 +96,14 @@ def profile_request(request) -> dict:
     kernels = _device_kernels(prof)
     device_s = sum(r[2] for r in kernels) / 1e6
     route = [r for r in kernels if "route_slots" in r[0]]
+    evolve = [r for r in kernels if "nsga2_evolve" in r[0]]
     prov = art.provenance
     return {"wall_s": wall, "explore_s": prov.explore_s,
             "layout_s": prov.layout_s, "net_slots": prov.route_rounds,
             "stages": stages, "route_slots_calls": sum(r[1] for r in route),
             "route_slots_ms": sum(r[2] for r in route) / 1e3,
+            "nsga2_evolve_calls": sum(r[1] for r in evolve),
+            "nsga2_evolve_ms": sum(r[2] for r in evolve) / 1e3,
             "device_s": device_s,
             "busy_share": device_s / wall,
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
@@ -220,6 +224,8 @@ def main() -> int:
     print(f"request (profiler on): wall {prof['wall_s']:.3f} s, explore "
           f"{prof['explore_s']:.3f} s, layout {prof['layout_s']:.3f} s, "
           f"{prof['net_slots']} net slots", flush=True)
+    print(f"  explore: nsga2_evolve_kernel {prof['nsga2_evolve_ms']:.3f} ms "
+          f"over {prof['nsga2_evolve_calls']} launch(es)")
     for name, st in prof["stages"].items():
         dev = ("not recorded" if st["device_ms"] is None
                else f"{st['device_ms']:.3f} ms")

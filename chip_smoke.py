@@ -12,7 +12,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              and power limit.
 2. kernels — call each kernel's wrapper at the main path's shapes and
              hold it against its plain PyTorch version on the same
-             inputs, exactly (integer outputs); time both.  `route_slots`
+             inputs, exactly (integer outputs); time both.
+             `nsga2_evolve` (every NSGA-II generation of an explore
+             dispatch in one launch) is held against the composite loop
+             `nsga2.evolve_composite` on the card, on the same draws:
+             final genes, objectives and ranks bit-equal, for the 16 kb
+             cell at pop 256 x 80 generations (the request's dispatch,
+             where both are timed), the codesign pick's pop 96 x 25, a
+             4096 / 16384 / 65536 batch, pop 100 (padded rank words), pop
+             512 (rank words in device memory) and pop 1024 (all state in
+             device memory); the fronts it peeled are its latency count.
+             `route_slots`
              (every net slot of a layout bucket in one launch) is held
              against `route_slots_ref` on the 16 kb request's bucket (86
              grids padded to 1118 x 274, its real nets) at 20 % seeded
@@ -20,7 +30,9 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              timed, and on a bucket of the 65536 array's 241 x 2178
              (coarse 32: counts and bitsets in device memory) and
              122 x 1090 (coarse 64: counts in device memory) grids with
-             4 random slots; then timed alone on the whole bucket
+             4 random slots, and on a bucket past 32,767 masked targets
+             a grid (uint32 counts) against `route_slots_ref`; then
+             timed alone on the whole bucket
              (`bucket_ms`); the standalone `wavefront` on the same grids
              and on 241 x 2178 and 122 x 1090, `trace_paths` on one slot
              of them.  `acim_matmul`
@@ -54,14 +66,20 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              64, capacity 4): the front must lie inside the golden
              exhaustive front and cover >= 60 % of it, and every layout
              row must equal the golden row of its spec (integers
-             exactly, floats to rtol 1e-6).  Then one
-             `use_pallas_dominance=True, layout=False` request drives the
-             dominance-matrix route.  Each path runs with the launch
-             counts zeroed just before it and read just after; every
-             kernel must have launched on its path: the layout exactly
-             one `route_slots` and no `wavefront` or `trace_paths`.  The
-             BFS levels of the grid with the most (the launch's latency
-             count) are printed.
+             exactly, floats to rtol 1e-6); the explore dispatch must be
+             exactly one `nsga2_evolve` launch and no `nds_rank`, and its
+             front must equal that of the composite loop run on the card
+             from the same seed.  Then one `use_pallas_dominance=True,
+             layout=False` request drives the dominance-matrix route (the
+             composite loop: no `nsga2_evolve`).  Each path runs with the
+             launch counts zeroed just before it and read just after;
+             every kernel must have launched on its path: the layout
+             exactly one `route_slots` and no `wavefront` or
+             `trace_paths`.  The BFS levels of the grid with the most (the
+             launch's latency count) are printed.  Last,
+             `DesignSession().layout([MacroSpec(8, 16384, 1, 1)])`, a
+             spec of 49,160 masked targets (uint32 counts), is laid out
+             on the card, timed, with its routed / failed nets.
 4. train   — the CIM-in-the-loop trainer at full width (d 768, 12
              layers, 12 heads, d_ff 3072, vocab 2048, seq 128, batch 8,
              lr 3e-3): `recommend_macro` at the example's settings, whose
@@ -70,7 +88,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              printed), then 20 SGD steps whose losses must be finite and
              end below the first.  Launch counts, zeroed before the pick
              and read after the last step: `acim_matmul` 24 per forward,
-             `nds_rank` > 0.  Then step 0's loss on the card is held
+             `nsga2_evolve` > 0.  Then step 0's loss on the card is held
              against the plain PyTorch run on the CPU of the same weights,
              batch and mismatch draws, at full width and 2 layers (rtol
              1e-2: the bfloat16 backbone rounds differently on the two
@@ -166,6 +184,18 @@ ROUTE_BIG_SLOTS = 4        # slots on the large grids
 # its counts in device memory) and 241 x 2178 at coarse 32 (its bitsets
 # too; `wavefront`'s bitsets as well).
 BIG_GRIDS = ((241, 2178), (122, 1090))
+# A spec past 32,767 masked targets (49,160): route_slots keeps uint32
+# counts.  The explorer's space holds such wide specs (for a 1 Mb array,
+# MacroSpec(64, 16384, 2, 1): 49,216).
+WIDE_SPEC = (8, 16384, 1, 1)
+
+# nsga2_evolve against the composite loop: (cell sizes, pop, generations).
+# The first is the 16 kb request's dispatch (timed); then the codesign
+# pick's, a batch of cells, a pop whose 2 P is no multiple of 32, and pops
+# whose rank words (512), then whole state (1024), sit in device memory.
+EVOLVE_CASES = (((16384,), 256, 80), ((16384,), 96, 25),
+                ((4096, 16384, 65536), 256, 20), ((16384,), 100, 15),
+                ((16384, 4096), 512, 6), ((16384,), 1024, 3))
 
 
 def fail(msg: str) -> None:
@@ -405,10 +435,98 @@ def kernel_phase() -> list[dict]:
           f"{rows[-1]['ms']:.4f} ms vs plain {rows[-1]['plain_ms']:.4f} ms",
           flush=True)
 
+    rows.append(evolve_kernel_check(dev))
     rows.append(route_kernel_check(dev, rng, gen, specs))
     rows.append(acim_kernel_check(dev, rng))
     rows.extend(flash_kernel_check(dev))
     return rows
+
+
+def evolve_inputs(dev, sizes, pop: int, gens: int):
+    """(space, statics, genes, objs, stacked draws) of an explore dispatch
+    of `sizes` (seeds 0, 1, ...), as `run_cell` makes them."""
+    from repro_torch.core import nsga2
+
+    space = nsga2.stack_spaces([nsga2.space_operands(
+        nsga2.NSGA2Config(array_size=s)) for s in sizes]).to(dev)
+    statics = nsga2.EvolveStatics(pop_size=pop)
+    draws = nsga2.PhiloxDraws(range(len(sizes)), dev)
+    genes = nsga2.init_population_op(draws.init(
+        space.gene_lo.cpu().numpy(), space.gene_hi.cpu().numpy(), pop), space)
+    objs = nsga2.evaluate_op(genes, space)
+    return (space, statics, genes, objs,
+            draws.generations(gens, pop, pop, statics))
+
+
+def _evolve_work(cells: int, pop: int, gens: int, fronts: int):
+    """(bytes, operations) an explore dispatch needs.  Bytes: the
+    population read and the final genes, objectives and ranks written
+    once, and the draws (int32 pairs, a flags byte, three float32 values
+    a child).  Operations: per generation the dominance tests of the 2 P
+    pool (two compares an objective a pair), the peel (an AND and an OR a
+    word, for the fronts this run peeled), the sorts at n log2 n compares
+    (crowding's four of the pool and of the survivors, selection's one)
+    and the estimator (~40 a child); plus the initial rank."""
+    n = 2 * pop
+    sort = lambda k: k * max(1, (k - 1).bit_length())  # noqa: E731
+    per_gen = (n * n * 4 * 2 + 4 * sort(n) + sort(n) + 4 * sort(pop)
+               + 40 * pop)
+    ops = cells * (gens * per_gen + pop * pop * 4 * 2 + 4 * sort(pop)
+                   + fronts // cells * n * ((n + 31) // 32) * 2)
+    nbytes = cells * (pop * (12 + 16) + 84 + gens * pop * (8 + 1 + 12)
+                      + pop * (12 + 16 + 4))
+    return nbytes, ops
+
+
+def evolve_kernel_check(dev) -> dict:
+    """nsga2_evolve against the composite loop on the card (EVOLVE_CASES),
+    both timed on the first: the 16 kb request's dispatch."""
+    import torch
+
+    from repro_torch.core import nsga2
+    from repro_torch.kernels.pareto_dom import ops as pd_ops
+
+    row = None
+    for sizes, pop, gens in EVOLVE_CASES:
+        space, statics, genes, objs, draws = evolve_inputs(dev, sizes, pop,
+                                                           gens)
+        fronts = torch.zeros(len(sizes), dtype=torch.int32, device=dev)
+        got = pd_ops.nsga2_evolve(draws, genes, objs, space, statics,
+                                  fronts=fronts)
+
+        def composite():
+            return nsga2.evolve_composite(nsga2.StackedDraws(draws), genes,
+                                          objs, space, statics, gens)
+
+        want = composite()
+        torch.cuda.synchronize()
+        for g_, w_, what in zip(got, want, ("genes", "objectives", "ranks")):
+            check(torch.equal(g_, w_), f"nsga2_evolve {what} != composite "
+                                       f"at sizes {sizes}, pop {pop} x {gens}")
+        peeled = int(fronts.sum())
+        print(f"kernel nsga2_evolve: equal to the composite at sizes {sizes}, "
+              f"pop {pop} x {gens} generations (genes, objectives, ranks); "
+              f"fronts peeled {fronts.tolist()}", flush=True)
+        if row is None:
+            err = float(max((g_.double() - w_.double()).abs().max()
+                            for g_, w_ in zip(got, want)))
+            ms = cuda_ms(lambda: pd_ops.nsga2_evolve(draws, genes, objs,
+                                                     space, statics), 20)
+            plain_ms = cuda_ms(composite, 3)
+            nbytes, ops = _evolve_work(len(sizes), pop, gens, peeled)
+            b_ms, b_by = bound(nbytes, ops)
+            row = dict(
+                name="nsga2_evolve", route="cuda",
+                source="src/repro_torch/csrc/pareto_dom.cu",
+                replaces="src/repro/kernels/pareto_dom/kernel.py:112",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, fronts=peeled)
+            print(f"kernel nsga2_evolve: one 16 kb dispatch (pop {pop} x "
+                  f"{gens}): {ms:.4f} ms vs composite {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, {ops:.4g} "
+                  f"operations); latency count {peeled} fronts peeled",
+                  flush=True)
+    return row
 
 
 def request_bucket(specs, dev):
@@ -505,6 +623,24 @@ def route_kernel_check(dev, rng, gen, specs) -> dict:
         check(torch.equal(g_, w_), f"route_slots {what} != plain on "
                                    f"the large grids {BIG_GRIDS}")
     big_ms = cuda_ms(lambda: mr.route_slots(occ65, *big, CAPACITY), 3)
+
+    # past 32,767 masked targets a grid: uint32 counts, a hub's count past
+    # 2^16 (the bucket of the CPU and `cuda` tests)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from route_slots_model import hub_heavy_bucket
+
+    wide = [torch.from_numpy(x).to(dev) for x in hub_heavy_bucket()]
+    got_w = mr.route_slots(*wide, CAPACITY)
+    want_w = mr_ref.route_slots_ref(*wide, CAPACITY)
+    for g_, w_, what in zip(got_w, want_w, ("occupancy", "routed", "failed",
+                                            "wirelength")):
+        check(torch.equal(g_, w_), f"route_slots {what} != plain past 32,767 "
+                                   f"masked targets")
+    visits = int((wide[3] & wide[4][..., None]).sum((1, 2)).max())
+    print(f"kernel route_slots: equal to plain on a bucket of "
+          f"{tuple(wide[0].shape)} with {visits} masked targets a grid "
+          f"(uint32 counts; largest occupancy {int(got_w[0].max())}; routed "
+          f"{got_w[1].tolist()}, failed {got_w[2].tolist()})", flush=True)
 
     # the main path's launch: every slot, the request's own occupancy.
     # Latency binds it (one block barrier per BFS level, a dependent walk
@@ -898,6 +1034,27 @@ def path_phase() -> dict:
           f"{prov.layout_s:.2f} s, total {total:.2f} s; route slots "
           f"{prov.route_rounds}", flush=True)
     print(f"path launches: {main_launches}", flush=True)
+    # One explore dispatch: one nsga2_evolve launch runs every generation.
+    check(main_launches.get("nsga2_evolve", 0) == 1
+          and main_launches.get("nds_rank", 0) == 0,
+          f"explore launches on the path: {main_launches}")
+
+    # The composite loop (torch ops, one nds_rank launch a generation) on
+    # the card from the same seed finds the same front.
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    comp = _composite_front(16384, 0)
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    comp_launches = dict(LAUNCHES)
+    check(comp.specs == art.pareto.specs,
+          "the composite loop's front differs from the request's")
+    check(comp_launches.get("nds_rank", 0) == 81
+          and comp_launches.get("nsga2_evolve", 0) == 0,
+          f"composite launches: {comp_launches}")
+    print(f"path composite explore (torch ops + nds_rank): same front of "
+          f"{len(comp.specs)} specs; {comp_s:.2f} s; launches "
+          f"{comp_launches}", flush=True)
 
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -906,21 +1063,24 @@ def path_phase() -> dict:
     torch.cuda.synchronize()
     dom_launches = dict(LAUNCHES)
     found2 = {(s.h, s.l, s.b_adc) for s in art2.pareto.specs}
-    check(found2 <= set(golden), "dominance-route front off the golden front")
-    check(len(found2) >= 0.6 * len(golden),
-          f"dominance-route front covers {len(found2)} of {len(golden)}")
+    check(found2 == set(found), "dominance-route front differs from the "
+                                "request's")
+    check(dom_launches.get("nsga2_evolve", 0) == 0,
+          f"dominance route launched nsga2_evolve: {dom_launches}")
     print(f"path dominance route (layout=False): front {len(found2)} of "
-          f"{len(golden)}, {time.perf_counter() - t0:.2f} s; launches "
-          f"{dom_launches}", flush=True)
+          f"{len(golden)}, the request's; {time.perf_counter() - t0:.2f} s; "
+          f"launches {dom_launches}", flush=True)
 
-    launches = {"nds_rank": main_launches.get("nds_rank", 0),
+    launches = {"nsga2_evolve": main_launches.get("nsga2_evolve", 0),
                 "route_slots": main_launches.get("route_slots", 0),
                 "dominance_matrix": dom_launches.get("dominance_matrix", 0)}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
     # The whole front is one layout bucket: one route_slots launch, and
-    # the standalone wavefront / trace_paths kernels stay off the path.
-    launches.update(wavefront=main_launches.get("wavefront", 0),
+    # the standalone wavefront / trace_paths kernels stay off the path, as
+    # does nds_rank (the composite loop's rank).
+    launches.update(nds_rank=main_launches.get("nds_rank", 0),
+                    wavefront=main_launches.get("wavefront", 0),
                     trace_paths=main_launches.get("trace_paths", 0))
     check(launches["route_slots"] == 1 and launches["wavefront"] == 0
           and launches["trace_paths"] == 0,
@@ -929,7 +1089,43 @@ def path_phase() -> dict:
     print(f"path route: 1 route_slots launch; BFS levels of the longest grid "
           f"{levels[0]} ({levels[1]} nets), all grids {levels[2]} "
           f"(recounted by a second launch on the same bucket)", flush=True)
+
+    # A spec past 32,767 masked targets: uint32 counts.
+    from repro_torch.core.acim_spec import MacroSpec
+
+    spec = MacroSpec(*WIDE_SPEC)
+    n0 = LAUNCHES["route_slots"]
+    t0 = time.perf_counter()
+    res = session.layout([spec])
+    torch.cuda.synchronize()
+    check(LAUNCHES["route_slots"] == n0 + 1, "wide layout: no route_slots")
+    routing = res.routing
+    print(f"path wide layout: {spec}, grid {routing.grids.tolist()}, "
+          f"{routing.rounds} net slots: routed {int(routing.routed[0])}, "
+          f"failed {int(routing.failed[0])}, wirelength "
+          f"{int(routing.wirelength[0])}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
     return launches
+
+
+def _composite_front(size: int, seed: int):
+    """The request's exploration of one (size, seed) cell at the default
+    budget, run by the composite loop (`nsga2.evolve_composite`)."""
+    from repro_torch.core import nsga2
+    from repro_torch.core.batched_explorer import explore_cells
+
+    statics = nsga2.EvolveStatics()
+
+    def composite(seeds, spaces):
+        draws = nsga2.PhiloxDraws(seeds, spaces.gene_lo.device)
+        genes = nsga2.init_population_op(draws.init(
+            spaces.gene_lo.cpu().numpy(), spaces.gene_hi.cpu().numpy(),
+            statics.pop_size).to(spaces.gene_lo.device), spaces)
+        objs = nsga2.evaluate_op(genes, spaces)
+        return nsga2.evolve_composite(draws, genes, objs, spaces, statics,
+                                      80)[:2]
+
+    return explore_cells([(size, seed)], program=composite)[(size, seed)]
 
 
 def _bfs_levels(specs) -> tuple[int, int, int]:
@@ -1017,7 +1213,8 @@ def train_phase() -> dict:
     check(launches.get("acim_matmul", 0) == per_fwd * TRAIN["steps"],
           f"acim_matmul launched {launches.get('acim_matmul', 0)} times, "
           f"want {per_fwd} x {TRAIN['steps']} forwards")
-    check(launches.get("nds_rank", 0) > 0, "nds_rank not launched by the pick")
+    check(launches.get("nsga2_evolve", 0) > 0,
+          "nsga2_evolve not launched by the pick")
     steady = log.step_s[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
     print(f"train run: {TRAIN['steps']} steps at d {cfg.d_model}, "
@@ -1048,7 +1245,7 @@ def train_phase() -> dict:
     print(f"train check: step-0 loss at {CPU_CHECK_LAYERS} layers, card vs "
           f"CPU plain, rel diff {rel:.2e} (rtol {CPU_CHECK_RTOL})", flush=True)
     return {"acim_matmul": launches["acim_matmul"],
-            "nds_rank": launches["nds_rank"]}
+            "nsga2_evolve": launches["nsga2_evolve"]}
 
 
 # ----------------------------------------------------------------------
@@ -1221,8 +1418,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # route_slots' whole-bucket time and bound (its row's own are on the
-    # cut its plain version runs)
-    extra = ("bucket_ms", "bucket_bound_ms")
+    # cut its plain version runs); nsga2_evolve's fronts peeled
+    extra = ("bucket_ms", "bucket_bound_ms", "fronts")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

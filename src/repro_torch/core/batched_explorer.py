@@ -3,8 +3,8 @@
 Counterpart of `repro.core.batched_explorer`.  The reference `vmap`s
 `nsga2.run_cell` over a stacked operand tree; here `nsga2.run_cell`
 takes the stacked (C, ...) operands directly, so a whole (array_size,
-seed) sweep is one batched run with one rank-and-crowd per generation
-for all cells.
+seed) sweep is one batched run: on CUDA one `nsga2_evolve` launch runs
+every generation of every cell.
 """
 from __future__ import annotations
 

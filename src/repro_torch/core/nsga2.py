@@ -15,6 +15,12 @@ the cells it was batched with).  Tests hand the same operators draws
 made with `jax.random` under the reference's key splits and require
 bit-equal generations.
 
+`evolve_from` makes every generation's draws at once (`generations`,
+the same calls in the same order) and runs all generations in one
+`nsga2_evolve` call: on CUDA one kernel launch for the cell batch, which
+the reference's traced `fori_loop` corresponds to; `evolve_composite` is
+the same loop one operator at a time, the kernel's plain version.
+
 Gene encoding (all powers of two, matching the binary-ratioed CDAC):
     gene[0] = h_exp   -> H = 2**h_exp
     gene[1] = l_exp   -> L = 2**l_exp
@@ -122,13 +128,46 @@ def stack_spaces(spaces) -> SpaceOperands:
 # Draws: every random number an operator consumes, as tensors
 # ----------------------------------------------------------------------
 class GenerationDraws(NamedTuple):
-    """One generation's random numbers for a cell batch."""
+    """One generation's random numbers for a cell batch; stacked over
+    generations (`generations`), every field has a leading G."""
 
     pairs: torch.Tensor     # (C, n, 2) int64 tournament contestants in [0, P)
     do_cx: torch.Tensor     # (C, P, 1) bool  crossover per child
     swap: torch.Tensor      # (C, P, 3) bool  take the mate's gene
     u: torch.Tensor         # (C, P, 3) float32 in [0, 1), mutation values
     mut: torch.Tensor       # (C, P, 3) bool  mutate this gene
+
+
+def stack_generations(per_gen, c: int, n: int, p: int,
+                      device) -> GenerationDraws:
+    """Stack GenerationDraws along a new leading G axis (G may be 0)."""
+    if per_gen:
+        return GenerationDraws(*(torch.stack(x) for x in zip(*per_gen)))
+    kw = dict(device=device)
+    return GenerationDraws(
+        torch.zeros((0, c, n, 2), dtype=torch.int64, **kw),
+        torch.zeros((0, c, p, 1), dtype=torch.bool, **kw),
+        torch.zeros((0, c, p, 3), dtype=torch.bool, **kw),
+        torch.zeros((0, c, p, 3), dtype=torch.float32, **kw),
+        torch.zeros((0, c, p, 3), dtype=torch.bool, **kw))
+
+
+class StackedDraws:
+    """Draw source over draws made beforehand: `generation` hands out the
+    slices of a stacked GenerationDraws in order."""
+
+    def __init__(self, stacked: GenerationDraws):
+        self.stacked = stacked
+        self.next = 0
+
+    def generation(self, n: int, p: int,
+                   statics: EvolveStatics) -> GenerationDraws:
+        d = GenerationDraws(*(x[self.next] for x in self.stacked))
+        if d.pairs.shape[1] != n or d.u.shape[1] != p:
+            raise ValueError(f"stacked draws are for n={d.pairs.shape[1]}, "
+                             f"p={d.u.shape[1]}, not n={n}, p={p}")
+        self.next += 1
+        return d
 
 
 class PhiloxDraws:
@@ -160,6 +199,15 @@ class PhiloxDraws:
                     torch.rand((p, 3), **kw) < statics.mutation_prob)
         return GenerationDraws(*(torch.stack(x) for x in
                                  zip(*(per_cell(g) for g in self.gens))))
+
+    def generations(self, n_gens: int, n: int, p: int,
+                    statics: EvolveStatics) -> GenerationDraws:
+        """Every generation's draws, stacked on a leading G axis: the same
+        `generation` calls in the same order as the composite loop makes
+        them, so the streams (and the fronts) are the same."""
+        return stack_generations(
+            [self.generation(n, p, statics) for _ in range(n_gens)],
+            len(self.gens), n, p, self.device)
 
 
 # ----------------------------------------------------------------------
@@ -265,15 +313,33 @@ def generation_step_op(d: GenerationDraws, genes, objs, ranks, crowd,
     return genes_k, objs_k, ranks_k, crowd_k
 
 
-def evolve_from(draws, genes, objs, space: SpaceOperands,
-                statics: EvolveStatics, n_gens: int):
-    """Rank once, then evolve `n_gens` generations."""
+def evolve_composite(draws, genes, objs, space: SpaceOperands,
+                     statics: EvolveStatics, n_gens: int):
+    """Rank once, then evolve `n_gens` generations, one torch operator
+    (and, on CUDA, one rank kernel launch) at a time, taking each
+    generation's draws from `draws.generation`.  Returns the final
+    (genes, objs, ranks).  The plain version of `nsga2_evolve`."""
     ranks, crowd = rank_and_crowd(objs, statics)
     for _ in range(n_gens):
         d = draws.generation(statics.pop_size, genes.shape[1], statics)
         genes, objs, ranks, crowd = generation_step_op(
             d, genes, objs, ranks, crowd, space, statics)
-    return genes, objs
+    return genes, objs, ranks
+
+
+def evolve_from(draws, genes, objs, space: SpaceOperands,
+                statics: EvolveStatics, n_gens: int):
+    """Rank once, then evolve `n_gens` generations: every generation's
+    draws made at once, then one `nsga2_evolve` call (on CUDA one kernel
+    launch for the whole batch; on the CPU `evolve_composite`).  The
+    `use_pallas_dominance` without `use_pallas_rank` route keeps the
+    composite loop, whose ranks take the `dominance_matrix` kernel."""
+    if statics.use_pallas_dominance and not statics.use_pallas_rank:
+        return evolve_composite(draws, genes, objs, space, statics,
+                                n_gens)[:2]
+    stacked = draws.generations(n_gens, statics.pop_size, genes.shape[1],
+                                statics)
+    return dom_ops.nsga2_evolve(stacked, genes, objs, space, statics)[:2]
 
 
 def run_cell(draws, space: SpaceOperands, *, statics: EvolveStatics,

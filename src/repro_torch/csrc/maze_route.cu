@@ -19,7 +19,9 @@
 //   Design:
 //   * State in shared memory for the whole launch: the occupancy count as
 //     uint16 over the grid's own gh x gw cells (offset so it is exact for
-//     any int32 occ0; see `count0`), and bitsets of ceil(gw / 32) words per
+//     any int32 occ0; see `count0`; a launch whose grids may reach 2^16
+//     keeps uint32 counts in device memory instead), and bitsets of
+//     ceil(gw / 32) words per
 //     row: free, visited, two frontiers, the cells whose arrival resolves a
 //     target, and two planes of each cell's backtrace direction.  No
 //     distance is stored.  A grid whose counts do not fit shared memory
@@ -68,6 +70,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -236,8 +240,8 @@ struct Routed {
 // enters a cell at most once, so a launch adds at most A visits to a cell,
 // A the most masked targets of real slots a grid has.  So the kernel keeps
 // u = clamp(occ0 - lo, 0, K) + visits with K = A + 1, lo = capacity - K:
-// blocked iff u >= K, at most 2 A + 1 (< 2^16, checked by the wrapper),
-// and occ = occ0 + u - clamp(occ0 - lo, 0, K) at the end.
+// blocked iff u >= K, at most 2 A + 1 (uint16 below 2^16, else uint32; the
+// wrapper picks), and occ = occ0 + u - clamp(occ0 - lo, 0, K) at the end.
 __device__ __forceinline__ int count0(int o, long long lo, int K) {
   return (int)min((long long)K, max(0LL, (long long)o - lo));
 }
@@ -262,8 +266,9 @@ static_assert(sizeof(Slot) + 512 <= kSmemReserve, "Slot outgrew its room");
 // visited, the two frontiers, `watch` (the cells whose arrival resolves a
 // target: a free target itself, a blocked one's neighbours) and the two
 // direction planes (bit 0 and bit 1 of each visited cell's NEIGHBORS index
-// towards d - 1).  cnt holds the grid's gh x gw counts; `Cnt` makes it a
-// shared or a global pointer, so its atomics are of the right kind.
+// towards d - 1).  cnt holds the grid's gh x gw counts; `Cnt` makes them
+// uint16 in shared or global memory or uint32 in global memory, so its
+// atomics are of the right kind.
 template <class Cnt>
 __device__ __forceinline__ void route_grid(Slot& st, const Nets& nets,
                            const int* __restrict__ occ0, const Routed& out,
@@ -288,7 +293,7 @@ __device__ __forceinline__ void route_grid(Slot& st, const Nets& nets,
     bool enterable = false;
     if (x < gw) {
       const int u = count0(occ0[base + (size_t)r * W + x], lo, K);
-      cnt.p[r * gw + x] = (uint16_t)u;
+      cnt.set(r * gw + x, u);
       enterable = u < K;
     }
     const uint32_t word = __ballot_sync(0xffffffffu, enterable);
@@ -305,11 +310,8 @@ __device__ __forceinline__ void route_grid(Slot& st, const Nets& nets,
     const int k = y * wpr + (x >> 5), sh = x & 31;
     return ((dlo[k] >> sh) & 1u) | (((dhi[k] >> sh) & 1u) << 1);
   };
-  // Counts are uint16 pairs in 32-bit words: one atomic adds to one half.
   auto commit = [=](int y, int x) {
-    const int c = y * gw + x, sh = (c & 1) << 4;
-    const uint32_t old = cnt.add(c >> 1, 1u << sh);
-    if (((old >> sh) & 0xffffu) + 1 >= (uint32_t)K)
+    if (cnt.inc(y * gw + x) + 1 >= (uint32_t)K)
       atomicAnd(&g.free[y * wpr + (x >> 5)], ~(1u << (x & 31)));
   };
 
@@ -426,7 +428,7 @@ __device__ __forceinline__ void route_grid(Slot& st, const Nets& nets,
       const size_t gi = base + (size_t)r * W + x;
       const int o = occ0[gi];
       out.occ[gi] = (r < gh && x < gw)
-          ? (int)((long long)o + cnt.p[r * gw + x] - count0(o, lo, K))
+          ? (int)((long long)o + cnt.get(r * gw + x) - count0(o, lo, K))
           : o;
     }
   }
@@ -438,44 +440,65 @@ __device__ __forceinline__ void route_grid(Slot& st, const Nets& nets,
   }
 }
 
-// The grid's counts, uint16 in shared or in global memory.  The shared
-// kind names its space to the atomic (a generic atomic on shared memory is
-// several times slower).
+// The grid's counts: uint16 in shared or in global memory, or uint32 in
+// global memory.  `inc` adds one visit to cell c and returns the count
+// before it.  uint16 counts come in pairs in 32-bit words, one atomic adding
+// to one half.  The shared kind names its space to the atomic (a generic
+// atomic on shared memory is several times slower).
 struct SharedCounts {
   uint16_t* p;
-  __device__ uint32_t add(int word, uint32_t v) const {
+  __device__ uint32_t get(int c) const { return p[c]; }
+  __device__ void set(int c, int u) const { p[c] = (uint16_t)u; }
+  __device__ uint32_t inc(int c) const {
+    const int sh = (c & 1) << 4;
     const unsigned a = static_cast<unsigned>(
-        __cvta_generic_to_shared(reinterpret_cast<uint32_t*>(p) + word));
+        __cvta_generic_to_shared(reinterpret_cast<uint32_t*>(p) + (c >> 1)));
     uint32_t old;
     asm volatile("atom.shared.add.u32 %0, [%1], %2;"
-                 : "=r"(old) : "r"(a), "r"(v) : "memory");
-    return old;
+                 : "=r"(old) : "r"(a), "r"(1u << sh) : "memory");
+    return (old >> sh) & 0xffffu;
   }
 };
 struct GlobalCounts {
   uint16_t* p;
-  __device__ uint32_t add(int word, uint32_t v) const {
-    return atomicAdd(reinterpret_cast<uint32_t*>(p) + word, v);
+  __device__ uint32_t get(int c) const { return p[c]; }
+  __device__ void set(int c, int u) const { p[c] = (uint16_t)u; }
+  __device__ uint32_t inc(int c) const {
+    const int sh = (c & 1) << 4;
+    const uint32_t old =
+        atomicAdd(reinterpret_cast<uint32_t*>(p) + (c >> 1), 1u << sh);
+    return (old >> sh) & 0xffffu;
   }
 };
+struct GlobalCounts32 {
+  uint32_t* p;
+  __device__ uint32_t get(int c) const { return p[c]; }
+  __device__ void set(int c, int u) const { p[c] = (uint32_t)u; }
+  __device__ uint32_t inc(int c) const { return atomicAdd(p + c, 1u); }
+};
 
+// kWide: uint32 counts, all in the device-memory scratch (smem_cells is 0).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 route_slots_kernel(Nets nets, const int* __restrict__ occ0,
                    const int* __restrict__ grids, Routed out,
-                   uint16_t* g_cnt, uint32_t* g_bits, int H, int W,
+                   void* g_cnt, uint32_t* g_bits, int H, int W,
                    int capacity, int smem_cells, int smem_words,
                    long long scratch_cells, long long scratch_words) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ Slot st;
   const int b = blockIdx.x;
   const int gh = min(grids[2 * b], H), gw = min(grids[2 * b + 1], W);
-  const GlobalCounts g_counts{g_cnt + b * scratch_cells};
+  using GCounts = typename std::conditional<kWide, GlobalCounts32,
+                                            GlobalCounts>::type;
+  using GWord = typename std::conditional<kWide, uint32_t, uint16_t>::type;
+  const GCounts g_counts{static_cast<GWord*>(g_cnt) + b * scratch_cells};
   // Each branch derives its own pointers, so that the compiler sees which
   // memory space every bitset access goes to.
   if (gh * ((gw + 31) >> 5) <= smem_words) {
     // the bitsets follow smem_cells (even) uint16 counts
     uint32_t* bits = smem + smem_cells / 2;
-    if (gh * gw <= smem_cells)
+    if (!kWide && gh * gw <= smem_cells)
       route_grid(st, nets, occ0, out, bits, smem_words, gh, gw,
                  SharedCounts{reinterpret_cast<uint16_t*>(smem)}, H, W,
                  capacity);
@@ -641,21 +664,23 @@ int trace_paths(const int* dist, const int* tgts, const uint8_t* tmask,
 // there too when it has at most smem_cells (even) cells; the others keep
 // their counts in g_cnt at b * scratch_cells (even) and, beyond
 // smem_words, their bitsets in g_bits at b * 7 * scratch_words.
-// max_visits is the most masked targets of real slots a grid has (2
-// max_visits + 1 < 2^16); levels may be null.
+// max_visits is the most masked targets of real slots a grid has; when
+// 2 max_visits + 1 >= 2^16, `wide` is set, the counts are uint32, all in
+// g_cnt, and smem_cells is 0.  levels may be null.
 int route_slots(const int* occ0, const int* hubs, const int* tgts,
                 const uint8_t* tmask, const uint8_t* nmask, const int* grids,
                 int* occ, int* routed, int* failed, int* wirelen, int* levels,
-                uint16_t* g_cnt, uint32_t* g_bits, int B, int S, int T, int H,
-                int W, int capacity, int max_visits, int smem_cells,
+                void* g_cnt, uint32_t* g_bits, int B, int S, int T, int H,
+                int W, int capacity, int max_visits, int wide, int smem_cells,
                 int smem_words, long long scratch_cells,
                 long long scratch_words, void* stream) {
   const int smem = smem_cells * 2 + smem_words * 28;
-  cudaFuncSetAttribute(route_slots_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const Nets nets{hubs, tgts, tmask, nmask, S, T, max_visits + 1};
   const Routed out{occ, routed, failed, wirelen, levels};
-  route_slots_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  auto kernel = wide ? route_slots_kernel<true> : route_slots_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       nets, occ0, grids, out, g_cnt, g_bits, H, W, capacity, smem_cells,
       smem_words, scratch_cells, scratch_words);
   return (int)cudaGetLastError();

@@ -24,14 +24,15 @@ from repro_torch.kernels.maze_route import ref
 # One warp lane per star target; a walk packs a cell as (y << 16) | x.
 MAX_TARGETS = 32
 _MAX_H, _MAX_W = 2 ** 15, 2 ** 16
-# route_slots keeps occupancy counts in 16 bits: at most 2 A + 1, A the
-# most masked targets of real slots a grid has (a walk enters a cell once).
+# route_slots' occupancy counts reach at most 2 A + 1, A the most masked
+# targets of real slots a grid has (a walk enters a cell once): uint16 up
+# to this, else uint32, all in the device-memory scratch.
 _COUNT_MAX = 2 ** 16 - 1
 # Bitsets per grid: four in `wavefront` (free, visited, two frontiers),
 # seven in `route_slots` (and the cells whose arrival resolves a target,
 # two backtrace-direction planes), a 4-byte word per 32 cells of a row;
-# route_slots' counts take 2 bytes a cell.  Each sits in shared memory
-# when it fits, else in a device-memory scratch.
+# route_slots' uint16 counts take 2 bytes a cell.  Each sits in shared
+# memory when it fits, else in a device-memory scratch.
 _WAVE_BITSETS, _ROUTE_BITSETS, _ROUTE_CELL_BYTES = 4, 7, 2
 # The kernels split a word index into (row, word) by a float reciprocal,
 # exact below 2^22 words per grid.
@@ -51,7 +52,7 @@ def _lib():
         lib.wavefront.restype = i
         lib.trace_paths.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.trace_paths.restype = i
-        lib.route_slots.argtypes = ([p] * 13 + [i] * 9
+        lib.route_slots.argtypes = ([p] * 13 + [i] * 10
                                     + [ctypes.c_longlong] * 2 + [p])
         lib.route_slots.restype = i
         _LIB = lib
@@ -188,14 +189,12 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
             raise ValueError("route_slots: levels are counted on the card only")
         return ref.route_slots_ref(occ0, hubs, tgts, tmask, nmask, grids,
                                    capacity)
+    if t > MAX_TARGETS or h >= _MAX_H or w >= _MAX_W:
+        raise ValueError(f"route_slots: {t} targets per slot on a {h} x {w} "
+                         f"plane exceed the kernel's limits (T <= "
+                         f"{MAX_TARGETS}, H < {_MAX_H}, W < {_MAX_W})")
     visits = int((tmask & nmask[..., None]).sum((1, 2)).max())
-    if t > MAX_TARGETS or 2 * visits + 1 > _COUNT_MAX or h >= _MAX_H \
-            or w >= _MAX_W:
-        raise ValueError(f"route_slots: {visits} masked targets of {t} per "
-                         f"slot on a {h} x {w} plane exceed the kernel's "
-                         f"limits (T <= {MAX_TARGETS}, 2 A + 1 <= "
-                         f"{_COUNT_MAX} for A masked targets per grid, H < "
-                         f"{_MAX_H}, W < {_MAX_W})")
+    wide = 2 * visits + 1 > _COUNT_MAX
     g = ext.cpu().numpy().astype(np.int64)
     words = g[:, 0] * ((g[:, 1] + 31) // 32)
     if int(words.max()) >= _MAX_WORDS:
@@ -203,19 +202,21 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
                          f"words; the kernel takes fewer than {_MAX_WORDS}")
     lib = _lib()
     # Shared memory holds the bitsets of the grids whose bitsets fit it,
-    # then the counts of those of them whose counts fit what is left; the
-    # rest goes to the device-memory scratch, one slot per grid.
+    # then the uint16 counts of those of them whose counts fit what is
+    # left; the rest goes to the device-memory scratch, one slot per grid.
+    # uint32 counts (`wide`) all go to the scratch.
     limit = lib.maze_route_smem_limit()
     bfit = 4 * _ROUTE_BITSETS * words <= limit
     smem_words = int(words[bfit].max()) if bfit.any() else 0
     cells = g[:, 0] * g[:, 1]
     cells += cells % 2                      # counts come in uint16 pairs
     cfit = bfit & (_ROUTE_CELL_BYTES * cells
-                   <= limit - 4 * _ROUTE_BITSETS * smem_words)
+                   <= limit - 4 * _ROUTE_BITSETS * smem_words) & (not wide)
     smem_cells = int(cells[cfit].max()) if cfit.any() else 0
     scratch_cells = int(cells[~cfit].max()) if (~cfit).any() else 0
     scratch_words = int(words[~bfit].max()) if (~bfit).any() else 0
-    g_cnt = torch.empty(b * scratch_cells, dtype=torch.int16, device=dev)
+    g_cnt = torch.empty(b * scratch_cells,
+                        dtype=torch.int32 if wide else torch.int16, device=dev)
     g_bits = torch.empty(b * _ROUTE_BITSETS * scratch_words,
                          dtype=torch.int32, device=dev)
     occ = torch.empty_like(occ0)
@@ -228,9 +229,8 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
         None if levels is None else levels.data_ptr(),
         g_cnt.data_ptr() if scratch_cells else None,
         g_bits.data_ptr() if scratch_words else None, b, s, t, h, w,
-        int(capacity), visits, smem_cells, smem_words, scratch_cells,
-        scratch_words,
-        _build.stream_ptr(occ0))
+        int(capacity), visits, int(wide), smem_cells, smem_words,
+        scratch_cells, scratch_words, _build.stream_ptr(occ0))
     _build.check(rc, "route_slots")
     LAUNCHES["route_slots"] += 1
     return occ, routed, failed, wirelen

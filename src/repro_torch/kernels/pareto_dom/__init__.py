@@ -1,9 +1,11 @@
 from repro_torch.kernels.pareto_dom.ops import (dominance_matrix,
-                                                non_dominated_rank)
+                                                non_dominated_rank,
+                                                nsga2_evolve)
 from repro_torch.kernels.pareto_dom.ref import (crowding_distance_ref,
                                                 dominance_matrix_ref,
-                                                non_dominated_rank_ref)
+                                                non_dominated_rank_ref,
+                                                nsga2_evolve_ref)
 
-__all__ = ["dominance_matrix", "non_dominated_rank",
+__all__ = ["dominance_matrix", "non_dominated_rank", "nsga2_evolve",
            "dominance_matrix_ref", "non_dominated_rank_ref",
-           "crowding_distance_ref"]
+           "crowding_distance_ref", "nsga2_evolve_ref"]

@@ -3,10 +3,12 @@
 `nds_rank` replaces `repro.kernels.pareto_dom.kernel.nds_rank_kernel`
 (fused dominance + bit-pack + front peel, one CTA per cell) and
 `dominance_matrix` replaces `dominance_matrix_kernel` (tiled boolean
-matrix).  Each takes a cell batch.  For a tensor on the CPU the wrapper
-runs the plain version (`ref.py`); for a CUDA tensor it launches the
-kernel, counts the launch in `repro_torch.kernels.LAUNCHES`, and
-raises on a launch error.
+matrix).  `nsga2_evolve` runs every NSGA-II generation of a cell batch
+in one launch (the reference's `evolve_from` loop, whose rank is
+`nds_rank_kernel`), on the same rank code as `nds_rank`.  Each takes a
+cell batch.  For tensors on the CPU a wrapper runs the plain version
+(`ref.py`); for CUDA tensors it launches the kernel, counts the launch
+in `repro_torch.kernels.LAUNCHES`, and raises on a launch error.
 """
 from __future__ import annotations
 
@@ -17,8 +19,15 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.pareto_dom import ref
 
-# Shared memory one block may use on Hopper (bytes).
-SMEM_LIMIT = 232448
+# nds_rank's objectives per point are a compile-time count up to this.
+MAX_OBJECTIVES = 8
+# nsga2_evolve's sort keys hold a pool index in 16 bits: 2 P <= 2^16.
+MAX_POP = 2 ** 15
+# The calibration operands of a cell, in the kernel's `Cal` order after
+# the array size.
+_CAL_FIELDS = ("inv_pre", "adc_off_db", "t_com", "t_set_per_b",
+               "t_conv_bit", "e_cc_fj", "k1_fj", "k2_fj", "log2_vdd", "vdd2",
+               "a_sram", "a_lc", "a_comp", "a_dff")
 
 _LIB = None
 
@@ -28,12 +37,18 @@ def _lib():
     if _LIB is None:
         lib = _build.load("pareto_dom")
         p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        lib.pareto_dom_smem_limit.argtypes = []
+        lib.pareto_dom_smem_limit.restype = i
         lib.nds_rank_smem_bytes.argtypes = [i, i, i]
         lib.nds_rank_smem_bytes.restype = sz
         lib.nds_rank.argtypes = [p, p, p, i, i, i, i, p]
         lib.nds_rank.restype = i
         lib.dominance_matrix.argtypes = [p, p, i, i, i, p]
         lib.dominance_matrix.restype = i
+        lib.nsga2_evolve_bytes.argtypes = [i, i]
+        lib.nsga2_evolve_bytes.restype = sz
+        lib.nsga2_evolve.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.nsga2_evolve.restype = i
         _LIB = lib
     return _LIB
 
@@ -53,9 +68,13 @@ def nds_rank(f: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"nds_rank needs P % 32 == 0, got P={p}")
     if f.device.type == "cpu":
         return ref.non_dominated_rank_ref(f)
+    if not 1 <= m <= MAX_OBJECTIVES:
+        raise ValueError(f"nds_rank takes 1 to {MAX_OBJECTIVES} objectives, "
+                         f"got M={m}")
     lib = _lib()
-    packed_in_smem = int(lib.nds_rank_smem_bytes(p, m, 1) <= SMEM_LIMIT)
-    if lib.nds_rank_smem_bytes(p, m, 0) > SMEM_LIMIT:
+    limit = lib.pareto_dom_smem_limit()
+    packed_in_smem = int(lib.nds_rank_smem_bytes(p, m, 1) <= limit)
+    if lib.nds_rank_smem_bytes(p, m, 0) > limit:
         raise ValueError(f"nds_rank: P={p}, M={m} exceeds shared memory")
     ranks = torch.empty((c, p), dtype=torch.int32, device=f.device)
     scratch = (torch.empty(0, dtype=torch.int32, device=f.device)
@@ -81,3 +100,94 @@ def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "dominance_matrix")
     LAUNCHES["dominance_matrix"] += 1
     return out
+
+
+def _need(t: torch.Tensor, dtype, shape, name: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)} (contiguous: "
+                         f"{t.is_contiguous()})")
+
+
+def evolve_operands(draws, space, p: int):
+    """The kernel's inputs beside the population: (pairs (G, C, P, 2)
+    int32, flags (G, C, P) uint8 (bit k: take the mate's gene k, bit 3 +
+    k: mutate it), u (G, C, P, 3) float32, cal (C, 15) float32 (the array
+    size, then `_CAL_FIELDS`), bounds (C, 6) int32 (gene_lo, gene_hi))."""
+    dev = draws.u.device
+    bit = torch.tensor([1, 2, 4], dtype=torch.int32, device=dev)
+    flags = (((draws.do_cx & draws.swap).int() * bit).sum(-1)
+             + ((draws.mut.int() * bit).sum(-1) << 3)).to(torch.uint8)
+    cal = torch.stack([space.array_size]
+                      + [getattr(space.cal, k) for k in _CAL_FIELDS], -1)
+    bounds = torch.cat([space.gene_lo, space.gene_hi], -1)
+    return (draws.pairs.to(torch.int32).contiguous(), flags.contiguous(),
+            draws.u.contiguous(), cal.to(torch.float32).contiguous(),
+            bounds.to(torch.int32).contiguous())
+
+
+def nsga2_evolve(draws, genes: torch.Tensor, objs: torch.Tensor, space,
+                 statics, fronts: torch.Tensor | None = None):
+    """Every NSGA-II generation of C cells: rank and crowd the (C, P)
+    population, then G generations of tournament, variation, repair,
+    objectives and (rank, crowding) selection on `draws` (a stacked
+    `nsga2.GenerationDraws`, leading G).  Returns the final (genes (C, P,
+    3) int32, objs (C, P, 4) float32, ranks (C, P) int32), bit-equal to
+    the plain version `ref.nsga2_evolve_ref` (the composite loop) on the
+    same draws.  On the card, `fronts` (C,) int32, if given, receives the
+    fronts each cell peeled over all its ranks (the launch's latency
+    count)."""
+    c, p = genes.shape[:2]
+    g = draws.u.shape[0]
+    _need(genes, torch.int32, (c, p, 3), "genes")
+    _need(objs, torch.float32, (c, p, 4), "objs")
+    if statics.pop_size != p:
+        raise ValueError(f"pop_size {statics.pop_size} != population {p}")
+    shapes = dict(pairs=(g, c, p, 2), do_cx=(g, c, p, 1), swap=(g, c, p, 3),
+                  u=(g, c, p, 3), mut=(g, c, p, 3))
+    for name, shape in shapes.items():
+        if tuple(getattr(draws, name).shape) != shape:
+            raise ValueError(f"draws.{name}: expected {shape}, got "
+                             f"{tuple(getattr(draws, name).shape)}")
+    devs = {genes.device, objs.device, space.gene_lo.device,
+            *(x.device for x in draws)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+    if genes.device.type == "cpu":
+        if fronts is not None:
+            raise ValueError("nsga2_evolve: fronts are counted on the card "
+                             "only")
+        return ref.nsga2_evolve_ref(draws, genes, objs, space, statics)
+    if fronts is not None:
+        _need(fronts, torch.int32, (c,), "fronts")
+    if p > MAX_POP:
+        raise ValueError(f"nsga2_evolve takes pop_size <= {MAX_POP}, got {p}")
+    if g and bool(((draws.pairs < 0) | (draws.pairs >= p)).any()):
+        raise ValueError("nsga2_evolve: a tournament index lies outside "
+                         "the population")
+    pairs, flags, u, cal, bounds = evolve_operands(draws, space, p)
+    lib = _lib()
+    # Shared memory holds the state and the dominance words where both
+    # fit, else the state alone; the rest goes to device-memory scratch.
+    limit = lib.pareto_dom_smem_limit()
+    state, packed = lib.nsga2_evolve_bytes(p, 0), lib.nsga2_evolve_bytes(p, 1)
+    state_in_smem = state <= limit
+    packed_in_smem = state + packed <= limit
+    g_state = None if state_in_smem else torch.empty(
+        c * state, dtype=torch.uint8, device=genes.device)
+    g_packed = None if packed_in_smem else torch.empty(
+        c * packed, dtype=torch.uint8, device=genes.device)
+    out_g = torch.empty_like(genes)
+    out_o = torch.empty_like(objs)
+    ranks = torch.empty((c, p), dtype=torch.int32, device=genes.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.nsga2_evolve(
+        genes.data_ptr(), objs.data_ptr(), pairs.data_ptr(), flags.data_ptr(),
+        u.data_ptr(), cal.data_ptr(), bounds.data_ptr(), out_g.data_ptr(),
+        out_o.data_ptr(), ranks.data_ptr(), ptr(fronts), ptr(g_state),
+        ptr(g_packed), c, p, g, int(state_in_smem), int(packed_in_smem),
+        _build.stream_ptr(genes))
+    _build.check(rc, "nsga2_evolve")
+    LAUNCHES["nsga2_evolve"] += 1
+    return out_g, out_o, ranks

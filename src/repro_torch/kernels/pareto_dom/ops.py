@@ -35,3 +35,14 @@ def non_dominated_rank(f: torch.Tensor) -> torch.Tensor:
     p = f.shape[-2]
     fp = _pad_inf(f.to(torch.float32), RANK_MULTIPLE).contiguous()
     return kernel.nds_rank(fp)[..., :p]
+
+
+def nsga2_evolve(draws, genes: torch.Tensor, objs: torch.Tensor, space,
+                 statics, fronts: torch.Tensor | None = None):
+    """Every generation of an explore dispatch: (C, P, 3) genes and (C, P,
+    4) objectives of the initial populations and stacked draws (leading
+    G) -> the final (genes, objs, ranks).  Plain version:
+    `nsga2.evolve_composite` (`ref.nsga2_evolve_ref`)."""
+    return kernel.nsga2_evolve(draws, genes.to(torch.int32).contiguous(),
+                               objs.to(torch.float32).contiguous(), space,
+                               statics, fronts=fronts)

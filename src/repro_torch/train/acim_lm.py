@@ -11,7 +11,7 @@ gradients) trains with plain SGD.
 Counterpart of the reference's `examples/train_acim_lm.py` (its
 checkpointing aside).  It runs on CUDA unless given `--device`; on CUDA
 each FFN projection is one launch of the `acim_matmul` kernel and the
-codesign pick runs the explorer's `nds_rank` kernel.  `--no-cim` trains
+codesign pick runs the explorer's `nsga2_evolve` kernel.  `--no-cim` trains
 the same model on the exact digital path.
 """
 from __future__ import annotations

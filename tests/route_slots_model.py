@@ -4,8 +4,9 @@ layout buckets the route tests feed it (shared by
 nor the port).
 
 The model does what `csrc/maze_route.cu` does, one grid at a time: the
-occupancy as 16-bit counts offset by `lo = capacity - K` (K = A + 1, A
-the most masked targets of real slots a grid has),
+occupancy as counts offset by `lo = capacity - K` (K = A + 1, A the most
+masked targets of real slots a grid has), 16 bits wide while they stay
+below 2^16 (2 A + 1 <= 65535) and 32 bits beyond, as the kernel picks,
 per slot a level-synchronous BFS from the hub that stops at the first
 level at which every masked target is resolved (a target when it is
 reached, a blocked one also when a neighbour is) or when the frontier
@@ -41,6 +42,12 @@ def _resolved(front, free, y, x) -> bool:
                for dy, dx in NEIGHBORS)
 
 
+def count_dtype(visits: int):
+    """The kernel's count width for A = `visits` masked targets per grid:
+    counts reach at most 2 A + 1."""
+    return np.uint16 if 2 * visits + 1 <= 2 ** 16 - 1 else np.uint32
+
+
 def route_slots_model(occ0, hubs, tgts, tmask, nmask, grids, capacity):
     """Returns (occ, routed, failed, wirelen, levels), all int32 numpy."""
     occ0 = np.asarray(occ0, np.int64)
@@ -56,7 +63,7 @@ def route_slots_model(occ0, hubs, tgts, tmask, nmask, grids, capacity):
     for b in range(bsz):
         gh, gw = min(int(grids[b][0]), h), min(int(grids[b][1]), w)
         u0 = np.clip(occ0[b, :gh, :gw] - lo, 0, k_cap)
-        cnt = u0.astype(np.uint16)
+        cnt = u0.astype(count_dtype(k_cap - 1))
         dist = np.zeros((gh, gw), np.uint16)      # valid where visited
         for s in range(s_n):
             if not nmask[b, s]:
@@ -162,4 +169,25 @@ def random_bucket(seed: int, grids, slots: int, capacity: int,
     nmask = rng.random((bsz, slots)) < 0.85
     nmask[:, :4] = True
     nmask[-1, -1] = False
+    return occ0, hubs, tgts, tmask, nmask, grids
+
+
+def hub_heavy_bucket(seed: int = 7, slots: int = 1_700, targets: int = 30,
+                     capacity: int = 4):
+    """A bucket past 32,767 masked targets per grid whose counts pass 2^16:
+    `random_bucket` on a 40 x 60 and a 12 x 20 grid with every target and
+    slot masked in (A = slots x targets = 51,000), every slot's hub on one
+    full cell of its grid, and every other slot's targets all on that hub.
+    Those slots route at level 0 and commit the hub once per target, so
+    its count (offset K = A + 1) passes 65,535; the others route while the
+    hub's neighbours have room, then fail."""
+    occ0, hubs, tgts, tmask, nmask, grids = random_bucket(
+        seed, [(40, 60), (12, 20)], slots, capacity, targets, p_full=0.1)
+    tmask[:] = True
+    nmask[:] = True
+    for b, (gh, gw) in enumerate(grids):
+        hub = (gh // 2, gw // 3)
+        occ0[b, hub[0], hub[1]] = capacity
+        hubs[b] = hub
+        tgts[b, ::2] = hub
     return occ0, hubs, tgts, tmask, nmask, grids

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.api import DesignRequest, DesignSession, Requirements
 from repro_torch.configs import registry
-from repro_torch.core import pareto
+from repro_torch.core import nsga2, pareto
 from repro_torch.core.acim_numerics import NoiseParams
 from repro_torch.core.acim_spec import MacroSpec
 from repro_torch.kernels import LAUNCHES
@@ -28,7 +28,8 @@ from repro_torch.kernels.pareto_dom import ops as pd_ops
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.lm import init_lm
-from route_slots_model import random_bucket, route_slots_model
+from route_slots_model import (hub_heavy_bucket, random_bucket,
+                               route_slots_model)
 
 pytestmark = pytest.mark.cuda
 
@@ -163,6 +164,25 @@ def test_route_slots_past_16k_slots(dev):
     assert int(got[1][0]) > 0
 
 
+def test_route_slots_past_32k_targets(dev):
+    """51,000 masked targets a grid (2 A + 1 > 2^16 - 1): uint32 counts in
+    device memory, a hub's count past 2^16.  Routed, failed, wirelength,
+    occupancy and BFS levels equal the numpy model and the plain version
+    (the model equals the plain version on the CPU too,
+    `test_torch_route_slots.py`)."""
+    bucket = [torch.from_numpy(x).to(dev) for x in hub_heavy_bucket()]
+    levels = torch.zeros(2, dtype=torch.int32, device=dev)
+    n0 = LAUNCHES["route_slots"]
+    got = mr.route_slots(*bucket, 4, levels=levels)
+    assert LAUNCHES["route_slots"] == n0 + 1
+    model = route_slots_model(*(x.cpu().numpy() for x in bucket), 4)
+    for g, w in zip((*got, levels), model):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+    for g, w in zip(got, mr_ref.route_slots_ref(*bucket, 4)):
+        assert torch.equal(g, w)
+    assert int(got[1].min()) > 0 and int(got[2].min()) > 0
+
+
 def test_maze_route_refuses_grids_past_the_word_limit(dev):
     """2^22 bitset words in one grid (4096 x 32768) is past what the
     kernels' index arithmetic takes: both wrappers raise."""
@@ -206,10 +226,60 @@ def test_session_on_cuda_equals_cpu_rows(dev):
                                                   min_tops=0.4))
     LAUNCHES.clear()
     art = DesignSession().run(req)
-    assert LAUNCHES["nds_rank"] > 0 and LAUNCHES["route_slots"] == 1
+    # one explore dispatch: one nsga2_evolve launch runs every generation
+    assert LAUNCHES["nsga2_evolve"] == 1 and LAUNCHES["nds_rank"] == 0
+    assert LAUNCHES["route_slots"] == 1
     assert LAUNCHES["wavefront"] == LAUNCHES["trace_paths"] == 0
     cpu = DesignSession(device="cpu").layout(art.pareto.specs)
     assert list(art.layout_rows) == cpu.metrics_rows()
+
+
+def _evolve_inputs(dev, sizes, pop, gens):
+    space = nsga2.stack_spaces([nsga2.space_operands(
+        nsga2.NSGA2Config(array_size=s)) for s in sizes]).to(dev)
+    statics = nsga2.EvolveStatics(pop_size=pop)
+    draws = nsga2.PhiloxDraws(range(len(sizes)), dev)
+    genes = nsga2.init_population_op(draws.init(
+        space.gene_lo.cpu().numpy(), space.gene_hi.cpu().numpy(), pop), space)
+    objs = nsga2.evaluate_op(genes, space)
+    return space, statics, genes, objs, draws.generations(gens, pop, pop,
+                                                          statics)
+
+
+@pytest.mark.parametrize("sizes,pop,gens", [
+    ((16384,), 256, 80),                  # the 16 kb request's dispatch
+    ((16384,), 96, 25),                   # the codesign pick's
+    ((4096, 16384, 65536), 256, 20),      # a batch of cells
+    ((16384,), 100, 15),                  # 2 P = 200: words padded
+    ((16384, 4096), 512, 6),              # dominance words in device memory
+    ((16384,), 1024, 3)])                 # all state in device memory
+def test_nsga2_evolve_matches_composite(sizes, pop, gens, dev):
+    """Every generation in one launch: final genes, objectives and ranks
+    bit-equal to the composite loop (torch ops and one nds_rank launch a
+    generation) on the same draws."""
+    space, statics, genes, objs, draws = _evolve_inputs(dev, sizes, pop,
+                                                        gens)
+    fronts = torch.zeros(len(sizes), dtype=torch.int32, device=dev)
+    n0 = LAUNCHES["nsga2_evolve"]
+    got = pd_ops.nsga2_evolve(draws, genes, objs, space, statics,
+                              fronts=fronts)
+    assert LAUNCHES["nsga2_evolve"] == n0 + 1
+    want = nsga2.evolve_composite(nsga2.StackedDraws(draws), genes, objs,
+                                  space, statics, gens)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[2], pareto.non_dominated_rank(got[1]))
+    assert int(fronts.min()) > gens
+
+
+def test_dominance_route_keeps_the_composite(dev):
+    """`use_pallas_dominance` without `use_pallas_rank` runs the composite
+    loop with the dominance_matrix kernel, not nsga2_evolve."""
+    req = DesignRequest(array_size=4096, pop_size=64, generations=5,
+                        use_pallas_dominance=True, layout=False)
+    LAUNCHES.clear()
+    DesignSession().run(req)
+    assert LAUNCHES["dominance_matrix"] == 6 and LAUNCHES["nsga2_evolve"] == 0
 
 
 @pytest.mark.parametrize("m,k,c", [(1024, 768, 3072), (1024, 3072, 768),

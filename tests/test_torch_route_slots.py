@@ -1,7 +1,8 @@
 """`route_slots` on the CPU: its plain version equals the reference's
 `_route_program` (the scan engine's slot loop, jnp sweeping ref), and
 a numpy model of the kernel's algorithm (`route_slots_model.py`: a
-bit-parallel BFS that stops at the last target, uint16 counts) equals
+bit-parallel BFS that stops at the last target, uint16 counts, uint32
+past 32,767 masked targets a grid) equals
 the plain version, on seeded buckets and a hypothesis sweep.  The
 kernel itself is held to the plain version on the card
 (`test_torch_kernels_cuda.py`, `chip_smoke.py`)."""
@@ -16,7 +17,8 @@ from repro.eda import batched_flow as rflow
 from repro_torch.kernels.maze_route import kernel as tkernel
 from repro_torch.kernels.maze_route import ops as tops
 from repro_torch.kernels.maze_route import ref as tref
-from route_slots_model import random_bucket, route_slots_model
+from route_slots_model import (hub_heavy_bucket, random_bucket,
+                               route_slots_model)
 import torch_port_helpers  # noqa: F401  (one torch thread per test worker)
 
 # Mixed grid sizes in one padded plane (the tallest and the widest are
@@ -91,6 +93,21 @@ def test_model_equals_plain_past_16k_slots():
     for g, w_ in zip(got, _plain(bucket, LONG_BUCKET["capacity"])):
         np.testing.assert_array_equal(g, w_)
     assert got[1].sum() > 0
+
+
+def test_model_equals_plain_past_32k_targets():
+    """51,000 masked targets a grid (2 A + 1 > 2^16 - 1): the model keeps
+    uint32 counts, as the kernel does, and a hub's count passes 2^16."""
+    bucket = hub_heavy_bucket()
+    occ0, tmask, nmask = bucket[0], bucket[3], bucket[4]
+    visits = int((tmask & nmask[..., None]).sum((1, 2)).max())
+    assert visits > 2 ** 15 - 1
+    got = route_slots_model(*bucket, 4)
+    for g, w_ in zip(got, _plain(bucket, 4)):
+        np.testing.assert_array_equal(g, w_)
+    # the largest offset count u = occ - occ0 + K, K = A + 1 (see the model)
+    assert int((got[0] - occ0).max()) + visits + 1 > 2 ** 16 - 1
+    assert (got[1] > 0).all() and (got[2] > 0).all() and (got[4] > 0).all()
 
 
 def test_ops_takes_any_layout():

@@ -75,3 +75,10 @@ class JaxDraws:
             self.kgen[c], sub = jax.random.split(self.kgen[c])
             subs.append(sub)
         return self.step(subs, n, p, statics)
+
+    def generations(self, n_gens, n, p, statics):
+        """Every generation's draws stacked on a leading G axis, by the same
+        `generation` calls in the same order as the composite loop."""
+        return tnsga2.stack_generations(
+            [self.generation(n, p, statics) for _ in range(n_gens)],
+            len(self.kgen), n, p, "cpu")
