@@ -24,8 +24,9 @@ and prints:
 4. for the CIM-in-the-loop trainer at full width (d 768, 12 layers,
    seq 128, batch 8, the codesign pick's macro), after 2 warm-up steps:
    the mean step time of 5 steps, then 3 steps under the profiler with
-   the device kernels with the most time, the `acim_matmul` kernel's
-   share, and the busy share;
+   the device kernels with the most time, the `acim_matmul` kernels'
+   device time per step by route (wgmma, cuda_core; split-K's zeroing
+   memsets beside), and the busy share;
 5. for the long-context prefill of qwen2.5-3b at full width (36 layers,
    bf16 serving weights drawn from seed 0, batch 1 x 32768,
    `make_prefill_step`), after one warm-up prefill: one prefill under the
@@ -142,10 +143,18 @@ def profile_train(steps: int = 3) -> dict:
     kernels = _device_kernels(prof)
     device_s = sum(r[2] for r in kernels) / 1e6
     acim_s = sum(r[2] for r in kernels if "acim_matmul" in r[0]) / 1e6
+    # per route: the tensor-core kernel and the CUDA-core one
+    wgmma_s = sum(r[2] for r in kernels
+                  if "acim_matmul_wgmma_kernel" in r[0]) / 1e6
+    memset_s = sum(r[2] for r in kernels if "Memset" in r[0]) / 1e6
     return {"spec": str(cim.spec), "step_ms": step_ms,
             "profiled_step_ms": 1e3 * wall / steps,
             "device_ms_per_step": 1e3 * device_s / steps,
             "acim_matmul_ms_per_step": 1e3 * acim_s / steps,
+            "acim_matmul_ms_per_step_by_route": {
+                "wgmma": 1e3 * wgmma_s / steps,
+                "cuda_core": 1e3 * (acim_s - wgmma_s) / steps},
+            "memset_ms_per_step": 1e3 * memset_s / steps,
             "busy_share": device_s / wall,
             "launches_per_step": sum(r[1] for r in kernels) / steps,
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
@@ -237,10 +246,13 @@ def main() -> int:
     for row in prof["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
     train = profile_train()
+    by_route = train["acim_matmul_ms_per_step_by_route"]
     print(f"trainer (d 768, 12 layers, {train['spec']}): {train['step_ms']:.2f}"
           f" ms/step unprofiled; profiled {train['profiled_step_ms']:.2f} "
           f"ms/step, device {train['device_ms_per_step']:.2f} ms/step "
-          f"(acim_matmul {train['acim_matmul_ms_per_step']:.2f}), busy "
+          f"(acim_matmul {train['acim_matmul_ms_per_step']:.3f}: by route "
+          f"{ {k: round(v, 3) for k, v in by_route.items()} }; memsets "
+          f"{train['memset_ms_per_step']:.3f}), busy "
           f"share {train['busy_share']:.3f}, "
           f"{train['launches_per_step']:.0f} device events/step", flush=True)
     for row in train["top"]:

@@ -35,12 +35,19 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              timed alone on the whole bucket
              (`bucket_ms`); the standalone `wavefront` on the same grids
              and on 241 x 2178 and 122 x 1090, `trace_paths` on one slot
-             of them.  `acim_matmul`
-             runs at the trainer's FFN shapes, (1024, 768) @ (768, 3072)
-             and (1024, 3072) @ (3072, 768), with the codesign pick's
-             (N, B) and with N = 128, B = 5: bit-equal on +-1 operands,
-             and on mismatch-folded weights equal but for ADC flips (a
-             whole number of deltas each) on at most 0.1 % of outputs.
+             of them.  `acim_matmul` has two routes, each held to the
+             plain version at the trainer's FFN shapes, (1024, 768) @
+             (768, 3072) and (1024, 3072) @ (3072, 768), with the codesign
+             pick's (N, B) and with N = 128, B = 5: the wgmma route
+             (tensor cores on an exact bf16 term split, split-K on the
+             second shape) and the cuda_core route: bit-equal on +-1
+             operands, and on mismatch-folded weights, with +-1 and with
+             float activations, equal but for ADC flips (a whole number
+             of deltas each) on at most 0.1 % of outputs; both timed on
+             the trainer's operands, f32 and bf16 torch.matmul printed
+             beside as a scale.  `dominance_matrix` is held to its plain
+             version at five shapes and timed by events and by the
+             profiler's device time, with the launch floor.
              Flash attention has two routes: bf16 at head dims 64 and
              128 runs `flash_attention_wgmma` (tensor cores), held
              against `flash_attention_tc_ref`: the kernel's own bf16 P
@@ -88,11 +95,15 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              printed), then 20 SGD steps whose losses must be finite and
              end below the first.  Launch counts, zeroed before the pick
              and read after the last step: `acim_matmul` 24 per forward,
-             `nsga2_evolve` > 0.  Then step 0's loss on the card is held
-             against the plain PyTorch run on the CPU of the same weights,
+             all on the wgmma route, `nsga2_evolve` > 0.  Then step 0's
+             loss on the card is held against the plain PyTorch run on
+             the CPU of the same weights,
              batch and mismatch draws, at full width and 2 layers (rtol
              1e-2: the bfloat16 backbone rounds differently on the two
              devices, and a rounding can flip a binarized activation).
+             Then the CUDA-core route's path: the same check with a
+             macro of N 8 (MacroSpec(16, 64, 2, 3)), whose forward runs
+             only `acim_matmul_cuda_core` launches, 2 per layer.
 5. prefill — `make_prefill_step(qwen2.5-3b, prefill_32k)` at full width
              (36 layers, d 2048, vocab 151,936) with bf16 serving
              weights drawn from seed 0 (CPU generator), on synthetic tokens
@@ -150,6 +161,10 @@ ACIM_FLIP_SHARE = 1e-3     # mismatch-folded weights: outputs an ADC flip
                            # may move (measured share printed)
 CPU_CHECK_LAYERS = 2       # depth of the step-0 card-vs-CPU check
 CPU_CHECK_RTOL = 1e-2
+
+# A macro of the explorer's space whose chunk (N 8) is no whole k16 step:
+# the trainer's forward then takes acim_matmul's CUDA-core route.
+NARROW_MACRO_ARGS = (16, 64, 2, 3)
 
 # The prefill phase: qwen2.5-3b at full width, prefill_32k cut to batch 1.
 PREFILL_CONFIG = "qwen2.5-3b"
@@ -232,6 +247,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiler_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time of the kernels named `kernel` per call of `fn`
+    over `reps` calls (after one warm-up), from torch.profiler: the
+    device's own time, without the host's launch cost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    check(us > 0, f"profiler recorded no device time for {kernel}")
+    return us / 1e3 / reps
 
 
 # ----------------------------------------------------------------------
@@ -328,22 +364,42 @@ def kernel_phase() -> list[dict]:
           f"{rows[-1]['ms']:.4f} ms vs plain {rows[-1]['plain_ms']:.4f} ms "
           f"at (1, 512, 4)", flush=True)
 
-    # -- dominance_matrix: (1, 512, 4)
+    # -- dominance_matrix: (1, 512, 4), the composite loop's pool; its
+    # event time includes the wrapper's host time, so the profiler's
+    # device time is kept beside it, and the launch floor beside both (the
+    # same kernel on one warp's worth of work, (1, 32, 1))
     fd = f[1:2].contiguous()
     got, want = pd.dominance_matrix(fd), pareto.dominance_matrix(fd)
     check(torch.equal(got, want), "dominance_matrix != plain on (1, 512, 4)")
+    for shape in ((3, 512, 4), (2, 1000, 3), (1, 1024, 8), (2, 64, 1)):
+        fr = torch.tensor(rng.integers(0, 4, shape), dtype=torch.float32,
+                          device=dev)
+        fr[:, -2:] = float("inf")
+        check(torch.equal(pd.dominance_matrix(fr),
+                          pareto.dominance_matrix(fr)),
+              f"dominance_matrix != plain on {shape}")
     c, p, m = fd.shape
     b_ms, b_by = bound(c * p * m * 4 + c * p * p, c * p * p * m * 2)
+    dev_ms = {}
+    for shape in ((1, 512, 4), (1, 192, 4), (3, 512, 4), (1, 32, 1)):
+        fr = fd if shape == (1, 512, 4) else torch.rand(shape, device=dev)
+        dev_ms[shape] = (cuda_ms(lambda: pd.dominance_matrix(fr), 200),
+                         profiler_ms(lambda: pd.dominance_matrix(fr), 50,
+                                     "dominance_kernel"))
     rows.append(dict(
         name="dominance_matrix", route="cuda",
         source="src/repro_torch/csrc/pareto_dom.cu",
         replaces="src/repro/kernels/pareto_dom/kernel.py:44",
         max_abs_err=float((got.int() - want.int()).abs().max()),
-        ms=cuda_ms(lambda: pd.dominance_matrix(fd), 200),
+        ms=dev_ms[(1, 512, 4)][0],
         plain_ms=cuda_ms(lambda: pareto.dominance_matrix(fd), 50),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"kernel dominance_matrix: equal to plain on (1, 512, 4); "
-          f"{rows[-1]['ms']:.4f} ms vs plain {rows[-1]['plain_ms']:.4f} ms",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_ms=dev_ms[(1, 512, 4)][1], floor_ms=dev_ms[(1, 32, 1)][0],
+        floor_device_ms=dev_ms[(1, 32, 1)][1]))
+    print(f"kernel dominance_matrix: equal to plain on (1, 512, 4), (3, 512, "
+          f"4), (2, 1000, 3), (1, 1024, 8), (2, 64, 1); {rows[-1]['ms']:.4f} "
+          f"ms vs plain {rows[-1]['plain_ms']:.4f} ms; (event ms, profiler "
+          f"device ms) by shape {dev_ms} ((1, 32, 1): the launch floor)",
           flush=True)
 
     # -- wavefront: the 86 golden 16 kb grids with random occupancy,
@@ -437,7 +493,7 @@ def kernel_phase() -> list[dict]:
 
     rows.append(evolve_kernel_check(dev))
     rows.append(route_kernel_check(dev, rng, gen, specs))
-    rows.append(acim_kernel_check(dev, rng))
+    rows.extend(acim_kernel_check(dev, rng))
     rows.extend(flash_kernel_check(dev))
     return rows
 
@@ -679,13 +735,34 @@ def _adc_flip_share(got, want, delta: float) -> float:
     return float((steps != 0).double().mean())
 
 
-def acim_kernel_check(dev, rng) -> dict:
-    """acim_matmul against its plain version at the trainer's FFN shapes,
-    with the codesign pick's (N, B) and with N = 128, B = 5."""
+def _term_passes(x, w) -> int:
+    """bf16 passes the wgmma route runs on x @ w: x's nonzero terms times
+    w's (the three-term split; a term is skipped where its tile is all
+    zero, counted here over the whole operand)."""
+    import torch
+
+    def terms(v):
+        hi = v.to(torch.bfloat16).float()
+        mid = (v - hi).to(torch.bfloat16).float()
+        return 1 + int(bool(mid.any())) + int(bool((v - hi - mid).any()))
+
+    return terms(x) * terms(w)
+
+
+def acim_kernel_check(dev, rng) -> list[dict]:
+    """Both acim_matmul routes against their plain version at the
+    trainer's FFN shapes, with the codesign pick's (N, B) and with N 128,
+    B 5: bit-equal on +-1 operands; whole ADC steps on at most
+    ACIM_FLIP_SHARE of outputs on mismatch-folded weights with +-1 and
+    with float activations in [-1, 1].  Timed on the trainer's operands
+    (+-1 activations, mismatch-folded weights).  One row per route at the
+    first shape and the pick; f32 and bf16 torch.matmul of the same
+    shapes are printed as a scale (the product without the ADC)."""
     import torch
 
     from repro_torch.core.acim_numerics import NoiseParams
     from repro_torch.core.acim_spec import MacroSpec
+    from repro_torch.kernels.acim_matmul import kernel as ak
     from repro_torch.kernels.acim_matmul import ops as am
     from repro_torch.kernels.acim_matmul import ref as am_ref
     from repro_torch.train import acim_lm
@@ -693,7 +770,10 @@ def acim_kernel_check(dev, rng) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False      # exact f32 products
     cfg = acim_lm.build_cfg(TRAIN["d_model"], TRAIN["layers"])
     pick = acim_lm.pick_macro(cfg).spec
-    row = None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    run = {"wgmma": ak.acim_matmul_wgmma,
+           "cuda_core": ak.acim_matmul_cuda_core}
+    rows = {}
     for spec in (pick, MacroSpec(256, 64, 2, 5)):
         n, b = spec.n_caps, spec.b_adc
         delta = 2.0 * n / 2 ** b
@@ -702,39 +782,65 @@ def acim_kernel_check(dev, rng) -> dict:
                              dtype=torch.float32, device=dev)
             w = torch.tensor(rng.choice([-1.0, 1.0], (k, c)),
                              dtype=torch.float32, device=dev)
-            got = am.acim_matmul(x, w, spec)
+            xf = torch.rand((m, k), device=dev) * 2 - 1
+            wm = am.mismatch_weights(w, spec, torch.randn((k, c), device=dev),
+                                     NoiseParams.from_cal())
             want = am_ref.acim_matmul_ref(x, w, n=n, b_adc=b)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"acim_matmul != plain on +-1 ({m}, {k}, {c}), N={n}, B={b}")
-            eps = torch.randn((k, c), device=dev)
-            wm = am.mismatch_weights(w, spec, eps, NoiseParams.from_cal())
-            share = _adc_flip_share(
-                am.acim_matmul(x, wm, spec),
-                am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b), delta)
-            check(share <= ACIM_FLIP_SHARE,
-                  f"acim_matmul: {share:.2e} of outputs flipped on "
-                  f"mismatch-folded ({m}, {k}, {c}), N={n}, B={b}")
-            ms = cuda_ms(lambda: am.acim_matmul(x, w, spec), 20)
+            want_m = am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b)
+            want_f = am_ref.acim_matmul_ref(xf, wm, n=n, b_adc=b)
             plain_ms = cuda_ms(lambda: am_ref.acim_matmul_ref(
-                x, w, n=n, b_adc=b), 5)
-            dense_ms = cuda_ms(lambda: torch.matmul(x, w), 20)
-            b_ms, b_by = bound((m * k + k * c + m * c) * 4, 2 * m * k * c)
-            print(f"kernel acim_matmul: equal to plain on +-1 ({m}, {k}, "
-                  f"{c}), N={n}, B={b}; mismatch-folded: {share:.2e} of "
-                  f"outputs one or more ADC steps apart; {ms:.4f} ms vs "
-                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                  f"dense f32 torch.matmul (reference only) {dense_ms:.4f} "
-                  f"ms", flush=True)
-            if row is None:          # the main path's first shape and pick
-                row = dict(
-                    name="acim_matmul", route="cuda",
-                    source="src/repro_torch/csrc/acim_matmul.cu",
-                    replaces="src/repro/kernels/acim_matmul/kernel.py:60",
-                    max_abs_err=float((got - want).abs().max()), ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None)
-    return row
+                x, wm, n=n, b_adc=b), 5)
+            f32_ms = cuda_ms(lambda: torch.matmul(x, wm), 20)
+            xb, wb = x.bfloat16(), wm.bfloat16()
+            bf16_ms = cuda_ms(lambda: torch.matmul(xb, wb), 20)
+            print(f"scale acim_matmul ({m}, {k}, {c}): the product without "
+                  f"the ADC, not the same function (never called by the "
+                  f"port): f32 torch.matmul {f32_ms:.4f} ms, bf16 "
+                  f"torch.matmul {bf16_ms:.4f} ms", flush=True)
+            nbytes = (m * k + k * c + m * c) * 4
+            for route, fn in run.items():
+                got = fn(x, w, n, b)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"acim_matmul {route} != plain on +-1 ({m}, {k}, {c}), "
+                      f"N={n}, B={b}")
+                share = _adc_flip_share(fn(x, wm, n, b), want_m, delta)
+                share_f = _adc_flip_share(fn(xf, wm, n, b), want_f, delta)
+                check(share <= ACIM_FLIP_SHARE and share_f <= ACIM_FLIP_SHARE,
+                      f"acim_matmul {route}: {share:.2e} / {share_f:.2e} of "
+                      f"outputs flipped on mismatch-folded ({m}, {k}, {c}), "
+                      f"N={n}, B={b} (+-1 / float x)")
+                ms = cuda_ms(lambda: fn(x, wm, n, b), 20)
+                b_f32, _ = bound(nbytes, 2 * m * k * c)
+                if route == "wgmma":
+                    passes = _term_passes(x, wm)
+                    b_ms, b_by = bound(nbytes, passes * 2 * m * k * c,
+                                       PEAK_BF16_TC_FLOPS)
+                    extra = (f"bound {b_ms:.4f} ms ({b_by}: {passes} bf16 "
+                             f"passes at the tensor-core peak; one f32 FFMA "
+                             f"pass {b_f32:.4f} ms); splits "
+                             f"{ak.split_k(m, c, k, n, sms)}")
+                else:
+                    b_ms, b_by = bound(nbytes, 2 * m * k * c)
+                    extra = f"bound {b_ms:.4f} ms ({b_by}: f32 FFMA)"
+                print(f"kernel acim_matmul_{route}: equal to plain on +-1 "
+                      f"({m}, {k}, {c}), N={n}, B={b}; mismatch-folded: "
+                      f"{share:.2e} (+-1 x) and {share_f:.2e} (float x) of "
+                      f"outputs whole ADC steps apart; {ms:.4f} ms vs plain "
+                      f"{plain_ms:.4f} ms, {extra}", flush=True)
+                name = f"acim_matmul_{route}"
+                if name not in rows:   # the main path's first shape and pick
+                    rows[name] = dict(
+                        name=name, route="cuda",
+                        source=("src/repro_torch/csrc/acim_matmul_wgmma.cu"
+                                if route == "wgmma" else
+                                "src/repro_torch/csrc/acim_matmul.cu"),
+                        replaces="src/repro/kernels/acim_matmul/kernel.py:60",
+                        max_abs_err=float((got - want).abs().max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None, bound_f32_ms=b_f32,
+                        flip_share=max(share, share_f))
+    return list(rows.values())
 
 
 def _visible_pairs(s: int, t: int, causal: bool, prefix_len: int) -> int:
@@ -1210,9 +1316,14 @@ def train_phase() -> dict:
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not decrease: {losses}")
     per_fwd = 2 * cfg.n_layers
-    check(launches.get("acim_matmul", 0) == per_fwd * TRAIN["steps"],
-          f"acim_matmul launched {launches.get('acim_matmul', 0)} times, "
-          f"want {per_fwd} x {TRAIN['steps']} forwards")
+    want_n = per_fwd * TRAIN["steps"]
+    check(launches.get("acim_matmul", 0) == want_n
+          and launches.get("acim_matmul_wgmma", 0) == want_n
+          and launches.get("acim_matmul_cuda_core", 0) == 0,
+          f"acim_matmul launched {launches.get('acim_matmul', 0)} times "
+          f"(wgmma {launches.get('acim_matmul_wgmma', 0)}, cuda_core "
+          f"{launches.get('acim_matmul_cuda_core', 0)}), want {per_fwd} x "
+          f"{TRAIN['steps']} forwards, all on the wgmma route")
     check(launches.get("nsga2_evolve", 0) > 0,
           "nsga2_evolve not launched by the pick")
     steady = log.step_s[1:]
@@ -1244,7 +1355,38 @@ def train_phase() -> dict:
           f"{CPU_CHECK_RTOL}")
     print(f"train check: step-0 loss at {CPU_CHECK_LAYERS} layers, card vs "
           f"CPU plain, rel diff {rel:.2e} (rtol {CPU_CHECK_RTOL})", flush=True)
-    return {"acim_matmul": launches["acim_matmul"],
+
+    # the CUDA-core route's path: a macro whose chunk is no whole k16 step
+    # (N 8, the explorer's narrow macros), the same step-0 check
+    from repro_torch.core.acim_spec import MacroSpec
+
+    spec_n = MacroSpec(*NARROW_MACRO_ARGS)
+    narrow = CIMConfig(spec_n)
+    losses0 = []
+    for dev in (model.emb.device, torch.device("cpu")):
+        m_ = init_lm(cut, seed=0, device=dev)
+        b_ = {k: v.to(dev) for k, v in batch.items()}
+        LAUNCHES.clear()
+        with torch.no_grad():
+            losses0.append(float(acim_lm.loss_fn(m_, b_, cut, narrow)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            narrow_launches = dict(LAUNCHES)
+    card, host = losses0
+    rel = abs(card - host) / abs(host)
+    n_cc = narrow_launches.get("acim_matmul_cuda_core", 0)
+    check(n_cc == 2 * cut.n_layers
+          and narrow_launches.get("acim_matmul_wgmma", 0) == 0,
+          f"N {spec_n.n_caps} forward launches: {narrow_launches}")
+    check(math.isfinite(card) and rel <= CPU_CHECK_RTOL,
+          f"N {spec_n.n_caps} step-0 loss on the card {card} vs CPU "
+          f"{host}: rel {rel:.2e}")
+    print(f"train route check: {spec_n} (N={spec_n.n_caps}) at "
+          f"{CPU_CHECK_LAYERS} layers: acim_matmul_cuda_core {n_cc} "
+          f"launches; step-0 loss card vs CPU rel diff {rel:.2e} (rtol "
+          f"{CPU_CHECK_RTOL})", flush=True)
+    return {"acim_matmul_wgmma": launches["acim_matmul_wgmma"],
+            "acim_matmul_cuda_core": n_cc,
             "nsga2_evolve": launches["nsga2_evolve"]}
 
 
@@ -1409,7 +1551,9 @@ def main() -> int:
     card = build_phase()
     rows = kernel_phase()
     launches = path_phase()
-    launches["acim_matmul"] = train_phase()["acim_matmul"]
+    train = train_phase()
+    launches.update(acim_matmul_wgmma=train["acim_matmul_wgmma"],
+                    acim_matmul_cuda_core=train["acim_matmul_cuda_core"])
     flash_ms = next(r["ms"] for r in rows
                     if r["name"] == "flash_attention_wgmma")
     launches.update(prefill_phase(flash_ms))
@@ -1418,8 +1562,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # route_slots' whole-bucket time and bound (its row's own are on the
-    # cut its plain version runs); nsga2_evolve's fronts peeled
-    extra = ("bucket_ms", "bucket_bound_ms", "fronts")
+    # cut its plain version runs); nsga2_evolve's fronts peeled;
+    # dominance_matrix's profiler device time and the launch floor;
+    # acim_matmul's one-pass f32 bound and its ADC-flip share
+    extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
+             "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

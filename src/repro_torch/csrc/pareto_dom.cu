@@ -67,10 +67,19 @@
 // same file: D[c, i, j] = all_m(F[i,m] <= F[j,m]) && any_m(F[i,m] < F[j,m]).
 //
 //   Bound on the H100: bytes.  It writes C*P*P bytes of output against
-//   C*P*M*4 bytes read and P*P*M*2 compares (~1 compare per output byte).
-//   Design: 64x64 output tiles; the M objectives of the tile's 64 rows and
-//   64 columns sit in shared memory, and each thread writes bytes of
-//   consecutive j so the stores coalesce.
+//   C*P*M*4 bytes read and P*P*M*2 compares (~1 compare per output byte):
+//   at the composite loop's (1, 512, 4) 0.08 us, far under a launch, so
+//   what it can reach is the launch floor and one round of loads.
+//   Design: fill the card and store wide.  A thread owns 16 consecutive
+//   columns j, whose M objectives (M a template parameter, 1-8, as
+//   nds_rank's) it keeps in registers, and writes 16 output bytes per row
+//   as one 16-byte store (bytes where P % 16 != 0 or at the ragged edge); a
+//   warp covers 512 columns of a row, and walks as many rows as keep at
+//   least two 128-thread CTAs per SM in the grid (one row a warp at P =
+//   512: 128 CTAs).  The CTA's column and row objectives are staged in
+//   shared memory by coalesced loads: each thread loading its own 16 M
+//   floats (lanes 256 bytes apart at M 4) took 5.5 us at (1, 512, 4) on
+//   an H100.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -81,8 +90,9 @@ namespace {
 
 constexpr int kRankThreads = 512;
 constexpr int kEvolveThreads = 1024;
-constexpr int kTile = 64;
-constexpr int kDomThreads = 256;
+constexpr int kDomThreads = 128;     // dominance_matrix: 4 warps
+constexpr int kDomCols = 32 * 16;    // ... of 32 lanes x 16 columns
+constexpr int kDomMaxRows = 32;      // ... each warp walking at most these
 constexpr int kMaxM = 8;             // nds_rank's objectives, compile-time
 // Dynamic shared memory a block may use: 232,448 B less room for the
 // kernels' static shared memory.
@@ -589,32 +599,85 @@ nsga2_evolve_kernel(EvolveArgs a) {
   if (tid == 0 && a.fronts) a.fronts[c] = fronts;
 }
 
-__global__ void dominance_kernel(const float* __restrict__ f,
-                                 uint8_t* __restrict__ out, int P, int M) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* fi = reinterpret_cast<float*>(smem);   // kTile*M, rows i
-  float* fj = fi + kTile * M;                   // kTile*M, columns j
+// Rows i of one cell against 16 consecutive columns j a thread: the j
+// side's objectives sit in registers, a warp spans 512 columns, and each
+// warp walks `rows` rows.  The CTA's column and row objectives are staged
+// in shared memory by coalesced loads first (a thread's 16 columns are
+// 16 M consecutive floats; their rows are padded by one word, so the 32
+// lanes read 32 banks).
+template <int M>
+__global__ void __launch_bounds__(kDomThreads)
+dominance_kernel(const float* __restrict__ f, uint8_t* __restrict__ out,
+                 int P, int rows) {
+  constexpr int kSpan = 16 * M, kStride = kSpan + 1;
+  constexpr int kWarps = kDomThreads / 32;
+  __shared__ float fs[32 * kStride];             // the CTA's 512 columns
+  __shared__ float fr[kWarps * kDomMaxRows * M];  // the CTA's rows
   const int c = blockIdx.z;
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int jc = blockIdx.x * kDomCols, j0 = jc + lane * 16;
+  const int ic = blockIdx.y * kWarps * rows;
   const float* fc = f + (size_t)c * P * M;
-  for (int t = threadIdx.x; t < kTile * M; t += blockDim.x) {
-    const int r = t / M;
-    fi[t] = i0 + r < P ? fc[(size_t)i0 * M + t] : 0.f;
-    fj[t] = j0 + r < P ? fc[(size_t)j0 * M + t] : 0.f;
-  }
+  for (int e = threadIdx.x; e < 32 * kSpan; e += kDomThreads)
+    fs[(e / kSpan) * kStride + e % kSpan] =
+        jc * M + e < P * M ? __ldg(fc + (size_t)jc * M + e) : 0.f;
+  for (int e = threadIdx.x; e < kWarps * rows * M; e += kDomThreads)
+    fr[e] = ic * M + e < P * M ? __ldg(fc + (size_t)ic * M + e) : 0.f;
   __syncthreads();
-  for (int t = threadIdx.x; t < kTile * kTile; t += blockDim.x) {
-    const int r = t / kTile, s = t - r * kTile;
-    const int i = i0 + r, j = j0 + s;
-    if (i >= P || j >= P) continue;
-    bool le = true, lt = false;
-    for (int m = 0; m < M; ++m) {
-      const float a = fi[r * M + m], b = fj[s * M + m];
-      le &= a <= b;
-      lt |= a < b;
+  float fj[16][M];
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+#pragma unroll
+    for (int m = 0; m < M; ++m) fj[q][m] = fs[lane * kStride + q * M + m];
+  const int r0 = warp * rows;
+  const int i1 = min(P - ic, r0 + rows);
+  const bool vec = P % 16 == 0 && j0 + 16 <= P;   // 16-byte aligned stores
+  uint8_t* oc = out + ((size_t)c * P + ic) * P;
+  for (int r = r0; r < i1; ++r) {
+    uint32_t word[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      bool le = true, lt = false;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float a = fr[r * M + m];
+        le &= a <= fj[q][m];
+        lt |= a < fj[q][m];
+      }
+      word[q / 4] |= (uint32_t)(le && lt) << (8 * (q % 4));
     }
-    out[((size_t)c * P + i) * P + j] = (le && lt) ? 1 : 0;
+    uint8_t* row = oc + (size_t)r * P + j0;
+    if (vec) {
+      *reinterpret_cast<uint4*>(row) =
+          make_uint4(word[0], word[1], word[2], word[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        if (j0 + q < P) row[q] = (uint8_t)((word[q / 4] >> (8 * (q % 4))) & 1u);
+    }
   }
+}
+
+template <int M>
+int launch_dominance(const float* f, uint8_t* out, int C, int P,
+                     cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  // Rows a warp walks: as many as keep >= 2 CTAs an SM in the grid.
+  const long long col_tiles = (P + kDomCols - 1) / kDomCols;
+  const long long warps = (long long)C * col_tiles * P;
+  const long long want = warps / ((kDomThreads / 32) * 2LL * sms) + 1;
+  const int rows = want < kDomMaxRows ? (int)want : kDomMaxRows;
+  const int row_tiles = (P + rows * (kDomThreads / 32) - 1)
+                        / (rows * (kDomThreads / 32));
+  const dim3 grid((unsigned)col_tiles, (unsigned)row_tiles, C);
+  dominance_kernel<M><<<grid, kDomThreads, 0, stream>>>(f, out, P, rows);
+  return (int)cudaGetLastError();
 }
 
 template <int M>
@@ -688,14 +751,22 @@ int nsga2_evolve(const int* genes0, const float* objs0, const int* pairs,
   return (int)cudaGetLastError();
 }
 
+// M in [1, kMaxM].
 int dominance_matrix(const float* f, uint8_t* out, int C, int P, int M,
                      void* stream) {
-  const dim3 grid((P + kTile - 1) / kTile, (P + kTile - 1) / kTile, C);
-  const size_t smem = 2 * (size_t)kTile * M * 4;
-  allow_smem(dominance_kernel);
-  dominance_kernel<<<grid, kDomThreads, smem, (cudaStream_t)stream>>>(
-      f, out, P, M);
-  return (int)cudaGetLastError();
+  if (C == 0 || P == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (M) {
+    case 1: return launch_dominance<1>(f, out, C, P, s);
+    case 2: return launch_dominance<2>(f, out, C, P, s);
+    case 3: return launch_dominance<3>(f, out, C, P, s);
+    case 4: return launch_dominance<4>(f, out, C, P, s);
+    case 5: return launch_dominance<5>(f, out, C, P, s);
+    case 6: return launch_dominance<6>(f, out, C, P, s);
+    case 7: return launch_dominance<7>(f, out, C, P, s);
+    case kMaxM: return launch_dominance<kMaxM>(f, out, C, P, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Public acim_matmul entry points: fold the leading dims into M, zero-pad
 K to a multiple of the chunk size N (zero rows are caps held at V_CM,
-contributing no charge), call the kernel wrapper; fold the static
+contributing no charge) and, on the wgmma route, C to a multiple of 4,
+call the kernel wrapper (which picks the route); fold the static
 capacitor mismatch (Eq. 5) into the weights; and a straight-through
 gradient so the simulated macro can sit inside a training graph
 (`repro_torch.quant.cim_linear`).
@@ -40,7 +41,14 @@ def acim_matmul(x: torch.Tensor, w: torch.Tensor,
     if pad:
         xm = F.pad(xm, (0, pad))
         wm = F.pad(wm, (0, 0, 0, pad))
+    # The wgmma route loads w's rows as 16-byte vectors: zero columns to a
+    # multiple of 4, cut off again below.
+    cpad = (-c) % 4 if kernel.route(n) == "wgmma" else 0
+    if cpad:
+        wm = F.pad(wm, (0, cpad))
     y = kernel.acim_matmul(xm.contiguous(), wm.contiguous(), n, b_adc)
+    if cpad:
+        y = y[:, :c]
     return y.reshape(*lead, c)
 
 

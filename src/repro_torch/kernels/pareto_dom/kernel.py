@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.pareto_dom import ref
 
-# nds_rank's objectives per point are a compile-time count up to this.
+# nds_rank's and dominance_matrix's objectives per point are a
+# compile-time count up to this.
 MAX_OBJECTIVES = 8
 # nsga2_evolve's sort keys hold a pool index in 16 bits: 2 P <= 2^16.
 MAX_POP = 2 ** 15
@@ -94,6 +95,9 @@ def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
     if f.device.type == "cpu":
         return ref.dominance_matrix_ref(f)
     c, p, m = f.shape
+    if not 1 <= m <= MAX_OBJECTIVES:
+        raise ValueError(f"dominance_matrix takes 1 to {MAX_OBJECTIVES} "
+                         f"objectives, got M={m}")
     out = torch.empty((c, p, p), dtype=torch.bool, device=f.device)
     rc = _lib().dominance_matrix(f.data_ptr(), out.data_ptr(), c, p, m,
                                  _build.stream_ptr(f))

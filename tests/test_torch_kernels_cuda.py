@@ -16,7 +16,9 @@ from repro_torch.configs import registry
 from repro_torch.core import nsga2, pareto
 from repro_torch.core.acim_numerics import NoiseParams
 from repro_torch.core.acim_spec import MacroSpec
+from repro_torch.data.synthetic import batch_for
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.acim_matmul import kernel as am_kernel
 from repro_torch.kernels.acim_matmul import ops as am_ops
 from repro_torch.kernels.acim_matmul import ref as am_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -28,6 +30,8 @@ from repro_torch.kernels.pareto_dom import ops as pd_ops
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.lm import init_lm
+from repro_torch.quant.cim_linear import CIMConfig
+from repro_torch.train import acim_lm
 from route_slots_model import (hub_heavy_bucket, random_bucket,
                                route_slots_model)
 
@@ -282,14 +286,48 @@ def test_dominance_route_keeps_the_composite(dev):
     assert LAUNCHES["dominance_matrix"] == 6 and LAUNCHES["nsga2_evolve"] == 0
 
 
+def _acim_route(route, x, w, spec):
+    """`ops.acim_matmul`'s padding, then the wrapper of `route`."""
+    n, b = spec.n_caps, spec.b_adc
+    k, c = w.shape
+    wp = torch.nn.functional.pad(w, (0, (-c) % 4, 0, (-k) % n))
+    xp = torch.nn.functional.pad(x, (0, (-k) % n)).contiguous()
+    fn = (am_kernel.acim_matmul_wgmma if route == "wgmma"
+          else am_kernel.acim_matmul_cuda_core)
+    return fn(xp, wp.contiguous(), n, b)[:, :c]
+
+
+# (route, spec): the wgmma route takes N % 16 == 0: N 16 (a chunk of one
+# k16 step), 48 (not a power of two: no split-K), 128, 256 (the pick),
+# 2048 (a chunk longer than the k-tile); the CUDA-core route any N.
+ACIM_ROUTE_SPECS = [
+    ("wgmma", (256, 64, 2, 5)), ("wgmma", (512, 32, 2, 4)),
+    ("wgmma", (32, 64, 2, 3)), ("wgmma", (96, 64, 2, 4)),
+    ("wgmma", (4096, 64, 2, 6)),
+    ("cuda_core", (256, 64, 2, 5)), ("cuda_core", (512, 32, 2, 4)),
+    ("cuda_core", (8, 64, 2, 2))]
+
+
+# Macros whose mismatch-folded outputs are also held within 1e-3 of the
+# plain version's.  At N 16, B 3 every +-1 chunk sum = 2 mod 4 lies on an
+# ADC boundary before the mismatch, so the plain version's own float32
+# sums flip 1.2e-3 of the (1024, 3072, 768) outputs against the exact
+# ones (H100 run); there, and everywhere, the bound is held against the
+# exact (float64) macro.
+ACIM_PLAIN_BOUND_SPECS = [MacroSpec(256, 64, 2, 5), MacroSpec(512, 32, 2, 4),
+                          MacroSpec(8, 64, 2, 2)]
+
+
 @pytest.mark.parametrize("m,k,c", [(1024, 768, 3072), (1024, 3072, 768),
-                                   (37, 100, 70)])
-@pytest.mark.parametrize("spec", [(256, 64, 2, 5), (512, 32, 2, 4),
-                                  (8, 64, 2, 2)], ids=str)
-def test_acim_matmul_matches_plain(m, k, c, spec, dev):
-    """+-1 operands: bit-equal.  Mismatch-folded weights: the chunk sums
-    differ in summation order only, so outputs differ by whole ADC steps
-    where a sum lies within rounding of a decision boundary (<= 0.1 %)."""
+                                   (37, 100, 70), (5, 64, 130)])
+@pytest.mark.parametrize("route,spec", ACIM_ROUTE_SPECS, ids=str)
+def test_acim_matmul_matches_plain(m, k, c, route, spec, dev):
+    """+-1 operands: bit-equal.  Mismatch-folded weights, with +-1 and
+    with float activations in [-1, 1]: the chunk sums differ in summation
+    order only, so outputs differ by whole ADC steps where a sum lies
+    within rounding of a decision boundary: on <= 0.1 % of outputs
+    against the exact macro (and against the plain version, for
+    `ACIM_PLAIN_BOUND_SPECS`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     spec = MacroSpec(*spec)
     n, b = spec.n_caps, spec.b_adc
@@ -298,16 +336,85 @@ def test_acim_matmul_matches_plain(m, k, c, spec, dev):
                     1.0, -1.0)
     w = torch.where(torch.rand((k, c), generator=g, device=dev) < 0.5,
                     1.0, -1.0)
-    n0 = LAUNCHES["acim_matmul"]
-    got = am_ops.acim_matmul(x, w, spec)
-    assert LAUNCHES["acim_matmul"] == n0 + 1
+    n0 = (LAUNCHES["acim_matmul"], LAUNCHES[f"acim_matmul_{route}"])
+    got = _acim_route(route, x, w, spec)
+    assert (LAUNCHES["acim_matmul"], LAUNCHES[f"acim_matmul_{route}"]) == \
+        (n0[0] + 1, n0[1] + 1)
     assert torch.equal(got, am_ref.acim_matmul_ref(x, w, n=n, b_adc=b))
+    assert torch.equal(am_ops.acim_matmul(x, w, spec), got)   # ops' route
     eps = torch.randn((k, c), generator=g, device=dev)
     wm = am_ops.mismatch_weights(w, spec, eps, NoiseParams.from_cal())
-    steps = (am_ops.acim_matmul(x, wm, spec)
-             - am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b)) / (2 * n / 2 ** b)
-    assert torch.allclose(steps, steps.round(), atol=1e-3)
-    assert float((steps != 0).float().mean()) <= 1e-3
+    xf = torch.rand((m, k), generator=g, device=dev) * 2 - 1
+    delta = 2 * n / 2 ** b
+    for xx in (x, xf):
+        got_m = _acim_route(route, xx, wm, spec)
+        steps = (got_m - am_ref.acim_matmul_ref(xx, wm, n=n, b_adc=b)) / delta
+        assert torch.allclose(steps, steps.round(), atol=1e-3)
+        if spec in ACIM_PLAIN_BOUND_SPECS:
+            assert float((steps != 0).float().mean()) <= 1e-3
+        off = (got_m.double() - _acim_exact(xx, wm, n, b)).abs() > delta / 2
+        assert float(off.double().mean()) <= 1e-3
+
+
+def _acim_exact(x, w, n, b):
+    """The macro's output with every chunk sum exact (float64)."""
+    pad = (-x.shape[1]) % n
+    x = torch.nn.functional.pad(x.double(), (0, pad))
+    w = torch.nn.functional.pad(w.double(), (0, 0, 0, pad))
+    kc = x.shape[1] // n
+    s = torch.einsum("mck,ckj->mcj", x.reshape(x.shape[0], kc, n),
+                     w.reshape(kc, n, w.shape[1]))
+    delta = 2.0 * n / 2 ** b
+    code = torch.round(s / delta).clamp(-(2.0 ** (b - 1)), 2.0 ** (b - 1) - 1)
+    return (code * delta).sum(1)
+
+
+def test_acim_matmul_wgmma_splits_k(dev):
+    """The FFN's down projection takes split-K on the card; every split
+    factor gives the same bits on +-1 operands (N a power of two)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert am_kernel.split_k(1024, 768, 3072, 256, sms) > 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.where(torch.rand((1024, 3072), generator=g, device=dev) < 0.5,
+                    1.0, -1.0)
+    w = torch.where(torch.rand((3072, 768), generator=g, device=dev) < 0.5,
+                    1.0, -1.0)
+    want = am_ref.acim_matmul_ref(x, w, n=256, b_adc=4)
+    for splits in (1, 2, 5, 12):
+        assert torch.equal(am_kernel.acim_matmul_wgmma(x, w, 256, 4, splits),
+                           want)
+
+
+def test_trainer_forward_runs_the_wgmma_route(dev):
+    """A CIM trainer forward at the pick's N 256: every acim_matmul
+    launch is on the wgmma route, two per layer."""
+    cfg = acim_lm.build_cfg(64, 2)
+    cim = CIMConfig(MacroSpec(512, 32, 2, 4))
+    model = init_lm(cfg, seed=0, device=dev)
+    batch = batch_for(cfg, 32, 2, 0, device=dev)
+    LAUNCHES.clear()
+    with torch.no_grad():
+        loss = float(acim_lm.loss_fn(model, batch, cfg, cim))
+    assert np.isfinite(loss)
+    assert LAUNCHES["acim_matmul"] == LAUNCHES["acim_matmul_wgmma"] \
+        == 2 * cfg.n_layers
+    assert LAUNCHES["acim_matmul_cuda_core"] == 0
+
+
+@pytest.mark.parametrize("p", [64, 100, 512, 1024])
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 8])
+def test_dominance_matrix_matches_plain(p, m, dev):
+    """Bit-equal at P 64-1024, M 1-8, three cells (ties, repeats, +inf
+    pad rows; P 100 takes the byte stores)."""
+    rng = np.random.default_rng(p * 10 + m)
+    f = rng.integers(0, 4, (3, p, m)).astype(np.float32)
+    f[1] = rng.normal(size=(p, m))
+    f[2, p // 2:p // 2 + 5] = f[2, :5]
+    f[:, -3:] = np.inf
+    f = torch.from_numpy(f).to(dev)
+    n0 = LAUNCHES["dominance_matrix"]
+    assert torch.equal(pd_ops.dominance_matrix(f), pareto.dominance_matrix(f))
+    assert LAUNCHES["dominance_matrix"] == n0 + 1
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
