@@ -122,7 +122,34 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              reduced qwen2.5 (head dim 16) prefill at 2 x 300 on the
              card, one CUDA-core launch per layer, logits within rel L2
              5e-2 of the CPU run.
-6. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
+6. service — the multi-tenant `DesignService` over `DesignSession` on
+             the card: `DesignService(max_coalesce=4, coalesce_window_s=
+             0.05, layout_workers=4)` over a session with an artifact
+             cache in a temporary directory under `build/` (removed at
+             the end) is `serve()`d eight tickets at the default budget
+             (`service_requests`: 16384 seeds 0-3, three of them with
+             requirements, 4096 seeds 0 and 1, 65536 front only, and a
+             poison ticket), so the explore worker's `nsga2_evolve` and
+             four pool workers' `route_slots` launch from several
+             threads on the one default stream.  Every artifact must
+             equal a second session's `run_many(strict=False)`, the
+             poison ticket must fail with the requirements message, and
+             the 16384 seed-0 artifact must equal golden as in phase 3.
+             Launches, zeroed before and read after: `nsga2_evolve` ==
+             explore dispatches, `route_slots` == layout attempts, no
+             `nds_rank` / `wavefront` / `trace_paths`.  Then a fresh
+             service and session over the same cache serve the seven
+             good tickets from it with zero launches; a third service
+             with `FailureInjector(fail_at={"layout": [0]})` serves two
+             16384 tickets with one bucket retry to the same rows (the
+             fault fires ahead of the dispatch, so `route_slots`
+             launches once a bucket, on its retry); and the traffic
+             again under the profiler for the device-to-host copies'
+             share of the layout pool's busy time.  Printed with the
+             card's name and power limit: requests/s, ticket latency
+             p50 / p99, the explore/layout overlap fraction, each
+             stage's busy seconds and the launches.
+7. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -203,6 +230,10 @@ BIG_GRIDS = ((241, 2178), (122, 1090))
 # counts.  The explorer's space holds such wide specs (for a 1 Mb array,
 # MacroSpec(64, 16384, 2, 1): 49,216).
 WIDE_SPEC = (8, 16384, 1, 1)
+
+# Phase 6's service: two coalesced batches of four tickets, a 4-wide
+# layout pool, every stage thread on the one default stream.
+SERVICE = dict(max_coalesce=4, coalesce_window_s=0.05, layout_workers=4)
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -1105,6 +1136,29 @@ def _close(a, b) -> bool:
     return math.isclose(a, b, rel_tol=FLOAT_RTOL, abs_tol=0.0)
 
 
+def check_golden(art, golden: dict, what: str) -> list:
+    """The 16 kb seed-0 artifact against the golden exhaustive front: its
+    front inside it, covering >= 60 %, and every layout row equal to the
+    golden row of its spec (integers exactly, floats to FLOAT_RTOL).
+    Returns the front's (h, l, b_adc) keys."""
+    found = [(s.h, s.l, s.b_adc) for s in art.pareto.specs]
+    check(set(found) <= set(golden),
+          f"{what}: front has points off the golden front: "
+          f"{set(found) - set(golden)}")
+    check(len(set(found)) >= 0.6 * len(golden),
+          f"{what}: front covers {len(set(found))} of {len(golden)} golden "
+          f"points")
+    check(art.layout_rows is not None and len(art.layout_rows) == len(found),
+          f"{what}: missing layout rows")
+    for key, row in zip(found, art.layout_rows):
+        want = golden[key]
+        check(row.keys() == want.keys(), f"{what}: row keys differ for {key}")
+        bad = [k for k in want if not _close(row[k], want[k])]
+        check(not bad, f"{what}: row {key} differs from golden in {bad}: "
+                       f"{[(row[k], want[k]) for k in bad]}")
+    return found
+
+
 def path_phase() -> dict:
     import torch
 
@@ -1120,19 +1174,7 @@ def path_phase() -> dict:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     main_launches = dict(LAUNCHES)
-    found = [(s.h, s.l, s.b_adc) for s in art.pareto.specs]
-    check(set(found) <= set(golden),
-          f"front has points off the golden front: {set(found) - set(golden)}")
-    check(len(set(found)) >= 0.6 * len(golden),
-          f"front covers {len(set(found))} of {len(golden)} golden points")
-    check(art.layout_rows is not None and len(art.layout_rows) == len(found),
-          "missing layout rows")
-    for key, row in zip(found, art.layout_rows):
-        want = golden[key]
-        check(row.keys() == want.keys(), f"row keys differ for {key}")
-        bad = [k for k in want if not _close(row[k], want[k])]
-        check(not bad, f"row {key} differs from golden in {bad}: "
-                       f"{[(row[k], want[k]) for k in bad]}")
+    found = check_golden(art, golden, "path")
     prov = art.provenance
     print(f"path run: 16384, pop 256 x 80 gens: front {len(found)} of "
           f"{len(golden)} golden points, {len(found)} layout rows equal to "
@@ -1539,6 +1581,189 @@ def prefill_phase(flash_ms: float) -> dict:
     return {"flash_attention_wgmma": launches, "flash_attention": n_cc}
 
 
+# ----------------------------------------------------------------------
+# Phase 6: the multi-tenant service
+# ----------------------------------------------------------------------
+def service_requests() -> list:
+    """Phase 6's traffic, eight tickets at the default budget (pop 256, 80
+    generations, coarse 64, capacity 4), in submission order: 16384 seed 0
+    with no requirements, seeds 1-3 with (min_tops 0.5, min_snr_db 10),
+    4096 seeds 0 and 1, 65536 seed 0 front only, and last a poison ticket
+    whose requirements remove every point."""
+    from repro_torch.api import DesignRequest, Requirements
+
+    req = Requirements(min_tops=0.5, min_snr_db=10)
+    return [DesignRequest(array_size=16384, seed=0),
+            DesignRequest(array_size=16384, seed=1, requirements=req),
+            DesignRequest(array_size=4096, seed=0),
+            DesignRequest(array_size=65536, seed=0, layout=False),
+            DesignRequest(array_size=16384, seed=2, requirements=req),
+            DesignRequest(array_size=16384, seed=3, requirements=req),
+            DesignRequest(array_size=4096, seed=1),
+            DesignRequest(array_size=16384, seed=4,
+                          requirements=Requirements(min_tops=1e9))]
+
+
+def serve_tickets(svc, reqs) -> tuple[list, float]:
+    """Submit every request to `svc` under `serve()`, collect every
+    artifact, close.  Returns (artifacts, seconds from the first submit to
+    the last artifact collected)."""
+    import torch
+
+    with svc.serve():
+        t0 = time.perf_counter()
+        tickets = [svc.submit(r) for r in reqs]
+        arts = [svc.collect(t, timeout=600) for t in tickets]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return arts, wall
+
+
+def service_phase(card: str) -> dict:
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import DesignSession
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.serve.design_service import DesignService
+
+    golden = {tuple(p_["key"]): p_["row"] for p_ in golden_points()}
+    reqs = service_requests()
+    good, poison = reqs[:-1], reqs[-1]
+    root = Path(tempfile.mkdtemp(prefix="service_cache_",
+                                 dir=ROOT / "build"))
+    try:
+        # (a) the traffic through a pipelined service over the cache
+        svc = DesignService(DesignSession(artifact_cache=root),
+                            **SERVICE)
+        LAUNCHES.clear()
+        arts, wall = serve_tickets(svc, reqs)
+        launches = dict(LAUNCHES)
+        stats, metrics = svc.stats(), svc.metrics()
+        seq = DesignSession().run_many(reqs, strict=False)
+        for r, a in zip(reqs, arts):
+            check(a.request == r and a.provenance.pipelined,
+                  f"service: ticket of {r.sha()} came back wrong")
+            check(a.summary() == seq[r].summary(),
+                  f"service: {r.array_size} seed {r.seed} differs from "
+                  f"run_many")
+            check(a.ok == seq[r].ok and a.error == seq[r].error,
+                  f"service: {r.sha()} error {a.error!r}")
+        check(all(a.ok for a in arts[:-1]), "service: a good ticket failed")
+        check(not arts[-1].ok and arts[-1].error.startswith(
+            f"requirements {poison.requirements} removed every Pareto "
+            f"point for request {poison.sha()}"),
+              f"service: poison ticket: {arts[-1].error!r}")
+        found = check_golden(arts[0], golden, "service")
+        # (b) launch accounting across the pipelined run
+        check(stats["bucket_retries"] == stats["shed_buckets"] == 0,
+              f"service: unexpected retries {stats}")
+        # every batch's cells share the budget: one explore dispatch each
+        check(launches.get("nsga2_evolve", 0) == stats["explorer_dispatches"]
+              == stats["service_batches"] > 0,
+              f"service: nsga2_evolve {launches} vs "
+              f"{stats['explorer_dispatches']} explore dispatches, "
+              f"{stats['service_batches']} batches")
+        check(launches.get("route_slots", 0) == stats["layout_dispatches"]
+              > 0, f"service: route_slots {launches} vs "
+                   f"{stats['layout_dispatches']} layout attempts")
+        for name in ("nds_rank", "wavefront", "trace_paths"):
+            check(launches.get(name, 0) == 0,
+                  f"service: {name} launched: {launches}")
+        lat = metrics["metrics"]["design_ticket_latency_seconds"][0]
+        busy = {k: round(v, 4) for k, v in stats["stage_busy_s"].items()}
+        print(f"service ({card}): {len(reqs)} tickets in "
+              f"{stats['service_batches']} batches in "
+              f"{wall:.3f} s = {len(reqs) / wall:.2f} requests/s; ticket "
+              f"latency p50 {lat['summary']['p50']:.3f} s, p99 "
+              f"{lat['summary']['p99']:.3f} s; explore/layout overlap "
+              f"fraction {stats['pipeline_overlap_fraction']:.3f} "
+              f"({stats['pipeline_overlap_s']:.3f} s); stage busy s {busy}; "
+              f"{stats['layout_dispatches']} layout buckets; 16384 seed 0: "
+              f"{len(found)} rows equal to golden; equal to run_many on a "
+              f"second session", flush=True)
+        print(f"service launches ({card}): {launches}", flush=True)
+
+        # (c) a fresh service and session over the same cache root
+        warm_svc = DesignService(DesignSession(artifact_cache=root),
+                                 **SERVICE)
+        LAUNCHES.clear()
+        warm, warm_wall = serve_tickets(warm_svc, good)
+        warm_launches = dict(LAUNCHES)
+        for a, b in zip(warm, arts):
+            check(a.provenance.served_from == "artifact_cache",
+                  f"service warm: served from {a.provenance.served_from}")
+            check(a.summary() == b.summary(), "service warm: summary differs")
+        check(sum(warm_launches.values()) == 0,
+              f"service warm: kernels launched: {warm_launches}")
+        print(f"service warm cache ({card}): {len(good)} tickets from the "
+              f"artifact cache in {warm_wall:.3f} s, launches "
+              f"{warm_launches}", flush=True)
+
+        # (d) one injected layout fault: the first layout unit raises
+        # before its dispatch and is retried
+        inj = FailureInjector(fail_at={"layout": [0]})
+        fault_svc = DesignService(DesignSession(), injector=inj,
+                                  telemetry=True, **SERVICE)
+        LAUNCHES.clear()
+        faulted, _ = serve_tickets(fault_svc, reqs[:2])
+        fault_launches = dict(LAUNCHES)
+        st = fault_svc.stats()
+        buckets = {sp.bucket for sp in fault_svc.trace().spans
+                   if sp.cat == "stage" and sp.name == "layout"}
+        for a, b in zip(faulted, arts):
+            check(a.ok and a.summary() == b.summary(),
+                  "service fault: rows differ from the traffic run's")
+        check(inj.fired == [("layout", 0, "node")]
+              and st["bucket_retries"] == 1 and st["bucket_failures"] == 0,
+              f"service fault: {inj.fired}, {st['bucket_retries']} retries")
+        check(sum(a.provenance.retried_buckets for a in faulted) >= 1,
+              "service fault: no artifact names the retried bucket")
+        # the fault fires ahead of the dispatch: the bucket's two
+        # attempts launch route_slots once
+        check(fault_launches.get("route_slots", 0) == len(buckets)
+              == st["layout_dispatches"],
+              f"service fault: route_slots {fault_launches} for "
+              f"{len(buckets)} buckets")
+        print(f"service fault ({card}): layout unit 0 failed and was retried;"
+              f" {len(buckets)} buckets, {len(buckets) + 1} layout attempts,"
+              f" {fault_launches.get('route_slots', 0)} route_slots launches;"
+              f" rows equal", flush=True)
+
+        # the traffic again, under the profiler: the device-to-host copies
+        # (the congestion maps dominate) against the pool's layout time
+        prof_svc = DesignService(DesignSession(), **SERVICE)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = serve_tickets(prof_svc, reqs)
+        dev = [(e.key, e.count, e.self_device_time_total)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        d2h = [r for r in dev if "DtoH" in r[0]]
+        d2h_s = sum(r[2] for r in d2h) / 1e6
+        pst = prof_svc.stats()
+        pool_s = pst["stage_busy_s"]["layout"]
+        worker_s = prof_svc.metrics()["metrics"][
+            "design_bucket_layout_seconds"][0]["sum"]
+        device_s = sum(r[2] for r in dev) / 1e6
+        print(f"service profiled ({card}): wall {prof_wall:.3f} s, device "
+              f"{device_s:.3f} s (busy share {device_s / prof_wall:.3f}); "
+              f"device-to-host copies {d2h_s * 1e3:.1f} ms over "
+              f"{sum(r[1] for r in d2h)} copies = "
+              f"{d2h_s / pool_s:.3f} of the layout pool's busy "
+              f"{pool_s:.3f} s ({worker_s:.3f} worker-seconds)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: launches.get(k, 0) for k in ("nsga2_evolve", "route_slots")}
+
+
 def main() -> int:
     import torch
 
@@ -1557,16 +1782,21 @@ def main() -> int:
     flash_ms = next(r["ms"] for r in rows
                     if r["name"] == "flash_attention_wgmma")
     launches.update(prefill_phase(flash_ms))
+    service = service_phase(card)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in service:
+            r["service_launches"] = service[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # route_slots' whole-bucket time and bound (its row's own are on the
     # cut its plain version runs); nsga2_evolve's fronts peeled;
     # dominance_matrix's profiler device time and the launch floor;
-    # acim_matmul's one-pass f32 bound and its ADC-flip share
+    # acim_matmul's one-pass f32 bound and its ADC-flip share; the
+    # service phase's launches of nsga2_evolve and route_slots
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
-             "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share")
+             "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
+             "service_launches")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

@@ -1,14 +1,15 @@
 """Pareto-front results of the MOGA explorer and the agile filter.
 
 Counterpart of `repro.core.explorer` (the parts the session path uses):
-`ParetoResult` (the deduplicated Pareto set with objective metrics and
-`filter`, the paper's agile distillation), the distillation of a final
-population into one, and the exhaustive `full_design_space` used as
-ground truth.
+`ParetoResult` (the deduplicated Pareto set with objective metrics,
+`filter` (the paper's agile distillation), `best`, and its rows / JSON
+round trip), the distillation of a final population into one, and the
+exhaustive `full_design_space` used as ground truth.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -47,6 +48,15 @@ class ParetoResult:
             {k: v[idx] for k, v in m.items()},
         )
 
+    def best(self, metric: str, maximize: bool = True) -> MacroSpec:
+        if not self.specs:
+            raise ValueError(
+                f"cannot select best({metric!r}) from an empty Pareto "
+                f"frontier; relax the filter requirements")
+        v = self.metrics[metric]
+        i = int(np.argmax(v) if maximize else np.argmin(v))
+        return self.specs[i]
+
     def to_rows(self) -> list[dict]:
         rows = []
         for i, s in enumerate(self.specs):
@@ -65,6 +75,18 @@ class ParetoResult:
                        if k not in spec_keys]
         metrics = {k: np.array([r[k] for r in rows]) for k in metric_keys}
         return cls(int(array_size), specs, metrics)
+
+    def to_json(self, path) -> None:
+        with open(path, "w") as f:
+            json.dump({"array_size": self.array_size,
+                       "points": self.to_rows()}, f, indent=1)
+
+    @classmethod
+    def from_json(cls, path) -> "ParetoResult":
+        """Inverse of `to_json`: load a frontier back from disk."""
+        with open(path) as f:
+            d = json.load(f)
+        return cls.from_rows(d["array_size"], d["points"])
 
 
 def _dedup_pareto(genes: np.ndarray, objs: np.ndarray):

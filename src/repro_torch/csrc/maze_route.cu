@@ -628,6 +628,18 @@ __global__ void trace_paths_kernel(const int* __restrict__ dist,
   }
 }
 
+// The most dynamic shared memory a launch of `kernel` may ask for is a
+// per-function attribute, shared by every host thread.  It is set to the
+// limit, the same value on every call: set to each launch's own size, it
+// raced between threads launching at once (one thread's smaller size
+// landed between another's set and launch, which then failed with
+// cudaErrorInvalidValue).
+template <class K>
+int allow_smem(K* kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+}
+
 }  // namespace
 
 extern "C" {
@@ -644,8 +656,8 @@ int wavefront(const uint8_t* occ, const uint8_t* seed, const int* grids,
               void* stream) {
   const int max_words = H * ((W + 31) / 32);
   const int smem = g_bits ? 0 : max_words * 16;
-  cudaFuncSetAttribute(wavefront_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int err = allow_smem(wavefront_kernel);
+  if (err != 0) return err;
   wavefront_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       occ, seed, grids, dist, H, W, g_bits, max_words);
   return (int)cudaGetLastError();
@@ -678,8 +690,8 @@ int route_slots(const int* occ0, const int* hubs, const int* tgts,
   const Nets nets{hubs, tgts, tmask, nmask, S, T, max_visits + 1};
   const Routed out{occ, routed, failed, wirelen, levels};
   auto kernel = wide ? route_slots_kernel<true> : route_slots_kernel<false>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  const int err = allow_smem(kernel);
+  if (err != 0) return err;
   kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       nets, occ0, grids, out, g_cnt, g_bits, H, W, capacity, smem_cells,
       smem_words, scratch_cells, scratch_words);

@@ -21,29 +21,32 @@ launch error.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.acim_matmul import ref
 
 # The wgmma kernel's output tile; split_k fills the card with these.
 TILE_M = TILE_N = 128
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict = {}
+_FNS_LOCK = threading.Lock()   # first calls may race from several threads
 
 
 def _fn(name: str):
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = _build.load(name)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(lib, name)
-        fn.argtypes = ([p, p, p, i, i, i, i, i, p] if name == "acim_matmul"
-                       else [p, p, p, i, i, i, i, i, i, p])
-        fn.restype = i
-        _LIBS[name] = lib
-    return getattr(lib, name)
+    with _FNS_LOCK:
+        fn = _FNS.get(name)
+        if fn is None:
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn = getattr(_build.load(name), name)
+            fn.argtypes = ([p, p, p, i, i, i, i, i, p]
+                           if name == "acim_matmul"
+                           else [p, p, p, i, i, i, i, i, i, p])
+            fn.restype = i
+            _FNS[name] = fn
+        return fn
 
 
 def route(n: int) -> str:
@@ -102,8 +105,8 @@ def _out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _count(name: str) -> None:
-    LAUNCHES["acim_matmul"] += 1
-    LAUNCHES[name] += 1
+    count_launch("acim_matmul")
+    count_launch(name)
 
 
 def acim_matmul_cuda_core(x: torch.Tensor, w: torch.Tensor, n: int,

@@ -25,11 +25,12 @@ kernel's also in `LAUNCHES["flash_attention_wgmma"]`.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -43,16 +44,18 @@ _ARGTYPES = {   # then: [bf16,] causal, prefix_len, scale, [p_dump,] stream
     "flash_attention": _SHAPE_ARGS + [_I, _I, _I, ctypes.c_float, _P],
     "flash_attention_wgmma": _SHAPE_ARGS + [_I, _I, ctypes.c_float, _P, _P]}
 _FNS: dict = {}
+_FNS_LOCK = threading.Lock()   # first calls may race from several threads
 
 
 def _fn(name: str):
     """C entry point `name` of `csrc/<name>.cu`, built on first use."""
-    if name not in _FNS:
-        fn = getattr(_build.load(name), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _I
-        _FNS[name] = fn
-    return _FNS[name]
+    with _FNS_LOCK:
+        if name not in _FNS:
+            fn = getattr(_build.load(name), name)
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = _I
+            _FNS[name] = fn
+        return _FNS[name]
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -128,7 +131,7 @@ def _launch(name: str, counts: tuple[str, ...], q: torch.Tensor,
         b, s, t, h, kvh, dh, *args, _build.stream_ptr(q))
     _build.check(rc, name)
     for c in counts:
-        LAUNCHES[c] += 1
+        count_launch(c)
     return out
 
 

@@ -14,11 +14,12 @@ tensors it launches the kernel, counts the launch in
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.maze_route import ref
 
 # One warp lane per star target; a walk packs a cell as (y << 16) | x.
@@ -39,11 +40,14 @@ _WAVE_BITSETS, _ROUTE_BITSETS, _ROUTE_CELL_BYTES = 4, 7, 2
 _MAX_WORDS = 2 ** 22
 
 _LIB = None
+_LIB_LOCK = threading.Lock()   # first calls may race from several threads
 
 
 def _lib():
     global _LIB
-    if _LIB is None:
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
         lib = _build.load("maze_route")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.maze_route_smem_limit.argtypes = []
@@ -56,7 +60,7 @@ def _lib():
                                     + [ctypes.c_longlong] * 2 + [p])
         lib.route_slots.restype = i
         _LIB = lib
-    return _LIB
+        return _LIB
 
 
 def _need(t: torch.Tensor, dtype, shape, name: str) -> None:
@@ -112,7 +116,7 @@ def wavefront(occ: torch.Tensor, seed: torch.Tensor,
                        None if g_bits is None else g_bits.data_ptr(), b, h, w,
                        _build.stream_ptr(occ))
     _build.check(rc, "wavefront")
-    LAUNCHES["wavefront"] += 1
+    count_launch("wavefront")
     return dist
 
 
@@ -149,7 +153,7 @@ def trace_paths(dist, tgts, tmask, nmask, occ, routed, failed, wirelen):
         occ.data_ptr(), routed.data_ptr(), failed.data_ptr(),
         wirelen.data_ptr(), b, t, h, w, _build.stream_ptr(dist))
     _build.check(rc, "trace_paths")
-    LAUNCHES["trace_paths"] += 1
+    count_launch("trace_paths")
 
 
 def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
@@ -232,5 +236,5 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
         int(capacity), visits, int(wide), smem_cells, smem_words,
         scratch_cells, scratch_words, _build.stream_ptr(occ0))
     _build.check(rc, "route_slots")
-    LAUNCHES["route_slots"] += 1
+    count_launch("route_slots")
     return occ, routed, failed, wirelen

@@ -13,10 +13,11 @@ in `repro_torch.kernels.LAUNCHES`, and raises on a launch error.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.pareto_dom import ref
 
 # nds_rank's and dominance_matrix's objectives per point are a
@@ -31,11 +32,14 @@ _CAL_FIELDS = ("inv_pre", "adc_off_db", "t_com", "t_set_per_b",
                "a_sram", "a_lc", "a_comp", "a_dff")
 
 _LIB = None
+_LIB_LOCK = threading.Lock()   # first calls may race from several threads
 
 
 def _lib():
     global _LIB
-    if _LIB is None:
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
         lib = _build.load("pareto_dom")
         p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.pareto_dom_smem_limit.argtypes = []
@@ -51,7 +55,7 @@ def _lib():
         lib.nsga2_evolve.argtypes = [p] * 13 + [i] * 5 + [p]
         lib.nsga2_evolve.restype = i
         _LIB = lib
-    return _LIB
+        return _LIB
 
 
 def _check_f(f: torch.Tensor) -> None:
@@ -84,7 +88,7 @@ def nds_rank(f: torch.Tensor) -> torch.Tensor:
     rc = lib.nds_rank(f.data_ptr(), ranks.data_ptr(), scratch.data_ptr(),
                       c, p, m, packed_in_smem, _build.stream_ptr(f))
     _build.check(rc, "nds_rank")
-    LAUNCHES["nds_rank"] += 1
+    count_launch("nds_rank")
     return ranks
 
 
@@ -102,7 +106,7 @@ def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
     rc = _lib().dominance_matrix(f.data_ptr(), out.data_ptr(), c, p, m,
                                  _build.stream_ptr(f))
     _build.check(rc, "dominance_matrix")
-    LAUNCHES["dominance_matrix"] += 1
+    count_launch("dominance_matrix")
     return out
 
 
@@ -193,5 +197,5 @@ def nsga2_evolve(draws, genes: torch.Tensor, objs: torch.Tensor, space,
         ptr(g_packed), c, p, g, int(state_in_smem), int(packed_in_smem),
         _build.stream_ptr(genes))
     _build.check(rc, "nsga2_evolve")
-    LAUNCHES["nsga2_evolve"] += 1
+    count_launch("nsga2_evolve")
     return out_g, out_o, ranks

@@ -31,6 +31,7 @@ from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.lm import init_lm
 from repro_torch.quant.cim_linear import CIMConfig
+from repro_torch.serve.design_service import DesignService
 from repro_torch.train import acim_lm
 from route_slots_model import (hub_heavy_bucket, random_bucket,
                                route_slots_model)
@@ -153,6 +154,66 @@ def test_route_slots_device_memory_branch(seed, grids, dev):
     assert int(want[1][0]) > 0
     model = route_slots_model(*(x.cpu().numpy() for x in bucket), 4)
     np.testing.assert_array_equal(levels.cpu().numpy(), model[4])
+
+
+# A fresh process whose first `route_slots` launches come from eight
+# threads at once, each on a bucket of another grid size (so another
+# dynamic shared-memory size), as the service's layout pool's first
+# buckets do; prints the errors and whether each thread's results equal
+# its bucket's single-thread ones.
+_FIRST_LAUNCH_SCRIPT = """
+import json, threading, numpy as np, torch
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.maze_route import kernel as mr
+from route_slots_model import random_bucket
+sizes = [[(8, 9)], [(120, 270)], [(14, 40), (20, 23)], [(100, 200)]] * 2
+buckets = [[torch.from_numpy(x).cuda() for x in random_bucket(10 + i, g, 4, 4)]
+           for i, g in enumerate(sizes)]
+torch.cuda.synchronize()
+errors, got, start = [], {}, threading.Barrier(len(sizes))
+def worker(i):
+    try:
+        start.wait()
+        got[i] = [mr.route_slots(*buckets[i], 4) for _ in range(20)]
+    except Exception as e:
+        errors.append(repr(e))
+threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+for t in threads: t.start()
+for t in threads: t.join(timeout=300)
+want = [mr.route_slots(*b, 4) for b in buckets]
+equal = all(torch.equal(a, b) for i, rs in got.items() for r in rs
+            for a, b in zip(r, want[i]))
+print(json.dumps({"errors": errors, "equal": equal, "threads": len(got),
+                  "launches": LAUNCHES["route_slots"]}))
+"""
+
+
+def test_route_slots_first_launches_from_threads(dev):
+    """Three fresh processes each make their first `route_slots` launches
+    from eight threads at once: no launch fails, every result equals its
+    bucket's single-thread one, the count is exact.  (With the kernel's
+    shared-memory limit set per launch to the launch's own size, the
+    first launches, convoyed behind the module's lazy load, let one
+    thread's smaller size land between another's setting and its launch,
+    which then failed with cudaErrorInvalidValue.)"""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    here = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(here.parent / "src"), str(here)])}
+    for _ in range(3):
+        out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH_SCRIPT],
+                             capture_output=True, text=True, timeout=300,
+                             env=env)
+        assert out.returncode == 0, out.stderr[-2000:]
+        report = json.loads(out.stdout.strip().splitlines()[-1])
+        assert report["errors"] == [] and report["threads"] == 8
+        assert report["equal"]
+        assert report["launches"] == 8 * 20 + 8
 
 
 def test_route_slots_past_16k_slots(dev):
@@ -284,6 +345,46 @@ def test_dominance_route_keeps_the_composite(dev):
     LAUNCHES.clear()
     DesignSession().run(req)
     assert LAUNCHES["dominance_matrix"] == 6 and LAUNCHES["nsga2_evolve"] == 0
+
+
+def test_design_service_pool_launch_counts(dev):
+    """`DesignService(layout_workers=4)` serves four small requests on the
+    card from its stage threads and a 4-wide layout pool: summaries equal
+    a second session's `run_many(strict=False)`, and the launch counts
+    are exact: one `nsga2_evolve` per explore dispatch, one `route_slots`
+    per layout attempt, no `nds_rank` / `wavefront` / `trace_paths`."""
+    small = dict(pop_size=64, generations=10)
+    reqs = [DesignRequest(array_size=4096, seed=s, **small,
+                          requirements=Requirements(min_snr_db=17.0,
+                                                    min_tops=0.4))
+            for s in (0, 1)]
+    reqs += [DesignRequest(array_size=16384, seed=0, **small,
+                           requirements=Requirements(min_snr_db=25.0,
+                                                     min_tops=1.0)),
+             DesignRequest(array_size=4096, seed=3, **small,
+                           requirements=Requirements(min_tops=1e9))]
+    seq = DesignSession().run_many(reqs, strict=False)
+    svc = DesignService(max_coalesce=2, coalesce_window_s=0.2,
+                        layout_workers=4)
+    names = ("nsga2_evolve", "route_slots", "nds_rank", "wavefront",
+             "trace_paths")
+    n0 = {k: LAUNCHES[k] for k in names}
+    with svc.serve():
+        tickets = [svc.submit(r) for r in reqs]
+        arts = [svc.collect(t, timeout=600) for t in tickets]
+    torch.cuda.synchronize()
+    got = {k: LAUNCHES[k] - n0[k] for k in names}
+    for r, a in zip(reqs, arts):
+        assert a.summary() == seq[r].summary()
+        assert a.ok == seq[r].ok and a.provenance.pipelined
+    assert not arts[3].ok and "removed every Pareto point" in arts[3].error
+    stats = svc.stats()
+    assert stats["service_batches"] == 2
+    assert got["nsga2_evolve"] == stats["explorer_dispatches"] == 2
+    # no faults: every layout attempt is a dispatch of its own
+    assert stats["bucket_retries"] == stats["shed_buckets"] == 0
+    assert got["route_slots"] == stats["layout_dispatches"] >= 3
+    assert got["nds_rank"] == got["wavefront"] == got["trace_paths"] == 0
 
 
 def _acim_route(route, x, w, spec):
