@@ -149,7 +149,24 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              card's name and power limit: requests/s, ticket latency
              p50 / p99, the explore/layout overlap fraction, each
              stage's busy seconds and the launches.
-7. report  — one JSON line of per-kernel numbers, the nvidia-smi line,
+7. layout engines — (a) the 16 kb request's whole-front bucket (86
+             specs padded to 1118 x 274, 576 net slots, 13,200 real nets;
+             coarse 64, capacity 4) laid out by the concurrent engine
+             (`generate_layouts(engine="concurrent")` on the card, its
+             schedule recorded): rows equal to golden, occupancy and rows
+             equal to the scan engine's on the same bucket, timed beside
+             it; launches exactly one `wavefront` per round that had BFS
+             lanes and no `route_slots`; its rounds, collisions,
+             crossings, BFS lanes and bytes copied back printed.  (b)
+             `flow.generate_layout(spec)` on the card for the FLOW_SPECS
+             specs of the front with the largest grids: metrics (but the
+             clock) equal to the golden row, wires totalling the
+             wirelength, exactly one `wavefront` launch per net of two or
+             more pins; seconds per spec; then `wavefront` against its
+             plain version and timed at that per-net shape (1, 122, 274).
+             Launches zeroed before each run and read after it.
+8. report  — one JSON line of per-kernel numbers (the `wavefront` row's
+             launches are phase 7's, by path), the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -230,6 +247,11 @@ BIG_GRIDS = ((241, 2178), (122, 1090))
 # counts.  The explorer's space holds such wide specs (for a 1 Mb array,
 # MacroSpec(64, 16384, 2, 1): 49,216).
 WIDE_SPEC = (8, 16384, 1, 1)
+
+# Phase 7's sequential flow: the specs of the 16 kb front with the
+# largest routing grids (all 86 take minutes of host work: `drc_lite`'s
+# sweep alone runs ~8 s on each 2048-row spec).
+FLOW_SPECS = 8
 
 # Phase 6's service: two coalesced batches of four tickets, a 4-wide
 # layout pool, every stage thread on the one default stream.
@@ -1764,6 +1786,177 @@ def service_phase(card: str) -> dict:
     return {k: launches.get(k, 0) for k in ("nsga2_evolve", "route_slots")}
 
 
+# ----------------------------------------------------------------------
+# Phase 7: the concurrent routing engine and the sequential layout flow
+# ----------------------------------------------------------------------
+def _row_diff(row: dict, want: dict) -> list:
+    """Keys where `row` differs from the golden `want` (integers exactly,
+    floats to FLOAT_RTOL), or ["keys"] when the key sets differ."""
+    if row.keys() != want.keys():
+        return ["keys"]
+    return [k for k in want if not _close(row[k], want[k])]
+
+
+def concurrent_check(specs, golden_rows) -> dict:
+    """(a) The 16 kb request's whole-front bucket laid out by the
+    concurrent engine on the card: rows equal to golden, occupancy equal
+    to the scan engine's on the same bucket, and one `wavefront` launch
+    for each round that had BFS lanes (the engine's only kernel)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eda import batched_flow as bf
+    from repro_torch.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = bf.generate_layouts(specs, coarse=COARSE, capacity=CAPACITY,
+                              engine="concurrent", device="cuda",
+                              record_schedule=True)
+    torch.cuda.synchronize()
+    conc_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    routing, sched = res.routing, res.routing.schedule
+    for i, (row, want) in enumerate(zip(res.metrics_rows(), golden_rows)):
+        bad = _row_diff(row, want)
+        check(not bad, f"concurrent engine: row {i} ({specs[i]}) differs "
+                       f"from golden in {bad}")
+    bfs_rounds = sum(1 for n in sched.bfs_lanes if n)
+    check(launches.get("wavefront", 0) == bfs_rounds
+          and launches.get("route_slots", 0) == 0
+          and launches.get("trace_paths", 0) == 0,
+          f"concurrent engine launches {launches}, {bfs_rounds} rounds with "
+          f"BFS lanes")
+    check(bfs_rounds > 0, "concurrent engine ran no BFS lane")
+    lanes = int(sum(sched.bfs_lanes))
+    _, gh, gw = routing.occ_count.shape
+    copied = lanes * gh * gw * 4
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    scan = bf.generate_layouts(specs, coarse=COARSE, capacity=CAPACITY,
+                               engine="scan", device="cuda")
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    check(LAUNCHES.get("route_slots", 0) == 1,
+          f"scan engine launches {dict(LAUNCHES)}")
+    check(np.array_equal(routing.occ_count, scan.routing.occ_count),
+          "concurrent engine occupancy != the scan engine's")
+    check(res.metrics_rows() == scan.metrics_rows(),
+          "concurrent engine rows != the scan engine's")
+    print(f"layout concurrent: ({len(specs)}, {gh}, {gw}) bucket, "
+          f"{int(routing.routed.sum())} routed / {int(routing.failed.sum())} "
+          f"failed nets, rows equal to golden and occupancy to the scan "
+          f"engine's; {routing.rounds} rounds ({bfs_rounds} with BFS lanes), "
+          f"{routing.collisions} collisions, {sched.crossings} crossings, "
+          f"{lanes} BFS lanes (at most {max(sched.bfs_lanes)} a round), "
+          f"{launches.get('wavefront', 0)} wavefront launches, "
+          f"{copied} bytes copied back; {conc_s:.3f} s against the scan "
+          f"engine's {scan_s:.3f} s", flush=True)
+    return dict(launches=launches.get("wavefront", 0), seconds=conc_s,
+                scan_seconds=scan_s, rounds=routing.rounds,
+                bfs_rounds=bfs_rounds, lanes=lanes, copied=copied)
+
+
+def _flow_specs(specs) -> list[int]:
+    """Indices of the FLOW_SPECS specs with the largest routing grids
+    (cells), in that order."""
+    from repro_torch.eda.placer import geometry, layout_operands
+    from repro_torch.eda.router import grid_shape
+
+    geom = geometry()
+    cells = [math.prod(grid_shape(o.width, o.height, COARSE))
+             for o in (layout_operands(s, geom) for s in specs)]
+    return sorted(range(len(specs)), key=lambda i: -cells[i])[:FLOW_SPECS]
+
+
+def _net_wavefront(lr):
+    """The per-net `wavefront` input of a laid-out spec: its grid blocked
+    where its wires reach capacity, seeded at its longest net's hub."""
+    import numpy as np
+    import torch
+
+    gh, gw = lr.routing.grid_shape
+    count = np.zeros((gh, gw), np.int32)
+    for w in lr.routing.wires:
+        for y, x in w.points:
+            count[y, x] += 1
+    seed = np.zeros((1, gh, gw), bool)
+    seed[(0,) + lr.routing.wires[0].points[0]] = True
+    return (torch.from_numpy(count[None] >= CAPACITY).cuda(),
+            torch.from_numpy(seed).cuda())
+
+
+def flow_check(specs, golden_rows) -> dict:
+    """(b) `flow.generate_layout` on the card for the FLOW_SPECS specs
+    with the largest grids: metrics (but the clock) equal to golden,
+    wires totalling the wirelength, one `wavefront` launch per net of
+    two or more pins.  Then `wavefront` timed at the per-net shape."""
+    import torch
+
+    from repro_torch.eda import flow
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.maze_route import kernel as mr
+    from repro_torch.kernels.maze_route import ref as mr_ref
+
+    total = 0
+    times = []
+    first = None
+    for i in _flow_specs(specs):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        lr = flow.generate_layout(specs[i], device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        n = LAUNCHES.get("wavefront", 0)
+        nets = sum(1 for _, pins in flow._top_level_nets(specs[i],
+                                                          lr.placement)
+                   if len(pins) >= 2)
+        check(n == nets and len(LAUNCHES) == 1,
+              f"flow {specs[i]}: launches {dict(LAUNCHES)}, {nets} nets")
+        m = lr.metrics()
+        del m["elapsed_s"]
+        bad = _row_diff(m, golden_rows[i])
+        check(not bad, f"flow {specs[i]}: metrics differ from golden in {bad}")
+        check(sum(len(w.points) for w in lr.routing.wires)
+              == m["wirelength"], f"flow {specs[i]}: wires != wirelength")
+        total += n
+        first = first or lr
+    occ, seed = _net_wavefront(first)
+    dist = mr.wavefront(occ, seed)
+    check(torch.equal(dist, mr_ref.wavefront_distance_ref(occ, seed)),
+          f"wavefront != plain at {tuple(occ.shape)}")
+    cells = occ.numel()
+    net_ms = cuda_ms(lambda: mr.wavefront(occ, seed), 200)
+    net_plain_ms = cuda_ms(lambda: mr_ref.wavefront_distance_ref(occ, seed),
+                           5)
+    net_bound_ms, _ = bound(cells * (4 + 2), 0)
+    print(f"layout flow: generate_layout on the card for the {len(times)} "
+          f"specs with the largest grids ({first.routing.grid_shape} first): "
+          f"metrics equal to golden, wires total the wirelength, {total} "
+          f"wavefront launches (one a net); s per spec "
+          f"{[round(t, 3) for t in times]}; wavefront at "
+          f"{tuple(occ.shape)}: {net_ms:.4f} ms, plain {net_plain_ms:.4f} "
+          f"ms, bound {net_bound_ms:.6f} ms (bytes)", flush=True)
+    return dict(launches=total, seconds=times, net_ms=net_ms,
+                net_plain_ms=net_plain_ms, net_bound_ms=net_bound_ms)
+
+
+def layout_engines_phase() -> dict:
+    from repro_torch.core.acim_spec import MacroSpec
+
+    points = golden_points()
+    specs = [MacroSpec(p_["row"]["h"], p_["row"]["w"], p_["row"]["l"],
+                       p_["row"]["b_adc"]) for p_ in points]
+    rows = [p_["row"] for p_ in points]
+    t0 = time.perf_counter()
+    conc = concurrent_check(specs, rows)
+    seq = flow_check(specs, rows)
+    print(f"layout engines phase: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return dict(concurrent=conc, flow=seq)
+
+
 def main() -> int:
     import torch
 
@@ -1783,20 +1976,32 @@ def main() -> int:
                     if r["name"] == "flash_attention_wgmma")
     launches.update(prefill_phase(flash_ms))
     service = service_phase(card)
+    engines = layout_engines_phase()
+    conc, seq = engines["concurrent"], engines["flow"]
+    # The wavefront kernel's paths: the concurrent engine (a launch a
+    # round with BFS lanes) and the sequential flow (a launch a net).
+    launches["wavefront"] = conc["launches"] + seq["launches"]
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in service:
             r["service_launches"] = service[r["name"]]
+        if r["name"] == "wavefront":
+            r.update(concurrent_launches=conc["launches"],
+                     flow_launches=seq["launches"], net_ms=seq["net_ms"],
+                     net_plain_ms=seq["net_plain_ms"],
+                     net_bound_ms=seq["net_bound_ms"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # route_slots' whole-bucket time and bound (its row's own are on the
     # cut its plain version runs); nsga2_evolve's fronts peeled;
     # dominance_matrix's profiler device time and the launch floor;
     # acim_matmul's one-pass f32 bound and its ADC-flip share; the
-    # service phase's launches of nsga2_evolve and route_slots
+    # service phase's launches of nsga2_evolve and route_slots;
+    # wavefront's launches by path and its time at the per-net shape
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
-             "service_launches")
+             "service_launches", "concurrent_launches", "flow_launches",
+             "net_ms", "net_plain_ms", "net_bound_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

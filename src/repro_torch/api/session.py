@@ -84,8 +84,8 @@ class Provenance:
     retried_buckets: int = 0
     shed_buckets: int = 0
     worker_id: str = ""
-    route_engine: str = ""      # "scan" for every laid-out request
-    route_rounds: int = 0       # net slots routed
+    route_engine: str = ""      # the session's routing engine(s)
+    route_rounds: int = 0       # scan: net slots; concurrent: rounds
     route_collisions: int = 0
     mesh_devices: int = 0
     islands: int = 1
@@ -294,7 +294,8 @@ class DesignSession:
     """Long-lived request executor owning the program and front caches,
     optionally backed by a persistent cross-process artifact cache."""
 
-    def __init__(self, *, artifact_cache=None, recorder=None, device=None):
+    def __init__(self, *, artifact_cache=None, recorder=None, device=None,
+                 route_engine: str | None = None):
         """`artifact_cache` is an `ArtifactCache`
         (`repro_torch.api.artifact_cache`; or anything with its
         `get(request)` / `put(artifact)` shape, such as a
@@ -302,8 +303,11 @@ class DesignSession:
         `None` for in-memory caches only.  `recorder` is an optional
         `repro_torch.telemetry.spans.SpanRecorder` for the stage spans.
         `device` is where explore and layout run: `None` -> `cuda`
-        (raises without a CUDA device)."""
+        (raises without a CUDA device).  `route_engine` is the layout's
+        routing engine when a call names none (`batched_flow
+        .batched_route`: None or "scan", or "concurrent")."""
         self.device = resolve_device(device)
+        self.route_engine = route_engine
         self._programs: dict[tuple, _SweepProgram] = {}
         self._fronts: dict[tuple, ParetoResult] = {}
         self.recorder = recorder
@@ -390,6 +394,8 @@ class DesignSession:
         shared state, its kernels launch on the one default stream, and
         the stats counter is locked."""
         self.bump("layout_dispatches")
+        if engine is None:
+            engine = self.route_engine
         (res,) = iter_layout_buckets([(tuple(specs), coarse, capacity)],
                                      engine=engine, device=self.device)
         return res

@@ -13,6 +13,11 @@ INF = float("inf")
 _BIG = 1e30          # crowding distance of a front's boundary points
 
 
+def dominates(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Eq. 1 (minimization): u dominates v iff u <= v everywhere and < somewhere."""
+    return (u <= v).all(-1) & (u < v).any(-1)
+
+
 def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
     """D[..., i, j] = True iff point i dominates point j.  f: (..., P, M)."""
     a = f[..., :, None, :]
@@ -20,9 +25,27 @@ def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
     return (a <= b).all(-1) & (a < b).any(-1)
 
 
+def constrained_dominance_matrix(f: torch.Tensor,
+                                 cv: torch.Tensor) -> torch.Tensor:
+    """Deb's constraint-domination: cv (..., P) total constraint violation
+    (>= 0).  i cdom j iff (i feasible, j not) or (both infeasible,
+    cv_i < cv_j) or (both feasible and i pareto-dominates j)."""
+    feas_i = cv[..., :, None] <= 0.0
+    feas_j = cv[..., None, :] <= 0.0
+    both_infeas = ~feas_i & ~feas_j
+    return ((feas_i & ~feas_j)
+            | (both_infeas & (cv[..., :, None] < cv[..., None, :]))
+            | (feas_i & feas_j & dominance_matrix(f)))
+
+
 def non_dominated_mask(f: torch.Tensor) -> torch.Tensor:
     """(..., P) True where no other point dominates this one."""
     return ~dominance_matrix(f).any(-2)
+
+
+def pareto_front_indices(f: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of the Pareto-optimal set (front 0)."""
+    return non_dominated_mask(f)
 
 
 def non_dominated_rank(f: torch.Tensor,

@@ -1,7 +1,7 @@
 """Batched layout generation: a distilled Pareto set through place / DRC /
 nets / route / metrics, every stage over the whole spec batch.
 
-Counterpart of `repro.eda.batched_flow` with its scan routing engine:
+Counterpart of `repro.eda.batched_flow`:
 
   * **place** — `placer.rect_tensors` expands the stacked
     `LayoutOperands` of all specs at once, padded to the batch's index
@@ -17,14 +17,29 @@ Counterpart of `repro.eda.batched_flow` with its scan routing engine:
     that stops at its last target, then the backtrace and the occupancy
     commit, all on chip.  Cells beyond a spec's own routing grid are
     pre-blocked, so padding a small spec up to the batch's largest grid
-    cannot open new paths.
+    cannot open new paths.  That is the scan engine.  The concurrent
+    engine (`engine="concurrent"`) routes many nets of a spec per round
+    under the reference's conflict-aware host scheduler and commits them
+    in slot order; its BFS fields come from the host frontier engine
+    with early exit for CPU tensors and from one `wavefront` launch per
+    round (full fields) for CUDA tensors.  Both engines give the same
+    rows, occupancy and counts.
 
-The reference's concurrent host engine is not ported yet:
-`engine="concurrent"` raises `NotImplementedError`.
+`engine=None` is the scan engine on every device.  The reference picks
+scan on the TPU and concurrent elsewhere, a speed choice of its
+backends that changes no result; here `route_slots` lays out a whole
+bucket in one launch, and the session's provenance records "scan" for
+a default request.
+
+Per-spec results unpack to the sequential flow's types
+(`BatchedLayoutResult.placements()` / `.drc_reports()`); the full wire
+geometry of one spec comes from `repro_torch.eda.flow.generate_layout`.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 from typing import NamedTuple
 
 import numpy as np
@@ -34,12 +49,19 @@ from torch.profiler import record_function
 from repro_torch.core import estimator
 from repro_torch.core.acim_spec import MacroSpec
 from repro_torch.eda import netlist as nl_mod
-from repro_torch.eda.placer import (CATEGORIES, BatchDims, LayoutOperands,
-                                    PlacerGeometry, geometry, layout_operands,
+from repro_torch.eda.flow import DRCReport
+from repro_torch.eda.placer import (CATEGORIES, CATEGORY_CELL, BatchDims,
+                                    LayoutOperands, Placed, Placement,
+                                    PlacerGeometry, category_names,
+                                    dims_for_spec, geometry, layout_operands,
                                     rect_tensors)
 from repro_torch.eda.router import grid_shape
 from repro_torch.kernels.maze_route import ref as mr_ref
-from repro_torch.kernels.maze_route.ops import route_slots
+from repro_torch.kernels.maze_route.frontier import (canvas_free,
+                                                     canvas_index,
+                                                     expand_buckets, strides)
+from repro_torch.kernels.maze_route.ops import (INF, route_slots,
+                                                wavefront_distance)
 
 I32 = torch.int32
 
@@ -200,7 +222,393 @@ def _nets_program(tensors, ops: LayoutOperands, *, dims: BatchDims,
 
 
 # ----------------------------------------------------------------------
-# Routing: every net slot of the bucket in one route_slots launch
+# Concurrent-net routing: conflict-aware scheduling of many nets a round
+# ----------------------------------------------------------------------
+#
+# The scan engine routes one net slot after another.  The concurrent
+# engine routes many nets of one spec per round and keeps the result
+# bit-identical to the sequential router by separating *when a field is
+# computed* from *when its route commits* (the reference's scheduler,
+# copied in its order):
+#
+#   * rounds are colours of the conflict graph: each round greedily picks
+#     pending nets, in slot order, whose expanded bounding boxes are
+#     pairwise disjoint within a spec (a net that conflicts with an
+#     earlier pick waits for a later round);
+#   * the picked lanes' distance fields are computed together: closed
+#     form while the spec has no blocked cell near the lane (an
+#     obstacle-free rectangle's BFS field is Manhattan distance), else a
+#     BFS field (`_bfs_fields`);
+#   * routes commit strictly in slot order.  A commit that pushes cells
+#     across the capacity threshold (newly blocked cells X) is the only
+#     event that can perturb later fields, and a buffered field stays
+#     exact iff every target distance d0 satisfies d0 <= min over x in X
+#     of dist(x).  Fields that fail the test are collisions: dropped and
+#     recomputed in a later round against the updated occupancy.
+#
+# The head of each spec's pending queue is always computed in the round
+# and always commits, so every round makes progress.
+
+
+@dataclasses.dataclass
+class RouteSchedule:
+    """Trace of the conflict-aware scheduler.
+
+    dispatches[r] = (spec, slot) lanes whose fields were computed in round
+    r (closed-form lanes first, then BFS lanes); bfs_lanes[r] = how many
+    of them took a BFS field; bboxes is every net's expanded bounding box
+    (y0, x0, y1, x1 inclusive, grid cells), so tests can assert no round
+    co-dispatched two overlapping nets of one spec."""
+
+    dispatches: list
+    bboxes: np.ndarray
+    rounds: int = 0
+    collisions: int = 0
+    crossings: int = 0
+    bfs_lanes: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Buffered:
+    """A computed-but-not-yet-committed route of one (spec, slot) lane."""
+
+    cells: np.ndarray            # occupancy increments, real-grid flat idx
+    wl: int                      # wirelength contribution if committed
+    ok: bool                     # every valid target reachable
+    d0max: int                   # max finite target distance (-1: none)
+    dist: np.ndarray | None      # (C,) canvas field (BFS lanes)
+    hub: tuple | None            # (hy, hx): closed-form field (Manhattan)
+
+
+def _still_valid(e: _Buffered, ys: np.ndarray, xs: np.ndarray,
+                 stride: int) -> bool:
+    """Does `e`'s route survive cells (ys, xs) becoming blocked?
+
+    Valid iff d0max <= min dist(x) over the newly blocked cells.
+    Failed-net entries are always valid: an unreachable target stays
+    unreachable under more blocking, and nothing else of theirs is read."""
+    if not e.ok or e.d0max < 0:
+        return True
+    if e.dist is not None:
+        dmin = int(e.dist[canvas_index(ys, xs, stride)].min())
+    else:
+        hy, hx = e.hub
+        dmin = int((np.abs(ys - hy) + np.abs(xs - hx)).min())
+    return e.d0max <= dmin
+
+
+def _ragged_arange(lengths: np.ndarray) -> np.ndarray:
+    """Concatenated [0..l) ranges: [0,1,..,l0-1, 0,1,..,l1-1, ...]."""
+    ends = np.cumsum(lengths)
+    return np.arange(int(ends[-1]) if len(ends) else 0) \
+        - np.repeat(ends - lengths, lengths)
+
+
+def _manhattan_paths(lane, hy, hx, ty, tx):
+    """Closed-form backtrace on an obstacle-free grid, all walkers at once.
+
+    The field is |dy|+|dx| and the tie-break (first `NEIGHBORS` entry at
+    d-1: down, up, right, left) walks vertically to the hub row, then
+    horizontally: two ragged runs.  Returns concatenated (lane, y, x)
+    path cells, d0+1 of them per walker."""
+    sy = np.sign(hy - ty)
+    lv = np.abs(hy - ty) + 1            # vertical run, target included
+    sx = np.sign(hx - tx)
+    lh = np.abs(hx - tx)                # horizontal run, pivot excluded
+    ys_v = np.repeat(ty, lv) + np.repeat(sy, lv) * _ragged_arange(lv)
+    xs_v = np.repeat(tx, lv)
+    ys_h = np.repeat(hy, lh)
+    xs_h = np.repeat(tx + sx, lh) + np.repeat(sx, lh) * _ragged_arange(lh)
+    return (np.concatenate([np.repeat(lane, lv), np.repeat(lane, lh)]),
+            np.concatenate([ys_v, ys_h]), np.concatenate([xs_v, xs_h]))
+
+
+def _walk_paths(dist: np.ndarray, lanes, start, steps, stride: int):
+    """Multi-walker backtrace over canvas distance fields: every active
+    walker steps at once to its first `NEIGHBORS` cell at d-1.  Start
+    cells are not emitted.  Returns concatenated (lane, canvas idx) of
+    stepped-to cells."""
+    offs = strides(stride)
+    cur, d, who = start.copy(), steps.copy(), np.asarray(lanes).copy()
+    out_l: list[np.ndarray] = []
+    out_c: list[np.ndarray] = []
+    act = d > 0
+    cur, d, who = cur[act], d[act], who[act]
+    while d.size:
+        nbr = dist[who[:, None], cur[:, None] + offs[None, :]]
+        sel = np.argmax(nbr == (d - 1)[:, None], axis=1)
+        cur = cur + offs[sel]
+        out_l.append(who.copy())
+        out_c.append(cur.copy())
+        d = d - 1
+        act = d > 0
+        if not act.all():
+            cur, d, who = cur[act], d[act], who[act]
+    if not out_l:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    return np.concatenate(out_l), np.concatenate(out_c)
+
+
+def _group_cells(lanes: np.ndarray, cells: np.ndarray, n_lanes: int):
+    """Split concatenated (lane, cell) emissions into per-lane arrays."""
+    order = np.argsort(lanes, kind="stable")
+    lanes, cells = lanes[order], cells[order]
+    bounds = np.searchsorted(lanes, np.arange(n_lanes + 1))
+    return [cells[bounds[k]:bounds[k + 1]] for k in range(n_lanes)]
+
+
+def _bbox_overlap(a, b) -> bool:
+    return bool(a[0] <= b[2] and b[0] <= a[2]
+                and a[1] <= b[3] and b[1] <= a[3])
+
+
+def _bfs_fields(occ, lb, hy, hx, t_y, t_x, tm, grids, *, capacity: int,
+                device):
+    """Canvas BFS fields, (L, (Gh+2)*(Gw+2)) int32 with an `INF` border,
+    of a round's L BFS lanes: lane k seeds at its hub (hy[k], hx[k]) on
+    spec lb[k]'s occupancy (a cell is blocked at `capacity`).
+
+    device None: the host frontier engine with the reference's early
+    exit, each lane stopping at the level that resolves its masked
+    targets (t_y, t_x, tm).  A torch device: full fields by one
+    `wavefront_distance` call there (the `wavefront` kernel on CUDA, one
+    launch; the plain sweep on the CPU), each lane on its spec's own
+    grid, copied back in one transfer.  Both give what the router reads:
+    the early exit stops after a level L with every target resolved, and
+    a cell it leaves at `INF` has a true distance of at least L+1, while
+    every value the host reads is either at most L (where the fields
+    agree) or is compared against d0max <= L+1 (`_still_valid`)."""
+    nlan = len(lb)
+    gh, gw = occ.shape[1:]
+    stride = gw + 2
+    if device is not None:
+        ub, inv = np.unique(lb, return_inverse=True)
+        blk = torch.from_numpy(occ[ub] >= capacity).to(device)
+        blk = blk[torch.from_numpy(inv.astype(np.int64)).to(device)]
+        seed = torch.zeros_like(blk)
+        seed[torch.arange(nlan, device=device),
+             torch.from_numpy(hy.astype(np.int64)).to(device),
+             torch.from_numpy(hx.astype(np.int64)).to(device)] = True
+        lane_grids = torch.from_numpy(grids[lb].astype(np.int32)).to(device)
+        field = wavefront_distance(blk, seed, lane_grids)
+        host = torch.empty(field.shape, dtype=torch.int32,
+                           pin_memory=field.is_cuda)
+        host.copy_(field)
+        dist = np.full((nlan, gh + 2, stride), INF, np.int32)
+        dist[:, 1:-1, 1:-1] = host.numpy()
+        return dist.reshape(nlan, -1)
+
+    karr = np.arange(nlan, dtype=np.int64)
+    offs = strides(stride)
+    occ_l = occ[lb] >= capacity
+    free = canvas_free(occ_l)
+    dist = np.full((nlan, (gh + 2) * stride), INF, np.int32)
+    sidx = canvas_index(hy, hx, stride)
+    dist[karr, sidx] = 0
+    tciv = canvas_index(t_y, t_x, stride)
+    tb = occ_l.reshape(nlan, -1)[karr[:, None], t_y * gw + t_x] & tm
+
+    def resolved():
+        res = dist[karr[:, None], tciv] < INF
+        if tb.any():
+            ndv = dist[karr[:, None, None],
+                       tciv[:, :, None] + offs[None, None, :]]
+            res = res | (tb & (ndv < INF).any(-1))
+        return (res | ~tm).all(1)
+
+    expand_buckets(free, dist, karr, sidx, stride, resolved)
+    return dist
+
+
+def _concurrent_route(nets: NetBatch, grids: np.ndarray, occ0: np.ndarray,
+                      *, capacity: int, record: bool = False, device=None):
+    """Route every net of every spec, conflict-aware (see section comment).
+
+    nets: numpy `NetBatch`; occ0: (B, Gh, Gw) int32 with out-of-grid
+    cells pre-blocked at `capacity`; `device` is where the BFS fields
+    are computed (`_bfs_fields`).  Returns (occ, routed, failed,
+    wirelength, rounds, collisions, schedule)."""
+    hubs, tgts = np.asarray(nets.hubs), np.asarray(nets.tgts)
+    tmask, nmask = np.asarray(nets.tmask), np.asarray(nets.nmask)
+    bsz = nmask.shape[0]
+    gh, gw = occ0.shape[1:]
+    stride = gw + 2
+    occ = occ0.copy()
+    occ_flat = occ.reshape(bsz, -1)
+    offs = strides(stride)
+
+    # Expanded bounding boxes: hub + valid targets, one-cell margin for
+    # the blocked-destination entry step.
+    py = np.concatenate([hubs[:, :, None, 0],
+                         np.where(tmask, tgts[..., 0], hubs[:, :, None, 0])],
+                        axis=2)
+    px = np.concatenate([hubs[:, :, None, 1],
+                         np.where(tmask, tgts[..., 1], hubs[:, :, None, 1])],
+                        axis=2)
+    bbox = np.stack([py.min(2) - 1, px.min(2) - 1,
+                     py.max(2) + 1, px.max(2) + 1], axis=-1)
+
+    pend = [collections.deque(np.nonzero(nmask[b])[0].tolist())
+            for b in range(bsz)]
+    # In-grid blocked cells per spec; Manhattan distance from a lane's
+    # hub to this set decides closed-form vs BFS field per lane.
+    blk_yx: list[list[np.ndarray]] = []
+    for b in range(bsz):
+        by, bx = np.nonzero(occ[b, :grids[b, 0], :grids[b, 1]] >= capacity)
+        blk_yx.append([by.astype(np.int64), bx.astype(np.int64)])
+    crossed = [bool(blk_yx[b][0].size) for b in range(bsz)]
+    routed = np.zeros(bsz, np.int32)
+    failed = np.zeros(bsz, np.int32)
+    wirelen = np.zeros(bsz, np.int32)
+    buffer: dict[tuple[int, int], _Buffered] = {}
+    schedule = RouteSchedule([], bbox) if record else None
+    rounds = collisions = crossings = 0
+
+    while any(pend):
+        rounds += 1
+        # ---- colour: greedy bbox-disjoint picks over pending, slot order
+        man_lanes: list[tuple[int, int]] = []
+        bfs_lanes: list[tuple[int, int]] = []
+        for b in range(bsz):
+            chosen: list[np.ndarray] = []
+            picked: list[tuple[int, int]] = []
+            for s in pend[b]:
+                if (b, s) in buffer:
+                    continue
+                bb = bbox[b, s]
+                if any(_bbox_overlap(bb, c) for c in chosen):
+                    # Slots past a conflict cannot commit this round
+                    # (commits are in slot order): stop the scan here.
+                    break
+                chosen.append(bb)
+                picked.append((b, s))
+            if not picked:
+                continue
+            if not crossed[b]:
+                man_lanes.extend(picked)
+                continue
+            # Crossed spec: a lane whose farthest target (Manhattan) is no
+            # farther than the nearest blocked cell reads no cell the
+            # obstacles can shadow, so its field is still closed-form.
+            ps = np.array([s for _, s in picked])
+            hy, hx = hubs[b, ps, 0], hubs[b, ps, 1]
+            d0 = (np.abs(tgts[b, ps, :, 0] - hy[:, None])
+                  + np.abs(tgts[b, ps, :, 1] - hx[:, None]))
+            d0max = np.where(tmask[b, ps], d0, -1).max(1)
+            by, bx = blk_yx[b]
+            blkmin = (np.abs(by[None, :] - hy[:, None])
+                      + np.abs(bx[None, :] - hx[:, None])).min(1)
+            for k, lane in enumerate(picked):
+                (man_lanes if d0max[k] <= blkmin[k]
+                 else bfs_lanes).append(lane)
+        if schedule is not None:
+            schedule.dispatches.append(man_lanes + bfs_lanes)
+            schedule.bfs_lanes.append(len(bfs_lanes))
+
+        # ---- expand: closed-form fields for lanes clear of obstacles
+        if man_lanes:
+            lb = np.array([b for b, _ in man_lanes])
+            ls = np.array([s for _, s in man_lanes])
+            hy, hx = hubs[lb, ls, 0], hubs[lb, ls, 1]
+            t_y, t_x = tgts[lb, ls, :, 0], tgts[lb, ls, :, 1]
+            tm = tmask[lb, ls]
+            d0 = np.abs(t_y - hy[:, None]) + np.abs(t_x - hx[:, None])
+            wk, wj = np.nonzero(tm)
+            wl_l, wys, wxs = _manhattan_paths(
+                wk, hy[wk], hx[wk], t_y[wk, wj], t_x[wk, wj])
+            per_lane = _group_cells(wl_l, wys * gw + wxs, len(man_lanes))
+            for k, (b, s) in enumerate(man_lanes):
+                dk = d0[k][tm[k]]
+                buffer[(b, s)] = _Buffered(
+                    cells=per_lane[k], wl=int((dk + 1).sum()), ok=True,
+                    d0max=int(dk.max()) if dk.size else -1,
+                    dist=None, hub=(int(hy[k]), int(hx[k])))
+
+        # ---- expand: BFS fields
+        fresh: list[tuple[int, int]] = []
+        if bfs_lanes:
+            lb = np.array([b for b, _ in bfs_lanes])
+            ls = np.array([s for _, s in bfs_lanes])
+            nlan = len(bfs_lanes)
+            karr = np.arange(nlan, dtype=np.int64)
+            hy, hx = hubs[lb, ls, 0], hubs[lb, ls, 1]
+            t_y, t_x = tgts[lb, ls, :, 0], tgts[lb, ls, :, 1]
+            tm = tmask[lb, ls]
+            dist = _bfs_fields(occ, lb, hy, hx, t_y, t_x, tm, grids,
+                               capacity=capacity, device=device)
+            tciv = canvas_index(t_y, t_x, stride)
+
+            dv = dist[karr[:, None], tciv].astype(np.int64)
+            ndv = dist[karr[:, None, None],
+                       tciv[:, :, None] + offs[None, None, :]]
+            nmin = ndv.min(-1).astype(np.int64)
+            d0 = np.where(dv < INF, dv, np.minimum(nmin + 1, INF))
+            run = tm & (d0 < INF)
+            okl = (run | ~tm).all(1)
+            blkt = run & (dv >= INF)
+            esel = np.argmax(ndv == (d0 - 1)[:, :, None], axis=2)
+            entry = tciv + offs[esel]
+            start = np.where(blkt, entry, tciv)
+            dstart = np.where(blkt, d0 - 1, d0)
+            wk, wj = np.nonzero(run & okl[:, None])
+            bw = blkt[wk, wj]
+            sl, sc = _walk_paths(dist, wk, start[wk, wj], dstart[wk, wj],
+                                 stride)
+            lanes_all = np.concatenate([wk, wk[bw], sl])
+            cidx_all = np.concatenate([tciv[wk, wj], entry[wk, wj][bw], sc])
+            cells_all = ((cidx_all // stride - 1) * gw
+                         + (cidx_all % stride - 1))
+            per_lane = _group_cells(lanes_all, cells_all, nlan)
+            for k, (b, s) in enumerate(bfs_lanes):
+                dk = d0[k][run[k]]
+                buffer[(b, s)] = _Buffered(
+                    cells=per_lane[k],
+                    wl=int((dk + 1).sum()) if okl[k] else 0,
+                    ok=bool(okl[k]),
+                    d0max=int(dk.max()) if (okl[k] and dk.size) else -1,
+                    dist=dist[k], hub=None)
+                fresh.append((b, s))
+
+        # ---- commit: strictly in slot order, collision-test on crossings
+        for b in range(bsz):
+            while pend[b] and (b, pend[b][0]) in buffer:
+                s = pend[b].popleft()
+                e = buffer.pop((b, s))
+                if not e.ok:
+                    failed[b] += 1
+                    continue
+                routed[b] += 1
+                wirelen[b] += e.wl
+                uc, cnt = np.unique(e.cells, return_counts=True)
+                pre = occ_flat[b, uc]
+                occ_flat[b, uc] = pre + cnt
+                newly = uc[(pre < capacity) & (pre + cnt >= capacity)]
+                if newly.size:
+                    crossings += 1
+                    crossed[b] = True
+                    ys, xs = newly // gw, newly % gw
+                    blk_yx[b][0] = np.concatenate([blk_yx[b][0], ys])
+                    blk_yx[b][1] = np.concatenate([blk_yx[b][1], xs])
+                    for key in [k for k in buffer if k[0] == b]:
+                        if not _still_valid(buffer[key], ys, xs, stride):
+                            del buffer[key]
+                            collisions += 1
+
+        # Surviving BFS fields are views into this round's batch array;
+        # copy them out so the batch can be freed.
+        for key in fresh:
+            if key in buffer and buffer[key].dist is not None:
+                buffer[key].dist = buffer[key].dist.copy()
+
+    if schedule is not None:
+        schedule.rounds = rounds
+        schedule.collisions = collisions
+        schedule.crossings = crossings
+    return occ, routed, failed, wirelen, rounds, collisions, schedule
+
+
+# ----------------------------------------------------------------------
+# Routing: the scan engine (one route_slots call) or the concurrent one
 # ----------------------------------------------------------------------
 class BatchedRouting(NamedTuple):
     routed: np.ndarray          # (B,) int32 — successfully routed nets
@@ -208,9 +616,10 @@ class BatchedRouting(NamedTuple):
     wirelength: np.ndarray      # (B,) int32 — total path points
     occ_count: np.ndarray       # (B, Gh, Gw) int32 congestion map
     grids: np.ndarray           # (B, 2) per-spec (gh, gw)
-    engine: str = "scan"
-    rounds: int = 0             # net slots, routed in order
-    collisions: int = 0
+    engine: str = "scan"        # "scan" | "concurrent"
+    rounds: int = 0             # scan: net slots; concurrent: rounds
+    collisions: int = 0         # buffered routes dropped by a crossing
+    schedule: RouteSchedule | None = None
 
     @property
     def success_rate(self) -> np.ndarray:
@@ -235,20 +644,35 @@ def route_inputs(widths: np.ndarray, heights: np.ndarray, *, coarse: int,
 
 def batched_route(nets: NetBatch, widths: np.ndarray, heights: np.ndarray,
                   *, coarse: int = 64, capacity: int = 4,
-                  engine: str | None = None) -> BatchedRouting:
-    """Route every net slot of every spec (the scan engine).
+                  engine: str | None = None,
+                  record_schedule: bool = False) -> BatchedRouting:
+    """Route every net slot of every spec.
+
+    engine: "scan" (one `route_slots` call for the bucket; also for
+    None) or "concurrent" (the conflict-aware host scheduler, its BFS
+    fields on the nets' device, `_bfs_fields`; `record_schedule` keeps
+    its `RouteSchedule`).  Both give identical results.
 
     Cells beyond a spec's own routing grid are pre-blocked, so padding a
     small spec up to the batch-max grid cannot open new paths."""
-    if engine == "concurrent":
-        raise NotImplementedError(
-            "the concurrent routing engine is not ported yet; use 'scan'")
-    if engine not in (None, "scan"):
+    if engine not in (None, "scan", "concurrent"):
         raise ValueError(f"engine must be 'scan' or 'concurrent', "
                          f"got {engine!r}")
+    dev = nets.hubs.device
+    if engine == "concurrent":
+        # The scheduler runs on the host; only the BFS fields use `dev`.
+        grids, _, blocked, occ0 = route_inputs(
+            widths, heights, coarse=coarse, capacity=capacity, device="cpu")
+        nets_np = NetBatch(*(a.cpu().numpy() for a in nets))
+        occ, routed, failed, wirelen, rounds, collisions, sched = \
+            _concurrent_route(nets_np, grids, occ0.numpy(),
+                              capacity=capacity, record=record_schedule,
+                              device=None if dev.type == "cpu" else dev)
+        occ = np.where(blocked.numpy(), 0, occ).astype(np.int32)
+        return BatchedRouting(routed, failed, wirelen, occ, grids,
+                              "concurrent", rounds, collisions, sched)
     grids, grids_t, blocked, occ0 = route_inputs(
-        widths, heights, coarse=coarse, capacity=capacity,
-        device=nets.hubs.device)
+        widths, heights, coarse=coarse, capacity=capacity, device=dev)
     occ, routed, failed, wirelen = route_slots(occ0, *nets, grids_t,
                                                capacity)
     occ = torch.where(blocked, 0, occ).to(I32)
@@ -263,7 +687,13 @@ def batched_route(nets: NetBatch, widths: np.ndarray, heights: np.ndarray,
 @dataclasses.dataclass
 class BatchedLayoutResult:
     """Layouts for a whole spec batch, in padded tensor form (rect
-    tensors stay on the device; routing stats come back to the host)."""
+    tensors stay on the device; routing stats come back to the host).
+
+    Per spec it mirrors `flow.LayoutResult`: `metrics_rows` carries the
+    same keys but the wall clock, `placements()` / `drc_reports()` unpack
+    to the sequential flow's types.  Wire point lists are not kept (the
+    congestion map `routing.occ_count` is); `flow.generate_layout` gives
+    one spec's full wire geometry."""
 
     specs: tuple[MacroSpec, ...]
     dims: BatchDims
@@ -290,6 +720,31 @@ class BatchedLayoutResult:
     def drc_clean(self) -> np.ndarray:
         return (self.drc_overlaps == 0) & (self.drc_oob == 0)
 
+    def drc_reports(self) -> list[DRCReport]:
+        return [DRCReport(int(o), int(b))
+                for o, b in zip(self.drc_overlaps, self.drc_oob)]
+
+    def placements(self) -> list[Placement]:
+        """Per-spec named `Placement`s, unpacked on the host (the rect
+        tensors come over once per call)."""
+        host = {c: (r.cpu().numpy(), m.cpu().numpy())
+                for c, (r, m) in self.tensors.items()}
+        widths, heights = self.widths, self.heights
+        out = []
+        for i, spec in enumerate(self.specs):
+            exact = dims_for_spec(spec)
+            rects: list[Placed] = []
+            for cat in CATEGORIES:
+                vals, mask = host[cat]
+                vals = vals[i].reshape(-1, 4)[mask[i].reshape(-1)]
+                cell = CATEGORY_CELL[cat]
+                rects.extend(
+                    Placed(name, cell, *map(int, xywh)) for name, xywh
+                    in zip(category_names(cat, exact, spec), vals))
+            out.append(Placement(spec, rects, int(widths[i]),
+                                 int(heights[i])))
+        return out
+
     def metrics_rows(self) -> list[dict]:
         """Per-spec metrics: the keys of the reference's rows."""
         h = np.array([s.h for s in self.specs], np.float32)
@@ -313,6 +768,11 @@ class BatchedLayoutResult:
                 "drc_clean": bool(self.drc_clean[i]),
             })
         return rows
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({"specs": [s.as_tuple() for s in self.specs],
+                       "points": self.metrics_rows()}, f, indent=1)
 
 
 class LayoutStages(NamedTuple):
@@ -356,21 +816,20 @@ def iter_layout_buckets(buckets, *, engine: str | None = None,
 
 
 def generate_layouts(specs, *, coarse: int = 64, capacity: int = 4,
-                     engine: str | None = None,
-                     device="cuda") -> BatchedLayoutResult:
+                     engine: str | None = None, device="cuda",
+                     record_schedule: bool = False) -> BatchedLayoutResult:
     """Lay out a whole (e.g. Pareto-distilled) spec batch at once; per
-    spec equal to the reference's `generate_layouts` rows."""
+    spec equal to the reference's `generate_layouts` rows.  `engine` and
+    `record_schedule` go to `batched_route`."""
     specs = tuple(specs)
     if not specs:
         raise ValueError("generate_layouts needs at least one MacroSpec")
-    if engine == "concurrent":
-        raise NotImplementedError(
-            "the concurrent routing engine is not ported yet; use 'scan'")
     st = layout_stages(specs, coarse=coarse, device=device)
     with record_function("layout.route"):
         routing = batched_route(st.nets, st.ops.width.cpu().numpy(),
                                 st.ops.height.cpu().numpy(), coarse=coarse,
-                                capacity=capacity, engine=engine)
+                                capacity=capacity, engine=engine,
+                                record_schedule=record_schedule)
     stats = [nl_mod.stats_for_spec(s) for s in specs]
     return BatchedLayoutResult(
         specs=specs, dims=st.dims, geom=st.geom, ops=st.ops,

@@ -74,8 +74,3 @@ def test_single_spec_place_equals_reference():
         assert [(r.name, r.cell, r.x, r.y, r.w, r.h) for r in a.rects] == \
             [(r.name, r.cell, r.x, r.y, r.w, r.h) for r in b.rects]
 
-
-def test_concurrent_engine_not_ported():
-    with pytest.raises(NotImplementedError):
-        tflow.generate_layouts([TSpec(*SPECS[0])], engine="concurrent",
-                               device="cpu")

@@ -17,6 +17,8 @@ from repro_torch.core import nsga2, pareto
 from repro_torch.core.acim_numerics import NoiseParams
 from repro_torch.core.acim_spec import MacroSpec
 from repro_torch.data.synthetic import batch_for
+from repro_torch.eda import batched_flow as bf
+from repro_torch.eda import flow, placer, router
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.acim_matmul import kernel as am_kernel
 from repro_torch.kernels.acim_matmul import ops as am_ops
@@ -25,6 +27,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.maze_route import kernel as mr
+from repro_torch.kernels.maze_route import ops as mr_ops
 from repro_torch.kernels.maze_route import ref as mr_ref
 from repro_torch.kernels.pareto_dom import ops as pd_ops
 from repro_torch.launch.shapes import ShapeSpec
@@ -165,6 +168,7 @@ _FIRST_LAUNCH_SCRIPT = """
 import json, threading, numpy as np, torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.maze_route import kernel as mr
+from repro_torch.kernels.maze_route import ops as mr_ops
 from route_slots_model import random_bucket
 sizes = [[(8, 9)], [(120, 270)], [(14, 40), (20, 23)], [(100, 200)]] * 2
 buckets = [[torch.from_numpy(x).cuda() for x in random_bucket(10 + i, g, 4, 4)]
@@ -297,6 +301,69 @@ def test_session_on_cuda_equals_cpu_rows(dev):
     assert LAUNCHES["wavefront"] == LAUNCHES["trace_paths"] == 0
     cpu = DesignSession(device="cpu").layout(art.pareto.specs)
     assert list(art.layout_rows) == cpu.metrics_rows()
+
+
+# The reference's flow-equivalence specs (every BatchDims axis padded);
+# their bucket takes BFS lanes and crossings in the concurrent engine.
+LAYOUT_SPECS = ((64, 16, 2, 3), (128, 32, 4, 3), (256, 16, 8, 3),
+                (128, 8, 4, 2), (64, 8, 2, 5))
+
+
+def test_concurrent_engine_on_cuda_equals_scan_and_cpu(dev):
+    """The concurrent engine on the card: full fields by one `wavefront`
+    launch a round with BFS lanes, giving the scan engine's rows and
+    occupancy and the CPU engine's (early-exit) schedule; also at
+    capacity 1, where collisions force retries."""
+    specs = [MacroSpec(*s) for s in LAYOUT_SPECS]
+    for capacity in (4, 1):
+        LAUNCHES.clear()
+        got = bf.generate_layouts(specs, capacity=capacity,
+                                  engine="concurrent", record_schedule=True)
+        sched = got.routing.schedule
+        assert LAUNCHES["wavefront"] == sum(1 for n in sched.bfs_lanes if n)
+        assert LAUNCHES["wavefront"] > 0 and LAUNCHES["route_slots"] == 0
+        scan = bf.generate_layouts(specs, capacity=capacity)
+        assert scan.routing.engine == "scan"
+        assert got.metrics_rows() == scan.metrics_rows()
+        np.testing.assert_array_equal(got.routing.occ_count,
+                                      scan.routing.occ_count)
+        cpu = bf.generate_layouts(specs, capacity=capacity,
+                                  engine="concurrent", device="cpu",
+                                  record_schedule=True)
+        want = cpu.routing.schedule
+        assert sched.dispatches == want.dispatches
+        assert sched.bfs_lanes == want.bfs_lanes
+        assert (sched.rounds, sched.collisions, sched.crossings) == \
+            (want.rounds, want.collisions, want.crossings)
+        assert got.metrics_rows() == cpu.metrics_rows()
+
+
+def test_router_on_cuda_equals_cpu(dev):
+    """`router.route` on the card: one `wavefront` launch per net of two
+    or more pins, the CPU route's wires, failures and wirelength; a host
+    impl given a CUDA tensor raises instead of copying it."""
+    spec = MacroSpec(128, 32, 4, 3)
+    p = placer.place(spec)
+    nets = flow._top_level_nets(spec, p)
+    for capacity in (4, 1):
+        LAUNCHES.clear()
+        got = router.route(p, nets, capacity=capacity)
+        assert LAUNCHES["wavefront"] == \
+            sum(1 for _, pins in nets if len(pins) >= 2)
+        want = router.route(p, nets, capacity=capacity, device="cpu")
+        assert got.wires == want.wires and got.failed == want.failed
+        assert got.total_wirelength == want.total_wirelength
+    LAUNCHES.clear()
+    lr = flow.generate_layout(spec)
+    assert LAUNCHES["wavefront"] == len(nets)
+    cpu = flow.generate_layout(spec, device="cpu")
+    m, w = lr.metrics(), cpu.metrics()
+    del m["elapsed_s"], w["elapsed_s"]
+    assert m == w and lr.routing.wires == cpu.routing.wires
+    occ = torch.zeros((1, 8, 8), dtype=torch.bool, device=dev)
+    for impl in ("frontier", "bfs"):
+        with pytest.raises(ValueError, match="host engine"):
+            mr_ops.wavefront_distance(occ, occ, impl=impl)
 
 
 def _evolve_inputs(dev, sizes, pop, gens):
