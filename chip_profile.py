@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's three paths goes, on one GPU.
+"""Where the time of the port's paths goes, on one GPU.
 
     python3 chip_profile.py
 
@@ -32,7 +32,18 @@ and prints:
    `make_prefill_step`), after one warm-up prefill: one prefill under the
    profiler, its device time split into the flash attention kernel, the
    GEMMs (cuBLAS / CUTLASS kernels) and the rest, with the kernels with
-   the most time and the busy share.
+   the most time and the busy share;
+6. for the single-token decode of the same model and weights
+   (`decode_step` at batch 4, the serving engine's slots, cache of 256
+   positions), after 4 warm-up steps: the mean step time of 8 steps,
+   then 8 steps under the profiler with the device time per step (GEMMs
+   and the rest), the device events and the host's aten operators per
+   step, and the busy share;
+7. the island explore of `DesignRequest(16384, islands=4)` (4 islands,
+   pop 256, 80 generations, 20-generation rounds, on every local card)
+   beside the single-island explore of the same cell, each once under
+   the profiler after a warm-up: wall, device time of `nsga2_evolve` and
+   `nds_rank`, device events and the busy share.
 
 It checks nothing: `chip_smoke.py` holds the results against the
 golden rows and the trainer's losses.  It imports nothing of JAX.
@@ -164,7 +175,7 @@ def profile_train(steps: int = 3) -> dict:
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
 
-def profile_prefill(seq: int = 32768, batch: int = 1) -> dict:
+def profile_prefill(params, seq: int = 32768, batch: int = 1) -> dict:
     """One full-width qwen2.5-3b prefill under the profiler (after a
     warm-up), its device time by kernel class."""
     import torch
@@ -174,10 +185,8 @@ def profile_prefill(seq: int = 32768, batch: int = 1) -> dict:
     from repro_torch.data.synthetic import batch_for
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models.lm import init_lm
 
     cfg = registry.get("qwen2.5-3b")
-    params = init_lm(cfg, seed=0, dtype=torch.bfloat16)
     shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
     step = make_prefill_step(cfg, shape)
     tokens = batch_for(cfg, *step.batch_shapes["inputs"][::-1], 0)
@@ -206,6 +215,88 @@ def profile_prefill(seq: int = 32768, batch: int = 1) -> dict:
             "device_events": sum(r[1] for r in kernels),
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
                     for k, c, us in kernels[:12]]}
+
+
+def profile_decode(params, batch: int = 4, steps: int = 8,
+                   max_seq: int = 256) -> dict:
+    """`decode_step` of the full-width qwen2.5-3b at `batch`: step time
+    unprofiled, then `steps` steps under the profiler by kernel class,
+    with the host's aten operators per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import decode_step, init_decode_state
+
+    cfg = registry.get("qwen2.5-3b")
+    state = init_decode_state(cfg, batch, max_seq)
+    toks = torch.arange(batch, device="cuda")
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            _, state = decode_step(params, state, toks, cfg)
+        torch.cuda.synchronize()
+
+    run(4)
+    t0 = time.perf_counter()
+    run(steps)
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        prof_ms = (time.perf_counter() - t0) / steps * 1e3
+    kernels = _device_kernels(prof)
+    device_ms = sum(r[2] for r in kernels) / 1e3 / steps
+    gemm_ms = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e3 / steps
+    aten = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU
+               and e.key.startswith("aten::"))
+    return {"batch": batch, "step_ms": step_ms, "profiled_step_ms": prof_ms,
+            "device_ms_per_step": device_ms, "gemm_ms_per_step": gemm_ms,
+            "busy_share": device_ms / prof_ms,
+            "device_events_per_step": sum(r[1] for r in kernels) / steps,
+            "aten_ops_per_step": aten / steps,
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:8]]}
+
+
+def profile_islands() -> dict:
+    """The 4-island explore of the 16 kb cell against the single-island
+    explore, each once under the profiler after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.batched_explorer import explore_cells
+    from repro_torch.parallel import distributed_explorer as dx
+
+    cell = (ARRAY_SIZE, 0)
+    runs = {"islands": lambda: dx.explore_cells_mesh([cell], islands=4),
+            "single": lambda: explore_cells([cell])}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = _device_kernels(prof)
+        device_ms = sum(r[2] for r in kernels) / 1e3
+        out[name] = {
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "nsga2_evolve_ms": sum(r[2] for r in kernels
+                                   if "nsga2_evolve" in r[0]) / 1e3,
+            "nds_rank_ms": sum(r[2] for r in kernels
+                               if "nds_rank" in r[0]) / 1e3,
+            "device_events": sum(r[1] for r in kernels),
+            "busy_share": device_ms / wall_ms}
+    return out
 
 
 def main() -> int:
@@ -257,7 +348,11 @@ def main() -> int:
           f"{train['launches_per_step']:.0f} device events/step", flush=True)
     for row in train["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
-    pre = profile_prefill()
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import init_lm
+
+    params = init_lm(registry.get("qwen2.5-3b"), seed=0, dtype=torch.bfloat16)
+    pre = profile_prefill(params)
     print(f"prefill (qwen2.5-3b, 36 layers, 1 x 32768): {pre['wall_s']:.3f} "
           f"s unprofiled, {pre['profiled_s']:.3f} s profiled; device "
           f"{pre['device_s']:.3f} s over {pre['device_events']} events: "
@@ -268,8 +363,27 @@ def main() -> int:
           flush=True)
     for row in pre["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    dec = profile_decode(params)
+    print(f"decode (qwen2.5-3b, batch {dec['batch']}): "
+          f"{dec['step_ms']:.3f} ms/step unprofiled, "
+          f"{dec['profiled_step_ms']:.3f} profiled; device "
+          f"{dec['device_ms_per_step']:.3f} ms/step (GEMMs "
+          f"{dec['gemm_ms_per_step']:.3f}) over "
+          f"{dec['device_events_per_step']:.0f} events, "
+          f"{dec['aten_ops_per_step']:.0f} aten operators/step on the host;"
+          f" busy share {dec['busy_share']:.3f}", flush=True)
+    for row in dec["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    del params
+    isl = profile_islands()
+    for name, r in isl.items():
+        print(f"explore {name} (16384, pop 256 x 80): wall "
+              f"{r['wall_ms']:.2f} ms, device {r['device_ms']:.3f} ms "
+              f"(nsga2_evolve {r['nsga2_evolve_ms']:.3f}, nds_rank "
+              f"{r['nds_rank_ms']:.3f}) over {r['device_events']} events; "
+              f"busy share {r['busy_share']:.3f}", flush=True)
     print(json.dumps({"card": card, "profile": prof, "train": train,
-                      "prefill": pre}))
+                      "prefill": pre, "decode": dec, "islands": isl}))
     return 0
 
 

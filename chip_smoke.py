@@ -165,8 +165,38 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              more pins; seconds per spec; then `wavefront` against its
              plain version and timed at that per-net shape (1, 122, 274).
              Launches zeroed before each run and read after it.
-8. report  — one JSON line of per-kernel numbers (the `wavefront` row's
-             launches are phase 7's, by path), the nvidia-smi line,
+8. mesh    — the device-mesh explorer on the one card, a mesh being a
+             tuple of device positions: (a) sharded cells, (4096, 0),
+             (16384, 0) and (65536, 0) at pop 256 x 80 on ("cuda:0",) and
+             ("cuda:0", "cuda:0"): final genes and objectives exactly
+             those of `sweep_program`, fronts those of `explore_cells`,
+             one `nsga2_evolve` launch a position; (b) islands 8,
+             migrate_every 10, pop 96, 60 generations on (16384, 0) on
+             1, 2, 4 and 8 positions: the same rows each time, inside the
+             golden exhaustive front covering >= 0.8 of it, facts "ring"
+             with 5 rounds, 6 `nsga2_evolve` and 5 `nds_rank` launches a
+             position; `nds_rank` at the migration shape (8, 96, 4)
+             against plain, timed, with its bound; (c)
+             `DesignSession().run(DesignRequest(16384, islands=4))`:
+             layout rows equal to golden, provenance "ring", 3 rounds;
+             the island dispatch timed against the single-island explore
+             of the cell, in turns; (d) `DesignService(mesh=("cuda:0",
+             "cuda:0"))` serves two island tickets and one plain one,
+             equal to `run_many`, `design_mesh_dispatches_total` >= 1.
+             The peer copy of the ring between two cards is not run here.
+9. decode  — qwen2.5-3b at full width with phase 5's bf16 weights:
+             `ServeEngine` answers 6 requests through 4 slots (prompts of
+             16-64 seeded ids, max_new 32, two at temperature 0.8), with
+             ms a step and tokens per second; then `decode_step` under
+             teacher forcing against the prefill's logits
+             (`flash_attention_wgmma`, 36 launches) on one 64-token
+             sequence: rel L2 <= 5e-2 at every position and top-1 equal
+             at >= 0.9 of them.  The script's wall time is printed
+             before phase 8 and after phase 9.
+10. report — one JSON line of per-kernel numbers (the `wavefront` row's
+             launches are phase 7's, by path; `nsga2_evolve` and
+             `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
+             its migration-shape time), the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -257,13 +287,36 @@ FLOW_SPECS = 8
 # layout pool, every stage thread on the one default stream.
 SERVICE = dict(max_coalesce=4, coalesce_window_s=0.05, layout_workers=4)
 
+# Phase 8: the device mesh.  Sharded cells at the default budget; islands
+# at the reference's slow-test parameters (tests/test_distributed_explorer
+# .py) on 1, 2, 4 and 8 positions of the one card, whose merged front must
+# cover ISLAND_COVER of the golden exhaustive front; the island request
+# timed against the single-island explore in ISLAND_TURNS rounds of turns.
+SHARDED_CELLS = ((4096, 0), (16384, 0), (65536, 0))
+ISLAND_CELL = (16384, 0)
+ISLAND_RUN = dict(islands=8, migrate_every=10, pop_size=96, generations=60)
+ISLAND_MESHES = (1, 2, 4, 8)
+ISLAND_COVER = 0.8
+ISLAND_TURNS = 3
+
+# Phase 9: qwen2.5-3b at full width serves six requests through four
+# slots; then decode_step under teacher forcing against the prefill.
+DECODE = dict(slots=4, max_seq=256, requests=6, prompt=(16, 64), max_new=32,
+              sampled=2, temperature=0.8)
+DECODE_CHECK_SEQ = 64
+DECODE_RTOL = 5e-2         # rel L2 of each position's logits (bf16 both)
+DECODE_TOP1 = 0.9          # share of positions whose argmax agrees
+
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
-# pick's, a batch of cells, a pop whose 2 P is no multiple of 32, and pops
-# whose rank words (512), then whole state (1024), sit in device memory.
+# pick's, a batch of cells, a pop whose 2 P is no multiple of 32, pops
+# whose rank words (512), then whole state (1024), sit in device memory,
+# and the island batches of phase 8 (b) and of its request (c) on one
+# position: k islands of one cell, k C populations a launch.
 EVOLVE_CASES = (((16384,), 256, 80), ((16384,), 96, 25),
                 ((4096, 16384, 65536), 256, 20), ((16384,), 100, 15),
-                ((16384, 4096), 512, 6), ((16384,), 1024, 3))
+                ((16384, 4096), 512, 6), ((16384,), 1024, 3),
+                ((16384,) * 8, 96, 10), ((16384,) * 4, 256, 20))
 
 
 def fail(msg: str) -> None:
@@ -1487,7 +1540,7 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     return dt, n, logits if keep else None
 
 
-def prefill_phase(flash_ms: float) -> dict:
+def prefill_phase(flash_ms: float) -> tuple[dict, object]:
     import torch
 
     from repro_torch.configs import registry
@@ -1551,7 +1604,7 @@ def prefill_phase(flash_ms: float) -> dict:
           f"dense attention rel L2 {rel:.3e} (tolerance {DENSE_CHECK_RTOL}), "
           f"max abs {float((block.float() - dense.float()).abs().max()):.3e}",
           flush=True)
-    del params, blk, x, h, dense, block
+    del blk, x, h, dense, block
 
     # the same CPU-drawn weights on the card and on the CPU
     cut = dataclasses.replace(cfg, n_layers=PREFILL_CPU_LAYERS)
@@ -1600,7 +1653,8 @@ def prefill_phase(flash_ms: float) -> dict:
           f"{small.resolved_head_dim}), 2 x {SMALL_ROUTE_SEQ}: flash_attention "
           f"(CUDA cores) {n_cc} launches; logits card vs CPU rel L2 "
           f"{rel:.3e} (tolerance {PREFILL_CPU_RTOL})", flush=True)
-    return {"flash_attention_wgmma": launches, "flash_attention": n_cc}
+    # the full-width serving weights stay for phase 9's decode
+    return {"flash_attention_wgmma": launches, "flash_attention": n_cc}, params
 
 
 # ----------------------------------------------------------------------
@@ -1957,9 +2011,372 @@ def layout_engines_phase() -> dict:
     return dict(concurrent=conc, flow=seq)
 
 
+# ----------------------------------------------------------------------
+# Phase 8: the device-mesh explorer
+# ----------------------------------------------------------------------
+def _counted(fn):
+    """(fn(), the launches it made): the counts zeroed just before the
+    call and read just after it."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def _island_round0(dev, islands: int, pop: int, gens: int):
+    """(draws, space, statics, genes, objs) of round 0 of an island run of
+    ISLAND_CELL on one position: its k = `islands` populations, made as
+    `explore_cells_mesh` makes them."""
+    from repro_torch.core import nsga2
+    from repro_torch.parallel import distributed_explorer as dx
+
+    draws = dx.PhiloxIslands()
+    space = nsga2.stack_spaces([nsga2.space_operands(
+        nsga2.NSGA2Config(array_size=ISLAND_CELL[0]))] * islands).to(dev)
+    statics = nsga2.EvolveStatics(pop_size=pop)
+    genes, objs = nsga2.run_cell(draws(range(islands), 0, [ISLAND_CELL], dev),
+                                 space, statics=statics, n_gens=gens)
+    return draws, space, statics, genes, objs
+
+
+def _migration_rank_check(dev) -> dict:
+    """`nds_rank` at the migration shape of phase 8 (b) on one position:
+    the (k C, P, 4) = (8, 96, 4) populations the first migration ranks,
+    made as the island run makes them.  Equal to plain; timed, with its
+    bound."""
+    import torch
+
+    from repro_torch.core import pareto
+    from repro_torch.kernels.pareto_dom import kernel as pd
+
+    _, _, _, _, objs = _island_round0(dev, ISLAND_RUN["islands"],
+                                      ISLAND_RUN["pop_size"],
+                                      ISLAND_RUN["migrate_every"])
+    f = objs.contiguous()
+    got, want = pd.nds_rank(f), pareto.non_dominated_rank(f)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"nds_rank != plain at the migration "
+                                  f"shape {tuple(f.shape)}")
+    c, p, m = f.shape
+    fronts = int((want.amax(-1) + 1).sum())
+    b_ms, b_by = bound(c * p * m * 4 + c * p * 4,
+                       c * p * p * m * 2 + fronts * p * (p // 32) * 2)
+    out = dict(migration_shape=list(f.shape),
+               migration_ms=cuda_ms(lambda: pd.nds_rank(f), 200),
+               migration_plain_ms=cuda_ms(
+                   lambda: pareto.non_dominated_rank(f), 20),
+               migration_bound_ms=b_ms, migration_bound_by=b_by)
+    print(f"mesh nds_rank at the migration shape {tuple(f.shape)}: equal to "
+          f"plain ({fronts} fronts over the {c} populations); "
+          f"{out['migration_ms']:.4f} ms vs plain "
+          f"{out['migration_plain_ms']:.4f} ms, bound {b_ms:.7f} ms "
+          f"({b_by})", flush=True)
+    return out
+
+
+def _migrated_evolve_check(dev, islands: int, pop: int, gens: int) -> None:
+    """`nsga2_evolve` on the block the island path hands it after the
+    first migration (one position, k = `islands` populations of
+    ISLAND_CELL, round 1's draws), against the composite loop on the same
+    block and draws: genes, objectives and ranks equal."""
+    import torch
+
+    from repro_torch.core import nsga2
+    from repro_torch.kernels.pareto_dom import ops as pd_ops
+    from repro_torch.parallel import distributed_explorer as dx
+
+    draws, space, statics, genes, objs = _island_round0(dev, islands, pop,
+                                                        gens)
+    shape = (islands, 1, pop)
+    (mg, mo), = dx.migrate([(genes.reshape(shape + (3,)),
+                             objs.reshape(shape + (4,)))], statics=statics,
+                           n_elite=dx._elite_count(pop))
+    mg, mo = mg.reshape(islands, pop, 3), mo.reshape(islands, pop, 4)
+    check(not (torch.equal(mg, genes) and torch.equal(mo, objs)),
+          f"mesh migrate left the ({islands}, {pop}) block as it was")
+    stacked = draws(range(islands), 1, [ISLAND_CELL], dev).generations(
+        gens, pop, pop, statics)
+    got = pd_ops.nsga2_evolve(stacked, mg, mo, space, statics)
+    want = nsga2.evolve_composite(nsga2.StackedDraws(stacked), mg, mo, space,
+                                  statics, gens)
+    torch.cuda.synchronize()
+    for g_, w_, what in zip(got, want, ("genes", "objectives", "ranks")):
+        check(torch.equal(g_, w_), f"nsga2_evolve {what} != composite on "
+                                   f"the migrated ({islands}, {pop}) block")
+    print(f"kernel nsga2_evolve: equal to the composite on the migrated "
+          f"island block ({islands} populations, pop {pop} x {gens}, round "
+          f"1's draws; genes, objectives, ranks)", flush=True)
+
+
+def mesh_phase(card: str) -> dict:
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import DesignRequest, DesignSession
+    from repro_torch.core import nsga2
+    from repro_torch.core.batched_explorer import explore_cells, sweep_program
+    from repro_torch.parallel import distributed_explorer as dx
+    from repro_torch.serve.design_service import DesignService
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    golden = {tuple(p_["key"]): p_["row"] for p_ in golden_points()}
+    total: collections.Counter = collections.Counter()
+
+    # (a) sharded cells: each position's block is one run_cell, final
+    # populations and fronts equal to the single-device engine's
+    cells = list(SHARDED_CELLS)
+    statics = nsga2.EvolveStatics()
+    spaces = [nsga2.space_operands(nsga2.NSGA2Config(array_size=s))
+              for s, _ in cells]
+    want_g, want_o = sweep_program([sd for _, sd in cells],
+                                   nsga2.stack_spaces(spaces).to(dev),
+                                   statics=statics, n_gens=80)
+    want_g, want_o = want_g.cpu().numpy(), want_o.cpu().numpy()
+    want = explore_cells(cells)
+    for mesh in (("cuda:0",), ("cuda:0", "cuda:0")):
+        t0 = time.perf_counter()
+        pops, launches = _counted(lambda: dx._sharded(
+            cells, spaces, dx.as_mesh(mesh), statics, 80))
+        dt = time.perf_counter() - t0
+        for i, cell in enumerate(cells):
+            check(np.array_equal(pops[cell][0], want_g[i])
+                  and np.array_equal(pops[cell][1], want_o[i]),
+                  f"mesh sharded {mesh}: population of {cell} differs from "
+                  f"explore_cells'")
+        check(launches == {"nsga2_evolve": len(mesh)},
+              f"mesh sharded {mesh}: launches {launches}")
+        total.update(launches)
+        (fronts, facts), launches = _counted(
+            lambda: dx.explore_cells_mesh(cells, mesh=mesh))
+        check(facts == {"mesh_devices": len(mesh), "islands": 1,
+                        "migration_topology": "sharded",
+                        "migration_rounds": 0}, f"mesh sharded facts {facts}")
+        for cell in cells:
+            check(fronts[cell].to_rows() == want[cell].to_rows(),
+                  f"mesh sharded {mesh}: front of {cell} differs")
+        total.update(launches)
+        print(f"mesh sharded ({card}): cells {cells} at pop 256 x 80 on "
+              f"{len(mesh)} position(s): genes, objectives and fronts equal "
+              f"to explore_cells; {dt:.3f} s, launches {launches}",
+              flush=True)
+
+    # (b) islands at the reference's slow-test parameters, on 1, 2, 4 and
+    # 8 positions of the one card
+    truth = set(golden)
+    rows0 = None
+    for n in ISLAND_MESHES:
+        t0 = time.perf_counter()
+        (fronts, facts), launches = _counted(lambda: dx.explore_cells_mesh(
+            [ISLAND_CELL], mesh=("cuda:0",) * n, **ISLAND_RUN))
+        dt = time.perf_counter() - t0
+        rounds = len(dx._round_schedule(ISLAND_RUN["generations"],
+                                        ISLAND_RUN["migrate_every"]))
+        check(facts == {"mesh_devices": n,
+                        "islands": ISLAND_RUN["islands"],
+                        "migration_topology": "ring",
+                        "migration_rounds": rounds - 1},
+              f"mesh islands on {n}: facts {facts}")
+        check(launches == {"nsga2_evolve": rounds * n,
+                           "nds_rank": (rounds - 1) * n},
+              f"mesh islands on {n}: launches {launches}, want "
+              f"{rounds} nsga2_evolve and {rounds - 1} nds_rank a position")
+        total.update(launches)
+        rows = fronts[ISLAND_CELL].to_rows()
+        check(rows0 is None or rows == rows0,
+              f"mesh islands: the front on {n} positions differs from 1's")
+        rows0 = rows
+        found = {(s.h, s.l, s.b_adc) for s in fronts[ISLAND_CELL].specs}
+        check(found <= truth, f"mesh islands: points off the golden front "
+                              f"{found - truth}")
+        check(len(found) >= ISLAND_COVER * len(truth),
+              f"mesh islands: {len(found)} of {len(truth)} golden points")
+        print(f"mesh islands ({card}): {ISLAND_RUN} on {n} position(s): "
+              f"{facts}; front {len(found)} of {len(truth)} golden points, "
+              f"equal to 1 position's; {dt:.3f} s; launches {launches}",
+              flush=True)
+    migration = _migration_rank_check(dev)
+    _migrated_evolve_check(dev, ISLAND_RUN["islands"], ISLAND_RUN["pop_size"],
+                           ISLAND_RUN["migrate_every"])
+
+    # (c) an island request through the session, laid out on the card
+    session = DesignSession()
+    req = DesignRequest(array_size=ISLAND_CELL[0], islands=4)
+    _migrated_evolve_check(dev, req.islands, req.pop_size, req.migrate_every)
+    t0 = time.perf_counter()
+    art, launches = _counted(lambda: session.run(req))
+    req_s = time.perf_counter() - t0
+    found = check_golden(art, golden, "mesh request")
+    prov = art.provenance
+    n_dev = dx.devices_for_islands(dx.default_mesh(), 4)
+    rounds = len(dx._round_schedule(req.generations, req.migrate_every))
+    check((prov.mesh_devices, prov.islands, prov.migration_topology,
+           prov.migration_rounds) == (n_dev, 4, "ring", rounds - 1),
+          f"mesh request provenance {prov}")
+    check(session.stats["mesh_dispatches"] == 1
+          and launches.get("nsga2_evolve", 0) == rounds * n_dev
+          and launches.get("nds_rank", 0) == (rounds - 1) * n_dev
+          and launches.get("route_slots", 0) == 1,
+          f"mesh request: launches {launches}")
+    total.update({k: launches.get(k, 0) for k in ("nsga2_evolve",
+                                                  "nds_rank")})
+    print(f"mesh request ({card}): DesignRequest(16384, islands=4): front "
+          f"{len(found)} of {len(golden)} golden points, every layout row "
+          f"equal to golden; provenance mesh_devices {prov.mesh_devices}, "
+          f"islands {prov.islands}, {prov.migration_topology}, "
+          f"{prov.migration_rounds} rounds; {req_s:.3f} s (explore "
+          f"{prov.explore_s:.3f} s); launches {launches}", flush=True)
+
+    # the island dispatch against the single-island explore of the same
+    # cell, in turns
+    def island():
+        return dx.explore_cells_mesh([ISLAND_CELL], islands=4)
+
+    def single():
+        return explore_cells([ISLAND_CELL])
+
+    times: dict = {"single": [], "island": []}
+    for _ in range(ISLAND_TURNS):
+        for name, fn in (("single", single), ("island", island),
+                         ("island", island), ("single", single)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"mesh timing ({card}): 16384 seed 0, pop 256 x 80, in turns: "
+          f"4-island dispatch (20-generation rounds) median "
+          f"{med['island'] * 1e3:.2f} ms {[round(t * 1e3, 2) for t in times['island']]}; "
+          f"single-island explore median {med['single'] * 1e3:.2f} ms "
+          f"{[round(t * 1e3, 2) for t in times['single']]}", flush=True)
+
+    # (d) the service over a two-position ring on the one card
+    svc = DesignService(mesh=("cuda:0", "cuda:0"), **SERVICE)
+    reqs = [DesignRequest(array_size=16384, seed=1, islands=2),
+            DesignRequest(array_size=4096, seed=0, islands=2, layout=False),
+            DesignRequest(array_size=4096, seed=1)]
+    (arts, wall), launches = _counted(lambda: serve_tickets(svc, reqs))
+    seq = DesignSession(mesh=("cuda:0", "cuda:0")).run_many(reqs)
+    for r, a in zip(reqs, arts):
+        check(a.ok and a.summary() == seq[r].summary(),
+              f"mesh service: {r.array_size} seed {r.seed} islands "
+              f"{r.islands} differs from run_many")
+    facts = [(a.provenance.mesh_devices, a.provenance.migration_topology)
+             for a in arts]
+    check(facts == [(2, "ring"), (2, "ring"), (2, "sharded")],
+          f"mesh service provenance {facts}")
+    mesh_total = svc.metrics()["metrics"]["design_mesh_dispatches_total"][0][
+        "value"]
+    check(mesh_total >= 1, "mesh service: design_mesh_dispatches_total 0")
+    total.update({k: launches.get(k, 0) for k in ("nsga2_evolve",
+                                                  "nds_rank")})
+    print(f"mesh service ({card}): {len(reqs)} tickets (two island, one "
+          f"plain) over ('cuda:0', 'cuda:0') in {wall:.3f} s, equal to "
+          f"run_many; design_mesh_dispatches_total {mesh_total}; provenance "
+          f"{facts}; launches {launches}", flush=True)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{dict(total)}", flush=True)
+    return dict(launches={k: total.get(k, 0) for k in ("nsga2_evolve",
+                                                       "nds_rank")},
+                **migration)
+
+
+# ----------------------------------------------------------------------
+# Phase 9: single-token decode and the serving engine
+# ----------------------------------------------------------------------
+def decode_phase(card: str, params) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import decode_step, init_decode_state
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = registry.get(PREFILL_CONFIG)
+    rng = np.random.default_rng(0)
+    lo, hi = DECODE["prompt"]
+    reqs = [Request(uid, [int(x) for x in rng.integers(
+                0, cfg.vocab, int(rng.integers(lo, hi + 1)))],
+                    max_new=DECODE["max_new"],
+                    temperature=(DECODE["temperature"]
+                                 if uid >= DECODE["requests"] - DECODE["sampled"]
+                                 else 0.0))
+            for uid in range(DECODE["requests"])]
+    eng = ServeEngine(cfg, params, slots=DECODE["slots"],
+                      max_seq=DECODE["max_seq"], seed=0)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, launches = _counted(lambda: eng.run())
+    dt = time.perf_counter() - t0
+    steps = eng.state["pos"]
+    check(sorted(c.uid for c in done) == list(range(len(reqs))),
+          f"decode engine answered {[c.uid for c in done]}")
+    for c in done:
+        check(len(c.tokens) == DECODE["max_new"]
+              and all(0 <= t < cfg.vocab for t in c.tokens),
+              f"decode engine: completion {c.uid} is {c.tokens}")
+    new = sum(len(c.tokens) for c in done)
+    fed = sum(len(r.prompt) for r in reqs)
+    print(f"decode engine ({card}): {cfg.name} full width, {len(reqs)} "
+          f"requests through {DECODE['slots']} slots (prompts "
+          f"{[len(r.prompt) for r in reqs]}, max_new {DECODE['max_new']}, "
+          f"{DECODE['sampled']} at temperature {DECODE['temperature']}): "
+          f"{steps} decode steps in {dt:.3f} s = {dt / steps * 1e3:.3f} ms a "
+          f"step; {new} new tokens = {new / dt:.1f} new tokens/s "
+          f"({(new + fed) / dt:.1f} tokens/s with the {fed} prompt tokens); "
+          f"launches of the port's kernels {launches}", flush=True)
+
+    # teacher forcing: decode_step's logits at each position against the
+    # prefill's (flash_attention_wgmma) over the same sequence
+    s = DECODE_CHECK_SEQ
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, s)), device=dev)
+    step = make_prefill_step(cfg, ShapeSpec("decode_check", "prefill", s, 1))
+    want, launches = _counted(lambda: step.fn(params, {"inputs": toks}))
+    check(launches.get("flash_attention_wgmma", 0) == cfg.n_layers,
+          f"decode check prefill launches {launches}")
+    want = want[0].float()
+    state = init_decode_state(cfg, 1, s)
+    rels, agree = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(s):
+        got, state = decode_step(params, state, toks[:, t], cfg)
+        got = got[0]
+        rels.append(float((got - want[t]).norm() / want[t].norm()))
+        agree += int(got.argmax() == want[t].argmax())
+    tf_s = time.perf_counter() - t0
+    check(all(math.isfinite(r) and r <= DECODE_RTOL for r in rels),
+          f"decode vs prefill: rel L2 by position {rels}")
+    check(agree >= DECODE_TOP1 * s,
+          f"decode vs prefill: top-1 agrees at {agree} of {s} positions")
+    print(f"decode check ({card}): decode_step under teacher forcing vs "
+          f"the prefill (flash_attention_wgmma, {cfg.n_layers} launches) on "
+          f"{s} tokens, bf16 both: rel L2 max {max(rels):.3e}, median "
+          f"{sorted(rels)[s // 2]:.3e} (tolerance {DECODE_RTOL}); top-1 "
+          f"equal at {agree} of {s} positions (tolerance "
+          f"{DECODE_TOP1}); batch-1 decode {tf_s / s * 1e3:.3f} ms a step",
+          flush=True)
+    print(f"decode phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return dict(steps=steps, seconds=dt, new_tokens=new)
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on a GPU")
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists():
@@ -1974,9 +2391,17 @@ def main() -> int:
                     acim_matmul_cuda_core=train["acim_matmul_cuda_core"])
     flash_ms = next(r["ms"] for r in rows
                     if r["name"] == "flash_attention_wgmma")
-    launches.update(prefill_phase(flash_ms))
+    prefill_launches, params = prefill_phase(flash_ms)
+    launches.update(prefill_launches)
     service = service_phase(card)
     engines = layout_engines_phase()
+    print(f"chip_smoke wall before phases 8-9: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    mesh = mesh_phase(card)
+    decode_phase(card, params)
+    del params
+    print(f"chip_smoke wall after phases 8-9: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a
     # round with BFS lanes) and the sequential flow (a launch a net).
@@ -1985,6 +2410,10 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         if r["name"] in service:
             r["service_launches"] = service[r["name"]]
+        if r["name"] in mesh["launches"]:
+            r["mesh_launches"] = mesh["launches"][r["name"]]
+        if r["name"] == "nds_rank":
+            r.update({k: v for k, v in mesh.items() if k != "launches"})
         if r["name"] == "wavefront":
             r.update(concurrent_launches=conc["launches"],
                      flow_launches=seq["launches"], net_ms=seq["net_ms"],
@@ -1997,11 +2426,15 @@ def main() -> int:
     # dominance_matrix's profiler device time and the launch floor;
     # acim_matmul's one-pass f32 bound and its ADC-flip share; the
     # service phase's launches of nsga2_evolve and route_slots;
-    # wavefront's launches by path and its time at the per-net shape
+    # wavefront's launches by path and its time at the per-net shape; the
+    # mesh phase's launches of nsga2_evolve and nds_rank, and nds_rank at
+    # the migration shape
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
-             "net_ms", "net_plain_ms", "net_bound_ms")
+             "net_ms", "net_plain_ms", "net_bound_ms", "mesh_launches",
+             "migration_shape", "migration_ms", "migration_plain_ms",
+             "migration_bound_ms", "migration_bound_by")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

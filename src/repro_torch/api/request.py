@@ -61,8 +61,7 @@ class DesignRequest:
     # kernel selection (on CUDA: see repro_torch.core.nsga2.rank_and_crowd)
     use_pallas_dominance: bool = False
     use_pallas_rank: bool = False
-    # island-model mesh exploration: kept so requests and their hashes
-    # match the reference's; the port's session runs islands == 1 only.
+    # island-model mesh exploration (repro_torch.parallel.distributed_explorer)
     islands: int = 1
     migrate_every: int = 20
     # application requirements (agile distillation)

@@ -20,7 +20,8 @@ and owns two caches:
 Execution is four stages with explicit payload types, as in the
 reference: `explore_stage` (dedupe, consult the artifact cache, and
 coalesce every cache-miss request of one explore group into one batched
-`explore_cells` run), `distill_stage` (requirements + layout buckets),
+`explore_cells` run, or one `explore_cells_mesh` run on the device
+mesh), `distill_stage` (requirements + layout buckets),
 `layout_stage` (one bucket through `eda.batched_flow`) and
 `finalize_stage` (per-request artifacts with provenance; fills the
 artifact cache).  `run()` and `run_many()` drive them in order; the
@@ -30,8 +31,10 @@ two cannot diverge.  With a telemetry `recorder` attached, every stage
 records `cat="session"` spans.
 
 The session runs on `cuda` unless constructed with `device="cpu"`; with
-no CUDA device and no device given it raises.  The reference's device
-mesh is not ported yet (`islands > 1` raises).
+no CUDA device and no device given it raises.  Island requests
+(`islands > 1`) and sessions built with `mesh=` explore on the device
+mesh (`repro_torch.parallel.distributed_explorer`); layout stays on the
+session's `device`.
 """
 from __future__ import annotations
 
@@ -295,7 +298,7 @@ class DesignSession:
     optionally backed by a persistent cross-process artifact cache."""
 
     def __init__(self, *, artifact_cache=None, recorder=None, device=None,
-                 route_engine: str | None = None):
+                 route_engine: str | None = None, mesh=None):
         """`artifact_cache` is an `ArtifactCache`
         (`repro_torch.api.artifact_cache`; or anything with its
         `get(request)` / `put(artifact)` shape, such as a
@@ -305,7 +308,17 @@ class DesignSession:
         `device` is where explore and layout run: `None` -> `cuda`
         (raises without a CUDA device).  `route_engine` is the layout's
         routing engine when a call names none (`batched_flow
-        .batched_route`: None or "scan", or "concurrent")."""
+        .batched_route`: None or "scan", or "concurrent").
+
+        `mesh` opts the explore stage onto the device-mesh engine
+        (`distributed_explorer.explore_cells_mesh`): a sequence of device
+        positions (`("cuda:0", "cuda:0")`, `("cpu",) * 4`), an int cap
+        on the local CUDA devices, or `True` for all of them (with
+        `device="cpu"`: the one CPU position).  Island requests
+        (`DesignRequest.islands > 1`) take the mesh engine even when
+        `mesh` is None; fronts do not depend on the mesh size.  The mesh
+        is resolved at the first mesh dispatch; layout stays on
+        `device`."""
         self.device = resolve_device(device)
         self.route_engine = route_engine
         self._programs: dict[tuple, _SweepProgram] = {}
@@ -320,6 +333,25 @@ class DesignSession:
             from repro_torch.api.artifact_cache import ArtifactCache
             artifact_cache = ArtifactCache(artifact_cache)
         self.artifact_cache = artifact_cache
+        self.mesh = mesh
+        self._resolved_mesh = None
+
+    def _mesh_for_dispatch(self) -> tuple:
+        """The resolved mesh, a tuple of `torch.device` positions (built
+        lazily, so sessions that never explore on the mesh never inspect
+        devices; built again when `self.mesh` is set anew, as
+        `DesignService(mesh=...)` does)."""
+        knob = self.mesh
+        if self._resolved_mesh is None or self._resolved_mesh[0] is not knob:
+            from repro_torch.parallel import distributed_explorer as dx
+            if knob is None or isinstance(knob, int):
+                # None or True: every local device; an int: that many
+                cap = None if knob is None or isinstance(knob, bool) else knob
+                mesh = dx.default_mesh(max_devices=cap, device=self.device)
+            else:
+                mesh = dx.as_mesh(knob)
+            self._resolved_mesh = (knob, mesh)
+        return self._resolved_mesh[1]
 
     def bump(self, key: str, n: int = 1) -> None:
         """Increment a stats counter under `stats_lock`: the one
@@ -359,16 +391,31 @@ class DesignSession:
                 pending.setdefault(r.explore_group(), []).append(r)
         for group in pending.values():
             r0 = group[0]
-            if r0.islands > 1:
-                raise NotImplementedError(
-                    "island (mesh) exploration is not ported yet")
             cells = list(dict.fromkeys(r.cell for r in group))
-            prog = self.program_for(r0)
             t0 = time.perf_counter()
-            with self._span("explore_dispatch", cells=len(cells),
-                            coalesced=len(group)):
-                fronts = explore_cells(cells, cal=r0.cal, program=prog.fn,
-                                       device=self.device)
+            facts: dict = {}
+            if r0.islands > 1 or self.mesh is not None:
+                from repro_torch.parallel import distributed_explorer as dx
+                mesh = self._mesh_for_dispatch()
+                with self._span("explore_dispatch", cells=len(cells),
+                                coalesced=len(group), engine="mesh",
+                                islands=r0.islands):
+                    fronts, facts = dx.explore_cells_mesh(
+                        cells, mesh=mesh, islands=r0.islands,
+                        migrate_every=r0.migrate_every,
+                        pop_size=r0.pop_size, generations=r0.generations,
+                        crossover_prob=r0.crossover_prob,
+                        mutation_prob=r0.mutation_prob, cal=r0.cal,
+                        use_pallas_dominance=r0.use_pallas_dominance,
+                        use_pallas_rank=r0.use_pallas_rank)
+                self.bump("mesh_dispatches")
+            else:
+                prog = self.program_for(r0)
+                with self._span("explore_dispatch", cells=len(cells),
+                                coalesced=len(group)):
+                    fronts = explore_cells(cells, cal=r0.cal,
+                                           program=prog.fn,
+                                           device=self.device)
             dt = time.perf_counter() - t0
             self.bump("explorer_dispatches")
             self.bump("run_cell_traces", 0)   # the port traces nothing
@@ -377,7 +424,7 @@ class DesignSession:
             for r in group:
                 info[r] = {"explore_s": dt / len(group), "new_traces": 0,
                            "dispatches": 1, "cache_hit": False,
-                           "coalesced": len(group)}
+                           "coalesced": len(group), **facts}
         return {r: self._fronts[r.explore_key()] for r in requests}, info
 
     def fronts_for(self, requests: Iterable[DesignRequest]
@@ -590,7 +637,10 @@ class DesignSession:
                                               if br.engine})),
                 route_rounds=sum(br.rounds for br in touched),
                 route_collisions=sum(br.collisions for br in touched),
-                islands=r.islands)
+                mesh_devices=i.get("mesh_devices", 0),
+                islands=i.get("islands", r.islands),
+                migration_topology=i.get("migration_topology", ""),
+                migration_rounds=i.get("migration_rounds", 0))
             art = DesignArtifact(request=r, pareto=batch.distilled[r],
                                  layout_rows=rows_for, provenance=prov,
                                  layouts=layouts, error=error)

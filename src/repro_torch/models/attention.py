@@ -1,13 +1,14 @@
 """GQA / MQA / MHA attention (+bias, +qk_norm): the full-sequence forward
 of training and prefill, dense (`attention_fwd`) and blockwise
-(`attention_fwd_blockwise`, the long-context prefill path).
+(`attention_fwd_blockwise`, the long-context prefill path), and the
+one-token decode over a KV cache (`init_kv_cache`, `attention_decode`).
 
 Counterpart of the GQA part of `repro.models.attention`.  Shapes follow
 (B, S, H, Dh).  The blockwise forward runs through the flash attention
 kernel (`repro_torch.kernels.flash_attention`); `_blockwise_core` is the
 plain PyTorch form of the reference's jnp online softmax.  The
 reference's sharding annotations (`logical`) have no counterpart here;
-MLA and decode are not ported.
+MLA is not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import common
 from repro_torch.models.common import NEG_INF, apply_rope, dense_init
@@ -150,3 +152,42 @@ def _blockwise_core(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "bskgt,btkd->bskgd", p_.to(qg.dtype), vj).to(torch.float32)
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(out_dtype)
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                  dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """Zeroed k / v caches, each (B, KV, S, Dh), on `device` (None: the
+    card; raises without one)."""
+    device = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(p: Attention, x_t: torch.Tensor, cache: dict, pos: int,
+                     cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """One-token decode.  x_t: (B, D); cache k / v: (B, KV, S, Dh); pos:
+    the token's position.
+
+    The token's k and v are written into the cache in place at `pos`.
+    Scores leave the einsum in x's dtype and are scaled in float32 (the
+    reference divides by a NumPy float64 scalar, float32 without x64);
+    positions past `pos` are masked with `NEG_INF` in float32, and the
+    float32 softmax goes back to x's dtype for P.V."""
+    b, _ = x_t.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // kv
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x_t.device)
+    q, k, v = _project_qkv(p, x_t[:, None, :], cfg, positions)
+    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache[:, :, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, :, pos] = v[:, 0].to(v_cache.dtype)
+    qh = q[:, 0].reshape(b, kv, g, dh)
+    scores = torch.einsum("bkgd,bktd->bkgt", qh,
+                          k_cache.to(qh.dtype)).to(torch.float32)
+    scores = scores / float(np.float32(np.sqrt(dh)))
+    valid = torch.arange(k_cache.shape[2], device=x_t.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x_t.dtype)
+    out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache.to(probs.dtype))
+    return out.reshape(b, h * dh) @ p.wo.to(x_t.dtype), cache

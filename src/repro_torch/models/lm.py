@@ -6,8 +6,9 @@ reference's pytree (`emb`, `blocks.<i>.ln1.scale`, `blocks.<i>.attn.wq`,
 ..., `final_norm.scale`, `head`), with the reference's stacked
 `blocks` axis unrolled into a `ModuleList`.  `lm_hidden` / `lm_logits`
 are the forward of prefill (`repro_torch.launch.steps`), dense or
-blockwise; the CIM-in-the-loop trainer has its own forward
-(`repro_torch.train.acim_lm`).
+blockwise; `init_decode_state` / `decode_step` the one-token decode of
+serving (`repro_torch.serve.engine`); the CIM-in-the-loop trainer has
+its own forward (`repro_torch.train.acim_lm`).
 """
 from __future__ import annotations
 
@@ -22,15 +23,25 @@ from repro_torch.models.common import (apply_norm, causal_mask, dense_init,
                                        embed_init, init_norm)
 
 
+# Where each family the port does not build stands in ROADMAP queue 1.
+_NOT_PORTED = {"moe": "item 6.3 (MoE, MLA)", "vlm": "item 6.4 (paligemma)",
+               "hybrid": "item 6.5 (mamba2, zamba2)",
+               "ssm": "item 6.6 (xlstm)", "audio": "item 6.6 (whisper)"}
+
+
 def check_dense(cfg: ArchConfig) -> None:
     """Raise unless the port builds `cfg`: the dense family without MoE,
-    MLA or learned positions."""
+    MLA or learned positions.  The message names the ROADMAP item that
+    brings what is missing."""
     if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+        item = _NOT_PORTED.get(cfg.family, _NOT_PORTED["moe"])
         raise NotImplementedError(
             f"the port builds the dense family only (no MoE, no MLA), not "
-            f"{cfg.name!r} ({cfg.family})")
+            f"{cfg.name!r} ({cfg.family}): ROADMAP queue 1 {item}")
     if cfg.pos == "learned":
-        raise NotImplementedError("learned positions are not ported")
+        raise NotImplementedError(
+            f"learned positions ({cfg.name!r}) are not ported: ROADMAP "
+            f"queue 1 item 6.7")
 
 
 class Block(nn.Module):
@@ -143,3 +154,53 @@ def lm_logits(params: LM, hidden: torch.Tensor,
               cfg: ArchConfig) -> torch.Tensor:
     head = params.emb.t() if cfg.tie_embeddings else params.head
     return hidden @ head.to(hidden.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int, *,
+                      device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The decode state: every layer's k / v cache stacked, (L, B, KV, S,
+    Dh) each, zeroed on `device` (CUDA when None, raising without it),
+    and the next position `pos` (a host int, shared by the batch)."""
+    check_dense(cfg)
+    one = attn.init_kv_cache(cfg, batch, max_seq, dtype=dtype,
+                             device=device)
+    caches = {k: v.new_zeros((cfg.n_layers,) + v.shape)
+              for k, v in one.items()}
+    return {"caches": caches, "pos": 0}
+
+
+def _layer_decode(p: Block, x_t: torch.Tensor, cache: dict, pos: int,
+                  cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    h = apply_norm(p.ln1, x_t[:, None], cfg.norm)[:, 0]
+    a, cache = attn.attention_decode(p.attn, h, cache, pos, cfg)
+    x_t = x_t + a
+    h = apply_norm(p.ln2, x_t[:, None], cfg.norm)[:, 0]
+    return x_t + mlp.mlp_fwd(p.ffn, h, cfg), cache
+
+
+@torch.no_grad()
+def decode_step(params: LM, state: dict, tokens: torch.Tensor,
+                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step: tokens (B,) -> (logits (B, V) float32, new state).
+
+    The embedding goes to bf16, as in the reference; a Python loop over
+    the layers writes each layer's k / v into the stacked cache in place
+    at `state["pos"]`, so the new state holds the same cache tensors.
+    Where the reference clamps a write past the cache's end, this
+    raises."""
+    check_dense(cfg)
+    pos = state["pos"]
+    caches = state["caches"]
+    if not 0 <= pos < caches["k"].shape[3]:
+        raise ValueError(f"decode position {pos} is outside the cache's "
+                         f"{caches['k'].shape[3]} positions")
+    x = params.emb[tokens].to(torch.bfloat16)
+    for i, blk in enumerate(params.blocks):
+        x, _ = _layer_decode(blk, x, {"k": caches["k"][i],
+                                      "v": caches["v"][i]}, pos, cfg)
+    x = apply_norm(params.final_norm, x[:, None], cfg.norm)[:, 0]
+    return lm_logits(params, x, cfg).to(torch.float32), \
+        {"caches": caches, "pos": pos + 1}

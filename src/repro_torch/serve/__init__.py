@@ -1,1 +1,2 @@
-"""Serving layers of the port: the multi-tenant `DesignService`."""
+"""Serving layers of the port: the multi-tenant `DesignService` and the
+LM decode engine (`engine.ServeEngine`)."""

@@ -1,10 +1,10 @@
 """Multi-tenant design service: a staged-pipeline, deadline-coalescing,
 fault-tolerant front door over the port's `DesignSession`.
 
-Counterpart of the JAX package's `serve/design_service.py`, with
-everything it has except the device mesh (`DesignService(device=...)`
-takes the place of `mesh=`; island requests still raise in the
-session).  Concurrent users `submit()` `DesignRequest`s and collect
+Counterpart of the JAX package's `serve/design_service.py`.
+`DesignService(mesh=...)` forwards to the session's device-mesh explore
+engine as the reference's does; `device=` picks the device of the
+session made here.  Concurrent users `submit()` `DesignRequest`s and collect
 ticketed `DesignArtifact`s, while the service amortizes the heavy work
 across tenants.  Two driving modes share one queue:
 
@@ -120,8 +120,8 @@ stats-proxied counters, live gauges with open busy clocks flushed,
 ticket end-to-end latency and per-bucket layout-seconds histograms,
 `served_from` tier and fault-family counters), renderable as prometheus
 text via `repro_torch.telemetry.export.render_prometheus`.  Metric
-names are the reference's (`design_mesh_dispatches_total` stays
-registered and reads 0 until the mesh is ported).  With
+names are the reference's (`design_mesh_dispatches_total` counts the
+session's explore dispatches on the device mesh).  With
 `telemetry=Telemetry()` (or `True`), a `SpanRecorder` traces the
 admission pump, every stage-worker unit (the span edges share the
 exact clock reads of the busy clocks), the layout pool, and each
@@ -226,7 +226,7 @@ class DesignService:
                  telemetry: Telemetry | bool | None = None,
                  controller: (FeedbackController | ControllerConfig
                               | None) = None,
-                 device=None, sleep=time.sleep):
+                 mesh=None, device=None, sleep=time.sleep):
         if max_coalesce <= 0:
             raise ValueError("max_coalesce must be positive")
         if coalesce_window_s < 0:
@@ -239,8 +239,13 @@ class DesignService:
             raise ValueError("max_retries must be >= 0")
         # `device` goes to the session made here when none is given:
         # `None` -> cuda (raises without a CUDA device), "cpu" for the
-        # plain path; a given session keeps its own device
+        # plain path; a given session keeps its own device.  `mesh`
+        # forwards to the session's device-mesh explore engine (positions,
+        # an int device cap, or True); with a given session it overrides
+        # that session's knob only when set
         self.session = session or DesignSession(device=device)
+        if mesh is not None:
+            self.session.mesh = mesh
         self.max_coalesce = max_coalesce
         self.coalesce_window_s = coalesce_window_s
         # bound of the batch-granular explore/distill queues: how many

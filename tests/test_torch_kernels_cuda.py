@@ -32,7 +32,9 @@ from repro_torch.kernels.maze_route import ref as mr_ref
 from repro_torch.kernels.pareto_dom import ops as pd_ops
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import lm
 from repro_torch.models.lm import init_lm
+from repro_torch.parallel import distributed_explorer as dx
 from repro_torch.quant.cim_linear import CIMConfig
 from repro_torch.serve.design_service import DesignService
 from repro_torch.train import acim_lm
@@ -384,7 +386,9 @@ def _evolve_inputs(dev, sizes, pop, gens):
     ((4096, 16384, 65536), 256, 20),      # a batch of cells
     ((16384,), 100, 15),                  # 2 P = 200: words padded
     ((16384, 4096), 512, 6),              # dominance words in device memory
-    ((16384,), 1024, 3)])                 # all state in device memory
+    ((16384,), 1024, 3),                  # all state in device memory
+    ((16384,) * 8, 96, 10),               # an island block (8 islands)
+    ((16384,) * 4, 256, 20)])             # the island request's block
 def test_nsga2_evolve_matches_composite(sizes, pop, gens, dev):
     """Every generation in one launch: final genes, objectives and ranks
     bit-equal to the composite loop (torch ops and one nds_rank launch a
@@ -765,3 +769,104 @@ def test_prefill_tensor_core_route_on_cuda_matches_cpu(dev):
     want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, {"inputs": toks})
     got, want = got.float().cpu(), want.float()
     assert float((got - want).norm() / want.norm()) <= 3e-2
+
+
+def test_island_ring_on_one_card_equals_one_position(dev):
+    """A two-position ring on one card (migration through the block
+    boundary) gives the one-position run's fronts; each position launches
+    nsga2_evolve once a round and nds_rank once a migration."""
+    cells = [(4096, 0), (16384, 1)]
+    kw = dict(islands=4, migrate_every=5, pop_size=48, generations=15)
+    n0 = LAUNCHES["nsga2_evolve"], LAUNCHES["nds_rank"]
+    one, f1 = dx.explore_cells_mesh(cells, mesh=("cuda:0",), **kw)
+    two, f2 = dx.explore_cells_mesh(cells, mesh=("cuda:0", "cuda:0"), **kw)
+    assert (f1["mesh_devices"], f2["mesh_devices"]) == (1, 2)
+    assert f1["migration_rounds"] == f2["migration_rounds"] == 2
+    for cell in cells:
+        assert one[cell].to_rows() == two[cell].to_rows(), cell
+    assert (LAUNCHES["nsga2_evolve"] - n0[0],
+            LAUNCHES["nds_rank"] - n0[1]) == (3 + 6, 2 + 4)
+
+
+@pytest.mark.parametrize("k,cells,pop,gens", [(8, (16384,), 96, 10),
+                                              (2, (4096, 16384), 48, 5)])
+def test_nsga2_evolve_on_a_migrated_block(k, cells, pop, gens, dev):
+    """nsga2_evolve on the (k C) block the island path hands it after the
+    first migration, with round 1's draws, bit-equal to the composite loop
+    on the same block and draws."""
+    c = len(cells)
+    draws = dx.PhiloxIslands()
+    space = nsga2.stack_spaces([nsga2.space_operands(
+        nsga2.NSGA2Config(array_size=s)) for s in cells] * k).to(dev)
+    statics = nsga2.EvolveStatics(pop_size=pop)
+    cell_list = [(s, 0) for s in cells]
+    genes, objs = nsga2.run_cell(draws(range(k), 0, cell_list, dev), space,
+                                 statics=statics, n_gens=gens)
+    (mg, mo), = dx.migrate([(genes.reshape(k, c, pop, 3),
+                             objs.reshape(k, c, pop, 4))], statics=statics,
+                           n_elite=dx._elite_count(pop))
+    mg, mo = mg.reshape(k * c, pop, 3), mo.reshape(k * c, pop, 4)
+    stacked = draws(range(k), 1, cell_list, dev).generations(gens, pop, pop,
+                                                             statics)
+    n0 = LAUNCHES["nsga2_evolve"]
+    got = pd_ops.nsga2_evolve(stacked, mg, mo, space, statics)
+    assert LAUNCHES["nsga2_evolve"] == n0 + 1
+    want = nsga2.evolve_composite(nsga2.StackedDraws(stacked), mg, mo, space,
+                                  statics, gens)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,cells", [(8, (16384,)), (4, (4096, 16384)),
+                                     (16, (4096, 16384, 65536))])
+def test_nds_rank_and_migrate_at_migration_shapes(k, cells, dev):
+    """nds_rank on the (k C, 96, 4) block a migration ranks, against its
+    plain version; `migrate` on the card equal to `migrate` on the CPU
+    over the same populations, split over two positions."""
+    pop, n_elite = 96, dx._elite_count(96)
+    space = nsga2.stack_spaces([nsga2.space_operands(
+        nsga2.NSGA2Config(array_size=s)) for s in cells] * k).to(dev)
+    draws = nsga2.PhiloxDraws(range(k * len(cells)), dev)
+    genes = nsga2.init_population_op(draws.init(
+        space.gene_lo.cpu().numpy(), space.gene_hi.cpu().numpy(), pop), space)
+    objs = nsga2.evaluate_op(genes, space)
+    n0 = LAUNCHES["nds_rank"]
+    assert torch.equal(pd_ops.non_dominated_rank(objs),
+                       pareto.non_dominated_rank(objs))
+    assert LAUNCHES["nds_rank"] == n0 + 1
+    shape = (k, len(cells), pop)
+    statics = nsga2.EvolveStatics(pop_size=pop)
+    blocks = [(g.reshape(shape + (3,)).chunk(2)[d],
+               o.reshape(shape + (4,)).chunk(2)[d])
+              for d in range(2) for g, o in [(genes, objs)]]
+    got = dx.migrate(blocks, statics=statics, n_elite=n_elite)
+    assert LAUNCHES["nds_rank"] == n0 + 3      # one a position
+    want = dx.migrate([(g.cpu(), o.cpu()) for g, o in blocks],
+                      statics=statics, n_elite=n_elite)
+    for (g, o), (wg, wo) in zip(got, want):
+        assert torch.equal(g.cpu(), wg) and torch.equal(o.cpu(), wo)
+
+
+def test_decode_step_on_cuda_matches_prefill(dev):
+    """The reduced qwen2.5 decode on the card under teacher forcing
+    against the card's prefill over the same 24 tokens (bf16 both): rel
+    L2 <= 3e-2 at each position and argmax equal at >= 90 % of them, as
+    tests/test_torch_decode.py holds the CPU run; and within rel L2 3e-2
+    of the same decode on the CPU."""
+    cfg = registry.reduced("qwen2.5-3b")
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(0))
+    want = make_prefill_step(cfg, ShapeSpec("t", "prefill", 24, 2)).fn(
+        card, {"inputs": toks}).float()
+    state = lm.init_decode_state(cfg, 2, 32)
+    host = lm.init_decode_state(cfg, 2, 32, device="cpu")
+    agree = 0
+    for t in range(24):
+        got, state = lm.decode_step(card, state, toks[:, t].to(dev), cfg)
+        ref, host = lm.decode_step(cpu, host, toks[:, t], cfg)
+        assert float((got - want[:, t]).norm() / want[:, t].norm()) <= 3e-2
+        assert float((got.cpu() - ref).norm() / ref.norm()) <= 3e-2
+        agree += int((got.argmax(-1) == want[:, t].argmax(-1)).sum())
+    assert agree >= 0.9 * 2 * 24

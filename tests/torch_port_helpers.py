@@ -41,6 +41,15 @@ class JaxDraws:
             self.kinit.append(a)
             self.kgen.append(b)
 
+    @classmethod
+    def from_generation_keys(cls, keys) -> "JaxDraws":
+        """A source whose generation keys are `keys` themselves:
+        `evolve_from(key, ...)` splits its key per generation as `run_cell`
+        splits its `kgen`, and makes no initial population."""
+        draws = cls([])
+        draws.kgen = list(keys)
+        return draws
+
     def init(self, lo, hi, pop):
         out = []
         for c, k in enumerate(self.kinit):
