@@ -39,7 +39,13 @@ and prints:
    then 8 steps under the profiler with the device time per step (GEMMs
    and the rest), the device events and the host's aten operators per
    step, and the busy share;
-7. the island explore of `DesignRequest(16384, islands=4)` (4 islands,
+7. the full-width qwen2.5-3b train step (float32 masters from seed 0,
+   `make_train_step(remat=True)`, default AdamW, 8 x 256 tokens), after
+   2 warm-up steps: the mean step time of 3 steps, then 3 steps under the
+   profiler with the device time per step (GEMMs and the rest), the
+   device kernels with the most time, the device events and the host's
+   aten operators per step (the most called beside), and the busy share;
+8. the island explore of `DesignRequest(16384, islands=4)` (4 islands,
    pop 256, 80 generations, 20-generation rounds, on every local card)
    beside the single-island explore of the same cell, each once under
    the profiler after a warm-up: wall, device time of `nsga2_evolve` and
@@ -264,6 +270,63 @@ def profile_decode(params, batch: int = 4, steps: int = 8,
                     for k, c, us in kernels[:8]]}
 
 
+def profile_lm_train(steps: int = 3, batch: int = 8, seq: int = 256) -> dict:
+    """The full-width qwen2.5-3b train step (float32 masters from seed 0,
+    `make_train_step(remat=True)`, default AdamW) at `batch` x `seq`:
+    after 2 warm-up steps, the mean of `steps` steps unprofiled, then
+    `steps` under the profiler by kernel class, with the device events
+    and the host's aten operators a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, init_state
+
+    cfg = registry.get("qwen2.5-3b")
+    state = init_state(cfg, TrainerConfig(seed=0))
+    step = make_train_step(cfg, remat=True)
+    tokens = batch_for(cfg, seq, batch, 0, seed=0, device="cuda")
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, _ = step.fn(state, tokens)
+        torch.cuda.synchronize()
+
+    run(2)
+    t0 = time.perf_counter()
+    run(steps)
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        prof_ms = (time.perf_counter() - t0) / steps * 1e3
+    kernels = _device_kernels(prof)
+    device_ms = sum(r[2] for r in kernels) / 1e3 / steps
+    gemm_ms = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e3 / steps
+    ops = sorted(((e.key, e.count, e.self_cpu_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")), key=lambda r: -r[1])
+    del state
+    torch.cuda.empty_cache()
+    return {"tokens": batch * seq, "step_ms": step_ms,
+            "profiled_step_ms": prof_ms, "device_ms_per_step": device_ms,
+            "gemm_ms_per_step": gemm_ms, "busy_share": device_ms / prof_ms,
+            "device_events_per_step": sum(r[1] for r in kernels) / steps,
+            "aten_ops_per_step": sum(r[1] for r in ops) / steps,
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:12]],
+            "top_aten": [{"name": k, "calls_per_step": c / steps,
+                          "self_cpu_ms_per_step": us / 1e3 / steps}
+                         for k, c, us in ops[:8]]}
+
+
 def profile_islands() -> dict:
     """The 4-island explore of the 16 kb cell against the single-island
     explore, each once under the profiler after a warm-up."""
@@ -375,6 +438,21 @@ def main() -> int:
     for row in dec["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
     del params
+    torch.cuda.empty_cache()
+    tr = profile_lm_train()
+    print(f"train step (qwen2.5-3b full width, float32 masters, remat, "
+          f"AdamW, {tr['tokens']} tokens): {tr['step_ms']:.2f} ms/step "
+          f"unprofiled, {tr['profiled_step_ms']:.2f} profiled; device "
+          f"{tr['device_ms_per_step']:.2f} ms/step (GEMMs "
+          f"{tr['gemm_ms_per_step']:.2f}) over "
+          f"{tr['device_events_per_step']:.0f} events, "
+          f"{tr['aten_ops_per_step']:.0f} aten operators/step on the host;"
+          f" busy share {tr['busy_share']:.3f}", flush=True)
+    for row in tr["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    for row in tr["top_aten"]:
+        print(f"  aten {row['calls_per_step']:8.0f}/step  "
+              f"{row['self_cpu_ms_per_step']:9.3f} ms  {row['name']}")
     isl = profile_islands()
     for name, r in isl.items():
         print(f"explore {name} (16384, pop 256 x 80): wall "
@@ -383,7 +461,8 @@ def main() -> int:
               f"{r['nds_rank_ms']:.3f}) over {r['device_events']} events; "
               f"busy share {r['busy_share']:.3f}", flush=True)
     print(json.dumps({"card": card, "profile": prof, "train": train,
-                      "prefill": pre, "decode": dec, "islands": isl}))
+                      "prefill": pre, "decode": dec, "lm_train": tr,
+                      "islands": isl}))
     return 0
 
 

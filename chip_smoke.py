@@ -193,7 +193,30 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              sequence: rel L2 <= 5e-2 at every position and top-1 equal
              at >= 0.9 of them.  The script's wall time is printed
              before phase 8 and after phase 9.
-10. report — one JSON line of per-kernel numbers (the `wavefront` row's
+10. train  — the training stack on qwen2.5-3b at full width (3.397 G
+             float32 master parameters from seed 0, the serving weights of
+             phases 5 and 9 freed first): (a) `make_train_step(remat=True)`
+             with the default AdamW for 5 steps of `SyntheticStream`
+             batches at the launcher's defaults (8 x 256), then 2 steps of
+             `train_4k` cut to 4 sequences with its 4 microbatches: ms a
+             step, tokens/s, peak memory, finite losses and grad norms, no
+             launch of a kernel of ours (the reference's train step runs
+             no Pallas kernel), and step 0's loss within TRAIN_CE_RTOL of
+             the CE of its batch through the prefill path (blockwise
+             attention, `flash_attention_wgmma`) on the bf16 cast of the
+             same weights; then one step at 8 x 256 without remat (the
+             launcher's default): whether it fits, and its peak memory;
+             (b) 2 layers at full width, 2 x 64 tokens, one
+             step from the same state: the card against the CPU, two
+             microbatches against one, remat against none (bit-equal
+             expected; else measured and bounded): loss, grad norm and
+             every updated parameter within the TRAIN_CHECK_* bounds;
+             (c) the reduced config's `train()` preempted through
+             `PreemptionGuard` after step 3 of 6 and resumed from its
+             checkpoint: losses bitwise equal to an uninterrupted run; a
+             checkpoint written and read back by the port: every tensor
+             equal.
+11. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time), the nvidia-smi line,
@@ -306,6 +329,28 @@ DECODE = dict(slots=4, max_seq=256, requests=6, prompt=(16, 64), max_new=32,
 DECODE_CHECK_SEQ = 64
 DECODE_RTOL = 5e-2         # rel L2 of each position's logits (bf16 both)
 DECODE_TOP1 = 0.9          # share of positions whose argmax agrees
+
+# Phase 10: the training stack on qwen2.5-3b at full width (3.397 G float32
+# master parameters from seed 0).  (a) the launcher's defaults (--seq 256
+# --batch 8) for 5 steps, then train_4k cut to 4 sequences (one card's
+# time; microbatches_for gives 4, one 4096-token sequence each) for 2.
+TRAIN_LM_STEPS, TRAIN_LM_SHAPE = 5, (8, 256)        # steps, (batch, seq)
+TRAIN_4K_STEPS, TRAIN_4K_BATCH = 2, 4
+TRAIN_CE_RTOL = 5e-3       # step 0's loss vs the CE of the same batch
+                           # through the prefill path (bf16 weights,
+                           # flash_attention_wgmma) on the same weights
+# (b) 2 layers at full width, 2 x 64 tokens: the card against the CPU,
+# two microbatches against one, remat against none.  AdamW's first step
+# moves an element by about lr times its grad's sign, so a grad whose
+# sign bf16 rounding flips moves it 2 lr apart.
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE = 2, (2, 64)
+TRAIN_CHECK_LOSS_RTOL = 5e-3
+TRAIN_CHECK_GNORM_RTOL = 5e-2
+TRAIN_CHECK_LR = 2.2       # max |p - p'| in units of lr
+TRAIN_CHECK_NEAR = 0.1     # ... and at most this many lr ...
+TRAIN_CHECK_SHARE = 0.97   # ... on at least this share of the elements
+# (c) restart exactness on the reduced config: preempted after step 3 of 6
+TRAIN_RESTART = dict(steps=6, preempt_after=3, seq=64, batch=8, ckpt_every=4)
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -2373,6 +2418,310 @@ def decode_phase(card: str, params) -> dict:
     return dict(steps=steps, seconds=dt, new_tokens=new)
 
 
+# ----------------------------------------------------------------------
+# Phase 10: the training stack
+# ----------------------------------------------------------------------
+def _sync_ms(fn) -> tuple[object, float]:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _update_gap(a, b, lr: float) -> tuple[float, float]:
+    """Over every parameter of two `LM`s after one step: the largest
+    |a - b| in units of lr, and the share of elements within
+    TRAIN_CHECK_NEAR lr."""
+    import torch
+
+    worst, near, total = 0.0, 0, 0
+    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        d = (x.detach().float().cpu() - y.detach().float().cpu()).abs()
+        worst = max(worst, float(d.max()) / lr)
+        near += int((d <= TRAIN_CHECK_NEAR * lr).sum())
+        total += d.numel()
+    return worst, near / total
+
+
+def _check_pair(what: str, ma: dict, a, mb: dict, b, loss_rtol: float,
+                gnorm_rtol: float) -> str:
+    """Hold two one-step results of the same state and batch to the
+    phase's bounds; returns the measured line."""
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    ga, gb = float(ma["grad_norm"]), float(mb["grad_norm"])
+    lr = float(ma["lr"])
+    worst, share = _update_gap(a, b, lr)
+    check(abs(la - lb) <= loss_rtol * abs(lb),
+          f"train check {what}: loss {la} vs {lb}")
+    check(abs(ga - gb) <= gnorm_rtol * abs(gb),
+          f"train check {what}: grad norm {ga} vs {gb}")
+    check(worst <= TRAIN_CHECK_LR and share >= TRAIN_CHECK_SHARE,
+          f"train check {what}: parameters {worst:.4f} lr apart at most, "
+          f"{share:.5f} within {TRAIN_CHECK_NEAR} lr")
+    return (f"{what}: loss {la:.6f} vs {lb:.6f} (rel {abs(la - lb) / lb:.3e}"
+            f", tolerance {loss_rtol}), grad norm {ga:.5f} vs {gb:.5f} (rel "
+            f"{abs(ga - gb) / gb:.3e}, tolerance {gnorm_rtol}), parameters at "
+            f"most {worst:.4f} lr apart (tolerance {TRAIN_CHECK_LR}), "
+            f"{share:.5f} of elements within {TRAIN_CHECK_NEAR} lr "
+            f"(tolerance {TRAIN_CHECK_SHARE})")
+
+
+def _try_step(fn) -> tuple[float | None, float | None]:
+    """(ms, loss) of one train step, or (None, None) when the card runs
+    out of memory (its grads are dropped; the state is not used after)."""
+    import torch
+
+    try:
+        (_, met), dt = _sync_ms(fn)
+        return dt, float(met["loss"])
+    except torch.cuda.OutOfMemoryError:
+        pass
+    torch.cuda.empty_cache()
+    return None, None
+
+
+def _one_step(cfg, state, batch, **kw):
+    from repro_torch.launch.steps import make_train_step
+
+    step = make_train_step(cfg, device=state["step"].device, **kw)
+    state, met = step.fn(state, batch)
+    return state, {k: v.detach().cpu() for k, v in met.items()}
+
+
+def _copy_state(state, device):
+    """A train state's copy on `device` (fresh moments: the copies are of
+    step-0 states)."""
+    from repro_torch.optim import adamw
+
+    params = copy.deepcopy(state["params"]).to(device)
+    return {"params": params,
+            "opt": adamw.init(dict(params.named_parameters()),
+                              adamw.AdamWConfig()),
+            "step": state["step"].to(device)}
+
+
+def lm_train_phase(card: str) -> dict:
+    """(a) full-width steps, (b) card-vs-CPU and the step's variants at 2
+    layers, (c) restart exactness on the reduced config."""
+    import shutil
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec, microbatches_for
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import softmax_cross_entropy
+    from repro_torch.runtime.fault_tolerance import (RESTART_EXIT_CODE,
+                                                     PreemptionGuard)
+    from repro_torch.train.trainer import TrainerConfig, init_state, train
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = registry.get(PREFILL_CONFIG)
+    torch.cuda.empty_cache()
+    # -- (a) full width: 3.397 G float32 masters, AdamW moments
+    (state, draw_ms) = _sync_ms(lambda: init_state(
+        cfg, TrainerConfig(seed=0), device=dev))
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    check(n_params == cfg.n_params(), f"train: {n_params} parameters")
+    b, s = TRAIN_LM_SHAPE
+    batches = [batch_for(cfg, s, b, i, seed=0, device=dev)
+               for i in range(TRAIN_LM_STEPS)]
+    # step 0's loss against the CE of its batch through the prefill path
+    # (blockwise attention, flash_attention_wgmma) on the bf16 serving cast
+    # of the same weights
+    with torch.device("meta"):
+        serve = lm.LM(cfg, torch.Generator(), device="meta",
+                      dtype=torch.bfloat16)
+    serve = serve.to_empty(device=dev)
+    serve.load_state_dict(state["params"].state_dict())
+    prefill = make_prefill_step(cfg, ShapeSpec("train_ce", "prefill", s, b))
+    logits, ce_launches = _counted(lambda: prefill.fn(serve, batches[0]))
+    check(ce_launches.get("flash_attention_wgmma", 0) == cfg.n_layers,
+          f"train CE check: prefill launches {ce_launches}")
+    with torch.inference_mode():
+        ce = float(softmax_cross_entropy(logits, batches[0]["targets"])[0])
+    del serve, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, remat=True)
+    losses, gnorms, ms = [], [], []
+    LAUNCHES.clear()
+    for batch in batches:
+        (state, met), dt = _sync_ms(lambda: step.fn(state, batch))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        ms.append(dt)
+    step_launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"train: losses {losses}, grad norms {gnorms}")
+    check(abs(losses[0] - ce) <= TRAIN_CE_RTOL * abs(ce),
+          f"train: step-0 loss {losses[0]} vs the prefill path's CE {ce}")
+    check(not any(step_launches.values()),
+          f"train: the train step launched kernels of ours {step_launches}")
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    print(f"train ({card}): {cfg.name} full width, {n_params} float32 "
+          f"master parameters drawn in {draw_ms / 1e3:.1f} s; "
+          f"make_train_step(remat=True), default AdamW, {b} x {s}: "
+          f"{TRAIN_LM_STEPS} steps {[round(x, 2) for x in ms]} ms (median "
+          f"after the first {steady:.2f} ms a step = {b * s / steady * 1e3:.0f}"
+          f" tokens/s); losses {[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in gnorms]}; peak memory {peak:.2f} GB; "
+          f"step-0 loss {losses[0]:.6f} vs the prefill path's CE {ce:.6f} "
+          f"(rel {abs(losses[0] - ce) / ce:.3e}, tolerance {TRAIN_CE_RTOL}; "
+          f"{ce_launches.get('flash_attention_wgmma', 0)} "
+          f"flash_attention_wgmma launches); launches of the port's kernels "
+          f"in the steps: {step_launches}", flush=True)
+    shape4k = SHAPES["train_4k"]
+    mb = microbatches_for(cfg, shape4k)
+    check(mb == 4, f"train_4k microbatches {mb}")
+    step4k = make_train_step(cfg, remat=True, microbatches=mb)
+    torch.cuda.reset_peak_memory_stats()
+    l4k, g4k, ms4k = [], [], []
+    for i in range(TRAIN_4K_STEPS):
+        batch = batch_for(cfg, shape4k.seq, TRAIN_4K_BATCH,
+                          TRAIN_LM_STEPS + i, seed=0, device=dev)
+        (state, met), dt = _sync_ms(lambda: step4k.fn(state, batch))
+        l4k.append(float(met["loss"]))
+        g4k.append(float(met["grad_norm"]))
+        ms4k.append(dt)
+    peak4k = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in l4k + g4k),
+          f"train_4k: losses {l4k}, grad norms {g4k}")
+    tok4k = TRAIN_4K_BATCH * shape4k.seq
+    print(f"train_4k ({card}): cut to {TRAIN_4K_BATCH} x {shape4k.seq}, "
+          f"{mb} microbatches, remat: {[round(x, 2) for x in ms4k]} ms a "
+          f"step (last {tok4k / ms4k[-1] * 1e3:.0f} tokens/s); losses "
+          f"{[round(x, 5) for x in l4k]}, grad norms "
+          f"{[round(x, 4) for x in g4k]}; peak memory {peak4k:.2f} GB",
+          flush=True)
+    del step, step4k
+    # the launcher's TrainerConfig keeps remat off: does the full width
+    # fit without it?  One step at the launcher's shape, measured either
+    # way (the state is not used after it)
+    no_remat = make_train_step(cfg, remat=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fits, loss_nr = _try_step(lambda: no_remat.fn(state, batches[0]))
+    peak_nr = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train without remat ({card}): {b} x {s}: "
+          + (f"fits, {fits:.2f} ms, loss {loss_nr:.5f}" if fits else
+             "does not fit (CUDA out of memory)")
+          + f"; peak memory {peak_nr:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}",
+          flush=True)
+    del state, no_remat, batches
+    torch.cuda.empty_cache()
+
+    # -- (b) 2 layers at full width: the card against the CPU, two
+    # microbatches against one, remat against none (each from the same
+    # step-0 state and batch)
+    small = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    host = init_state(small, TrainerConfig(seed=0), device="cpu")
+    b, s = TRAIN_CHECK_SHAPE
+    batch = batch_for(small, s, b, 0, seed=0)
+    base = _copy_state(host, dev)
+    on_card, m_card = _one_step(small, _copy_state(base, dev), batch,
+                                remat=True)
+    t0 = time.perf_counter()
+    on_cpu, m_cpu = _one_step(small, host, batch, remat=True)
+    cpu_s = time.perf_counter() - t0
+    lines = [_check_pair("card vs CPU", m_card, on_card["params"], m_cpu,
+                         on_cpu["params"], TRAIN_CHECK_LOSS_RTOL,
+                         TRAIN_CHECK_GNORM_RTOL)]
+    del host, on_cpu
+    two, m_two = _one_step(small, _copy_state(base, dev), batch, remat=True,
+                           microbatches=2)
+    lines.append(_check_pair("2 microbatches vs 1", m_two, two["params"],
+                             m_card, on_card["params"], TRAIN_CHECK_LOSS_RTOL,
+                             TRAIN_CHECK_GNORM_RTOL))
+    del two
+    plain, m_plain = _one_step(small, _copy_state(base, dev), batch,
+                               remat=False)
+    same = all(torch.equal(m_plain[k], m_card[k]) for k in m_card) and all(
+        torch.equal(x, y) for x, y in zip(plain["params"].parameters(),
+                                          on_card["params"].parameters()))
+    if same:
+        lines.append("remat vs none: bit-equal (loss, metrics, every "
+                     "parameter)")
+    else:
+        lines.append("remat vs none NOT bit-equal: " + _check_pair(
+            "remat vs none", m_card, on_card["params"], m_plain,
+            plain["params"], TRAIN_CHECK_LOSS_RTOL, TRAIN_CHECK_GNORM_RTOL))
+    del plain, on_card, base
+    torch.cuda.empty_cache()
+    print(f"train check ({card}): {small.n_layers} layers at full width, "
+          f"{b} x {s} tokens, one step each (the CPU's {cpu_s:.1f} s):\n  "
+          + "\n  ".join(lines), flush=True)
+
+    # -- (c) restart exactness on the card: preempted and resumed against
+    # uninterrupted, and a checkpoint written and read back by the port
+    red = registry.reduced(PREFILL_CONFIG)
+    r = TRAIN_RESTART
+    ckpts = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpts, ignore_errors=True)
+
+    def tcfg(d):
+        return TrainerConfig(seq=r["seq"], global_batch=r["batch"],
+                             total_steps=r["steps"],
+                             ckpt_every=r["ckpt_every"], ckpt_dir=str(d),
+                             log_every=0)
+
+    ref = train(red, tcfg(ckpts / "ref"), device=dev)
+    guard = PreemptionGuard()
+
+    def on_step(i, metrics):
+        if i == r["preempt_after"] - 1:
+            guard.request()
+
+    r1 = train(red, tcfg(ckpts / "int"), guard=guard, on_step=on_step,
+               device=dev)
+    r2 = train(red, tcfg(ckpts / "int"), device=dev)
+    check(ref.exit_code == 0 and r1.exit_code == RESTART_EXIT_CODE
+          and r2.exit_code == 0 and r1.steps_run == r["preempt_after"],
+          f"train restart: exit codes {ref.exit_code}, {r1.exit_code}, "
+          f"{r2.exit_code}; {r1.steps_run} steps before the preemption")
+    check(r1.losses + r2.losses == ref.losses,
+          f"train restart: resumed {r1.losses + r2.losses} vs uninterrupted "
+          f"{ref.losses}")
+    st = init_state(red, TrainerConfig(seed=1), device=dev)
+    st, _ = make_train_step(red, device=dev).fn(
+        st, batch_for(red, r["seq"], r["batch"], 0, seed=1, device=dev))
+    ckpt.save(ckpts / "rt", 1, convert.train_state_tree(st, lazy=True))
+    back = init_state(red, TrainerConfig(seed=2), device=dev)
+    convert.load_train_state(ckpt.restore(
+        ckpts / "rt", 1, convert.train_state_tree(back, spec=True)), back)
+    a, b_ = convert.train_state_tree(st), convert.train_state_tree(back)
+
+    def leaves(t, pre=""):
+        for k, v in t.items():
+            yield from (leaves(v, pre + k + ".") if isinstance(v, dict)
+                        else [(pre + k, v)])
+
+    bad = [k for (k, x), (_, y) in zip(leaves(a), leaves(b_))
+           if not torch.equal(x, y)]
+    check(not bad, f"train checkpoint round trip: {bad} differ")
+    shutil.rmtree(ckpts, ignore_errors=True)
+    print(f"train restart ({card}): {red.name}, {r['batch']} x {r['seq']}, "
+          f"{r['steps']} steps: preempted after {r1.steps_run} and resumed "
+          f"from its checkpoint, losses bitwise equal to the uninterrupted "
+          f"run {ref.losses}; a checkpoint written and read back by the "
+          f"port: {sum(1 for _ in leaves(a))} leaves equal", flush=True)
+    print(f"train phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return dict(step_ms=steady, losses=losses, peak_gb=peak,
+                train_4k_ms=ms4k, train_4k_peak_gb=peak4k,
+                no_remat_ms=fits, no_remat_peak_gb=peak_nr)
+
+
 def main() -> int:
     import torch
 
@@ -2401,6 +2750,9 @@ def main() -> int:
     decode_phase(card, params)
     del params
     print(f"chip_smoke wall after phases 8-9: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    lm_train_phase(card)
+    print(f"chip_smoke wall after phase 10: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a

@@ -7,9 +7,9 @@ encoder-decoder, VLM prefix); the port builds the dense decoder
 the codesign arithmetic (`repro_torch.core.codesign.extract_gemms`).
 
 A copy of `repro.configs.base` (the port imports nothing of the JAX
-package), without `n_params` / `n_active_params`: those count the
-parameters of every family's init functions, and the port has the dense
-family only.
+package).  `n_params` / `n_active_params` count from the shapes of the
+port's modules (`repro_torch.models.registry.count_params`), so they
+raise for the families the port does not build.
 """
 from __future__ import annotations
 
@@ -117,3 +117,14 @@ class ArchConfig:
     @property
     def has_decoder(self) -> bool:
         return True  # no encoder-only archs in this assignment
+
+    def n_params(self) -> int:
+        """Total parameter count (exact, from the modules' shapes)."""
+        from repro_torch.models import registry  # local import to avoid cycle
+
+        return registry.count_params(self)
+
+    def n_active_params(self) -> int:
+        from repro_torch.models import registry
+
+        return registry.count_params(self, active_only=True)

@@ -661,12 +661,16 @@ dominance_kernel(const float* __restrict__ f, uint8_t* __restrict__ out,
 template <int M>
 int launch_dominance(const float* f, uint8_t* out, int C, int P,
                      cudaStream_t stream) {
-  static int sms = 0;
+  // The SM count of the current device (the wrapper makes the tensor's
+  // device current), read once per device as allow_smem does.
+  static int sms_of[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int sms = dev < 64 ? sms_of[dev] : 0;
   if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
+    if (dev < 64) sms_of[dev] = sms;
   }
   // Rows a warp walks: as many as keep >= 2 CTAs an SM in the grid.
   const long long col_tiles = (P + kDomCols - 1) / kDomCols;

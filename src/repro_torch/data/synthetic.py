@@ -51,6 +51,28 @@ def global_batch(cfg: DataConfig, step: int) -> dict:
     return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
 
 
+@dataclasses.dataclass
+class SyntheticStream:
+    """The reference's stream object over `global_batch`: batch t of
+    every process is a pure function of (seed, t)."""
+    cfg: DataConfig
+
+    def global_batch(self, step: int) -> dict:
+        """Full logical batch for `step` (deterministic)."""
+        return global_batch(self.cfg, step)
+
+    def host_batch(self, step: int, *, process_index: int | None = None,
+                   process_count: int | None = None) -> dict:
+        """This process's rows of `global_batch(step)`: the
+        `process_index`-th of `process_count` equal slices (default 0 of
+        1, one process; the port runs on one device)."""
+        pi = 0 if process_index is None else process_index
+        pc = 1 if process_count is None else process_count
+        per = self.cfg.global_batch // pc
+        return {k: v[pi * per:(pi + 1) * per]
+                for k, v in self.global_batch(step).items()}
+
+
 def batch_for(cfg: ArchConfig, seq: int, global_batch_size: int, step: int,
               seed: int = 1234, device=None) -> dict:
     """The batch of `step` for a dense-family model, on `device`."""

@@ -12,7 +12,8 @@ unchanged one is reused.  Nothing is built at import time: the first
 wrapper call on a CUDA tensor builds what it needs, and `build_all`
 starts one `nvcc` per source at once for callers that want everything
 up front.  Every C entry point returns `cudaGetLastError()` after its
-launch; `check` turns a non-zero code into an exception.
+launch; `launch` calls one with its tensor's device current and
+`check` turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -99,3 +100,16 @@ def stream_ptr(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(t, fn, what: str, *args) -> None:
+    """Call the C entry point `fn(*args, stream)` with tensor `t`'s device
+    current and that device's current stream last, then `check` its
+    return code.  An entry point launches on the calling thread's current
+    device, and CUDA refuses a launch into a stream of another device, so
+    every wrapper's C call goes through here: a kernel then runs on
+    `cuda:1` or on any card of a mesh, whichever device is current."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        check(fn(*args, stream_ptr(t)), what)

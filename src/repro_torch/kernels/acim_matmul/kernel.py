@@ -117,9 +117,8 @@ def acim_matmul_cuda_core(x: torch.Tensor, w: torch.Tensor, n: int,
     m, k = x.shape
     if out.numel() == 0:
         return out
-    rc = _fn("acim_matmul")(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                            m, k, w.shape[1], n, b_adc, _build.stream_ptr(x))
-    _build.check(rc, "acim_matmul")
+    _build.launch(x, _fn("acim_matmul"), "acim_matmul", x.data_ptr(),
+                  w.data_ptr(), out.data_ptr(), m, k, w.shape[1], n, b_adc)
     _count("acim_matmul_cuda_core")
     return out
 
@@ -144,9 +143,8 @@ def acim_matmul_wgmma(x: torch.Tensor, w: torch.Tensor, n: int, b_adc: int,
     if splits is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits = split_k(m, c, k, n, sms)
-    rc = _fn("acim_matmul_wgmma")(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  m, k, c, n, b_adc, splits,
-                                  _build.stream_ptr(x))
-    _build.check(rc, "acim_matmul_wgmma")
+    _build.launch(x, _fn("acim_matmul_wgmma"), "acim_matmul_wgmma",
+                  x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, c, n,
+                  b_adc, splits)
     _count("acim_matmul_wgmma")
     return out

@@ -126,10 +126,9 @@ def _launch(name: str, counts: tuple[str, ...], q: torch.Tensor,
         return out
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    rc = _fn(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, s, t, h, kvh, dh, *args, _build.stream_ptr(q))
-    _build.check(rc, name)
+    _build.launch(q, _fn(name), name, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), strides, b, s, t, h, kvh, dh,
+                  *args)
     for c in counts:
         count_launch(c)
     return out

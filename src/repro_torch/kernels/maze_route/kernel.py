@@ -110,12 +110,10 @@ def wavefront(occ: torch.Tensor, seed: torch.Tensor,
         g_bits = torch.empty(b * _WAVE_BITSETS * words, dtype=torch.int32,
                              device=occ.device)
     dist = torch.empty((b, h, w), dtype=torch.int32, device=occ.device)
-    rc = lib.wavefront(occ.data_ptr(), seed.data_ptr(),
-                       None if grids is None else grids.data_ptr(),
-                       dist.data_ptr(),
-                       None if g_bits is None else g_bits.data_ptr(), b, h, w,
-                       _build.stream_ptr(occ))
-    _build.check(rc, "wavefront")
+    _build.launch(occ, lib.wavefront, "wavefront", occ.data_ptr(),
+                  seed.data_ptr(), None if grids is None else grids.data_ptr(),
+                  dist.data_ptr(),
+                  None if g_bits is None else g_bits.data_ptr(), b, h, w)
     count_launch("wavefront")
     return dist
 
@@ -148,11 +146,11 @@ def trace_paths(dist, tgts, tmask, nmask, occ, routed, failed, wirelen):
         raise ValueError(f"trace_paths: {t} targets per net on a {h} x {w} "
                          f"plane; the kernel takes at most {MAX_TARGETS} on "
                          f"{_MAX_H - 1} x {_MAX_W - 1}")
-    rc = _lib().trace_paths(
+    _build.launch(
+        dist, _lib().trace_paths, "trace_paths",
         dist.data_ptr(), tgts.data_ptr(), tmask.data_ptr(), nmask.data_ptr(),
         occ.data_ptr(), routed.data_ptr(), failed.data_ptr(),
-        wirelen.data_ptr(), b, t, h, w, _build.stream_ptr(dist))
-    _build.check(rc, "trace_paths")
+        wirelen.data_ptr(), b, t, h, w)
     count_launch("trace_paths")
 
 
@@ -226,7 +224,8 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
     occ = torch.empty_like(occ0)
     routed, failed, wirelen = (torch.empty(b, dtype=torch.int32, device=dev)
                                for _ in range(3))
-    rc = lib.route_slots(
+    _build.launch(
+        occ0, lib.route_slots, "route_slots",
         occ0.data_ptr(), hubs.data_ptr(), tgts.data_ptr(), tmask.data_ptr(),
         nmask.data_ptr(), grids.data_ptr(), occ.data_ptr(), routed.data_ptr(),
         failed.data_ptr(), wirelen.data_ptr(),
@@ -234,7 +233,6 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
         g_cnt.data_ptr() if scratch_cells else None,
         g_bits.data_ptr() if scratch_words else None, b, s, t, h, w,
         int(capacity), visits, int(wide), smem_cells, smem_words,
-        scratch_cells, scratch_words, _build.stream_ptr(occ0))
-    _build.check(rc, "route_slots")
+        scratch_cells, scratch_words)
     count_launch("route_slots")
     return occ, routed, failed, wirelen

@@ -85,9 +85,9 @@ def nds_rank(f: torch.Tensor) -> torch.Tensor:
     scratch = (torch.empty(0, dtype=torch.int32, device=f.device)
                if packed_in_smem else
                torch.empty((c, p // 32, p), dtype=torch.int32, device=f.device))
-    rc = lib.nds_rank(f.data_ptr(), ranks.data_ptr(), scratch.data_ptr(),
-                      c, p, m, packed_in_smem, _build.stream_ptr(f))
-    _build.check(rc, "nds_rank")
+    _build.launch(f, lib.nds_rank, "nds_rank", f.data_ptr(),
+                  ranks.data_ptr(), scratch.data_ptr(), c, p, m,
+                  packed_in_smem)
     count_launch("nds_rank")
     return ranks
 
@@ -103,9 +103,8 @@ def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dominance_matrix takes 1 to {MAX_OBJECTIVES} "
                          f"objectives, got M={m}")
     out = torch.empty((c, p, p), dtype=torch.bool, device=f.device)
-    rc = _lib().dominance_matrix(f.data_ptr(), out.data_ptr(), c, p, m,
-                                 _build.stream_ptr(f))
-    _build.check(rc, "dominance_matrix")
+    _build.launch(f, _lib().dominance_matrix, "dominance_matrix",
+                  f.data_ptr(), out.data_ptr(), c, p, m)
     count_launch("dominance_matrix")
     return out
 
@@ -190,12 +189,11 @@ def nsga2_evolve(draws, genes: torch.Tensor, objs: torch.Tensor, space,
     out_o = torch.empty_like(objs)
     ranks = torch.empty((c, p), dtype=torch.int32, device=genes.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.nsga2_evolve(
+    _build.launch(
+        genes, lib.nsga2_evolve, "nsga2_evolve",
         genes.data_ptr(), objs.data_ptr(), pairs.data_ptr(), flags.data_ptr(),
         u.data_ptr(), cal.data_ptr(), bounds.data_ptr(), out_g.data_ptr(),
         out_o.data_ptr(), ranks.data_ptr(), ptr(fronts), ptr(g_state),
-        ptr(g_packed), c, p, g, int(state_in_smem), int(packed_in_smem),
-        _build.stream_ptr(genes))
-    _build.check(rc, "nsga2_evolve")
+        ptr(g_packed), c, p, g, int(state_in_smem), int(packed_in_smem))
     count_launch("nsga2_evolve")
     return out_g, out_o, ranks

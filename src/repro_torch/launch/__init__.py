@@ -1,1 +1,2 @@
-"""Entry points that build the model's steps (prefill) for a shape."""
+"""Entry points that build the model's steps (train, prefill, decode) for a
+shape, and the training launcher."""

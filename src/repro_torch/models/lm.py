@@ -6,21 +6,26 @@ reference's pytree (`emb`, `blocks.<i>.ln1.scale`, `blocks.<i>.attn.wq`,
 ..., `final_norm.scale`, `head`), with the reference's stacked
 `blocks` axis unrolled into a `ModuleList`.  `lm_hidden` / `lm_logits`
 are the forward of prefill (`repro_torch.launch.steps`), dense or
-blockwise; `init_decode_state` / `decode_step` the one-token decode of
-serving (`repro_torch.serve.engine`); the CIM-in-the-loop trainer has
-its own forward (`repro_torch.train.acim_lm`).
+blockwise, and `lm_loss` the training loss (`launch.steps
+.make_train_step`); `init_decode_state` / `decode_step` the one-token
+decode of serving (`repro_torch.serve.engine`); the CIM-in-the-loop
+trainer has its own forward (`repro_torch.train.acim_lm`).
+`stacked_ndim` gives a parameter the rank of the reference's stacked
+leaf, which its dtype and weight-decay rules read.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp
 from repro_torch.models.common import (apply_norm, causal_mask, dense_init,
-                                       embed_init, init_norm)
+                                       embed_init, init_norm,
+                                       softmax_cross_entropy)
 
 
 # Where each family the port does not build stands in ROADMAP queue 1.
@@ -57,21 +62,35 @@ class Block(nn.Module):
         self.ffn = mlp.init_mlp(d, cfg.d_ff, cfg, generator)
 
 
-def _serving(t: torch.Tensor, device: torch.device,
+def stacked_ndim(name: str, t: torch.Tensor) -> int:
+    """The rank the reference gives parameter `name` (a state-dict name
+    of `LM`).  The reference stacks every layer's leaves on a leading
+    n_layers axis (`blocks.attn.wq` is (L, D, H*Dh)), so a tensor under
+    `blocks.<i>.` counts its own rank plus one: `blocks.<i>.ln1.scale`
+    has rank 2 there, `final_norm.scale` rank 1.  The reference's rules
+    that test `ndim >= 2` read this rank: the serving cast
+    (`_to_serving_dtype`), AdamW's weight decay and the train step's
+    `cast_bf16`."""
+    return t.dim() + (1 if name.startswith("blocks.") else 0)
+
+
+def _serving(name: str, t: torch.Tensor, device: torch.device,
              dtype: torch.dtype | None) -> torch.Tensor:
-    """`t` on `device`; a float tensor of >= 2 dims cast to `dtype` when
-    one is given (the reference's `_to_serving_dtype`: serving holds the
-    matrices in bf16, norms and biases stay float32)."""
+    """`t` on `device`; a float tensor of stacked rank >= 2 cast to
+    `dtype` when one is given (the reference's `_to_serving_dtype` on
+    its stacked tree: every layer's matrices, norm scales and biases go
+    to bf16; `final_norm.scale` stays float32)."""
     t = t.to(device)
-    if dtype is not None and t.dim() >= 2 and t.is_floating_point():
+    if dtype is not None and stacked_ndim(name, t) >= 2 \
+            and t.is_floating_point():
         t = t.to(dtype)
     return t
 
 
-def _place(module: nn.Module, device: torch.device,
+def _place(module: nn.Module, prefix: str, device: torch.device,
            dtype: torch.dtype | None) -> nn.Module:
-    for prm in module.parameters():
-        prm.data = _serving(prm.data, device, dtype)
+    for name, prm in module.named_parameters():
+        prm.data = _serving(prefix + name, prm.data, device, dtype)
     return module
 
 
@@ -87,13 +106,15 @@ class LM(nn.Module):
         super().__init__()
         check_dense(cfg)
         dev = torch.device("cpu" if device is None else device)
-        self.emb = nn.Parameter(_serving(embed_init(
+        self.emb = nn.Parameter(_serving("emb", embed_init(
             generator, (cfg.vocab, cfg.d_model)), dev, dtype))
-        self.blocks = nn.ModuleList(_place(Block(cfg, generator), dev, dtype)
-                                    for _ in range(cfg.n_layers))
-        self.final_norm = _place(init_norm(cfg.d_model, cfg.norm), dev, dtype)
+        self.blocks = nn.ModuleList(
+            _place(Block(cfg, generator), f"blocks.{i}.", dev, dtype)
+            for i in range(cfg.n_layers))
+        self.final_norm = _place(init_norm(cfg.d_model, cfg.norm),
+                                 "final_norm.", dev, dtype)
         if not cfg.tie_embeddings:
-            self.head = nn.Parameter(_serving(dense_init(
+            self.head = nn.Parameter(_serving("head", dense_init(
                 generator, (cfg.d_model, cfg.vocab)), dev, dtype))
 
 
@@ -131,11 +152,13 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
 
 def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
               prefix_embeds: torch.Tensor | None = None,
-              attn_impl: str = "dense") -> torch.Tensor:
+              remat: bool = False, attn_impl: str = "dense") -> torch.Tensor:
     """Embed -> bf16 -> blocks -> final norm.  Returns hidden (B, S, D)
     (the reference also returns the aux loss, 0 for the dense family).
     attn_impl='blockwise' never materializes (S, S) scores (32k+
-    prefill)."""
+    prefill).  `remat` runs each block under `torch.utils.checkpoint`
+    (the reference's `jax.checkpoint(layer_step)`): backward keeps one
+    (B, S, D) input a layer and recomputes the rest."""
     check_dense(cfg)
     if prefix_embeds is not None:
         raise NotImplementedError("prefix embeddings (the VLM prefix) are "
@@ -145,8 +168,13 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     positions = torch.arange(s, device=x.device)
     mask = causal_mask(s, x.device) if attn_impl == "dense" else None
     for blk in params.blocks:
-        x = _block_fwd(blk, x, cfg, mask=mask, positions=positions,
-                       attn_impl=attn_impl)
+        if remat:
+            x = checkpoint(_block_fwd, blk, x, cfg, mask=mask,
+                           positions=positions, attn_impl=attn_impl,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_fwd(blk, x, cfg, mask=mask, positions=positions,
+                           attn_impl=attn_impl)
     return apply_norm(params.final_norm, x, cfg.norm)
 
 
@@ -154,6 +182,20 @@ def lm_logits(params: LM, hidden: torch.Tensor,
               cfg: ArchConfig) -> torch.Tensor:
     head = params.emb.t() if cfg.tie_embeddings else params.head
     return hidden @ head.to(hidden.dtype)
+
+
+def lm_loss(params: LM, batch: dict, cfg: ArchConfig, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """Token-mean cross-entropy (with the z-loss) of `batch["targets"]`
+    under the dense attention forward: `(loss + aux, metrics)`, metrics
+    `nll`, `z_loss`, `ppl_proxy` and `aux_loss` (0 for the dense family,
+    which has no MoE router) as 0-dim tensors."""
+    hidden = lm_hidden(params, batch["inputs"], cfg, remat=remat)
+    logits = lm_logits(params, hidden, cfg)
+    loss, metrics = softmax_cross_entropy(logits, batch["targets"])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    metrics["aux_loss"] = aux
+    return loss + aux, metrics
 
 
 # ---------------------------------------------------------------------------

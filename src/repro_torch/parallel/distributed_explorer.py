@@ -77,10 +77,17 @@ def default_mesh(max_devices: int | None = None, device=None) -> tuple:
 
 
 def as_mesh(positions) -> tuple:
-    """A mesh from any sequence of device names or `torch.device`s."""
+    """A mesh from any sequence of device names or `torch.device`s, all
+    of one device type.  A mesh that mixed the CPU and a card could read
+    a migrated block before its non-blocking copy lands (`migrate`), and
+    the reference's `Mesh` cannot mix platforms either."""
     mesh = tuple(torch.device(p) for p in positions)
     if not mesh:
         raise ValueError("a mesh needs at least one position")
+    types = sorted({d.type for d in mesh})
+    if len(types) > 1:
+        raise ValueError(f"a mesh takes positions of one device type, not "
+                         f"{types}: {mesh}")
     return mesh
 
 

@@ -1,1 +1,2 @@
-"""Trainers of the port."""
+"""Trainers of the port: the CIM-in-the-loop trainer (`acim_lm`) and the
+fault-tolerant LM trainer (`trainer`)."""

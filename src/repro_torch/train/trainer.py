@@ -1,0 +1,136 @@
+"""Fault-tolerant training loop of the dense LM.
+
+Counterpart of `repro.train.trainer`: the train step
+(`launch.steps.make_train_step`), the stateless data pipeline
+(`data.synthetic.batch_for`), atomic checkpoints in the reference's
+format (`checkpoint.ckpt`, through `convert.train_state_tree`) and the
+preemption / failure / straggler runtime (`runtime.fault_tolerance`).
+
+Restart-exactness: state lives entirely in (checkpoint, step index); the
+data pipeline is a pure function of step, and a checkpoint holds the
+float32 masters, moments and counts bit for bit, so an interrupted and
+resumed run gives the losses of an uninterrupted one bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import ArchConfig
+from repro_torch.data.synthetic import batch_for
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+from repro_torch.runtime.fault_tolerance import (RESTART_EXIT_CODE,
+                                                 FailureInjector,
+                                                 PreemptionGuard,
+                                                 StragglerMonitor)
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    seq: int = 256
+    global_batch: int = 8
+    total_steps: int = 50
+    ckpt_every: int = 10
+    ckpt_dir: str = "runs/ckpt"
+    microbatches: int = 1
+    remat: bool = False
+    seed: int = 0
+    log_every: int = 10
+    opt: adamw.AdamWConfig | None = None
+
+
+@dataclasses.dataclass
+class TrainResult:
+    exit_code: int
+    losses: list
+    steps_run: int
+    straggler_events: list
+
+
+def init_state(cfg: ArchConfig, tcfg: TrainerConfig, device=None) -> dict:
+    """A fresh train state on `device` (CUDA when None, raising without
+    it): float32 parameters from `init_lm(seed=tcfg.seed)`, zero AdamW
+    moments, step 0."""
+    dev = resolve_device(device)
+    params = lm.init_lm(cfg, seed=tcfg.seed, device=dev)
+    opt_cfg = tcfg.opt or steps_mod.default_opt_cfg(cfg)
+    opt = adamw.init(dict(params.named_parameters()), opt_cfg)
+    return {"params": params, "opt": opt,
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _empty_state(cfg: ArchConfig, tcfg: TrainerConfig,
+                 dev: torch.device) -> dict:
+    """A train state of the right shapes and dtypes on `dev` with nothing
+    drawn (a checkpoint is about to be loaded into it)."""
+    with torch.device("meta"):
+        params = lm.LM(cfg, torch.Generator(), device="meta")
+    params = params.to_empty(device=dev)
+    opt_cfg = tcfg.opt or steps_mod.default_opt_cfg(cfg)
+    opt = adamw.init(dict(params.named_parameters()), opt_cfg)
+    return {"params": params, "opt": opt,
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def train(cfg: ArchConfig, tcfg: TrainerConfig, *,
+          guard: PreemptionGuard | None = None,
+          injector: FailureInjector | None = None,
+          on_step: Callable[[int, dict], None] | None = None,
+          device=None) -> TrainResult:
+    """Run (or resume) training on `device` (CUDA when None, raising
+    without it); returns exit code 0 (done) or RESTART_EXIT_CODE
+    (preempted after checkpointing)."""
+    dev = resolve_device(device)
+    opt_cfg = tcfg.opt or steps_mod.default_opt_cfg(cfg)
+    ts = steps_mod.make_train_step(cfg, opt_cfg=opt_cfg,
+                                   microbatches=tcfg.microbatches,
+                                   remat=tcfg.remat, device=dev)
+    monitor = StragglerMonitor()
+    losses: list[float] = []
+
+    start = ckpt.latest_step(tcfg.ckpt_dir)
+    if start is not None:
+        state = _empty_state(cfg, tcfg, dev)
+        target = convert.train_state_tree(state, spec=True)
+        convert.load_train_state(
+            ckpt.restore(tcfg.ckpt_dir, start, target), state)
+    else:
+        start = 0
+        state = init_state(cfg, tcfg, dev)
+
+    step = start
+    while step < tcfg.total_steps:
+        if injector is not None:
+            injector.maybe_fail(step)
+        batch = batch_for(cfg, tcfg.seq, tcfg.global_batch, step, tcfg.seed,
+                          device=dev)
+        t0 = time.time()
+        state, metrics = ts.fn(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        monitor.observe(step, dt)
+        losses.append(loss)
+        if on_step is not None:
+            on_step(step, metrics)
+        if tcfg.log_every and step % tcfg.log_every == 0:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms",
+                  flush=True)
+        step += 1
+        stop_now = guard is not None and guard.preempted
+        if step % tcfg.ckpt_every == 0 or step == tcfg.total_steps or stop_now:
+            ckpt.save(tcfg.ckpt_dir, step,
+                      convert.train_state_tree(state, lazy=True),
+                      extra={"arch": cfg.name, "loss": loss})
+        if stop_now:
+            return TrainResult(RESTART_EXIT_CODE, losses, step - start,
+                               monitor.events)
+    return TrainResult(0, losses, step - start, monitor.events)

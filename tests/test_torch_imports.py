@@ -74,3 +74,32 @@ def test_prefill_without_cuda_raises(monkeypatch):
         init_lm(cfg, dtype=torch.bfloat16)
     assert make_prefill_step(cfg, SHAPES["prefill_32k"],
                              device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("rel", ["optim/adamw.py", "checkpoint/ckpt.py",
+                                 "train/trainer.py", "launch/train.py",
+                                 "launch/steps.py"])
+def test_training_stack_is_checked(rel):
+    """The training stack's modules are among the sources checked above
+    and import neither JAX nor the JAX package."""
+    path = PKG / rel
+    assert path in _sources()
+    test_no_jax_or_reference_import(path)
+
+
+def test_train_step_without_cuda_raises(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.launch.train import main
+    from repro_torch.train.trainer import TrainerConfig, init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.reduced("qwen2.5-3b")
+    for build in (lambda: make_train_step(cfg),
+                  lambda: make_serve_step(cfg, SHAPES["decode_32k"]),
+                  lambda: init_state(cfg, TrainerConfig()),
+                  lambda: main(["--arch", "qwen2.5-3b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert make_train_step(cfg, device="cpu").device.type == "cpu"

@@ -870,3 +870,64 @@ def test_decode_step_on_cuda_matches_prefill(dev):
         assert float((got.cpu() - ref).norm() / ref.norm()) <= 3e-2
         agree += int((got.argmax(-1) == want[:, t].argmax(-1)).sum())
     assert agree >= 0.9 * 2 * 24
+
+
+def _step_once(cfg, device, batch, **kw):
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, init_state
+
+    state = init_state(cfg, TrainerConfig(seed=0), device=device)
+    state, met = make_train_step(cfg, device=device, **kw).fn(state, batch)
+    return state, {k: v.cpu() for k, v in met.items()}
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One reduced qwen2.5 train step on the card against the CPU from the
+    same seed and batch: loss rtol 5e-3, grad norm rtol 5e-2, every
+    parameter within 2.2 lr (AdamW's first step moves an element by about
+    lr times its grad's sign); remat on the card bit-equal to none; the
+    step launches no kernel of ours."""
+    cfg = registry.reduced("qwen2.5-3b")
+    batch = batch_for(cfg, 64, 4, 0, seed=0)
+    n0 = sum(LAUNCHES.values())
+    card, mc = _step_once(cfg, dev, {k: v.to(dev) for k, v in batch.items()},
+                          remat=True)
+    assert sum(LAUNCHES.values()) == n0
+    cpu, mh = _step_once(cfg, "cpu", batch, remat=True)
+    plain, mp = _step_once(cfg, dev, {k: v.to(dev)
+                                      for k, v in batch.items()},
+                           remat=False)
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= \
+        5e-3 * float(mh["loss"])
+    assert abs(float(mc["grad_norm"]) - float(mh["grad_norm"])) <= \
+        5e-2 * float(mh["grad_norm"])
+    lr = float(mh["lr"])
+    for (n, a), (_, b), (_, c) in zip(card["params"].named_parameters(),
+                                      cpu["params"].named_parameters(),
+                                      plain["params"].named_parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= \
+            2.2 * lr, n
+        assert torch.equal(a, c), n
+    assert all(torch.equal(mc[k], mp[k]) for k in mc)
+
+
+def test_trainer_restart_is_bitwise_on_cuda(dev, tmp_path):
+    """The reduced qwen2.5 trainer preempted after step 3 of 6 and
+    resumed from its checkpoint gives the uninterrupted run's losses
+    bit for bit on the card."""
+    from repro_torch.runtime.fault_tolerance import PreemptionGuard
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    cfg = registry.reduced("qwen2.5-3b")
+
+    def tcfg(d):
+        return TrainerConfig(seq=32, global_batch=4, total_steps=6,
+                             ckpt_every=4, ckpt_dir=str(d), log_every=0)
+
+    ref = train(cfg, tcfg(tmp_path / "ref"), device=dev)
+    guard = PreemptionGuard()
+    r1 = train(cfg, tcfg(tmp_path / "int"), guard=guard, device=dev,
+               on_step=lambda i, m: guard.request() if i == 2 else None)
+    r2 = train(cfg, tcfg(tmp_path / "int"), device=dev)
+    assert r1.steps_run == 3 and r2.steps_run == 3
+    assert r1.losses + r2.losses == ref.losses
