@@ -45,7 +45,14 @@ and prints:
    profiler with the device time per step (GEMMs and the rest), the
    device kernels with the most time, the device events and the host's
    aten operators per step (the most called beside), and the busy share;
-8. the island explore of `DesignRequest(16384, islands=4)` (4 islands,
+8. the full-width deepseek-v2-lite-16b prefill (27 layers, bf16 weights
+   drawn on the card from seed 0, 1 x 32768), after one warm-up: one
+   prefill under the profiler, its device time split into the (192, 128)
+   flash attention instantiation, the GEMMs and the rest; then by stage
+   (MLA with its attention kernel, the MoE's route, dispatch, experts,
+   combine and always-on FFNs: CUDA events around those model
+   functions);
+9. the island explore of `DesignRequest(16384, islands=4)` (4 islands,
    pop 256, 80 generations, 20-generation rounds, on every local card)
    beside the single-island explore of the same cell, each once under
    the profiler after a warm-up: wall, device time of `nsga2_evolve` and
@@ -221,6 +228,91 @@ def profile_prefill(params, seq: int = 32768, batch: int = 1) -> dict:
             "device_events": sum(r[1] for r in kernels),
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
                     for k, c, us in kernels[:12]]}
+
+
+MOE_RANGES = {"mla": ("attention", "mla_fwd_blockwise"),
+              "moe.route": ("mlp", "moe_route"),
+              "moe.dispatch": ("mlp", "moe_dispatch"),
+              "moe.experts": ("mlp", "moe_experts"),
+              "moe.combine": ("mlp", "moe_combine"),
+              "moe.always_on": ("mlp", "add_always_on")}
+
+
+def profile_moe_prefill(seq: int = 32768, batch: int = 1) -> dict:
+    """One full-width deepseek-v2-lite-16b prefill (27 layers, bf16
+    weights drawn on the card from seed 0) under the profiler, after a
+    warm-up: its device time by kernel class (the (192, 128) flash
+    attention instantiation, the GEMMs, the rest); then one more prefill
+    with each model function of `MOE_RANGES` bracketed by CUDA events on
+    the stream (the device time from its first kernel's start to its
+    last's end, summed over the layers; `mla` includes the flash
+    kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, mlp
+    from repro_torch.models.lm import init_lm
+
+    cfg = registry.get("deepseek-v2-lite-16b")
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
+    step = make_prefill_step(cfg, shape)
+    tokens = batch_for(cfg, seq, batch, 0)
+    step.fn(params, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.fn(params, tokens)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.fn(params, tokens)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    modules = {"attention": attention, "mlp": mlp}
+    saved, marks = {}, {name: [] for name in MOE_RANGES}
+
+    def bracketed(name, fn):
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return wrapped
+
+    for name, (m, fn) in MOE_RANGES.items():
+        saved[name] = getattr(modules[m], fn)
+        setattr(modules[m], fn, bracketed(name, saved[name]))
+    try:
+        step.fn(params, tokens)
+        torch.cuda.synchronize()
+    finally:
+        for name, (m, fn) in MOE_RANGES.items():
+            setattr(modules[m], fn, saved[name])
+    stages = {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+              for name, pairs in marks.items()}
+    kernels = _device_kernels(prof)
+    flash = sum(r[2] for r in kernels if "flash_attention" in r[0]) / 1e6
+    gemm = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e6
+    device_s = sum(r[2] for r in kernels) / 1e6
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": batch * seq, "wall_s": wall_s, "profiled_s": prof_s,
+            "device_s": device_s, "flash_attention_s": flash,
+            "gemm_s": gemm, "rest_s": device_s - flash - gemm,
+            "stages_device_s": stages, "busy_share": device_s / prof_s,
+            "device_events": sum(r[1] for r in kernels),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:15]]}
 
 
 def profile_decode(params, batch: int = 4, steps: int = 8,
@@ -453,6 +545,21 @@ def main() -> int:
     for row in tr["top_aten"]:
         print(f"  aten {row['calls_per_step']:8.0f}/step  "
               f"{row['self_cpu_ms_per_step']:9.3f} ms  {row['name']}")
+    moe = profile_moe_prefill()
+    print(f"prefill (deepseek-v2-lite-16b, 27 layers, 1 x 32768): "
+          f"{moe['wall_s']:.3f} s unprofiled, {moe['profiled_s']:.3f} s "
+          f"profiled; device {moe['device_s']:.3f} s over "
+          f"{moe['device_events']} events: flash_attention (192, 128) "
+          f"{moe['flash_attention_s']:.3f} s "
+          f"({moe['flash_attention_s'] / moe['device_s']:.3f}), GEMMs "
+          f"{moe['gemm_s']:.3f} s ({moe['gemm_s'] / moe['device_s']:.3f}), "
+          f"rest {moe['rest_s']:.3f} s; busy share {moe['busy_share']:.3f}",
+          flush=True)
+    for name, sec in moe["stages_device_s"].items():
+        print(f"  stage {name:14s} device {sec:.4f} s "
+              f"({sec / moe['device_s']:.3f})")
+    for row in moe["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
     isl = profile_islands()
     for name, r in isl.items():
         print(f"explore {name} (16384, pop 256 x 80): wall "
@@ -462,7 +569,7 @@ def main() -> int:
               f"busy share {r['busy_share']:.3f}", flush=True)
     print(json.dumps({"card": card, "profile": prof, "train": train,
                       "prefill": pre, "decode": dec, "lm_train": tr,
-                      "islands": isl}))
+                      "moe_prefill": moe, "islands": isl}))
     return 0
 
 

@@ -216,7 +216,35 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              checkpoint: losses bitwise equal to an uninterrupted run; a
              checkpoint written and read back by the port: every tensor
              equal.
-11. report — one JSON line of per-kernel numbers (the `wavefront` row's
+11. moe    — the MoE family (every earlier phase's weights freed first):
+             deepseek-v2-lite-16b at full width and depth (27 layers,
+             16.21 G bf16 parameters drawn from seed 0 on the card) and
+             arctic-480b at full width cut to one layer.  (a) MLA's
+             prefill attention, `flash_attention_wgmma` at q/k head dim
+             192 and v 128, held to `flash_attention_tc_ref` by
+             `_tc_check` with its dumped P at (1, 4001), (1, 129) causal
+             and (2, 777) full, 16 heads, on q / k / v built as
+             `mla_fwd_blockwise` builds them from layer 0 and on a q read
+             through strides; at (1, 32768, 16, 16) causal against the
+             plain version's own P, then timed in turns with SDPA: ms,
+             TFLOP/s, the share of its bound and the ratio to SDPA.  (b)
+             `make_prefill_step` at prefill_32k cut to batch 1 (a warm-up
+             and a timed prefill), then 4 x 4096: finite logits, exactly
+             27 launches of the (192, 128) instantiation each and no
+             CUDA-core launch.  (c) `ServeEngine` on the same weights,
+             phase 9's six requests.  (d) teacher-forced `decode_step`
+             against the prefill on 64 tokens: positions whose routes
+             differ, whose claims the prefill dropped, or whose router
+             choice is a near tie are counted; the rest held to phase 9's
+             bounds.  (g) `moe_fwd_a2a` on 1, 2 and 4 positions of the
+             card at layer 0's MoE against `moe_fwd_dense_eval` (rel L2
+             1e-2), the same bits on every count.  (e) 2 layers at full
+             width, seq 512, weights drawn on the CPU, card against CPU:
+             claims routed alike, last-position logits (rel L2 5e-2),
+             argmax.  (f) arctic's one layer (13.6 G parameters drawn on
+             the card): a 1 x 4096 prefill (one Dh-128 tensor-core
+             launch) and 8 decode steps, finite logits.
+12. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time), the nvidia-smi line,
@@ -228,6 +256,7 @@ regenerates and checks them); this script imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -351,6 +380,26 @@ TRAIN_CHECK_NEAR = 0.1     # ... and at most this many lr ...
 TRAIN_CHECK_SHARE = 0.97   # ... on at least this share of the elements
 # (c) restart exactness on the reduced config: preempted after step 3 of 6
 TRAIN_RESTART = dict(steps=6, preempt_after=3, seq=64, batch=8, ckpt_every=4)
+
+# Phase 11: the MoE family.  deepseek-v2-lite-16b at full width and depth
+# (27 layers, 16.21 G bf16 parameters, drawn on the card from seed 0:
+# the CPU draw would take minutes) and arctic-480b at full width cut to
+# one layer (its 35 would be 953 GB); MLA's prefill on the (192, 128)
+# tensor-core instantiation.
+MOE_CONFIG = "deepseek-v2-lite-16b"
+MLA_INST = "flash_attention_wgmma_192_128"   # its launch count
+MLA_DIMS = (192, 128)      # q/k (nope 128 + rope 64) and v head dims
+MLA_CASES = ((1, 4001, 16, True), (1, 129, 16, True), (2, 777, 16, False))
+MOE_SMALL_PREFILL = (4, 4096)
+MOE_CPU_LAYERS, MOE_CPU_SEQ = 2, 512   # (e) card vs CPU, CPU-drawn weights
+MOE_CPU_RTOL = 5e-2        # rel L2 of the last position's logits
+MOE_ROUTE_SAME = 0.95      # share of (token, k) claims routed alike
+MOE_NEAR_TIE = 3e-3        # router gap (k-th minus (k+1)-th probability)
+                           # under which a bf16 rounding may flip a claim
+                           # (measured on the CPU tests: flips up to 2.7e-3)
+ARCTIC_CONFIG, ARCTIC_SEQ, ARCTIC_DECODE = "arctic-480b", 4096, 8
+A2A_POSITIONS, A2A_TOKENS = (1, 2, 4), 2048
+A2A_REL_L2 = 1e-2          # moe_fwd_a2a vs moe_fwd_dense_eval, bf16
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -1556,12 +1605,14 @@ def train_phase() -> dict:
 # Phase 5: long-context prefill of qwen2.5-3b at full width
 # ----------------------------------------------------------------------
 def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
-             keep: bool = False) -> tuple[float, int, object]:
+             keep: bool = False,
+             inst: str | None = None) -> tuple[float, int, object]:
     """One prefill with the launch counts zeroed just before it and read
     just after: (seconds, flash_attention launches of either route, the
     logits if `keep` else None); the logits must be finite and of the
     batch's shape, and every layer must launch the route `tensor_cores`
-    names."""
+    names, and, where `inst` names a tensor-core instantiation's count,
+    that instantiation."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -1582,6 +1633,9 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
           f"prefill {what}: flash_attention launched {n} times, "
           f"flash_attention_wgmma {n_tc}; want {cfg.n_layers} and "
           f"{cfg.n_layers if tensor_cores else 0}")
+    check(inst is None or LAUNCHES[inst] == cfg.n_layers,
+          f"prefill {what}: {inst} launched {LAUNCHES[inst]} times, want "
+          f"{cfg.n_layers}")
     return dt, n, logits if keep else None
 
 
@@ -1662,7 +1716,7 @@ def prefill_phase(flash_ms: float) -> tuple[dict, object]:
     for model, d in ((card, dev), (host, torch.device("cpu"))):
         t0 = time.perf_counter()
         with torch.inference_mode():
-            hid = lm_hidden(model, toks.to(d), cut, attn_impl="blockwise")
+            hid, _ = lm_hidden(model, toks.to(d), cut, attn_impl="blockwise")
             last.append(lm_logits(model, hid[:, -1:], cut).float().cpu())
         print(f"  {PREFILL_CPU_LAYERS}-layer prefill at seq {PREFILL_CPU_SEQ} "
               f"on {d}: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -2336,20 +2390,14 @@ def mesh_phase(card: str) -> dict:
 # ----------------------------------------------------------------------
 # Phase 9: single-token decode and the serving engine
 # ----------------------------------------------------------------------
-def decode_phase(card: str, params) -> dict:
-    import numpy as np
+def _serve(card: str, cfg, params, rng) -> dict:
+    """`ServeEngine` answers DECODE's requests (seeded prompts from `rng`)
+    on `params`: every completion checked, ms a step and tokens/s
+    printed."""
     import torch
 
-    from repro_torch.configs import registry
-    from repro_torch.launch.shapes import ShapeSpec
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models.lm import decode_step, init_decode_state
     from repro_torch.serve.engine import Request, ServeEngine
 
-    dev = torch.device("cuda")
-    t_phase = time.perf_counter()
-    cfg = registry.get(PREFILL_CONFIG)
-    rng = np.random.default_rng(0)
     lo, hi = DECODE["prompt"]
     reqs = [Request(uid, [int(x) for x in rng.integers(
                 0, cfg.vocab, int(rng.integers(lo, hi + 1)))],
@@ -2383,6 +2431,23 @@ def decode_phase(card: str, params) -> dict:
           f"step; {new} new tokens = {new / dt:.1f} new tokens/s "
           f"({(new + fed) / dt:.1f} tokens/s with the {fed} prompt tokens); "
           f"launches of the port's kernels {launches}", flush=True)
+    return dict(steps=steps, seconds=dt, new_tokens=new)
+
+
+def decode_phase(card: str, params) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import decode_step, init_decode_state
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = registry.get(PREFILL_CONFIG)
+    rng = np.random.default_rng(0)
+    served = _serve(card, cfg, params, rng)
 
     # teacher forcing: decode_step's logits at each position against the
     # prefill's (flash_attention_wgmma) over the same sequence
@@ -2415,7 +2480,7 @@ def decode_phase(card: str, params) -> dict:
           f"{DECODE_TOP1}); batch-1 decode {tf_s / s * 1e3:.3f} ms a step",
           flush=True)
     print(f"decode phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
-    return dict(steps=steps, seconds=dt, new_tokens=new)
+    return served
 
 
 # ----------------------------------------------------------------------
@@ -2722,6 +2787,458 @@ def lm_train_phase(card: str) -> dict:
                 no_remat_ms=fits, no_remat_peak_gb=peak_nr)
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the MoE family (deepseek-v2-lite-16b, arctic-480b)
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def _routes(forced=None):
+    """Record each MoE layer's routing while a forward runs: a dict of
+    lists, one entry a layer call, on the host: `top_i`, `slot` and
+    `keep` (tokens, k) and the router `gap` (tokens,), the k-th minus the
+    (k+1)-th probability.  With `forced`, a function of the call's index
+    and its (G, gs, k) shape giving (top_i, slot, keep), the layer takes
+    those claims in place of its own, its gates the renormalized
+    probabilities of the forced experts: a forward teacher-forced to
+    another forward's routes (the router's float32 arithmetic still
+    runs)."""
+    import torch
+
+    from repro_torch.models import mlp
+
+    rec = {"top_i": [], "slot": [], "keep": [], "gap": []}
+    route = mlp.moe_route
+
+    def recorded(p, xg, m):
+        logits, probs, top_p, top_i, slot, keep = route(p, xg, m)
+        top = torch.topk(probs, m.top_k + 1, dim=-1).values
+        rec["gap"].append((top[..., -2] - top[..., -1]).reshape(-1).cpu())
+        if forced is not None:
+            top_i, slot, keep = (t.to(xg.device).reshape(top_i.shape)
+                                 for t in forced(len(rec["top_i"]),
+                                                 top_i.shape))
+            top_p = torch.gather(probs, -1, top_i)
+            top_p = top_p / top_p.sum(-1, keepdim=True)
+        for k, t in (("top_i", top_i), ("slot", slot), ("keep", keep)):
+            rec[k].append(t.reshape(-1, m.top_k).cpu())
+        return logits, probs, top_p, top_i, slot, keep
+
+    mlp.moe_route = recorded
+    try:
+        yield rec
+    finally:
+        mlp.moe_route = route
+
+
+def _same_routes(a, b):
+    """(tokens,) bool: each token chose the same experts at every layer
+    (as sets) in the recorded forwards `a` and `b` (lists of (tokens, k)
+    per layer)."""
+    import torch
+
+    sa = torch.stack(a).sort(-1).values
+    sb = torch.stack(b).sort(-1).values
+    return (sa == sb).all(-1).all(0)
+
+
+def mla_flash_check(dev, mla, cfg) -> dict:
+    """(a) The (192, 128) instantiation against its plain version:
+    `_tc_check` with the kernel's dumped P on MLA_CASES, q/k/v as
+    `mla_fwd_blockwise` builds them from layer 0 of the deepseek weights
+    `mla`, and a q read through strides; then at the prefill's shape,
+    timed in turns with SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_norm
+
+    dh, dv = MLA_DIMS
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def qkv(b, s, h):
+        return [torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+                for d in (dh, dh, dv)]
+
+    def held(what, q, k, v, causal):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        check(tuple(got.shape) == q.shape[:3] + (dv,), f"{what}: shape "
+                                                       f"{tuple(got.shape)}")
+        r = _tc_check(got, q, k, v, causal, 0, dump=True)
+        f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+        rel = _rel_l2(got, f32p)
+        pairs = q.shape[0] * q.shape[2] * _visible_pairs(
+            q.shape[1], k.shape[1], causal, 0)
+        text = (f"{MLA_INST} {what}: {_tc_text(r, pairs)}; rel L2 {rel:.3e} "
+                f"vs float32-P blockwise")
+        check(r["ok"] and rel <= TC_F32P_REL_L2, text)
+        print(f"kernel {text} (within tolerance)", flush=True)
+        return r["err"]
+
+    err = 0.0
+    for b, s, h, causal in MLA_CASES:
+        err = max(err, held(f"({b}, {s}, {h}, {h}, {dh}/{dv}) "
+                            f"{'causal' if causal else 'full'}",
+                            *qkv(b, s, h), causal))
+    with torch.inference_mode():       # as mla_fwd_blockwise builds them
+        blk = mla.blocks[0]
+        x = torch.randn((1, 2048, cfg.d_model), generator=g,
+                        device=dev).bfloat16()
+        pos = torch.arange(2048, device=dev)
+        h_ = apply_norm(blk.ln1, x, cfg.norm)
+        q_nope, q_rope = attn._mla_q(blk.attn, h_, cfg, pos)
+        k_nope, v, k_rope = attn._mla_kv(blk.attn, h_, cfg, pos)
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(
+            -1, -1, cfg.n_heads, -1)], -1)
+    err = max(err, held(f"(1, 2048, {cfg.n_heads}, {cfg.n_heads}) from "
+                        f"layer 0's MLA", q, k, v, True))
+    wide = torch.randn((1, 1000, 16, 256), generator=g, device=dev).bfloat16()
+    q, k, v = wide[..., :dh], *qkv(1, 1000, 16)[1:]
+    check(fk.kernel_layout_ok(q) and not q.is_contiguous(), "strided q")
+    err = max(err, held("(1, 1000, 16, 16) q read through strides", q, k, v,
+                        True))
+    del q, k, v, wide
+
+    # the prefill's shape: 1 x 32768, 16 heads, causal; SDPA in turns
+    b, s, h = PREFILL_BATCH, 32768, cfg.n_heads
+    q, k, v = qkv(b, s, h)
+    got = fk.flash_attention_wgmma(q, k, v)
+    tc = _tc_check(got, q, k, v, True, 0, dump=False)
+    rel_f32p = _rel_l2(got, fa_ref.flash_attention_ref(q, k, v))
+    check(tc["ok"] and rel_f32p <= TC_F32P_REL_L2,
+          f"{MLA_INST} ({b}, {s}, {h}, {h}, {dh}/{dv}): {_tc_text(tc, 0)}; "
+          f"rel L2 {rel_f32p:.3e} vs the float32-P plain version")
+    qh, kh, vh = (x_.transpose(1, 2).contiguous() for x_ in (q, k, v))
+    # the fused backends only: the math one would hold 34 GB of scores
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa_v(vv):
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qh, kh, vv, is_causal=True)
+
+    sdpa_form = "v at 128"
+    try:
+        sdpa_out = sdpa_v(vh)
+        sdpa = lambda: sdpa_v(vh)  # noqa: E731
+    except RuntimeError as e:           # no fused backend takes Dv != Dh
+        sdpa_form = f"v padded to {dh}: {str(e).splitlines()[0][:100]}"
+        vp = F.pad(vh, (0, dh - dv))
+        sdpa = lambda: sdpa_v(vp)[..., :dv]  # noqa: E731
+        sdpa_out = sdpa()
+    sdpa_err = float((sdpa_out.transpose(1, 2).float() - got.float()).abs()
+                     .max())
+    del sdpa_out
+    fns = {"wgmma": lambda: fk.flash_attention_wgmma(q, k, v), "sdpa": sdpa}
+    times = {n: [] for n in fns}
+    for order in (("wgmma", "sdpa"), ("sdpa", "wgmma"), ("wgmma", "sdpa")):
+        for n in order:
+            times[n].append(cuda_ms(fns[n], 10))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_tc_ref(q, k, v), 1)
+    pairs = _visible_pairs(s, s, True, 0)
+    flops = 2 * (dh + dv) * h * b * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * 2
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
+    print(f"kernel {MLA_INST} ({b}, {s}, {h}, {h}, {dh}/{dv}) bf16 causal, "
+          f"one call in turns (ms each: {times}): {ms['wgmma']:.3f} ms, "
+          f"{flops / ms['wgmma'] / 1e9:.1f} TFLOP/s, {b_ms / ms['wgmma']:.3f} "
+          f"of the {b_ms:.4f} ms bound ({b_by}: {flops:.4e} flops over "
+          f"{pairs:,} visible pairs, {nbytes / 1e6:.1f} MB); SDPA ({sdpa_form})"
+          f" {ms['sdpa']:.3f} ms, ratio {ms['wgmma'] / ms['sdpa']:.3f}; plain "
+          f"flash_attention_tc_ref {plain_ms:.3f} ms; {_tc_text(tc, 0)}; rel "
+          f"L2 {rel_f32p:.3e} vs float32-P; max |SDPA - kernel| "
+          f"{sdpa_err:.3e}", flush=True)
+    return dict(name=MLA_INST, route="cuda",
+                source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:59",
+                max_abs_err=max(err, tc["err"]), ms=ms["wgmma"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=ms["sdpa"])
+
+
+def _decode_against_prefill(card, cfg, params, toks) -> None:
+    """(d) Teacher-forced `decode_step` against the prefill on one
+    sequence.  Free, the two part on the routes: with 64 experts a
+    token's k-th and (k+1)-th probabilities lie ~1e-3 apart, the
+    absorbed MLA decode rounds apart from the expanded prefill, and over
+    27 layers a rounding flips some claim of nearly every token; and the
+    prefill's group can drop claims at capacity, the decode's one-token
+    groups never.  So the decode is run twice: free (its routes, drops
+    and divergence printed), then teacher-forced to the prefill's routes
+    and drops as well as its tokens, and held to phase 9's bounds at
+    every position."""
+    import torch
+
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import decode_step, init_decode_state
+
+    s = toks.shape[1]
+    step = make_prefill_step(cfg, ShapeSpec("decode_check", "prefill", s, 1))
+    with _routes() as pre:
+        want, launches = _counted(lambda: step.fn(params, {"inputs": toks}))
+    check(launches.get(MLA_INST, 0) == cfg.n_layers,
+          f"decode check prefill launches {launches}")
+    want = want[0].float()
+    dropped = (torch.stack(pre["keep"]) < 1).any(-1).any(0)
+    near = (torch.stack(pre["gap"]) < MOE_NEAR_TIE).any(0)
+    runs = {}
+    for mode in ("free", "forced"):
+        state = init_decode_state(cfg, 1, s)
+        rels, agree, same = [], 0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(s):
+            forced = None if mode == "free" else (
+                lambda i, shape, t=t: (pre["top_i"][i][t], torch.zeros(
+                    pre["slot"][i][t].shape), pre["keep"][i][t]))
+            with _routes(forced) as dec:
+                got, state = decode_step(params, state, toks[:, t], cfg)
+            got = got[0]
+            rels.append(float((got - want[t]).norm() / want[t].norm()))
+            agree += int(got.argmax() == want[t].argmax())
+            same.append(bool(_same_routes([x[t:t + 1] for x in pre["top_i"]],
+                                          dec["top_i"])))
+        runs[mode] = dict(rels=rels, agree=agree, same=sum(same),
+                          ms=(time.perf_counter() - t0) / s * 1e3)
+    free, forced = runs["free"], runs["forced"]
+    text = (f"decode check ({card}): {cfg.name}, decode_step under teacher "
+            f"forcing vs the prefill ({MLA_INST}, {cfg.n_layers} launches) "
+            f"on {s} tokens.  The prefill dropped claims at "
+            f"{int(dropped.sum())} positions; router gaps under "
+            f"{MOE_NEAR_TIE} at {int(near.sum())}.  Free decode: routes "
+            f"equal at {free['same']} of {s} positions, rel L2 max "
+            f"{max(free['rels']):.3e}, median "
+            f"{sorted(free['rels'])[s // 2]:.3e}, top-1 equal at "
+            f"{free['agree']} of {s}; {free['ms']:.3f} ms a step.  Routes "
+            f"and drops forced to the prefill's: rel L2 max "
+            f"{max(forced['rels']):.3e}, median "
+            f"{sorted(forced['rels'])[s // 2]:.3e} (tolerance {DECODE_RTOL}),"
+            f" top-1 equal at {forced['agree']} of {s} (tolerance "
+            f"{DECODE_TOP1})")
+    check(forced["same"] == s and max(forced["rels"]) <= DECODE_RTOL
+          and forced["agree"] >= DECODE_TOP1 * s, text)
+    print(text, flush=True)
+
+
+def _a2a_check(card, cfg, params) -> dict:
+    """(g) `moe_fwd_a2a` on 1, 2 and 4 positions of the card at one
+    full-width MoE layer (layer 0's), capacity A2A_TOKENS (nothing can
+    drop), against `moe_fwd_dense_eval`; the same bits on every position
+    count."""
+    import torch
+
+    from repro_torch.models import mlp
+    from repro_torch.parallel.moe_a2a import moe_fwd_a2a
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((1, A2A_TOKENS, cfg.d_model), generator=g,
+                    device="cuda").bfloat16()
+    ffn = params.blocks[0].ffn
+    with torch.inference_mode():
+        want = mlp.moe_fwd_dense_eval(ffn, x, cfg)
+        outs, ms = {}, {}
+        for n in A2A_POSITIONS:
+            mesh = ("cuda:0",) * n
+            outs[n] = moe_fwd_a2a(ffn, x, cfg, mesh, capacity=A2A_TOKENS)
+            ms[n] = cuda_ms(lambda: moe_fwd_a2a(ffn, x, cfg, mesh,
+                                                capacity=A2A_TOKENS), 3)
+        dense_ms = cuda_ms(lambda: mlp.moe_fwd_dense_eval(ffn, x, cfg), 3)
+    rels = {n: _rel_l2(y, want) for n, y in outs.items()}
+    same = all(torch.equal(outs[n], outs[A2A_POSITIONS[0]]) for n in outs)
+    text = (f"moe a2a ({card}): {cfg.name} layer 0's MoE, 1 x {A2A_TOKENS} "
+            f"tokens, capacity {A2A_TOKENS}, on {A2A_POSITIONS} positions of "
+            f"cuda:0: rel L2 vs moe_fwd_dense_eval "
+            f"{ {n: f'{r:.3e}' for n, r in rels.items()} } (tolerance "
+            f"{A2A_REL_L2}); the same bits on every position count: {same}; "
+            f"ms {ms} (dense eval {dense_ms:.3f})")
+    check(same and all(r <= A2A_REL_L2 for r in rels.values()), text)
+    print(text, flush=True)
+    return dict(rel_l2=rels, ms=ms)
+
+
+def _cpu_check(card, cfg) -> None:
+    """(e) 2 layers at full width, seq MOE_CPU_SEQ, weights drawn on the
+    CPU, card against CPU: the share of (token, k) claims routed alike,
+    then the CPU run teacher-forced to the card's routes and drops (a
+    flipped near-tie claim moves its token far): the last position's
+    logits and its argmax."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
+
+    cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
+    t0 = time.perf_counter()
+    host = init_lm(cut, seed=0, device="cpu", dtype=torch.bfloat16)
+    draw_s = time.perf_counter() - t0
+    card_model = copy.deepcopy(host).to("cuda")
+    toks = batch_for(cut, MOE_CPU_SEQ, 1, 2)["inputs"]
+    runs = {}
+    for what, model, d in (("card", card_model, torch.device("cuda")),
+                           ("cpu", host, torch.device("cpu")),
+                           ("cpu forced", host, torch.device("cpu"))):
+        forced = None if what != "cpu forced" else (
+            lambda i, shape: (runs["card"][1]["top_i"][i],
+                              runs["card"][1]["slot"][i],
+                              runs["card"][1]["keep"][i]))
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _routes(forced) as rec:
+            hid, aux = lm_hidden(model, toks.to(d), cut, attn_impl="blockwise")
+            last = lm_logits(model, hid[:, -1:], cut).float().cpu()
+        runs[what] = (last, rec)
+        print(f"  {MOE_CPU_LAYERS}-layer prefill at seq {MOE_CPU_SEQ}, {what}: "
+              f"{time.perf_counter() - t0:.2f} s, aux {float(aux):.6f}",
+              flush=True)
+    on_card, on_cpu = runs["card"][0], runs["cpu forced"][0]
+    ta, tb = (torch.stack(runs[w][1]["top_i"]) for w in ("card", "cpu"))
+    claims_same = float((ta[..., :, None] == tb[..., None, :]).any(-1)
+                        .float().mean())          # experts chosen on both
+    tokens_same = float(_same_routes(runs["card"][1]["top_i"],
+                                     runs["cpu"][1]["top_i"]).float().mean())
+    free = float((runs["cpu"][0] - on_card).norm() / runs["cpu"][0].norm())
+    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+    text = (f"moe check: {cut.name} {MOE_CPU_LAYERS} layers at full width, "
+            f"seq {MOE_CPU_SEQ} (weights drawn on the CPU in {draw_s:.1f} s): "
+            f"(token, k) claims routed alike on card and CPU {claims_same:.5f}"
+            f" (tolerance {MOE_ROUTE_SAME}), tokens routed alike at every "
+            f"layer {tokens_same:.5f}; last-position logits card vs CPU rel "
+            f"L2 {free:.3e} free, {rel:.3e} with the CPU forced to the card's "
+            f"routes (tolerance {MOE_CPU_RTOL}), argmax "
+            f"{'agrees' if int(on_card.argmax()) == int(on_cpu.argmax()) else 'differs'}"
+            f" ({int(on_card.argmax())} vs {int(on_cpu.argmax())})")
+    check(claims_same >= MOE_ROUTE_SAME and math.isfinite(rel)
+          and rel <= MOE_CPU_RTOL, text)
+    print(text, flush=True)
+
+
+def _arctic_check(card) -> None:
+    """(f) arctic-480b at full width cut to one layer (13.6 G parameters,
+    drawn on the card): a 1 x ARCTIC_SEQ prefill (one Dh-128
+    `flash_attention_wgmma` launch), then ARCTIC_DECODE decode steps."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import decode_step, init_decode_state, init_lm
+
+    cfg = dataclasses.replace(registry.get(ARCTIC_CONFIG), n_layers=1)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    torch.cuda.synchronize()
+    n = sum(p_.numel() for p_ in params.parameters())
+    print(f"arctic init: {cfg.name} cut to 1 layer, {n:,} parameters, "
+          f"{n * 2 / 1e9:.2f} GB bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    step = make_prefill_step(cfg, ShapeSpec("arctic", "prefill",
+                                            ARCTIC_SEQ, 1))
+    batch = batch_for(cfg, ARCTIC_SEQ, 1, 0)
+    _prefill(step, params, batch, cfg, "arctic warm-up",
+             inst="flash_attention_wgmma_128_128")
+    dt, n_fa, _ = _prefill(step, params, batch, cfg, "arctic",
+                           inst="flash_attention_wgmma_128_128")
+    state = init_decode_state(cfg, 1, 64)
+    toks = batch["inputs"][:, :ARCTIC_DECODE].cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(ARCTIC_DECODE):
+        logits, state = decode_step(params, state, toks[:, t], cfg)
+        check(bool(torch.isfinite(logits).all()),
+              f"arctic decode step {t}: non-finite logits")
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / ARCTIC_DECODE * 1e3
+    print(f"arctic ({card}): prefill 1 x {ARCTIC_SEQ} in {dt:.3f} s "
+          f"({ARCTIC_SEQ / dt:,.0f} tokens/s), flash_attention_wgmma "
+          f"{n_fa} launch (Dh 128); {ARCTIC_DECODE} decode steps "
+          f"{dec_ms:.3f} ms a step, logits finite", flush=True)
+
+
+def moe_phase(card: str) -> tuple[dict, dict]:
+    """Phase 11; returns the (192, 128) kernel's report row and the
+    launches of its main path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = registry.get(MOE_CONFIG)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p_.numel() for p_ in params.parameters())
+    print(f"moe init: {cfg.name}, {n_params:,} parameters "
+          f"({cfg.n_layers} layers), {n_params * 2 / 1e9:.2f} GB bf16, drawn "
+          f"from seed 0 on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(n_params == cfg.n_params(), f"{n_params} != {cfg.n_params()}")
+
+    row = mla_flash_check(torch.device("cuda"), params, cfg)     # (a)
+
+    # (b) the full-depth prefill at 1 x 32768, then 4 x 4096
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=PREFILL_BATCH)
+    step = make_prefill_step(cfg, shape)
+    batch = batch_for(cfg, shape.seq, shape.batch, 0)
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, _, _ = _prefill(step, params, batch, cfg, "moe warm-up",
+                            inst=MLA_INST)
+    dt, launches, _ = _prefill(step, params, batch, cfg, "moe timed",
+                               inst=MLA_INST)
+    tokens = shape.batch * shape.seq
+    print(f"moe prefill ({card}): {cfg.name} {shape.batch} x {shape.seq} "
+          f"tokens, {cfg.n_layers} layers: {dt:.3f} s ({warm_s:.3f} s "
+          f"warm-up), {tokens / dt:,.0f} tokens/s; {MLA_INST} {launches} "
+          f"launches, no CUDA-core launch; attention share "
+          f"~{cfg.n_layers * row['ms'] / 1e3 / dt:.3f} of the wall time; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB", flush=True)
+    b4, s4 = MOE_SMALL_PREFILL
+    step4 = make_prefill_step(cfg, dataclasses.replace(shape, batch=b4,
+                                                       seq=s4))
+    dt4, n4, _ = _prefill(step4, params, batch_for(cfg, s4, b4, 1), cfg,
+                          f"moe {b4} x {s4}", inst=MLA_INST)
+    print(f"moe prefill: {b4} x {s4} tokens: {dt4:.3f} s, "
+          f"{b4 * s4 / dt4:,.0f} tokens/s; {MLA_INST} {n4} launches",
+          flush=True)
+
+    rng = np.random.default_rng(0)
+    _serve(card, cfg, params, rng)                               # (c)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, DECODE_CHECK_SEQ)),
+                        device="cuda")
+    _decode_against_prefill(card, cfg, params, toks)              # (d)
+    a2a = _a2a_check(card, cfg, params)                           # (g)
+    del params, step, step4
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cpu_check(card, cfg)                                         # (e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _arctic_check(card)                                           # (f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    row.update(a2a_rel_l2=a2a["rel_l2"], a2a_ms=a2a["ms"])
+    return row, {MLA_INST: launches}
+
+
 def main() -> int:
     import torch
 
@@ -2754,6 +3271,11 @@ def main() -> int:
     lm_train_phase(card)
     print(f"chip_smoke wall after phase 10: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    mla_row, moe_launches = moe_phase(card)
+    rows.append(mla_row)
+    launches.update(moe_launches)
+    print(f"chip_smoke wall after phase 11: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a
     # round with BFS lanes) and the sequential flow (a launch a net).
@@ -2780,13 +3302,15 @@ def main() -> int:
     # service phase's launches of nsga2_evolve and route_slots;
     # wavefront's launches by path and its time at the per-net shape; the
     # mesh phase's launches of nsga2_evolve and nds_rank, and nds_rank at
-    # the migration shape
+    # the migration shape; the MoE phase's all-to-all check beside the
+    # (192, 128) instantiation
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
              "net_ms", "net_plain_ms", "net_bound_ms", "mesh_launches",
              "migration_shape", "migration_ms", "migration_plain_ms",
-             "migration_bound_ms", "migration_bound_by")
+             "migration_bound_ms", "migration_bound_by", "a2a_rel_l2",
+             "a2a_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

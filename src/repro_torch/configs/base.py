@@ -2,9 +2,10 @@
 
 One `ArchConfig` instance fully determines a model.  The reference
 drives every family from it (dense, MoE, MLA, Mamba2, xLSTM,
-encoder-decoder, VLM prefix); the port builds the dense decoder
-(`repro_torch.models.lm`) and reads the other families' fields only in
-the codesign arithmetic (`repro_torch.core.codesign.extract_gemms`).
+encoder-decoder, VLM prefix); the port builds the dense decoder and the
+MoE family with or without MLA (`repro_torch.models.lm`) and reads the
+other families' fields only in the codesign arithmetic
+(`repro_torch.core.codesign.extract_gemms`).
 
 A copy of `repro.configs.base` (the port imports nothing of the JAX
 package).  `n_params` / `n_active_params` count from the shapes of the

@@ -2,9 +2,11 @@
 ``reduced(name)`` returns the same-family CPU smoke-test variant.
 
 Counterpart of `repro.configs.registry`, holding only the configurations
-whose family the port builds (`PORTED`).  The reference's other ids are
-known here and raise `NotImplementedError`; an unknown id raises
-`KeyError`, as in the reference.
+whose family the port builds (`PORTED`): the dense qwen2.5-3b and
+qwen3-8b, and the MoE family's deepseek-v2-lite-16b (MLA) and
+arctic-480b.  The reference's other ids are known here and raise
+`NotImplementedError`; an unknown id raises `KeyError`, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ ARCH_IDS = (
     "zamba2_2_7b",
     "paligemma_3b",
 )
-PORTED = ("qwen2_5_3b", "qwen3_8b")
+PORTED = ("qwen2_5_3b", "qwen3_8b", "deepseek_v2_lite_16b", "arctic_480b")
 
 
 def canonical(name: str) -> str:

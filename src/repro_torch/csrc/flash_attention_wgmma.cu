@@ -1,12 +1,15 @@
-// Causal / full flash attention on Hopper tensor cores (sm_90a), bf16,
-// head dims 64 and 128, plain C interface.
+// Causal / full flash attention on Hopper tensor cores (sm_90a), bf16, at
+// q/k and v head dims (Dh, Dv) of 64 / 64, 128 / 128 and 192 / 128 (MLA's
+// prefill: nope 128 + rope 64 for q and k, v 128), plain C interface.
 //
-// flash_attention_wgmma replaces, for bf16 inputs at head dims 64 and 128,
-// the Pallas kernel `flash_attention_kernel` (body `_kernel`) of
-// src/repro/kernels/flash_attention/kernel.py; float32 and the other head
-// dims stay on the CUDA-core kernel of flash_attention.cu.  For q (B, S, H,
-// Dh) and k, v (B, T, KV, Dh), query head h reading KV head h / (H / KV),
-// it computes
+// flash_attention_wgmma replaces, for bf16 inputs at those head dims, the
+// Pallas kernel `flash_attention_kernel` (body `_kernel`) of
+// src/repro/kernels/flash_attention/kernel.py, and at 192 / 128 the jnp
+// blockwise core that MLA's prefill runs on v padded to 192
+// (`mla_fwd_blockwise`, src/repro/models/attention.py); float32 and the
+// other head dims stay on the CUDA-core kernel of flash_attention.cu.  For
+// q (B, S, H, Dh), k (B, T, KV, Dh) and v (B, T, KV, Dv), query head h
+// reading KV head h / (H / KV), it computes
 //
 //   s[r, c] = q[r] . k[c]                      (bf16 products, f32 sums)
 //   p[r, c] = exp2(s[r, c] * c2 - m_r * c2),   c2 = log2(e) / sqrt(Dh)
@@ -22,11 +25,12 @@
 // prefix_len).  `ref.flash_attention_tc_ref` is the plain PyTorch version of
 // this arithmetic.
 //
-//   Bound on the H100: operations.  4 * Dh flops per visible (query, key)
-//   pair and head; at the prefill's shape (B 1, S = T = 32768, H 16, KV 2,
-//   Dh 128, causal) 4.40e12 flops, 4.45 ms at the 989 TFLOP/s bf16
-//   tensor-core peak, against 302 MB of q, k, v and o (0.09 ms at 3.35
-//   TB/s).  Both products run on the tensor cores (`wgmma`), the only way
+//   Bound on the H100: operations.  2 * (Dh + Dv) flops per visible
+//   (query, key) pair and head; at the qwen2.5-3b prefill's shape (B 1, S =
+//   T = 32768, H 16, KV 2, Dh = Dv = 128, causal) 4.40e12 flops, 4.45 ms at
+//   the 989 TFLOP/s bf16 tensor-core peak, against 302 MB of q, k, v and o
+//   (0.09 ms at 3.35 TB/s); at deepseek-v2-lite's (H = KV = 16, Dh 192, Dv
+//   128) 5.50e12 flops, 5.56 ms, against 0.6 GB.  Both products run on the tensor cores (`wgmma`), the only way
 //   to that rate; the K / V tiles come by TMA, so no thread spends
 //   instructions on loads, and P never leaves the registers.
 //
@@ -38,16 +42,19 @@
 //   K, one for V and an `empty` one that the consumers' 256 threads arrive
 //   on.  Warpgroups 1 and 2 are consumers of 64 query rows each (`setmaxnreg`
 //   232).  Per key tile a consumer runs S = Q K^T as Dh/16 `wgmma`
-//   m64n128k16 with both operands in shared memory (K-major), the online
+//   m64n128k16 (Dh 192: 12) with both operands in shared memory (K-major),
+//   the online
 //   softmax on the f32 accumulator fragment (a row's 128 scores lie in the
 //   4 lanes of a quad: max and sum by two xor shuffles; the row sum is kept
 //   per thread and reduced once at the end), converts P to bf16 pairs in
 //   place (the m64n128 accumulator fragment is the register A operand of
-//   m64nDHk16, four registers per 16 keys), rescales O in registers and runs
-//   O += P V as 8 register-A `wgmma` m64nDHk16 with V from shared memory as
+//   m64nDVk16, four registers per 16 keys), rescales O in registers and runs
+//   O += P V as 8 register-A `wgmma` m64nDVk16 with V from shared memory as
 //   an MN-major B operand (the descriptor's transpose bit).  Every tile is
 //   stored by TMA with 128-byte swizzle in column blocks of 64 (Dh 128: two
-//   blocks), the layout the `wgmma` descriptors name (swizzle mode 1,
+//   blocks; Q and K at Dh 192 three, V at Dv 128 two), each block of a
+//   128-row tile 16 KB, the layout the `wgmma` descriptors name (swizzle
+//   mode 1,
 //   8-row groups 1024 B apart; K-major steps advance 32 B inside the
 //   swizzle atom, MN-major ones 2048 B).  TMA zero-fills rows past S or T,
 //   so nothing is padded; keys past T are masked.  A -inf mask is applied
@@ -55,7 +62,10 @@
 //   ragged tail); a row that has seen no visible key keeps m = -inf and p =
 //   0.  A CTA stops at the last key tile a row of its can see (with a
 //   prefix, at least up to the prefix).  Shared memory: 32 KB of Q and
-//   kStages x 64 KB of K and V at Dh 128, one CTA per SM.  Tensor maps are
+//   kStages x 64 KB of K and V at Dh 128, one CTA per SM; at 192 / 128, 48 KB
+//   of Q and kStages x 80 KB of K and V, 208 KB of the 227 KB a block may
+//   have (v padded to 192 would need 240 KB: hence a separate Dv).  The
+//   per-thread S and O fragments are those of Dh 128.  Tensor maps are
 //   built per call on the host (cuTensorMapEncodeTiled through the
 //   runtime's driver entry point) over q, k and v with their own strides.
 //
@@ -89,11 +99,11 @@ constexpr int kThreads = 384;       // producer + two consumer warpgroups
 constexpr int kBlockCols = 64;      // bf16 columns of one 128-byte swizzle row
 constexpr uint32_t kBlockBytes = kBK * 128;   // one 64-column block of a tile
 
-template <int DH>
+template <int DH, int DV>
 struct Smem {
   alignas(1024) __nv_bfloat16 q[kBQ * DH];
   alignas(1024) __nv_bfloat16 k[kStages][kBK * DH];
-  alignas(1024) __nv_bfloat16 v[kStages][kBK * DH];
+  alignas(1024) __nv_bfloat16 v[kStages][kBK * DV];
   alignas(8) uint64_t q_full;
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
@@ -286,16 +296,18 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&a)[4],
 // tiles, and the rows' output.  With kDump it also stores the bf16 P it
 // feeds to P.V at p_dump[b, h, row, key] (rows < S, keys < T), for
 // checking; the arithmetic is the same.
-template <int DH, bool kDump>
-__device__ __forceinline__ void consume(Smem<DH>& sm, const Params& p, int cw,
-                                        int q0, int n_kt, int b, int h) {
-  constexpr int kO = DH / 2;          // O floats per thread: DH / 8 chunks x 4
+template <int DH, int DV, bool kDump>
+__device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
+                                        int cw, int q0, int n_kt, int b,
+                                        int h) {
+  constexpr int kO = DV / 2;          // O floats per thread: DV / 8 chunks x 4
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int r_lo = q0 + cw * 64;      // this consumer's first row
   const int row0 = r_lo + warp * 16 + lane / 4;   // rows row0 and row0 + 8
   const int col0 = 2 * (lane % 4);    // columns 8 j + col0 + {0, 1}
   const float c2 = p.scale_log2;
+  // the consumer's 64 rows of each 64-column block: 64 rows x 128 bytes in
   const uint32_t q_addr = smem_u32(sm.q) + cw * 64 * 128;
 
   // Accumulator fragment: element 4 j + 2 i + e is (row0 + 8 i, 8 j + col0
@@ -383,7 +395,7 @@ __device__ __forceinline__ void consume(Smem<DH>& sm, const Params& p, int cw,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       o[4 * j] *= corr[0];
       o[4 * j + 1] *= corr[0];
       o[4 * j + 2] *= corr[1];
@@ -418,15 +430,15 @@ __device__ __forceinline__ void consume(Smem<DH>& sm, const Params& p, int cw,
     const int r = row0 + 8 * i;
     if (r >= p.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = og + (((long long)b * p.S + r) * p.H + h) * DH + col0;
+    __nv_bfloat16* orow = og + (((long long)b * p.S + r) * p.H + h) * DV + col0;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
           o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
   }
 }
 
-template <int DH, bool kDump>
+template <int DH, int DV, bool kDump>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -435,7 +447,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   static_assert(kBQ == kBK, "Q and K / V tiles share kBlockBytes");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw + pad);
+  Smem<DH, DV>& sm = *reinterpret_cast<Smem<DH, DV>*>(smem_raw + pad);
 
   const int bh_count = p.B * p.H;
   const int n_qt = (p.S + kBQ - 1) / kBQ;
@@ -468,7 +480,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x < 128) {            // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      constexpr uint32_t kTileBytes = kBK * DH * 2;
+      constexpr uint32_t kTileBytes = kBK * DH * 2, kVTileBytes = kBK * DV * 2;
       mbar_expect_tx(&sm.q_full, kBQ * DH * 2);
 #pragma unroll
       for (int c = 0; c < DH / kBlockCols; ++c)
@@ -482,16 +494,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int c = 0; c < DH / kBlockCols; ++c)
           tma_load(sm.k[st] + c * kBK * kBlockCols, &tk, &sm.k_full[st], p.ok,
                    c * kBlockCols, kt * kBK, kvh, b);
-        mbar_expect_tx(&sm.v_full[st], kTileBytes);
+        mbar_expect_tx(&sm.v_full[st], kVTileBytes);
 #pragma unroll
-        for (int c = 0; c < DH / kBlockCols; ++c)
+        for (int c = 0; c < DV / kBlockCols; ++c)
           tma_load(sm.v[st] + c * kBK * kBlockCols, &tv, &sm.v_full[st], p.ov,
                    c * kBlockCols, kt * kBK, kvh, b);
       }
     }
   } else {                            // two consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<DH, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b, h);
+    consume<DH, DV, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b, h);
   }
 }
 
@@ -565,13 +577,13 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DH, bool kDump>
+template <int DH, int DV, bool kDump>
 int launch(const void* q, const void* k, const void* v,
            const long long* strides, Params& p, cudaStream_t stream) {
   const long long blocks = (long long)((p.S + kBQ - 1) / kBQ) * p.B * p.H;
   if (blocks == 0) return 0;
   if (p.T == 0) {                     // no key: o = 0 / max(0, 1e-30)
-    cudaMemsetAsync(p.o, 0, (size_t)p.B * p.S * p.H * DH * 2, stream);
+    cudaMemsetAsync(p.o, 0, (size_t)p.B * p.S * p.H * DV * 2, stream);
     return (int)cudaGetLastError();
   }
   CUtensorMap tq, tk, tv;
@@ -580,14 +592,16 @@ int launch(const void* q, const void* k, const void* v,
   const long long sv[3] = {strides[7], strides[8], strides[6]};
   int rc = make_map(&tq, &p.oq, q, DH, p.S, p.H, p.B, sq);
   if (rc == 0) rc = make_map(&tk, &p.ok, k, DH, p.T, p.KV, p.B, sk);
-  if (rc == 0) rc = make_map(&tv, &p.ov, v, DH, p.T, p.KV, p.B, sv);
+  if (rc == 0) rc = make_map(&tv, &p.ov, v, DV, p.T, p.KV, p.B, sv);
   if (rc != 0) return rc;
-  const int smem = (int)sizeof(Smem<DH>) + 1024;
+  const int smem = (int)sizeof(Smem<DH, DV>) + 1024;
+  static_assert(sizeof(Smem<192, 128>) + 1024 <= 232448,
+                "the 192 / 128 tiles must fit a block's shared memory");
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<DH, kDump>,
+      flash_attention_wgmma_kernel<DH, DV, kDump>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_wgmma_kernel<DH, kDump>
+  flash_attention_wgmma_kernel<DH, DV, kDump>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -596,17 +610,18 @@ int launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q (B, S, H, Dh), k / v (B, T, KV, Dh) bf16 on the device with unit stride
-// on Dh and the other strides (elements) in `strides`: q's batch, seq,
-// head, then k's, then v's, each a multiple of 8, pointers 16-byte
-// aligned.  o (B, S, H, Dh) contiguous bf16.  dh is 64 or 128.
-// scale_log2 = log2(e) / sqrt(dh) in float32.  p_dump: null, or a
+// q (B, S, H, dh), k (B, T, KV, dh), v (B, T, KV, dv) bf16 on the device
+// with unit stride on the head dim and the other strides (elements) in
+// `strides`: q's batch, seq, head, then k's, then v's, each a multiple of
+// 8, pointers 16-byte aligned.  o (B, S, H, dv) contiguous bf16.  (dh, dv)
+// is (64, 64), (128, 128) or (192, 128).  scale_log2 = log2(e) / sqrt(dh)
+// in float32.  p_dump: null, or a
 // zeroed (B, H, S, T) contiguous bf16 buffer that receives the P fed to
 // P.V (a separate instantiation; for checks only).  Returns a
 // cudaError_t, or the driver's CUresult when a tensor map cannot be built.
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
                           void* o, const long long* strides, int B, int S,
-                          int T, int H, int KV, int dh, int causal,
+                          int T, int H, int KV, int dh, int dv, int causal,
                           int prefix_len, float scale_log2, void* p_dump,
                           void* stream) {
   Params p;
@@ -616,13 +631,16 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
   p.causal = causal; p.prefix_len = prefix_len; p.scale_log2 = scale_log2;
   const cudaStream_t st = (cudaStream_t)stream;
   const bool dump = p_dump != nullptr;
-  switch (dh) {
-    case 64: return dump ? launch<64, true>(q, k, v, strides, p, st)
-                         : launch<64, false>(q, k, v, strides, p, st);
-    case 128: return dump ? launch<128, true>(q, k, v, strides, p, st)
-                          : launch<128, false>(q, k, v, strides, p, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dh == 64 && dv == 64)
+    return dump ? launch<64, 64, true>(q, k, v, strides, p, st)
+                : launch<64, 64, false>(q, k, v, strides, p, st);
+  if (dh == 128 && dv == 128)
+    return dump ? launch<128, 128, true>(q, k, v, strides, p, st)
+                : launch<128, 128, false>(q, k, v, strides, p, st);
+  if (dh == 192 && dv == 128)
+    return dump ? launch<192, 128, true>(q, k, v, strides, p, st)
+                : launch<192, 128, false>(q, k, v, strides, p, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """Deterministic, stateless synthetic token batches.
 
-Counterpart of `repro.data.synthetic` for the dense family.  Batch t is a
-pure function of (seed, step): each batch draws from its own CPU
-`torch.Generator`, seeded from (seed, step), so there is no iterator state
-and every device gets the same tokens.  Tokens follow a Zipfian marginal
+Counterpart of `repro.data.synthetic` for the dense and MoE families
+(token batches only).  Batch t is a pure function of (seed, step): each
+batch draws from its own CPU `torch.Generator`, seeded from (seed,
+step), so there is no iterator state and every device gets the same
+tokens.  Tokens follow a Zipfian marginal
 with periodic copy structure, so the LM loss actually decreases.  The
 distribution is the reference's; the bits are not (torch cannot reproduce
 `jax.random`).
@@ -75,8 +76,9 @@ class SyntheticStream:
 
 def batch_for(cfg: ArchConfig, seq: int, global_batch_size: int, step: int,
               seed: int = 1234, device=None) -> dict:
-    """The batch of `step` for a dense-family model, on `device`."""
-    if cfg.family != "dense":
+    """The batch of `step` for a dense- or MoE-family model, on `device`
+    (the families whose batches are tokens alone)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"synthetic batches of the {cfg.family!r} family are not ported")
     batch = global_batch(DataConfig(cfg.vocab, seq, global_batch_size, seed),

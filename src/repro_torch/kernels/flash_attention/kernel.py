@@ -2,25 +2,28 @@
 
 Both replace `repro.kernels.flash_attention.kernel.flash_attention_kernel`
 (online-softmax attention, the running max, sum and accumulator in
-float32).  They take the model's layout, q (B, S, H, Dh) and k / v (B,
-T, KV, Dh), and read KV head h // (H // KV) for query head h by index
-(the reference's `ops` repeats KV heads in memory instead).
+float32).  They take the model's layout, q (B, S, H, Dh), k (B, T, KV,
+Dh) and v (B, T, KV, Dv), and read KV head h // (H // KV) for query head
+h by index (the reference's `ops` repeats KV heads in memory instead).
 
 - `flash_attention_wgmma` (`csrc/flash_attention_wgmma.cu`): bf16 at
-  head dims `TC_HEAD_DIMS`, both products on tensor cores, P rounded to
-  bf16; plain version `ref.flash_attention_tc_ref`.
+  the (Dh, Dv) pairs `TC_DIM_PAIRS` (64 / 64, 128 / 128, and MLA's 192 /
+  128), both products on tensor cores, P rounded to bf16; plain version
+  `ref.flash_attention_tc_ref`.
 - `flash_attention_cuda_core` (`csrc/flash_attention.cu`): float32, and
-  bf16 at any of `HEAD_DIMS`, float32 FFMA on CUDA cores; plain version
-  `ref.flash_attention_ref`.
+  bf16 at any of `HEAD_DIMS` (Dv = Dh), float32 FFMA on CUDA cores;
+  plain version `ref.flash_attention_ref`.
 
-`route(dtype, head_dim)` names the wrapper that `ops.flash_attention`
+`route(dtype, head_dim, v_head_dim)` names the wrapper that `ops.flash_attention`
 calls.  For tensors on the CPU a wrapper runs its plain version; for
 CUDA tensors it launches its kernel or raises, with no fallback to the
 other route.  `flash_attention_wgmma_p` also returns the bf16 P the
 tensor-core kernel fed to its P.V, to hold against `ref.flash_attention_tc_p`.
 Every launch of either kernel counts in
 `repro_torch.kernels.LAUNCHES["flash_attention"]`; the tensor-core
-kernel's also in `LAUNCHES["flash_attention_wgmma"]`.
+kernel's also in `LAUNCHES["flash_attention_wgmma"]` and under its
+instantiation, `LAUNCHES["flash_attention_wgmma_<Dh>_<Dv>"]` (MLA's
+prefill: `flash_attention_wgmma_192_128`).
 """
 from __future__ import annotations
 
@@ -34,15 +37,17 @@ from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128)             # tensor cores where v's head dim is q/k's
+TC_DIM_PAIRS = tuple((d, d) for d in TC_HEAD_DIMS) + ((192, 128),)  # MLA's
 DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SHAPE_ARGS = [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
                _I, _I, _I, _I, _I, _I]            # q k v o strides B S T H KV dh
-_ARGTYPES = {   # then: [bf16,] causal, prefix_len, scale, [p_dump,] stream
+_ARGTYPES = {   # then: [dv,] [bf16,] causal, prefix_len, scale, [p_dump,] stream
     "flash_attention": _SHAPE_ARGS + [_I, _I, _I, ctypes.c_float, _P],
-    "flash_attention_wgmma": _SHAPE_ARGS + [_I, _I, ctypes.c_float, _P, _P]}
+    "flash_attention_wgmma": _SHAPE_ARGS + [_I, _I, _I, ctypes.c_float, _P,
+                                            _P]}
 _FNS: dict = {}
 _FNS_LOCK = threading.Lock()   # first calls may race from several threads
 
@@ -58,10 +63,13 @@ def _fn(name: str):
         return _FNS[name]
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that runs attention of this dtype and head dim:
-    "wgmma" (tensor cores) for bf16 at `TC_HEAD_DIMS`, else "cuda_core"."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+def route(dtype: torch.dtype, head_dim: int,
+          v_head_dim: int | None = None) -> str:
+    """The kernel that runs attention of this dtype and q/k and v head
+    dims (v's defaults to q/k's): "wgmma" (tensor cores) for bf16 at a
+    pair of `TC_DIM_PAIRS`, else "cuda_core"."""
+    pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
+    if dtype == torch.bfloat16 and pair in TC_DIM_PAIRS:
         return "wgmma"
     return "cuda_core"
 
@@ -78,21 +86,21 @@ def kernel_layout_ok(t: torch.Tensor) -> bool:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           prefix_len: int, head_dims, dtypes) -> None:
+           prefix_len: int, dim_pairs, dtypes) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"expected q (B, S, H, Dh), k/v (B, T, KV, Dh); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+        raise ValueError(f"expected q (B, S, H, Dh), k (B, T, KV, Dh), v (B, "
+                         f"T, KV, Dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, dh = q.shape
     kvh = k.shape[2]
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != dh
             or kvh == 0 or h % kvh):
-        raise ValueError(f"k/v must be (B, T, KV, Dh) with H % KV == 0; got "
-                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    if dh not in head_dims:
-        raise ValueError(f"flash_attention supports head dims {head_dims}, "
-                         f"not {dh}")
+        raise ValueError(f"k must be (B, T, KV, Dh) and v (B, T, KV, Dv) "
+                         f"with H % KV == 0; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if (dh, v.shape[3]) not in dim_pairs:
+        raise ValueError(f"flash_attention supports head dims (q/k, v) "
+                         f"{dim_pairs}, not {(dh, v.shape[3])}")
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {dtypes}; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -121,7 +129,7 @@ def _launch(name: str, counts: tuple[str, ...], q: torch.Tensor,
     t, kvh = k.shape[1], k.shape[2]
     if -(-s // tile) * b * h >= 2 ** 31:
         raise ValueError(f"grid of {-(-s // tile) * b * h} CTAs is too large")
-    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -142,7 +150,7 @@ def flash_attention_cuda_core(q: torch.Tensor, k: torch.Tensor,
     dtype of `DTYPES`; H % KV == 0; Dh in `HEAD_DIMS`.  Returns (B, S, H,
     Dh) contiguous in q's dtype.  `block_k` is the plain version's KV
     block; the kernel streams 64-key tiles."""
-    _check(q, k, v, prefix_len, HEAD_DIMS, DTYPES)
+    _check(q, k, v, prefix_len, tuple((d, d) for d in HEAD_DIMS), DTYPES)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        prefix_len=prefix_len, block_k=block_k)
@@ -152,22 +160,28 @@ def flash_attention_cuda_core(q: torch.Tensor, k: torch.Tensor,
                    scale)
 
 
+def _tc_counts(q: torch.Tensor, v: torch.Tensor) -> tuple[str, ...]:
+    """The launch counts a tensor-core launch adds to: both routes', the
+    tensor-core kernel's and its (Dh, Dv) instantiation's."""
+    return ("flash_attention", "flash_attention_wgmma",
+            f"flash_attention_wgmma_{q.shape[3]}_{v.shape[3]}")
+
+
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, prefix_len: int = 0,
                           block_k: int = ref.TC_KV_TILE) -> torch.Tensor:
-    """The tensor-core kernel: q: (B, S, H, Dh); k/v: (B, T, KV, Dh);
-    bf16; H % KV == 0; Dh in `TC_HEAD_DIMS`.  Returns (B, S, H, Dh)
-    contiguous bf16.  `block_k` is the plain version's KV block; the
-    kernel streams 128-key tiles."""
-    _check(q, k, v, prefix_len, TC_HEAD_DIMS, (torch.bfloat16,))
+    """The tensor-core kernel: q: (B, S, H, Dh); k: (B, T, KV, Dh); v:
+    (B, T, KV, Dv); bf16; H % KV == 0; (Dh, Dv) in `TC_DIM_PAIRS`.
+    Returns (B, S, H, Dv) contiguous bf16.  `block_k` is the plain
+    version's KV block; the kernel streams 128-key tiles."""
+    _check(q, k, v, prefix_len, TC_DIM_PAIRS, (torch.bfloat16,))
     if q.device.type == "cpu":
         return ref.flash_attention_tc_ref(q, k, v, causal=causal,
                                           prefix_len=prefix_len,
                                           block_k=block_k)
-    return _launch("flash_attention_wgmma",
-                   ("flash_attention", "flash_attention_wgmma"), q, k, v, 128,
-                   int(causal), prefix_len, ref.score_scale_log2(q.shape[3]),
-                   None)
+    return _launch("flash_attention_wgmma", _tc_counts(q, v), q, k, v, 128,
+                   v.shape[3], int(causal), prefix_len,
+                   ref.score_scale_log2(q.shape[3]), None)
 
 
 def flash_attention_wgmma_p(q: torch.Tensor, k: torch.Tensor,
@@ -178,15 +192,14 @@ def flash_attention_wgmma_p(q: torch.Tensor, k: torch.Tensor,
     fed to P.V, (B, H, S, T), laid out as `ref.flash_attention_tc_p`
     (on the CPU: that function's).  For checking the kernel's arithmetic
     only: the P is B * H * S * T * 2 bytes."""
-    _check(q, k, v, prefix_len, TC_HEAD_DIMS, (torch.bfloat16,))
+    _check(q, k, v, prefix_len, TC_DIM_PAIRS, (torch.bfloat16,))
     if q.device.type == "cpu":
         kw = dict(causal=causal, prefix_len=prefix_len)
         return (ref.flash_attention_tc_ref(q, k, v, **kw),
                 ref.flash_attention_tc_p(q, k, v, **kw))
     p = torch.zeros((q.shape[0], q.shape[2], q.shape[1], k.shape[1]),
                     dtype=torch.bfloat16, device=q.device)
-    out = _launch("flash_attention_wgmma",
-                  ("flash_attention", "flash_attention_wgmma"), q, k, v, 128,
-                  int(causal), prefix_len, ref.score_scale_log2(q.shape[3]),
-                  p.data_ptr())
+    out = _launch("flash_attention_wgmma", _tc_counts(q, v), q, k, v, 128,
+                  v.shape[3], int(causal), prefix_len,
+                  ref.score_scale_log2(q.shape[3]), p.data_ptr())
     return out, p

@@ -11,13 +11,14 @@
   of the CUDA-core kernel (`csrc/flash_attention.cu`: float32, and bf16
   at head dims 16 and 32).
 - `flash_attention_tc_ref`: the same online softmax with the tensor-core
-  kernel's arithmetic (`csrc/flash_attention_wgmma.cu`: bf16 at head
-  dims 64 and 128): raw float32 scores, scaled inside `exp2` with
-  log2(e) / sqrt(Dh), masked scores at -inf, P rounded to bf16 before a
-  float32-accumulated P.V, the output rounded once.  The reference's own
-  `_blockwise_core` (src/repro/models/attention.py) rounds P to bf16
-  too.  `flash_attention_tc_p` returns its bf16 P, and its `p_bf16`
-  argument takes a kernel's P in its place.
+  kernel's arithmetic (`csrc/flash_attention_wgmma.cu`: bf16 at q/k and
+  v head dims 64 / 64, 128 / 128 and MLA's 192 / 128): raw float32
+  scores, scaled inside `exp2` with log2(e) / sqrt(Dh of q), masked
+  scores at -inf, P rounded to bf16 before a float32-accumulated P.V,
+  the output rounded once.  The reference's own `_blockwise_core`
+  (src/repro/models/attention.py) rounds P to bf16 too.
+  `flash_attention_tc_p` returns its bf16 P, and its `p_bf16` argument
+  takes a kernel's P in its place.
 
 On a CUDA device the float32 products must be full float32: keep TF32
 off (`torch.backends.cuda.matmul.allow_tf32` stays False, PyTorch's
@@ -62,9 +63,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, prefix_len: int = 0,
                         block_k: int = KV_TILE) -> torch.Tensor:
-    """q: (B, S, H, Dh); k/v: (B, T, KV, Dh) with H % KV == 0; query
-    head h reads KV head h // (H // KV).  Returns (B, S, H, Dh) in q's
-    dtype.
+    """q / k: (B, S, H, Dh) / (B, T, KV, Dh), v: (B, T, KV, Dv) with H %
+    KV == 0; query head h reads KV head h // (H // KV).  Returns (B, S,
+    H, Dv) in q's dtype.
 
     KV blocks of `block_k` keys; the last may be shorter (no padding).
     When causal, a block is applied only to the query rows that can see
@@ -73,7 +74,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     would be masked, p = exp(-1e30 - m) = 0 and the correction 1, so
     skipping them changes no bit."""
     b, s, h, dh = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
     scale = 1.0 / dh ** 0.5
     # (B, KV, S*G, Dh): the G query heads of one KV head are adjacent rows
@@ -81,7 +82,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = qf.reshape(b, kvh, s * g, dh)
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
-    acc = torch.zeros((b, kvh, s * g, dh), dtype=torch.float32,
+    acc = torch.zeros((b, kvh, s * g, dv), dtype=torch.float32,
                       device=q.device)
     m = torch.full((b, kvh, s * g), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -108,8 +109,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc_r.mul_(corr[..., None]).add_(torch.matmul(p, vj))
         m_old.copy_(m_new)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.reshape(b, kvh, s, g, dh).permute(0, 2, 1, 3, 4)
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    out = out.reshape(b, kvh, s, g, dv).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, s, h, dv).to(q.dtype)
 
 
 def _rows(p: torch.Tensor, kvh: int) -> torch.Tensor:
@@ -122,7 +123,7 @@ def _rows(p: torch.Tensor, kvh: int) -> torch.Tensor:
 
 def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
     b, s, h, dh = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
     c2 = score_scale_log2(dh)
     neg_inf = float("-inf")
@@ -130,7 +131,7 @@ def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
     qf = qf.reshape(b, kvh, s * g, dh)
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
-    acc = torch.zeros((b, kvh, s * g, dh), dtype=torch.float32,
+    acc = torch.zeros((b, kvh, s * g, dv), dtype=torch.float32,
                       device=q.device)
     m = torch.full((b, kvh, s * g), neg_inf, dtype=torch.float32,
                    device=q.device)
@@ -163,8 +164,8 @@ def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
         acc_r.mul_(corr[..., None]).add_(torch.matmul(pb.float(), vj))
         m_old.copy_(m_new)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.reshape(b, kvh, s, g, dh).permute(0, 2, 1, 3, 4)
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    out = out.reshape(b, kvh, s, g, dv).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, s, h, dv).to(q.dtype)
 
 
 def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
@@ -172,9 +173,11 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
                            prefix_len: int = 0, block_k: int = TC_KV_TILE,
                            p_bf16: torch.Tensor | None = None
                            ) -> torch.Tensor:
-    """q: (B, S, H, Dh); k/v: (B, T, KV, Dh) with H % KV == 0; query
-    head h reads KV head h // (H // KV).  Returns (B, S, H, Dh) in q's
-    dtype.
+    """q / k: (B, S, H, Dh) / (B, T, KV, Dh), v: (B, T, KV, Dv) with H %
+    KV == 0; query head h reads KV head h // (H // KV).  Returns (B, S,
+    H, Dv) in q's dtype.  With Dv < Dh it equals this function on v
+    zero-padded to Dh with the padding sliced off the output (MLA's
+    prefill, which the reference pads so).
 
     Per KV block of `block_k` keys, with c = `score_scale_log2(Dh)`:
     s = q K^T from float32 q and k (unscaled), masked entries -inf, m the

@@ -1,5 +1,5 @@
 """Step builders: the train step, the prefill forward and the decode step
-of the dense LM.
+of the LM (the dense and MoE families).
 
 Counterpart of `repro.launch.steps` on one device.  The reference jits
 each step with the sharding policy of a mesh; the port runs eagerly on
@@ -37,9 +37,11 @@ def default_opt_cfg(cfg: ArchConfig) -> adamw.AdamWConfig:
 
 
 # master-parameter dtype of a config's leaves of stacked rank >= 2, where
-# it is not float32 (the reference's).  Only arctic has one, and the port
-# does not build the MoE family yet (ROADMAP queue 1 item 6.3), so every
-# master it trains is float32.
+# it is not float32 (the reference's).  Only arctic has one.  The port
+# builds and serves the MoE family, but its training waits for the
+# sharded mesh (ROADMAP queue 1, "training of the MoE family on the
+# card"): nothing here reads this yet, and every master trained on one
+# card is float32.
 PARAM_DTYPE = {"arctic-480b": torch.bfloat16}
 
 
@@ -159,8 +161,8 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, *,
     """Forward-only logits of the prefill shape `shape` on `device`
     (CUDA when None, raising without it).
 
-    `fn(params, batch)` returns `lm_logits(lm_hidden(params,
-    batch["inputs"], cfg, attn_impl="blockwise"))` under
+    `fn(params, batch)` returns the logits of `lm_hidden(params,
+    batch["inputs"], cfg, attn_impl="blockwise")` under
     `torch.inference_mode()`: logits at every position, in the hidden
     dtype (bf16).  `params` is an `LM` on the step's device, as
     `init_lm(cfg, device=..., dtype=torch.bfloat16)` gives the serving
@@ -170,8 +172,8 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, *,
 
     def prefill(params: lm.LM, batch: dict) -> torch.Tensor:
         with torch.inference_mode():
-            hidden = lm.lm_hidden(params, batch["inputs"].to(dev), cfg,
-                                  attn_impl="blockwise")
+            hidden, _ = lm.lm_hidden(params, batch["inputs"].to(dev), cfg,
+                                     attn_impl="blockwise")
             return lm.lm_logits(params, hidden, cfg)
 
     return PrefillStep(fn=prefill,

@@ -1,14 +1,18 @@
-"""GQA / MQA / MHA attention (+bias, +qk_norm): the full-sequence forward
-of training and prefill, dense (`attention_fwd`) and blockwise
-(`attention_fwd_blockwise`, the long-context prefill path), and the
-one-token decode over a KV cache (`init_kv_cache`, `attention_decode`).
+"""Attention mixers: GQA / MQA / MHA (+bias, +qk_norm) and DeepSeek's
+MLA.  Each has a full-sequence forward of training and prefill, dense
+(`attention_fwd`, `mla_fwd`) and blockwise (`attention_fwd_blockwise`,
+`mla_fwd_blockwise`, the long-context prefill path), and a one-token
+decode over a cache (`init_kv_cache` / `attention_decode`;
+`init_mla_cache` / `mla_decode`, the absorbed form over the compressed
+latent).
 
-Counterpart of the GQA part of `repro.models.attention`.  Shapes follow
-(B, S, H, Dh).  The blockwise forward runs through the flash attention
-kernel (`repro_torch.kernels.flash_attention`); `_blockwise_core` is the
-plain PyTorch form of the reference's jnp online softmax.  The
-reference's sharding annotations (`logical`) have no counterpart here;
-MLA is not ported.
+Counterpart of `repro.models.attention`.  Shapes follow (B, S, H, Dh).
+The blockwise forwards run through the flash attention kernel
+(`repro_torch.kernels.flash_attention`; MLA at q/k head dim nope + rope
+and v head dim v_dim, 192 and 128 for deepseek-v2-lite);
+`_blockwise_core` is the plain PyTorch form of the reference's jnp
+online softmax.  The reference's sharding annotations (`logical`) have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -191,3 +195,155 @@ def attention_decode(p: Attention, x_t: torch.Tensor, cache: dict, pos: int,
     probs = torch.softmax(scores, dim=-1).to(x_t.dtype)
     out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache.to(probs.dtype))
     return out.reshape(b, h * dh) @ p.wo.to(x_t.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-KV latent attention, decoupled RoPE
+# ---------------------------------------------------------------------------
+class MLA(nn.Module):
+    """`wq` (D, H*(nope+rope)), the KV down-projection `w_dkv` (D,
+    kv_lora) with its `kv_norm`, the shared rope key `w_kr` (D, rope),
+    the up-projections `w_uk` (kv_lora, H*nope) and `w_uv` (kv_lora,
+    H*v), and `wo` (H*v, D)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator):
+        super().__init__()
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        self.wq = nn.Parameter(dense_init(generator,
+                                          (d, h * (m.nope_dim + m.rope_dim))))
+        self.w_dkv = nn.Parameter(dense_init(generator, (d, m.kv_lora)))
+        self.w_kr = nn.Parameter(dense_init(generator, (d, m.rope_dim)))
+        self.kv_norm = common.init_norm(m.kv_lora, "rmsnorm")
+        self.w_uk = nn.Parameter(dense_init(generator,
+                                            (m.kv_lora, h * m.nope_dim)))
+        self.w_uv = nn.Parameter(dense_init(generator,
+                                            (m.kv_lora, h * m.v_dim)))
+        self.wo = nn.Parameter(dense_init(generator, (h * m.v_dim, d)))
+
+
+def init_mla(cfg: ArchConfig, generator: torch.Generator) -> MLA:
+    return MLA(cfg, generator)
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    """1 / sqrt(nope + rope) in float32 (a NumPy float64 scalar in the
+    reference, float32 without x64; it promotes bf16 scores)."""
+    m = cfg.mla
+    return float(np.float32(1.0 / np.sqrt(m.nope_dim + m.rope_dim)))
+
+
+def _mla_q(p: MLA, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor):
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = (x @ p.wq.to(x.dtype)).reshape(b, s, cfg.n_heads,
+                                       m.nope_dim + m.rope_dim)
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions,
+                        cfg.rope_theta).transpose(1, 2)
+    return q_nope, q_rope
+
+
+def _mla_kv(p: MLA, x: torch.Tensor, cfg: ArchConfig,
+            positions: torch.Tensor):
+    """(k_nope (B, S, H, nope), v (B, S, H, v), k_rope (B, S, rope)): the
+    latent's up-projections and the shared rope key."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    c = common.rmsnorm(p.kv_norm.scale, x @ p.w_dkv.to(x.dtype))
+    k_nope = (c @ p.w_uk.to(x.dtype)).reshape(b, s, h, m.nope_dim)
+    v = (c @ p.w_uv.to(x.dtype)).reshape(b, s, h, m.v_dim)
+    k_rope = apply_rope(x @ p.w_kr.to(x.dtype), positions, cfg.rope_theta)
+    return k_nope, v, k_rope
+
+
+def mla_fwd(p: MLA, x: torch.Tensor, cfg: ArchConfig, *, mask: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA with per-head keys from the latent.  mask: (S, T)
+    bool.  The nope and rope scores leave their einsums in x's dtype and
+    are summed there, then scaled in float32; softmax in float32, its
+    probabilities back to x's dtype for P.V."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    k_nope, v, k_rope = _mla_kv(p, x, cfg, positions)
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+              + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
+    scores = scores.to(torch.float32) * _mla_scale(cfg)
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(
+        b, s, cfg.n_heads * m.v_dim)
+    return out @ p.wo.to(x.dtype)
+
+
+def mla_fwd_blockwise(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
+                      positions: torch.Tensor,
+                      kv_block: int = 1024) -> torch.Tensor:
+    """Blockwise MLA prefill by expansion to per-head keys: q' = [q_nope,
+    q_rope], k' = [k_nope, k_rope broadcast over heads], both at head dim
+    nope + rope, and v at v_dim, through `flash_attention` (causal; its
+    scale 1 / sqrt(nope + rope) is MLA's).  The reference pads v to
+    k's head dim to reuse its jnp core and slices the padding off; the
+    kernel reduces q/k and v at their own head dims (192 and 128 for
+    deepseek-v2-lite: the tensor-core instantiation), which gives the
+    same numbers, the padded columns being zeros."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    k_nope, v, k_rope = _mla_kv(p, x, cfg, positions)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.rope_dim)],
+                  -1)
+    out = flash_ops.flash_attention(q, k, v, causal=True, block_k=kv_block)
+    return out.reshape(b, s, h * m.v_dim) @ p.wo.to(x.dtype)
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """Zeroed latent cache `c_kv` (B, S, kv_lora) and shared rope key
+    cache `k_rope` (B, S, rope) on `device` (None: the card; raises
+    without one)."""
+    device = resolve_device(device)
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_seq, m.kv_lora), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_seq, m.rope_dim), dtype=dtype,
+                                  device=device)}
+
+
+def mla_decode(p: MLA, x_t: torch.Tensor, cache: dict, pos: int,
+               cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """Absorbed MLA decode: scores and values work in the latent.
+
+    q_abs[b,h,c] = sum_d q_nope[b,h,d] w_uk[c, h*d];
+    score[t] = (q_abs . c_kv[t] + q_rope . k_rope[t]) * scale;
+    out_h = (sum_t p[t] c_kv[t]) @ W_uv_h.  The token's latent and rope
+    key are written into the cache in place at `pos`."""
+    m = cfg.mla
+    b, _ = x_t.shape
+    h = cfg.n_heads
+    x = x_t[:, None, :]
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x_t.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, posv)
+    c_t = common.rmsnorm(p.kv_norm.scale, x @ p.w_dkv.to(x.dtype))[:, 0]
+    kr_t = apply_rope(x @ p.w_kr.to(x.dtype), posv, cfg.rope_theta)[:, 0]
+    c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
+    c_cache[:, pos] = c_t.to(c_cache.dtype)
+    kr_cache[:, pos] = kr_t.to(kr_cache.dtype)
+    w_uk = p.w_uk.to(x_t.dtype).reshape(m.kv_lora, h, m.nope_dim)
+    q_abs = torch.einsum("bhd,chd->bhc", q_nope[:, 0], w_uk)
+    scores = (torch.einsum("bhc,btc->bht", q_abs, c_cache.to(q_abs.dtype))
+              + torch.einsum("bhd,btd->bht", q_rope[:, 0],
+                             kr_cache.to(q_rope.dtype)))
+    scores = scores.to(torch.float32) * _mla_scale(cfg)
+    valid = torch.arange(c_cache.shape[1], device=x_t.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x_t.dtype)
+    out_lat = torch.einsum("bht,btc->bhc", probs, c_cache.to(probs.dtype))
+    w_uv = p.w_uv.to(x_t.dtype).reshape(m.kv_lora, h, m.v_dim)
+    out = torch.einsum("bhc,chd->bhd", out_lat, w_uv).reshape(b, h * m.v_dim)
+    return out @ p.wo.to(x_t.dtype), cache

@@ -20,18 +20,28 @@ NEG_INF = -1e9
 # ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------
+def _draw_device(generator: torch.Generator):
+    """Where a draw from `generator` is made: the generator's own device,
+    or for a CPU generator the default device (so that `LM` built under
+    `torch.device("meta")` allocates nothing)."""
+    return None if generator.device.type == "cpu" else generator.device
+
+
 def dense_init(generator: torch.Generator, shape: tuple[int, ...],
                in_axis: int = 0) -> torch.Tensor:
-    """Truncated normal on [-2, 2] scaled by 1/sqrt(fan_in), float32."""
+    """Truncated normal on [-2, 2] scaled by 1/sqrt(fan_in), float32, on
+    the generator's device."""
     fan_in = shape[in_axis]
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32,
+                    device=_draw_device(generator))
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t * float(1.0 / np.sqrt(fan_in))
+    return t.mul_(float(1.0 / np.sqrt(fan_in)))
 
 
 def embed_init(generator: torch.Generator,
                shape: tuple[int, ...]) -> torch.Tensor:
-    return torch.randn(shape, generator=generator) * 0.02
+    return torch.randn(shape, generator=generator,
+                       device=_draw_device(generator)) * 0.02
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 the port builds, plus the parameter accounting of the roofline terms.
 
 Counterpart of `repro.models.registry`.  `build_model(cfg)` gives the
-dense LM's `init`, `loss`, `init_decode_state` and `decode_step`; the
-other families are not ported and raise, naming the ROADMAP item that
-brings them.
+LM's `init`, `loss`, `init_decode_state` and `decode_step` for the
+dense and MoE families; the other families are not ported and raise,
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -27,8 +27,9 @@ class ModelAPI:
 
 
 def build_model(cfg: ArchConfig, *, remat: bool = False) -> ModelAPI:
-    """The dense LM's API; raises `NotImplementedError` for the families
-    and variants that are not ported (`lm.check_dense`)."""
+    """The LM's API (dense or MoE, GQA or MLA); raises
+    `NotImplementedError` for the families and variants that are not
+    ported (`lm.check_dense`)."""
     lm.check_dense(cfg)
     return ModelAPI(
         cfg,
@@ -45,11 +46,23 @@ def build_model(cfg: ArchConfig, *, remat: bool = False) -> ModelAPI:
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Exact count from the parameters' shapes: the `LM` is built on the
     `meta` device, so nothing is allocated or drawn.  `active_only`
-    counts MoE experts at top_k in the reference; the dense family the
-    port builds has none, so both counts agree."""
+    counts the routed experts' `wi` / `wg` / `wo` at top_k of E (the
+    shared experts and the dense residual FFN in full), the reference's
+    6 N_active D convention: its rule picks the expert leaves by their
+    stacked rank, >= 3."""
     with torch.device("meta"):
         model = lm.LM(cfg, torch.Generator(), device="meta")
-    return sum(p.numel() for p in model.parameters())
+    total = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        parts = name.split(".")
+        if (active_only and cfg.moe is not None and "ffn" in parts
+                and parts[-1] in ("wi", "wg", "wo")
+                and "shared" not in parts and "dense" not in parts
+                and lm.stacked_ndim(name, p) >= 3):
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        total += n
+    return total
 
 
 def embedding_params(cfg: ArchConfig) -> int:

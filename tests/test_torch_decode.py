@@ -44,7 +44,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build_model
 from repro_torch.serve import engine as tengine
-import torch_port_helpers  # noqa: F401  (one torch thread per test worker)
+from torch_port_helpers import JaxGumbel  # (one torch thread per worker)
 
 NAME = "qwen2_5_3b"
 BATCH, STEPS, MAX_SEQ = 2, 12, 16
@@ -189,20 +189,6 @@ def _requests(module, cfg):
     return out
 
 
-class JaxGumbel:
-    """The reference engine's noise: per sampled token `key, sub =
-    split(key)`, then `jax.random.gumbel(sub, (V,))`, which
-    `jax.random.categorical(sub, z)` adds to z before its argmax."""
-
-    def __init__(self, seed: int):
-        self.key = jax.random.key(seed)
-
-    def __call__(self, n: int) -> torch.Tensor:
-        self.key, sub = jax.random.split(self.key)
-        return torch.tensor(np.asarray(jax.random.gumbel(sub, (n,),
-                                                         jnp.float32)))
-
-
 @pytest.fixture(scope="module")
 def reference_completions(models):
     rcfg, _, rp, _ = models
@@ -251,8 +237,7 @@ def test_sample_is_gumbel_argmax():
 
 def test_build_model_raises_for_families_not_ported():
     for name in ("whisper_large_v3", "paligemma_3b", "zamba2_2_7b",
-                 "xlstm_125m", "deepseek_v2_lite_16b", "arctic_480b",
-                 "granite_34b"):
+                 "xlstm_125m", "granite_34b"):
         cfg = convert.arch_config_from_dict(
             dataclasses.asdict(rregistry.reduced(name)))
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -931,3 +931,139 @@ def test_trainer_restart_is_bitwise_on_cuda(dev, tmp_path):
     r2 = train(cfg, tcfg(tmp_path / "int"), device=dev)
     assert r1.steps_run == 3 and r2.steps_run == 3
     assert r1.losses + r2.losses == ref.losses
+
+
+# ---------------------------------------------------------------------------
+# MLA's (192, 128) tensor-core instantiation and the MoE family
+# ---------------------------------------------------------------------------
+def _mla_cfg():
+    """The reduced deepseek-v2-lite with the full config's MLA head dims
+    (q/k 192, v 128; kv_lora 32): its blockwise prefill runs the (192,
+    128) instantiation."""
+    cfg = registry.reduced("deepseek_v2_lite_16b")
+    return dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, rope_dim=64, nope_dim=128, v_dim=128))
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,prefix_len", [
+    (1, 1024, 16, 16, True, 0),      # deepseek's heads, one KV head each
+    (2, 129, 4, 4, True, 0),         # one row past a tile
+    (2, 777, 4, 2, False, 0),        # GQA, no mask
+    (1, 777, 4, 4, True, 200)], ids=str)   # a prefix inside the sequence
+def test_flash_attention_192_128_matches_tc_plain(b, s, h, kv, causal,
+                                                  prefix_len, dev):
+    """The (192, 128) instantiation against `flash_attention_tc_ref` as
+    `_assert_tc_close` holds it, with its launch counts; rel L2 against
+    the float32-P `flash_attention_ref` at most 1e-2, as at Dh 128."""
+    g = torch.Generator(device=dev).manual_seed(s + prefix_len)
+    q = torch.randn((b, s, h, 192), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, s, kv, 192), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, s, kv, 128), generator=g, device=dev).bfloat16()
+    n0 = dict(LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal,
+                                 prefix_len=prefix_len)
+    for key in ("flash_attention", "flash_attention_wgmma",
+                "flash_attention_wgmma_192_128"):
+        assert LAUNCHES[key] == n0.get(key, 0) + 1, key
+    assert tuple(got.shape) == (b, s, h, 128)
+    _assert_tc_close(got, q, k, v, causal=causal, prefix_len=prefix_len)
+    f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      prefix_len=prefix_len).float()
+    assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
+
+
+def test_flash_attention_192_128_reads_mla_layouts(dev):
+    """q and k as `mla_fwd_blockwise` builds them (concatenated nope and
+    rope parts, the rope key broadcast over heads), and q read through
+    strides (a 192-wide view of 256-wide rows): the same bits as on
+    contiguous copies."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_norm
+
+    cfg = dataclasses.replace(_mla_cfg(), n_heads=16, d_model=256)
+    model = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    blk = model.blocks[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    with torch.inference_mode():
+        x = torch.randn((1, 500, 256), generator=g, device=dev).bfloat16()
+        h_ = apply_norm(blk.ln1, x, cfg.norm)
+        pos = torch.arange(500, device=dev)
+        q_nope, q_rope = attn._mla_q(blk.attn, h_, cfg, pos)
+        k_nope, v, k_rope = attn._mla_kv(blk.attn, h_, cfg, pos)
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(-1, -1, 16, -1)], -1)
+        got = fa_kernel.flash_attention_wgmma(q, k, v)
+        _assert_tc_close(got, q, k, v, causal=True, prefix_len=0)
+        wide = torch.randn((1, 500, 16, 256), generator=g,
+                           device=dev).bfloat16()
+        qs = wide[..., :192]
+        assert fa_kernel.kernel_layout_ok(qs) and not qs.is_contiguous()
+        assert torch.equal(fa_kernel.flash_attention_wgmma(qs, k, v),
+                           fa_kernel.flash_attention_wgmma(qs.contiguous(),
+                                                           k, v))
+
+
+def test_flash_attention_192_128_refuses_what_it_does_not_take(dev):
+    """Another dim pair, float32 and a zero stride raise on the card;
+    nothing falls back to a plain version (ops copies a zero-stride input
+    before the wrapper sees it)."""
+    bf16 = torch.bfloat16
+    q = torch.zeros((1, 64, 2, 192), device=dev, dtype=bf16)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention_wgmma(q, q, q)                 # (192, 192)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_wgmma(q.float(), q.float(),
+                                        q[..., :128].float())
+    with pytest.raises(ValueError, match="head dims"):
+        fa_ops.flash_attention(q.float(), q.float(), q[..., :128].float())
+    k = torch.zeros((1, 64, 1, 192), device=dev, dtype=bf16).expand(
+        1, 64, 2, 192)
+    v = torch.zeros((1, 64, 2, 128), device=dev, dtype=bf16)
+    with pytest.raises(ValueError, match="stride"):
+        fa_kernel.flash_attention_wgmma(q, k, v)
+    assert torch.equal(fa_ops.flash_attention(q, k, v),
+                       fa_ops.flash_attention(q, k.contiguous(), v))
+
+
+def test_moe_prefill_on_cuda_matches_cpu(dev):
+    """A 2-layer deepseek-v2-lite (reduced, MLA at 192 / 128) prefill on
+    the card: one (192, 128) launch a layer; logits against the CPU run
+    of the same weights.  A bf16 rounding may flip a near-tie router
+    choice, so positions are held in bulk: the median within rel L2 2e-2
+    and >= 85 % within 5e-2 (tests/test_torch_moe_lm.py's bounds)."""
+    cfg = _mla_cfg()
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 256),
+                         generator=torch.Generator().manual_seed(0))
+    shape = ShapeSpec("t", "prefill", 256, 2)
+    n0 = LAUNCHES["flash_attention_wgmma_192_128"]
+    got = make_prefill_step(cfg, shape).fn(card, {"inputs": toks})
+    assert LAUNCHES["flash_attention_wgmma_192_128"] == n0 + cfg.n_layers
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, {"inputs": toks})
+    got, want = got.float().cpu(), want.float()
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.median()) <= 2e-2
+    assert float((rel <= 5e-2).float().mean()) >= 0.85
+
+
+def test_moe_a2a_on_card_positions_matches_dropfree(dev):
+    """`moe_fwd_a2a` on 1, 2 and 4 positions of the card against
+    `moe_fwd_dense_eval` at a capacity that drops nothing (the reference
+    test's atol = rtol = 2e-3, float32), the same bits on every count."""
+    from repro_torch.models import mlp
+    from repro_torch.parallel.moe_a2a import moe_fwd_a2a
+
+    cfg = registry.reduced("arctic_480b")
+    ffn = mlp.init_moe(cfg.d_model, cfg, torch.Generator().manual_seed(0))
+    ffn = ffn.to(dev).requires_grad_(False)
+    x = 0.5 * torch.randn((4, 16, cfg.d_model), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    want = mlp.moe_fwd_dense_eval(ffn, x, cfg)
+    got = {n: moe_fwd_a2a(ffn, x, cfg, (dev,) * n, capacity=512)
+           for n in (1, 2, 4)}
+    for y in got.values():
+        torch.testing.assert_close(y, want, atol=2e-3, rtol=2e-3)
+        assert torch.equal(y, got[1])

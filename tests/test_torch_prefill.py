@@ -106,8 +106,9 @@ def test_lm_hidden_matches_jax(models, attn_impl):
     toks = _tokens(rcfg)
     want, _ = rlm.lm_hidden(rp, jnp.asarray(toks), rcfg, attn_impl=attn_impl)
     with torch.no_grad():
-        got = tlm.lm_hidden(model, torch.from_numpy(toks), tcfg,
-                            attn_impl=attn_impl)
+        got, aux = tlm.lm_hidden(model, torch.from_numpy(toks), tcfg,
+                                 attn_impl=attn_impl)
+    assert float(aux) == 0.0                 # the dense family has no router
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert _rel_l2(got.float().numpy(),
                    np.asarray(want.astype(jnp.float32))) <= 3e-2

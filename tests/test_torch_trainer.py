@@ -175,7 +175,7 @@ def test_build_model_loss_matches_lm_loss():
     assert torch.equal(loss.detach(), want.detach())
     assert float(met["aux_loss"]) == 0.0
     with pytest.raises(NotImplementedError):
-        tmodels.build_model(dataclasses.replace(cfg, family="moe"))
+        tmodels.build_model(dataclasses.replace(cfg, family="ssm"))
 
 
 def test_serve_step_is_decode_step():

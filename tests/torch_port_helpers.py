@@ -91,3 +91,18 @@ class JaxDraws:
         return tnsga2.stack_generations(
             [self.generation(n, p, statics) for _ in range(n_gens)],
             len(self.kgen), n, p, "cpu")
+
+
+class JaxGumbel:
+    """The reference engine's noise: per sampled token `key, sub =
+    split(key)`, then `jax.random.gumbel(sub, (V,))`, which
+    `jax.random.categorical(sub, z)` adds to z before its argmax; a
+    `noise` source for the port's `ServeEngine`."""
+
+    def __init__(self, seed: int):
+        self.key = jax.random.key(seed)
+
+    def __call__(self, n: int) -> torch.Tensor:
+        self.key, sub = jax.random.split(self.key)
+        return torch.tensor(np.asarray(jax.random.gumbel(sub, (n,),
+                                                         jax.numpy.float32)))

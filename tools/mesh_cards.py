@@ -13,7 +13,12 @@ island ring across cards, on a machine with two or more CUDA devices:
    must be equal everywhere; each mesh is timed, three rounds in turns,
    and the median printed beside the device count;
 3. `DesignRequest(16384, islands=4)` through `DesignSession(mesh=True)`
-   (every card) against `mesh=("cuda:0",)`: rows equal, explore seconds.
+   (every card) against `mesh=("cuda:0",)`: rows equal, explore seconds;
+4. `moe_fwd_a2a` at one full-width deepseek-v2-lite-16b MoE layer (bf16,
+   drawn on card 0, 1 x 2048 tokens, a capacity that drops nothing) on
+   1, 2 and 4 positions of card 0 and on 2 and 4 cards (experts copied
+   to their card): every result equal to one position's, bit for bit,
+   and within rel L2 1e-2 of `moe_fwd_dense_eval`; each timed.
 
 It exits 1 on a mismatch and prints each card's name and power limit.
 """
@@ -38,6 +43,40 @@ ROUNDS = 3
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def moe_a2a_across_cards(n: int) -> None:
+    from repro_torch.configs import registry
+    from repro_torch.models import mlp
+    from repro_torch.parallel.moe_a2a import moe_fwd_a2a
+
+    cfg = registry.get("deepseek-v2-lite-16b")
+    g = torch.Generator(device="cuda:0").manual_seed(0)
+    ffn = mlp.init_moe(cfg.d_model, cfg, g).to(torch.bfloat16)
+    ffn.requires_grad_(False)
+    x = torch.randn((1, 2048, cfg.d_model), generator=g,
+                    device="cuda:0").bfloat16()
+    want = mlp.moe_fwd_dense_eval(ffn, x, cfg)
+    meshes = {f"{k} on cuda:0": ("cuda:0",) * k for k in (1, 2, 4)}
+    meshes.update({f"{k} cards": tuple(f"cuda:{i}" for i in range(k))
+                   for k in (2, 4) if k <= n})
+    first = None
+    for name, mesh in meshes.items():
+        y = moe_fwd_a2a(ffn, x, cfg, mesh, capacity=2048)
+        torch.cuda.synchronize(0)
+        t0 = time.perf_counter()
+        y = moe_fwd_a2a(ffn, x, cfg, mesh, capacity=2048)
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+        ms = (time.perf_counter() - t0) * 1e3
+        rel = float((y.float() - want.float()).norm() / want.float().norm())
+        first = y if first is None else first
+        if not torch.equal(y, first) or rel > 1e-2:
+            fail(f"moe a2a on {name}: equal to one position's "
+                 f"{torch.equal(y, first)}, rel L2 {rel:.3e}")
+        print(f"moe a2a ({cfg.name} layer, 1 x 2048) on {name}: {ms:.2f} ms; "
+              f"rel L2 vs dense eval {rel:.3e}; equal to one position's",
+              flush=True)
 
 
 def main() -> int:
@@ -98,6 +137,7 @@ def main() -> int:
           f" s on cuda:0, {every.provenance.explore_s:.3f} s on {n} cards "
           f"({every.provenance.mesh_devices} positions); rows equal",
           flush=True)
+    moe_a2a_across_cards(n)
     print("mesh_cards: ok")
     return 0
 
