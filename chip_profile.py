@@ -56,7 +56,18 @@ and prints:
    pop 256, 80 generations, 20-generation rounds, on every local card)
    beside the single-island explore of the same cell, each once under
    the profiler after a warm-up: wall, device time of `nsga2_evolve` and
-   `nds_rank`, device events and the busy share.
+   `nds_rank`, device events and the busy share;
+10. the full-width paligemma-3b prefill (18 layers, bf16 weights drawn
+   on the card from seed 0, 1 x (256 patches + 32768 tokens)), after one
+   warm-up: one prefill under the profiler, its device time split into
+   the (256, 256) flash attention instantiation, the GEMMs and the rest;
+   then by stage (the attention layer with its kernel, the GeGLU MLP, the
+   tied head: CUDA events around those model functions).
+
+    python3 chip_profile.py vlm moe      # only the sections named
+
+Arguments name sections to run (request, train, prefill, decode,
+lm_train, moe, islands, vlm); none runs them all.
 
 It checks nothing: `chip_smoke.py` holds the results against the
 golden rows and the trainer's losses.  It imports nothing of JAX.
@@ -72,6 +83,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARRAY_SIZE = 16384
+SECTIONS = ("request", "train", "prefill", "decode", "lm_train", "moe",
+            "islands", "vlm")
 STAGE_PREFIX = "layout."
 
 
@@ -238,6 +251,60 @@ MOE_RANGES = {"mla": ("attention", "mla_fwd_blockwise"),
               "moe.always_on": ("mlp", "add_always_on")}
 
 
+def _stage_device_s(fn, ranges: dict, modules: dict) -> dict:
+    """Run `fn()` once with each model function of `ranges` ({stage:
+    (module key, function name)}) bracketed by CUDA events on the stream:
+    {stage: device seconds from its first kernel's start to its last's
+    end, summed over its calls}."""
+    import torch
+
+    saved, marks = {}, {name: [] for name in ranges}
+
+    def bracketed(name, f):
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*a, **kw)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return wrapped
+
+    for name, (m, f) in ranges.items():
+        saved[name] = getattr(modules[m], f)
+        setattr(modules[m], f, bracketed(name, saved[name]))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, (m, f) in ranges.items():
+            setattr(modules[m], f, saved[name])
+    return {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+            for name, pairs in marks.items()}
+
+
+def _profiled_prefill(step, params, batch) -> tuple[float, float, object]:
+    """(unprofiled wall s, profiled wall s, the profiler) of one prefill
+    after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step.fn(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.fn(params, batch)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.fn(params, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    return wall_s, prof_s, prof
+
+
 def profile_moe_prefill(seq: int = 32768, batch: int = 1) -> dict:
     """One full-width deepseek-v2-lite-16b prefill (27 layers, bf16
     weights drawn on the card from seed 0) under the profiler, after a
@@ -248,7 +315,6 @@ def profile_moe_prefill(seq: int = 32768, batch: int = 1) -> dict:
     last's end, summed over the layers; `mla` includes the flash
     kernel)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import registry
     from repro_torch.data.synthetic import batch_for
@@ -262,43 +328,9 @@ def profile_moe_prefill(seq: int = 32768, batch: int = 1) -> dict:
     shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
     step = make_prefill_step(cfg, shape)
     tokens = batch_for(cfg, seq, batch, 0)
-    step.fn(params, tokens)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step.fn(params, tokens)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step.fn(params, tokens)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    modules = {"attention": attention, "mlp": mlp}
-    saved, marks = {}, {name: [] for name in MOE_RANGES}
-
-    def bracketed(name, fn):
-        def wrapped(*a, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **kw)
-            end.record()
-            marks[name].append((start, end))
-            return out
-        return wrapped
-
-    for name, (m, fn) in MOE_RANGES.items():
-        saved[name] = getattr(modules[m], fn)
-        setattr(modules[m], fn, bracketed(name, saved[name]))
-    try:
-        step.fn(params, tokens)
-        torch.cuda.synchronize()
-    finally:
-        for name, (m, fn) in MOE_RANGES.items():
-            setattr(modules[m], fn, saved[name])
-    stages = {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
-              for name, pairs in marks.items()}
+    wall_s, prof_s, prof = _profiled_prefill(step, params, tokens)
+    stages = _stage_device_s(lambda: step.fn(params, tokens), MOE_RANGES,
+                             {"attention": attention, "mlp": mlp})
     kernels = _device_kernels(prof)
     flash = sum(r[2] for r in kernels if "flash_attention" in r[0]) / 1e6
     gemm = sum(r[2] for r in kernels if any(
@@ -310,6 +342,52 @@ def profile_moe_prefill(seq: int = 32768, batch: int = 1) -> dict:
             "device_s": device_s, "flash_attention_s": flash,
             "gemm_s": gemm, "rest_s": device_s - flash - gemm,
             "stages_device_s": stages, "busy_share": device_s / prof_s,
+            "device_events": sum(r[1] for r in kernels),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:15]]}
+
+
+VLM_RANGES = {"attention": ("attention", "attention_fwd_blockwise"),
+              "mlp": ("mlp", "mlp_fwd"),
+              "head": ("lm", "lm_logits")}
+
+
+def profile_vlm_prefill(seq: int = 32768, batch: int = 1) -> dict:
+    """One full-width paligemma-3b prefill (18 layers, bf16 weights drawn
+    on the card from seed 0, 256 patches before `seq` tokens) under the
+    profiler, after a warm-up: its device time by kernel class (the (256,
+    256) flash attention instantiation, the GEMMs, the rest); then one
+    more prefill with each model function of `VLM_RANGES` bracketed by
+    CUDA events (`attention` includes the flash kernel and the
+    projections)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, lm, mlp
+
+    cfg = registry.get("paligemma-3b")
+    params = lm.init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
+    step = make_prefill_step(cfg, shape)
+    data = batch_for(cfg, seq, batch, 0)
+    wall_s, prof_s, prof = _profiled_prefill(step, params, data)
+    stages = _stage_device_s(lambda: step.fn(params, data), VLM_RANGES,
+                             {"attention": attention, "mlp": mlp, "lm": lm})
+    kernels = _device_kernels(prof)
+    flash = sum(r[2] for r in kernels if "flash_attention" in r[0]) / 1e6
+    gemm = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e6
+    device_s = sum(r[2] for r in kernels) / 1e6
+    del params
+    torch.cuda.empty_cache()
+    return {"positions": batch * (seq + cfg.vlm.n_patches),
+            "wall_s": wall_s, "profiled_s": prof_s, "device_s": device_s,
+            "flash_attention_s": flash, "gemm_s": gemm,
+            "rest_s": device_s - flash - gemm, "stages_device_s": stages,
+            "busy_share": device_s / prof_s,
             "device_events": sum(r[1] for r in kernels),
             "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
                     for k, c, us in kernels[:15]]}
@@ -462,13 +540,42 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.api import DesignRequest, DesignSession
+    want = set(sys.argv[1:]) or set(SECTIONS)
+    unknown = want - set(SECTIONS)
+    if unknown:
+        print(f"FAIL: unknown sections {sorted(unknown)}; known: "
+              f"{SECTIONS}", file=sys.stderr)
+        return 1
+    out = {}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(f"gpu: {card}", flush=True)
+    if "request" in want:
+        out["profile"] = _print_request()
+    if "train" in want:
+        out["train"] = _print_train()
+    if want & {"prefill", "decode"}:
+        out.update(_print_prefill_decode(want))
+    if "lm_train" in want:
+        out["lm_train"] = _print_lm_train()
+    if "moe" in want:
+        out["moe_prefill"] = _print_moe()
+    if "islands" in want:
+        out["islands"] = _print_islands()
+    if "vlm" in want:
+        out["vlm_prefill"] = _print_vlm()
+    print(json.dumps({"card": card, **out}))
+    return 0
+
+
+def _print_request() -> dict:
+    import torch
+
+    from repro_torch.api import DesignRequest, DesignSession
+
     request = DesignRequest(array_size=ARRAY_SIZE)
     t0 = time.perf_counter()
     DesignSession().run(request)
@@ -491,6 +598,10 @@ def main() -> int:
           f"{prof['busy_share']:.3f}", flush=True)
     for row in prof["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    return prof
+
+
+def _print_train() -> dict:
     train = profile_train()
     by_route = train["acim_matmul_ms_per_step_by_route"]
     print(f"trainer (d 768, 12 layers, {train['spec']}): {train['step_ms']:.2f}"
@@ -503,10 +614,27 @@ def main() -> int:
           f"{train['launches_per_step']:.0f} device events/step", flush=True)
     for row in train["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    return train
+
+
+def _print_prefill_decode(want) -> dict:
+    import torch
+
     from repro_torch.configs import registry
     from repro_torch.models.lm import init_lm
 
+    out = {}
     params = init_lm(registry.get("qwen2.5-3b"), seed=0, dtype=torch.bfloat16)
+    if "prefill" in want:
+        out["prefill"] = _print_prefill(params)
+    if "decode" in want:
+        out["decode"] = _print_decode(params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _print_prefill(params) -> dict:
     pre = profile_prefill(params)
     print(f"prefill (qwen2.5-3b, 36 layers, 1 x 32768): {pre['wall_s']:.3f} "
           f"s unprofiled, {pre['profiled_s']:.3f} s profiled; device "
@@ -518,6 +646,10 @@ def main() -> int:
           flush=True)
     for row in pre["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    return pre
+
+
+def _print_decode(params) -> dict:
     dec = profile_decode(params)
     print(f"decode (qwen2.5-3b, batch {dec['batch']}): "
           f"{dec['step_ms']:.3f} ms/step unprofiled, "
@@ -529,8 +661,10 @@ def main() -> int:
           f" busy share {dec['busy_share']:.3f}", flush=True)
     for row in dec["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
-    del params
-    torch.cuda.empty_cache()
+    return dec
+
+
+def _print_lm_train() -> dict:
     tr = profile_lm_train()
     print(f"train step (qwen2.5-3b full width, float32 masters, remat, "
           f"AdamW, {tr['tokens']} tokens): {tr['step_ms']:.2f} ms/step "
@@ -545,6 +679,10 @@ def main() -> int:
     for row in tr["top_aten"]:
         print(f"  aten {row['calls_per_step']:8.0f}/step  "
               f"{row['self_cpu_ms_per_step']:9.3f} ms  {row['name']}")
+    return tr
+
+
+def _print_moe() -> dict:
     moe = profile_moe_prefill()
     print(f"prefill (deepseek-v2-lite-16b, 27 layers, 1 x 32768): "
           f"{moe['wall_s']:.3f} s unprofiled, {moe['profiled_s']:.3f} s "
@@ -560,6 +698,10 @@ def main() -> int:
               f"({sec / moe['device_s']:.3f})")
     for row in moe["top"]:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    return moe
+
+
+def _print_islands() -> dict:
     isl = profile_islands()
     for name, r in isl.items():
         print(f"explore {name} (16384, pop 256 x 80): wall "
@@ -567,10 +709,28 @@ def main() -> int:
               f"(nsga2_evolve {r['nsga2_evolve_ms']:.3f}, nds_rank "
               f"{r['nds_rank_ms']:.3f}) over {r['device_events']} events; "
               f"busy share {r['busy_share']:.3f}", flush=True)
-    print(json.dumps({"card": card, "profile": prof, "train": train,
-                      "prefill": pre, "decode": dec, "lm_train": tr,
-                      "moe_prefill": moe, "islands": isl}))
-    return 0
+    return isl
+
+
+def _print_vlm() -> dict:
+    vlm = profile_vlm_prefill()
+    print(f"prefill (paligemma-3b, 18 layers, 1 x (256 patches + 32768 "
+          f"tokens)): {vlm['wall_s']:.3f} s unprofiled, "
+          f"{vlm['profiled_s']:.3f} s profiled; device {vlm['device_s']:.3f}"
+          f" s over {vlm['device_events']} events: flash_attention (256, "
+          f"256) {vlm['flash_attention_s']:.3f} s "
+          f"({vlm['flash_attention_s'] / vlm['device_s']:.3f}), GEMMs "
+          f"{vlm['gemm_s']:.3f} s ({vlm['gemm_s'] / vlm['device_s']:.3f}), "
+          f"rest {vlm['rest_s']:.3f} s; busy share {vlm['busy_share']:.3f}",
+          flush=True)
+    for name, sec in vlm["stages_device_s"].items():
+        print(f"  stage {name:10s} device {sec:.4f} s "
+              f"({sec / vlm['device_s']:.3f})")
+    for row in vlm["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    return vlm
+
+
 
 
 if __name__ == "__main__":

@@ -244,7 +244,36 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              argmax.  (f) arctic's one layer (13.6 G parameters drawn on
              the card): a 1 x 4096 prefill (one Dh-128 tensor-core
              launch) and 8 decode steps, finite logits.
-12. report — one JSON line of per-kernel numbers (the `wavefront` row's
+12. vlm    — the VLM prefix family (every earlier phase's weights freed
+             first): paligemma-3b at full width and depth (18 layers, d
+             2048, 8 heads over 1 KV head at head dim 256, vocab 257,216,
+             2.51 G bf16 parameters drawn from seed 0 on the card; the
+             SigLIP tower a stub, 256 patch embeddings a sequence).  (a)
+             `flash_attention_wgmma` at head dims (256, 256) (64-key
+             tiles) held to `flash_attention_tc_ref` by `_tc_check` with
+             its dumped P at (1, 4001) and (1, 129) causal with the
+             256-patch prefix (at 129 the prefix covers every row) and
+             (2, 777) full, 8 heads over 1 KV head, on q / k / v as layer
+             0 builds them (q and k through RoPE's strides) and on a q
+             read through strides; at (1, 33024, 8, 1) with the prefix
+             against the plain version's own P, then timed in turns with
+             itself at prefix 0 and SDPA (causal, no prefix, KV repeated
+             to 8 heads): ms, TFLOP/s, the share of its bound and the
+             ratio to SDPA.  (b) `make_prefill_step` at prefill_32k cut
+             to batch 1 (256 patches + 32768 tokens; a warm-up and a
+             timed prefill), then 4 x (256 + 4096): finite logits at
+             every position, patches included, exactly 18 launches of
+             the (256, 256) instantiation each and no CUDA-core launch.
+             (c) `ServeEngine` on the same weights, phase 9's six
+             requests.  (d) teacher-forced `decode_step` (no prefix, as
+             in the reference) against a prefill of the same 64 tokens
+             without patches: phase 9's bounds.  (e) 2 layers at full
+             width, 512 tokens after 256 patches, weights drawn on the
+             CPU, card against CPU: last-position logits (rel L2 5e-2),
+             argmax.  (f) the reduced config (head dim 16, 16 patches)
+             at 2 x 300 on the card: one CUDA-core launch a layer, logits
+             within rel L2 5e-2 of the CPU run.
+13. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time), the nvidia-smi line,
@@ -400,6 +429,21 @@ MOE_NEAR_TIE = 3e-3        # router gap (k-th minus (k+1)-th probability)
 ARCTIC_CONFIG, ARCTIC_SEQ, ARCTIC_DECODE = "arctic-480b", 4096, 8
 A2A_POSITIONS, A2A_TOKENS = (1, 2, 4), 2048
 A2A_REL_L2 = 1e-2          # moe_fwd_a2a vs moe_fwd_dense_eval, bf16
+
+# Phase 12: the VLM prefix family.  paligemma-3b at full width and depth
+# (18 layers, 2.51 G bf16 parameters drawn on the card from seed 0; the
+# SigLIP tower is a stub, as in the reference: 256 patch embeddings a
+# sequence), its prefill attention on the (256, 256) tensor-core
+# instantiation with the patches as a bidirectional prefix.
+VLM_CONFIG = "paligemma-3b"
+VLM_INST = "flash_attention_wgmma_256_256"   # its launch count
+VLM_DIMS = (256, 256)
+VLM_CASES = ((1, 4001, 256, True), (1, 129, 256, True),
+             (2, 777, 0, False))             # (B, S, prefix_len, causal)
+VLM_SMALL_PREFILL = (4, 4096)                # text tokens; + 256 patches
+VLM_CPU_LAYERS, VLM_CPU_SEQ = 2, 512   # (e) card vs CPU, CPU-drawn weights
+VLM_CPU_RTOL = 5e-2        # rel L2 of the last position's logits
+VLM_SMALL_SEQ = 300        # (f) the reduced config's prefill (CUDA cores)
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -1089,9 +1133,11 @@ def _ulps(got, want):
 def _tc_check(got, q, k, v, causal: bool, prefix_len: int,
               dump: bool) -> dict:
     """The tensor-core route against `flash_attention_tc_ref`.  Both round
-    P to bf16 but reach p in float32 by different summation orders and
-    exp2s, so a p within float32 ulps of a bf16 rounding midpoint may round
-    up on one and down on the other; one such flip moves its output row by
+    P to bf16 but reach p in float32 by different summation orders (the
+    plain version sums the scores as `wgmma` does, `ref.tc_scores`, which
+    leaves few such differences) and exp2s, so a p within float32 ulps of
+    a bf16 rounding midpoint may round up on one and down on the other;
+    one such flip moves its output row by
     up to ulp(p) |v - o| / l, many ulps of the row's small elements in a
     row with few visible keys.  With `dump`, the kernel's own P (from its
     P-dumping instantiation, whose output must equal `got`) must differ
@@ -1610,9 +1656,9 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     """One prefill with the launch counts zeroed just before it and read
     just after: (seconds, flash_attention launches of either route, the
     logits if `keep` else None); the logits must be finite and of the
-    batch's shape, and every layer must launch the route `tensor_cores`
-    names, and, where `inst` names a tensor-core instantiation's count,
-    that instantiation."""
+    batch's shape (the VLM's cover its patches too), and every layer must
+    launch the route `tensor_cores` names, and, where `inst` names a
+    tensor-core instantiation's count, that instantiation."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -1625,9 +1671,13 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     dt = time.perf_counter() - t0
     n, n_tc = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_wgmma"]
     b, s = batch["inputs"].shape
+    if "patches" in batch:
+        s += batch["patches"].shape[1]
     check(tuple(logits.shape) == (b, s, cfg.vocab),
           f"prefill {what}: logits {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()),
+    # a sequence's logits are up to 17 GB: checked in slices, so the
+    # check's temporaries stay small beside the prefill's peak
+    check(all(bool(torch.isfinite(x).all()) for x in logits.split(2048, 1)),
           f"prefill {what}: non-finite logits")
     check(n == cfg.n_layers and n_tc == (n if tensor_cores else 0),
           f"prefill {what}: flash_attention launched {n} times, "
@@ -2441,7 +2491,6 @@ def decode_phase(card: str, params) -> dict:
     from repro_torch.configs import registry
     from repro_torch.launch.shapes import ShapeSpec
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models.lm import decode_step, init_decode_state
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -2454,8 +2503,25 @@ def decode_phase(card: str, params) -> dict:
     s = DECODE_CHECK_SEQ
     toks = torch.tensor(rng.integers(0, cfg.vocab, (1, s)), device=dev)
     step = make_prefill_step(cfg, ShapeSpec("decode_check", "prefill", s, 1))
-    want, launches = _counted(lambda: step.fn(params, {"inputs": toks}))
-    check(launches.get("flash_attention_wgmma", 0) == cfg.n_layers,
+    _teacher_forced(card, cfg, params, toks,
+                    lambda: step.fn(params, {"inputs": toks}),
+                    "flash_attention_wgmma")
+    print(f"decode phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return served
+
+
+def _teacher_forced(card: str, cfg, params, toks, prefill, inst: str) -> None:
+    """`decode_step` under teacher forcing on the one sequence `toks` (1,
+    S) against `prefill()`'s logits (1, S, V), which must launch `inst`
+    once a layer: rel L2 <= DECODE_RTOL at every position, top-1 equal at
+    >= DECODE_TOP1 of them."""
+    import torch
+
+    from repro_torch.models.lm import decode_step, init_decode_state
+
+    s = toks.shape[1]
+    want, launches = _counted(prefill)
+    check(launches.get(inst, 0) == cfg.n_layers,
           f"decode check prefill launches {launches}")
     want = want[0].float()
     state = init_decode_state(cfg, 1, s)
@@ -2472,15 +2538,13 @@ def decode_phase(card: str, params) -> dict:
           f"decode vs prefill: rel L2 by position {rels}")
     check(agree >= DECODE_TOP1 * s,
           f"decode vs prefill: top-1 agrees at {agree} of {s} positions")
-    print(f"decode check ({card}): decode_step under teacher forcing vs "
-          f"the prefill (flash_attention_wgmma, {cfg.n_layers} launches) on "
+    print(f"decode check ({card}): {cfg.name}, decode_step under teacher "
+          f"forcing vs the prefill ({inst}, {cfg.n_layers} launches) on "
           f"{s} tokens, bf16 both: rel L2 max {max(rels):.3e}, median "
           f"{sorted(rels)[s // 2]:.3e} (tolerance {DECODE_RTOL}); top-1 "
           f"equal at {agree} of {s} positions (tolerance "
           f"{DECODE_TOP1}); batch-1 decode {tf_s / s * 1e3:.3f} ms a step",
           flush=True)
-    print(f"decode phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
-    return served
 
 
 # ----------------------------------------------------------------------
@@ -2840,6 +2904,30 @@ def _same_routes(a, b):
     return (sa == sb).all(-1).all(0)
 
 
+def _held_tc(inst: str, what: str, q, k, v, causal: bool,
+             prefix_len: int) -> float:
+    """A tensor-core instantiation through `ops.flash_attention` held to
+    its plain version by `_tc_check` with its dumped P, and within
+    TC_F32P_REL_L2 of the float32-P blockwise version; returns the max
+    error."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    got = fa.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    check(tuple(got.shape) == q.shape[:3] + v.shape[3:],
+          f"{what}: shape {tuple(got.shape)}")
+    r = _tc_check(got, q, k, v, causal, prefix_len, dump=True)
+    rel = _rel_l2(got, fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                                  prefix_len=prefix_len))
+    pairs = q.shape[0] * q.shape[2] * _visible_pairs(
+        q.shape[1], k.shape[1], causal, prefix_len)
+    text = (f"{inst} {what}: {_tc_text(r, pairs)}; rel L2 {rel:.3e} vs "
+            f"float32-P blockwise")
+    check(r["ok"] and rel <= TC_F32P_REL_L2, text)
+    print(f"kernel {text} (within tolerance)", flush=True)
+    return r["err"]
+
+
 def mla_flash_check(dev, mla, cfg) -> dict:
     """(a) The (192, 128) instantiation against its plain version:
     `_tc_check` with the kernel's dumped P on MLA_CASES, q/k/v as
@@ -2851,7 +2939,6 @@ def mla_flash_check(dev, mla, cfg) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import attention as attn
     from repro_torch.models.common import apply_norm
@@ -2864,19 +2951,7 @@ def mla_flash_check(dev, mla, cfg) -> dict:
                 for d in (dh, dh, dv)]
 
     def held(what, q, k, v, causal):
-        got = fa.flash_attention(q, k, v, causal=causal)
-        check(tuple(got.shape) == q.shape[:3] + (dv,), f"{what}: shape "
-                                                       f"{tuple(got.shape)}")
-        r = _tc_check(got, q, k, v, causal, 0, dump=True)
-        f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal)
-        rel = _rel_l2(got, f32p)
-        pairs = q.shape[0] * q.shape[2] * _visible_pairs(
-            q.shape[1], k.shape[1], causal, 0)
-        text = (f"{MLA_INST} {what}: {_tc_text(r, pairs)}; rel L2 {rel:.3e} "
-                f"vs float32-P blockwise")
-        check(r["ok"] and rel <= TC_F32P_REL_L2, text)
-        print(f"kernel {text} (within tolerance)", flush=True)
-        return r["err"]
+        return _held_tc(MLA_INST, what, q, k, v, causal, 0)
 
     err = 0.0
     for b, s, h, causal in MLA_CASES:
@@ -3239,6 +3314,291 @@ def moe_phase(card: str) -> tuple[dict, dict]:
     return row, {MLA_INST: launches}
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the VLM prefix family (paligemma-3b)
+# ----------------------------------------------------------------------
+def vlm_flash_check(dev, params, cfg) -> dict:
+    """(a) The (256, 256) instantiation against its plain version:
+    `_tc_check` with the kernel's dumped P on VLM_CASES (8 heads over one
+    KV head, as paligemma's MQA), on q / k / v as layer 0 of `params`
+    builds them (q and k read through RoPE's strides) with the patches'
+    prefix, and on a q read through the strides of wider rows; then at the
+    prefill's shape (1, 33024, 8, 1) with the 256-patch prefix against the
+    plain version's own P, and timed in turns with itself at prefix 0 and
+    SDPA (causal, no prefix: a prefix mask would push SDPA off its fused
+    backends; KV repeated to the 8 heads)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_norm
+
+    dh, dv = VLM_DIMS
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    prefix = cfg.vlm.n_patches
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def qkv(b, s):
+        return [torch.randn((b, s, n, d), generator=g, device=dev).bfloat16()
+                for n, d in ((h, dh), (kvh, dh), (kvh, dv))]
+
+    def held(what, q, k, v, causal, prefix_len):
+        return _held_tc(VLM_INST, what, q, k, v, causal, prefix_len)
+
+    err = 0.0
+    for b, s, prefix_len, causal in VLM_CASES:
+        err = max(err, held(
+            f"({b}, {s}, {h}, {kvh}, {dh}) "
+            f"{'causal' if causal else 'full'}, prefix {prefix_len}",
+            *qkv(b, s), causal, prefix_len))
+    with torch.inference_mode():       # as layer 0 builds them
+        blk = params.blocks[0]
+        x = torch.randn((1, 2048, cfg.d_model), generator=g,
+                        device=dev).bfloat16()
+        pos = torch.arange(2048, device=dev)
+        q, k, v = attn._project_qkv(blk.attn, apply_norm(blk.ln1, x, cfg.norm),
+                                    cfg, pos)
+    check(fk.kernel_layout_ok(q) and not q.is_contiguous(),
+          "layer 0's q: RoPE's strides")
+    err = max(err, held(f"(1, 2048, {h}, {kvh}) from layer 0, prefix "
+                        f"{prefix}", q, k, v, True, prefix))
+    wide = torch.randn((1, 1000, h, 320), generator=g, device=dev).bfloat16()
+    q, k, v = wide[..., :dh], *qkv(1, 1000)[1:]
+    check(fk.kernel_layout_ok(q) and not q.is_contiguous(), "strided q")
+    err = max(err, held(f"(1, 1000, {h}, {kvh}) q read through strides, "
+                        f"prefix {prefix}", q, k, v, True, prefix))
+    del q, k, v, wide, x
+
+    # the prefill's shape: 32768 text tokens after the 256 patches
+    b, s = PREFILL_BATCH, 32768 + prefix
+    q, k, v = qkv(b, s)
+    got = fk.flash_attention_wgmma(q, k, v, prefix_len=prefix)
+    tc = _tc_check(got, q, k, v, True, prefix, dump=False)
+    rel_f32p = _rel_l2(got, fa_ref.flash_attention_ref(q, k, v,
+                                                       prefix_len=prefix))
+    check(tc["ok"] and rel_f32p <= TC_F32P_REL_L2,
+          f"{VLM_INST} ({b}, {s}, {h}, {kvh}, {dh}) prefix {prefix}: "
+          f"{_tc_text(tc, 0)}; rel L2 {rel_f32p:.3e} vs the float32-P plain "
+          f"version")
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (x_.transpose(1, 2).repeat_interleave(h // kvh, 1).contiguous()
+              for x_ in (k, v))
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    no_prefix = fk.flash_attention_wgmma(q, k, v)
+    sdpa_err = float((sdpa().transpose(1, 2).float() - no_prefix.float())
+                     .abs().max())
+    del no_prefix
+    fns = {"wgmma": lambda: fk.flash_attention_wgmma(q, k, v,
+                                                     prefix_len=prefix),
+           "wgmma_p0": lambda: fk.flash_attention_wgmma(q, k, v),
+           "sdpa": sdpa}
+    times = {n: [] for n in fns}
+    for order in (("wgmma", "wgmma_p0", "sdpa"),
+                  ("sdpa", "wgmma_p0", "wgmma"),
+                  ("wgmma", "wgmma_p0", "sdpa")):
+        for n in order:
+            times[n].append(cuda_ms(fns[n], 10))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_tc_ref(
+        q, k, v, prefix_len=prefix), 1)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * 2
+    pairs = _visible_pairs(s, s, True, prefix)
+    flops = 2 * (dh + dv) * h * b * pairs
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
+    flops0 = 2 * (dh + dv) * h * b * _visible_pairs(s, s, True, 0)
+    b0_ms, _ = bound(nbytes, flops0, PEAK_BF16_TC_FLOPS)
+    print(f"kernel {VLM_INST} ({b}, {s}, {h}, {kvh}, {dh}/{dv}) bf16 causal "
+          f"with prefix {prefix}, one call in turns (ms each: {times}): "
+          f"{ms['wgmma']:.3f} ms, {flops / ms['wgmma'] / 1e9:.1f} TFLOP/s, "
+          f"{b_ms / ms['wgmma']:.3f} of the {b_ms:.4f} ms bound ({b_by}: "
+          f"{flops:.4e} flops over {pairs:,} visible pairs, "
+          f"{nbytes / 1e6:.1f} MB); at prefix 0 {ms['wgmma_p0']:.3f} ms "
+          f"({b0_ms / ms['wgmma_p0']:.3f} of its {b0_ms:.4f} ms bound); SDPA "
+          f"(causal, no prefix, KV repeated to {h} heads) {ms['sdpa']:.3f} "
+          f"ms, ratio {ms['wgmma'] / ms['sdpa']:.3f} (at prefix 0 "
+          f"{ms['wgmma_p0'] / ms['sdpa']:.3f}); plain flash_attention_tc_ref "
+          f"{plain_ms:.3f} ms; {_tc_text(tc, 0)}; rel L2 {rel_f32p:.3e} vs "
+          f"float32-P; max |SDPA - kernel at prefix 0| {sdpa_err:.3e}",
+          flush=True)
+    del q, k, v, qh, kh, vh, got
+    return dict(name=VLM_INST, route="cuda",
+                source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:59",
+                max_abs_err=max(err, tc["err"]), ms=ms["wgmma"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=ms["sdpa"], prefix0_ms=ms["wgmma_p0"],
+                prefix0_bound_ms=b0_ms)
+
+
+def _vlm_cpu_check(cfg) -> None:
+    """(e) 2 layers at full width, VLM_CPU_SEQ text tokens after the 256
+    patches, weights drawn on the CPU, card against CPU: the last
+    position's logits and its argmax."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
+
+    cut = dataclasses.replace(cfg, n_layers=VLM_CPU_LAYERS)
+    t0 = time.perf_counter()
+    host = init_lm(cut, seed=0, device="cpu", dtype=torch.bfloat16)
+    draw_s = time.perf_counter() - t0
+    card_model = copy.deepcopy(host).to("cuda")
+    batch = batch_for(cut, VLM_CPU_SEQ, 1, 2)
+    last = []
+    for model, d in ((card_model, torch.device("cuda")),
+                     (host, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            hid, _ = lm_hidden(model, batch["inputs"].to(d), cut,
+                               prefix_embeds=batch["patches"].to(d),
+                               attn_impl="blockwise")
+            last.append(lm_logits(model, hid[:, -1:], cut).float().cpu())
+        print(f"  {VLM_CPU_LAYERS}-layer prefill of {VLM_CPU_SEQ} tokens "
+              f"after {cut.vlm.n_patches} patches on {d}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    on_card, on_cpu = last
+    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+    same = int(on_card.argmax()) == int(on_cpu.argmax())
+    text = (f"vlm check: {cut.name} {VLM_CPU_LAYERS} layers at full width, "
+            f"{VLM_CPU_SEQ} tokens after {cut.vlm.n_patches} patches "
+            f"(weights drawn on the CPU in {draw_s:.1f} s): last-position "
+            f"logits card vs CPU rel L2 {rel:.3e} (tolerance "
+            f"{VLM_CPU_RTOL}), argmax {'agrees' if same else 'differs'} "
+            f"({int(on_card.argmax())} vs {int(on_cpu.argmax())})")
+    check(math.isfinite(rel) and rel <= VLM_CPU_RTOL, text)
+    print(text, flush=True)
+
+
+def _vlm_route_check() -> None:
+    """(f) The CUDA-core route: the reduced paligemma (head dim 16, 16
+    patches) prefill at 2 x VLM_SMALL_SEQ on the card, one CUDA-core
+    launch a layer, logits within VLM_CPU_RTOL of the CPU run."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm
+
+    small = registry.reduced(VLM_CONFIG)
+    shape = ShapeSpec("vlm_route", "prefill", VLM_SMALL_SEQ, 2)
+    host = init_lm(small, seed=0, device="cpu", dtype=torch.bfloat16)
+    batch = batch_for(small, VLM_SMALL_SEQ, 2, 3)
+    _, n_cc, logits = _prefill(make_prefill_step(small, shape),
+                               copy.deepcopy(host).to("cuda"), batch, small,
+                               "vlm CUDA-core route", tensor_cores=False,
+                               keep=True)
+    with torch.inference_mode():
+        want = make_prefill_step(small, shape, device="cpu").fn(host, batch)
+    rel = float((logits.float().cpu() - want.float()).norm()
+                / want.float().norm())
+    text = (f"vlm route check: {small.name} (head dim "
+            f"{small.resolved_head_dim}, {small.vlm.n_patches} patches), 2 x "
+            f"{VLM_SMALL_SEQ}: flash_attention (CUDA cores) {n_cc} launches; "
+            f"logits at all positions card vs CPU rel L2 {rel:.3e} "
+            f"(tolerance {VLM_CPU_RTOL})")
+    check(rel <= VLM_CPU_RTOL, text)
+    print(text, flush=True)
+
+
+def vlm_phase(card: str) -> tuple[dict, dict]:
+    """Phase 12; returns the (256, 256) kernel's report row and the
+    launches of its main path (the full-width prefill)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = registry.get(VLM_CONFIG)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p_.numel() for p_ in params.parameters())
+    print(f"vlm init: {cfg.name}, {n_params:,} parameters ({cfg.n_layers} "
+          f"layers, tied embeddings), {n_params * 2 / 1e9:.2f} GB bf16, drawn "
+          f"from seed 0 on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(n_params == cfg.n_params(), f"{n_params} != {cfg.n_params()}")
+
+    row = vlm_flash_check(torch.device("cuda"), params, cfg)       # (a)
+
+    # (b) the full-depth prefill at 1 x (256 patches + 32768 tokens), then
+    # 4 x (256 + 4096)
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=PREFILL_BATCH)
+    step = make_prefill_step(cfg, shape)
+    batch = batch_for(cfg, shape.seq, shape.batch, 0)
+    check({k: tuple(v.shape) for k, v in batch.items() if k != "targets"}
+          == step.batch_shapes, f"vlm batch {step.batch_shapes}")
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, _, _ = _prefill(step, params, batch, cfg, "vlm warm-up",
+                            inst=VLM_INST)
+    dt, launches, _ = _prefill(step, params, batch, cfg, "vlm timed",
+                               inst=VLM_INST)
+    n_pos = shape.batch * (shape.seq + cfg.vlm.n_patches)
+    print(f"vlm prefill ({card}): {cfg.name} {shape.batch} x "
+          f"({cfg.vlm.n_patches} patches + {shape.seq} tokens), "
+          f"{cfg.n_layers} layers: {dt:.3f} s ({warm_s:.3f} s warm-up), "
+          f"{n_pos / dt:,.0f} positions/s, "
+          f"{shape.batch * shape.seq / dt:,.0f} text tokens/s; {VLM_INST} "
+          f"{launches} launches, no CUDA-core launch; attention share "
+          f"~{cfg.n_layers * row['ms'] / 1e3 / dt:.3f} of the wall time; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del batch
+    b4, s4 = VLM_SMALL_PREFILL
+    step4 = make_prefill_step(cfg, dataclasses.replace(shape, batch=b4,
+                                                       seq=s4))
+    dt4, n4, _ = _prefill(step4, params, batch_for(cfg, s4, b4, 1), cfg,
+                          f"vlm {b4} x {s4}", inst=VLM_INST)
+    print(f"vlm prefill: {b4} x ({cfg.vlm.n_patches} + {s4}) positions: "
+          f"{dt4:.3f} s, {b4 * (s4 + cfg.vlm.n_patches) / dt4:,.0f} "
+          f"positions/s; {VLM_INST} {n4} launches", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    _serve(card, cfg, params, rng)                                 # (c)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, DECODE_CHECK_SEQ)),
+                        device="cuda")
+
+    def text_prefill():           # the decode has no prefix: no patches
+        with torch.inference_mode():
+            hid, _ = lm_hidden(params, toks, cfg, attn_impl="blockwise")
+            return lm_logits(params, hid, cfg)
+
+    _teacher_forced(card, cfg, params, toks, text_prefill, VLM_INST)  # (d)
+    del params, step, step4
+    gc.collect()
+    torch.cuda.empty_cache()
+    _vlm_cpu_check(cfg)                                            # (e)
+    _vlm_route_check()                                             # (f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"vlm phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return row, {VLM_INST: launches}
+
+
 def main() -> int:
     import torch
 
@@ -3276,6 +3636,11 @@ def main() -> int:
     launches.update(moe_launches)
     print(f"chip_smoke wall after phase 11: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    vlm_row, vlm_launches = vlm_phase(card)
+    rows.append(vlm_row)
+    launches.update(vlm_launches)
+    print(f"chip_smoke wall after phase 12: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a
     # round with BFS lanes) and the sequential flow (a launch a net).
@@ -3303,14 +3668,14 @@ def main() -> int:
     # wavefront's launches by path and its time at the per-net shape; the
     # mesh phase's launches of nsga2_evolve and nds_rank, and nds_rank at
     # the migration shape; the MoE phase's all-to-all check beside the
-    # (192, 128) instantiation
+    # (192, 128) instantiation; the (256, 256) instantiation at prefix 0
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
              "net_ms", "net_plain_ms", "net_bound_ms", "mesh_launches",
              "migration_shape", "migration_ms", "migration_plain_ms",
              "migration_bound_ms", "migration_bound_by", "a2a_rel_l2",
-             "a2a_ms")
+             "a2a_ms", "prefix0_ms", "prefix0_bound_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

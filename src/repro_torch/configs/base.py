@@ -2,8 +2,9 @@
 
 One `ArchConfig` instance fully determines a model.  The reference
 drives every family from it (dense, MoE, MLA, Mamba2, xLSTM,
-encoder-decoder, VLM prefix); the port builds the dense decoder and the
-MoE family with or without MLA (`repro_torch.models.lm`) and reads the
+encoder-decoder, VLM prefix); the port builds the dense decoder, the
+MoE family with or without MLA and the VLM prefix family
+(`repro_torch.models.lm`, `repro_torch.models.paligemma`) and reads the
 other families' fields only in the codesign arithmetic
 (`repro_torch.core.codesign.extract_gemms`).
 

@@ -1,79 +1,95 @@
 // Causal / full flash attention on Hopper tensor cores (sm_90a), bf16, at
-// q/k and v head dims (Dh, Dv) of 64 / 64, 128 / 128 and 192 / 128 (MLA's
-// prefill: nope 128 + rope 64 for q and k, v 128), plain C interface.
+// q/k and v head dims (Dh, Dv) of 64 / 64, 128 / 128, 192 / 128 (MLA's
+// prefill: nope 128 + rope 64 for q and k, v 128) and 256 / 256 (the
+// Gemma decoder of paligemma), plain C interface.
 //
 // flash_attention_wgmma replaces, for bf16 inputs at those head dims, the
 // Pallas kernel `flash_attention_kernel` (body `_kernel`) of
-// src/repro/kernels/flash_attention/kernel.py, and at 192 / 128 the jnp
+// src/repro/kernels/flash_attention/kernel.py, with the prefix of the jnp
+// core it is the oracle of (`_blockwise_core`, src/repro/models/
+// attention.py: the VLM's image patches), and at 192 / 128 the jnp
 // blockwise core that MLA's prefill runs on v padded to 192
-// (`mla_fwd_blockwise`, src/repro/models/attention.py); float32 and the
-// other head dims stay on the CUDA-core kernel of flash_attention.cu.  For
-// q (B, S, H, Dh), k (B, T, KV, Dh) and v (B, T, KV, Dv), query head h
-// reading KV head h / (H / KV), it computes
+// (`mla_fwd_blockwise`); float32 and the other head dims stay on the
+// CUDA-core kernel of flash_attention.cu.  For q (B, S, H, Dh), k (B, T,
+// KV, Dh) and v (B, T, KV, Dv), query head h reading KV head h / (H / KV)
+// (paligemma's MQA: all 8 heads read head 0), it computes
 //
 //   s[r, c] = q[r] . k[c]                      (bf16 products, f32 sums)
 //   p[r, c] = exp2(s[r, c] * c2 - m_r * c2),   c2 = log2(e) / sqrt(Dh)
 //   o[r]    = sum_c bf16(p[r, c]) v[c] / sum_c p[r, c]
 //
 // over the visible keys c, with a running (max m, sum l, acc) in float32
-// carried across 128-key tiles and o = acc / max(l, 1e-30) rounded once to
-// bf16.  P is rounded to bf16 before P.V, as the reference's own oracle
-// partner `_blockwise_core` (src/repro/models/attention.py) does; the scores
-// stay float32 and are scaled after the product (1/sqrt(Dh) is not a power
-// of two, so scaling q in bf16 would add a rounding).  Key c is visible to
+// carried across key tiles of BK keys (128; 64 at Dh 256) and o = acc /
+// max(l, 1e-30) rounded once to bf16.  The tile decides when m moves, and
+// so which p round to which bf16: `ref.flash_attention_tc_ref` takes the
+// same tile (`ref.tc_kv_tile`).  P is rounded to bf16 before P.V, as the
+// reference's own oracle partner `_blockwise_core` does; the scores stay
+// float32 and are scaled after the product (1/sqrt(Dh) is not a power of
+// two, so scaling q in bf16 would add a rounding).  Key c is visible to
 // query r when c < T and, if causal, c <= r or (r < prefix_len and c <
-// prefix_len).  `ref.flash_attention_tc_ref` is the plain PyTorch version of
-// this arithmetic.
+// prefix_len).  `ref.flash_attention_tc_ref` is the plain PyTorch version
+// of this arithmetic.
 //
 //   Bound on the H100: operations.  2 * (Dh + Dv) flops per visible
 //   (query, key) pair and head; at the qwen2.5-3b prefill's shape (B 1, S =
 //   T = 32768, H 16, KV 2, Dh = Dv = 128, causal) 4.40e12 flops, 4.45 ms at
 //   the 989 TFLOP/s bf16 tensor-core peak, against 302 MB of q, k, v and o
 //   (0.09 ms at 3.35 TB/s); at deepseek-v2-lite's (H = KV = 16, Dh 192, Dv
-//   128) 5.50e12 flops, 5.56 ms, against 0.6 GB.  Both products run on the tensor cores (`wgmma`), the only way
-//   to that rate; the K / V tiles come by TMA, so no thread spends
-//   instructions on loads, and P never leaves the registers.
+//   128) 5.50e12 flops, 5.56 ms, against 0.6 GB; at paligemma-3b's (S = T
+//   = 33024 with 256 patches as a prefix, H 8, KV 1, Dh = Dv = 256)
+//   4.47e12 flops, 4.52 ms, against 304 MB.  Both products run on the
+//   tensor cores (`wgmma`), the only way to that rate; the K / V tiles come
+//   by TMA, so no thread spends instructions on loads, and P never leaves
+//   the registers.
 //
 //   Design.  One CTA of three warpgroups per (128-query tile, head,
 //   batch), the grid 1-D with the longest causal tiles first.  Warpgroup 0
 //   is the producer: it gives up registers (`setmaxnreg` 40) and one
 //   thread issues the TMA loads, the Q tile once and then K and V tiles of
-//   128 keys into a ring of kStages stages, each with a `full` mbarrier for
+//   BK keys into a ring of kStages stages, each with a `full` mbarrier for
 //   K, one for V and an `empty` one that the consumers' 256 threads arrive
 //   on.  Warpgroups 1 and 2 are consumers of 64 query rows each (`setmaxnreg`
 //   232).  Per key tile a consumer runs S = Q K^T as Dh/16 `wgmma`
-//   m64n128k16 (Dh 192: 12) with both operands in shared memory (K-major),
-//   the online
-//   softmax on the f32 accumulator fragment (a row's 128 scores lie in the
+//   m64nBKk16 with both operands in shared memory (K-major), the online
+//   softmax on the f32 accumulator fragment (a row's BK scores lie in the
 //   4 lanes of a quad: max and sum by two xor shuffles; the row sum is kept
 //   per thread and reduced once at the end), converts P to bf16 pairs in
-//   place (the m64n128 accumulator fragment is the register A operand of
+//   place (the m64nBK accumulator fragment is the register A operand of
 //   m64nDVk16, four registers per 16 keys), rescales O in registers and runs
-//   O += P V as 8 register-A `wgmma` m64nDVk16 with V from shared memory as
-//   an MN-major B operand (the descriptor's transpose bit).  Every tile is
-//   stored by TMA with 128-byte swizzle in column blocks of 64 (Dh 128: two
-//   blocks; Q and K at Dh 192 three, V at Dv 128 two), each block of a
-//   128-row tile 16 KB, the layout the `wgmma` descriptors name (swizzle
-//   mode 1,
-//   8-row groups 1024 B apart; K-major steps advance 32 B inside the
-//   swizzle atom, MN-major ones 2048 B).  TMA zero-fills rows past S or T,
-//   so nothing is padded; keys past T are masked.  A -inf mask is applied
-//   only on tiles that need one (the diagonal, the prefix boundary, the
-//   ragged tail); a row that has seen no visible key keeps m = -inf and p =
-//   0.  A CTA stops at the last key tile a row of its can see (with a
-//   prefix, at least up to the prefix).  Shared memory: 32 KB of Q and
-//   kStages x 64 KB of K and V at Dh 128, one CTA per SM; at 192 / 128, 48 KB
-//   of Q and kStages x 80 KB of K and V, 208 KB of the 227 KB a block may
-//   have (v padded to 192 would need 240 KB: hence a separate Dv).  The
-//   per-thread S and O fragments are those of Dh 128.  Tensor maps are
-//   built per call on the host (cuTensorMapEncodeTiled through the
-//   runtime's driver entry point) over q, k and v with their own strides.
+//   O += P V as BK/16 register-A `wgmma` m64nDVk16 with V from shared memory
+//   as an MN-major B operand (the descriptor's transpose bit).  Every tile
+//   is stored by TMA with 128-byte swizzle in column blocks of 64 (Dh / 64
+//   of them a row), a block of the 128-row Q tile 16 KB and of a BK-row K
+//   or V tile BK x 128 B, the layout the `wgmma` descriptors name (swizzle
+//   mode 1, 8-row groups 1024 B apart; K-major steps advance 32 B inside
+//   the swizzle atom and a block's bytes every 4 steps, MN-major ones 2048
+//   B, with a V block's bytes between its 64-column blocks).  TMA zero-fills
+//   rows past S or T, so nothing is padded; keys past T are masked.  A -inf
+//   mask is applied only on tiles that need one (the diagonal, the prefix
+//   boundary, the ragged tail); a row that has seen no visible key keeps m =
+//   -inf and p = 0, and a tile none of a row's keys lies in leaves its m, l
+//   and O as they were (corr = exp2(0) = 1).  A CTA stops at the last key
+//   tile a row of its can see (with a prefix, at least up to the prefix).
+//
+//   Shared memory (checked at compile time for every instantiation): Q plus
+//   kStages K and V tiles.  At Dh 128, 32 KB + 2 x 64 KB, one CTA per SM;
+//   at 192 / 128, 48 KB + 2 x 80 KB = 208 KB of the 227 KB a block may have
+//   (v padded to 192 would need 240 KB: hence a separate Dv).  At 256 / 256
+//   a 128-key tile would need 64 KB + 2 x 128 KB = 320 KB, so the key tile
+//   is 64: 64 KB + 2 x 64 KB = 192 KB.  Registers (232 a consumer thread):
+//   at 256 / 256, O is m64n256 f32, 128 a thread, S m64n64 f32, 32, and P
+//   16 bf16 pairs; S and P are not live during the two products, so the
+//   peak is O, S and P across the softmax.  A 64-key tile pays the softmax,
+//   the O rescale and a barrier round per 64 keys, twice as often as a
+//   128-key one.  Tensor maps are built per call on the host
+//   (cuTensorMapEncodeTiled through the runtime's driver entry point) over
+//   q, k and v with their own strides.
 //
 //   Left for later: the softmax of one tile overlapped with the next
 //   Q K^T (FA3's ping-pong between the two consumers, or two S buffers in
 //   one); persistent CTAs with a causal tile scheduler; several GQA query
-//   heads per CTA sharing one K / V stream; the output through shared
-//   memory and a TMA store; fp8.
+//   heads per CTA sharing one K / V stream (paligemma's 8 heads read one);
+//   the output through shared memory and a TMA store; fp8.
 //
 // A second instantiation (kDump, chosen by a non-null p_dump) also stores
 // the bf16 P each consumer feeds to P.V, so that a check can hold the
@@ -93,17 +109,18 @@
 namespace {
 
 constexpr int kBQ = 128;            // query rows per CTA: two consumers x 64
-constexpr int kBK = 128;            // keys per K / V tile
 constexpr int kStages = 2;          // depth of the K / V ring
 constexpr int kThreads = 384;       // producer + two consumer warpgroups
 constexpr int kBlockCols = 64;      // bf16 columns of one 128-byte swizzle row
-constexpr uint32_t kBlockBytes = kBK * 128;   // one 64-column block of a tile
+constexpr uint32_t kQBlockBytes = kBQ * 128;  // one 64-column block of Q
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
 
-template <int DH, int DV>
+// BK keys per K / V tile (a template parameter: 128, or 64 at Dh 256).
+template <int DH, int DV, int BK>
 struct Smem {
   alignas(1024) __nv_bfloat16 q[kBQ * DH];
-  alignas(1024) __nv_bfloat16 k[kStages][kBK * DH];
-  alignas(1024) __nv_bfloat16 v[kStages][kBK * DV];
+  alignas(1024) __nv_bfloat16 k[kStages][BK * DH];
+  alignas(1024) __nv_bfloat16 v[kStages][BK * DV];
   alignas(8) uint64_t q_full;
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
@@ -243,7 +260,57 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// S (64 x 64 f32), the same product over a 64-key tile.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // O (64 x N f32) += P (64 x 16, registers) V (16 x N, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
                                                  const uint32_t (&a)[4],
                                                  uint64_t db) {
@@ -282,6 +349,24 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S += Q K^T over one k16 step, by the tile's key count.
+__device__ __forceinline__ void wgmma_qk(float (&s)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_m64n128(s, da, db, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_m64n64(s, da, db, scale_d);
+}
+
+// O += P V over one k16 step, by v's head dim.
+__device__ __forceinline__ void wgmma_pv(float (&o)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n256(o, a, db);
+}
+
 __device__ __forceinline__ void wgmma_pv(float (&o)[64], const uint32_t (&a)[4],
                                          uint64_t db) {
   wgmma_rs_m64n128(o, a, db);
@@ -296,11 +381,13 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&a)[4],
 // tiles, and the rows' output.  With kDump it also stores the bf16 P it
 // feeds to P.V at p_dump[b, h, row, key] (rows < S, keys < T), for
 // checking; the arithmetic is the same.
-template <int DH, int DV, bool kDump>
-__device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
+template <int DH, int DV, int BK, bool kDump>
+__device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
                                         int cw, int q0, int n_kt, int b,
                                         int h) {
   constexpr int kO = DV / 2;          // O floats per thread: DV / 8 chunks x 4
+  constexpr int kS = BK / 2;          // S floats per thread: BK / 8 chunks x 4
+  constexpr uint32_t kKVBlockBytes = BK * 128;  // one 64-column block of K, V
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int r_lo = q0 + cw * 64;      // this consumer's first row
@@ -322,29 +409,34 @@ __device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt % kStages;
     const uint32_t ph = (kt / kStages) & 1;
-    const int k0 = kt * kBK;
+    const int k0 = kt * BK;
 
-    float s[64];
+    float s[kS];
     mbar_wait(&sm.k_full[st], ph);
     const uint32_t k_addr = smem_u32(sm.k[st]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
-      wgmma_ss_m64n128(s, sw128_desc(q_addr + off, 16, 1024),
-                       sw128_desc(k_addr + off, 16, 1024), kk);
+      // k16 step kk: 32 bytes into the swizzle row of 64-column block kk / 4
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_qk(s, sw128_desc(q_addr + (kk / 4) * kQBlockBytes + col, 16, 1024),
+               sw128_desc(k_addr + (kk / 4) * kKVBlockBytes + col, 16, 1024),
+               kk);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
 
+    // every key of the tile is visible to every row of the consumer when
+    // the tile ends inside T and either lies at or below the first row or
+    // inside a prefix that holds all 64 rows
     const bool need_mask =
-        k0 + kBK > p.T ||
-        (p.causal && k0 + kBK - 1 > r_lo &&
-         !(r_lo + 63 < p.prefix_len && k0 + kBK <= p.prefix_len));
+        k0 + BK > p.T ||
+        (p.causal && k0 + BK - 1 > r_lo &&
+         !(r_lo + 63 < p.prefix_len && k0 + BK <= p.prefix_len));
     if (need_mask) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = row0 + 8 * (e / 2);
@@ -357,7 +449,7 @@ __device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
     float corr[2], mc[2];
@@ -372,10 +464,10 @@ __device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
       m[i] = m_new;
     }
 
-    uint32_t pk[32];
+    uint32_t pk[BK / 4];
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float p0 = exp2f(fmaf(s[4 * j + 2 * i], c2, -mc[i]));
@@ -408,10 +500,10 @@ __device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                              pk[4 * kk + 3]};
-      wgmma_pv(o, a, sw128_desc(v_addr + kk * 2048, kBlockBytes, 1024));
+      wgmma_pv(o, a, sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -438,16 +530,18 @@ __device__ __forceinline__ void consume(Smem<DH, DV>& sm, const Params& p,
   }
 }
 
-template <int DH, int DV, bool kDump>
+template <int DH, int DV, int BK, bool kDump>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const Params p) {
-  static_assert(kBQ == kBK, "Q and K / V tiles share kBlockBytes");
+  static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
+  static_assert(DH % kBlockCols == 0 && DV % kBlockCols == 0,
+                "tiles are whole 64-column swizzle blocks");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  Smem<DH, DV>& sm = *reinterpret_cast<Smem<DH, DV>*>(smem_raw + pad);
+  Smem<DH, DV, BK>& sm = *reinterpret_cast<Smem<DH, DV, BK>*>(smem_raw + pad);
 
   const int bh_count = p.B * p.H;
   const int n_qt = (p.S + kBQ - 1) / kBQ;
@@ -463,7 +557,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (q0 < p.prefix_len) kend = max(kend, p.prefix_len);
     kend = min(kend, p.T);
   }
-  const int n_kt = (kend + kBK - 1) / kBK;
+  const int n_kt = (kend + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
@@ -480,7 +574,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x < 128) {            // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      constexpr uint32_t kTileBytes = kBK * DH * 2, kVTileBytes = kBK * DV * 2;
+      constexpr uint32_t kTileBytes = BK * DH * 2, kVTileBytes = BK * DV * 2;
       mbar_expect_tx(&sm.q_full, kBQ * DH * 2);
 #pragma unroll
       for (int c = 0; c < DH / kBlockCols; ++c)
@@ -492,18 +586,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(&sm.k_full[st], kTileBytes);
 #pragma unroll
         for (int c = 0; c < DH / kBlockCols; ++c)
-          tma_load(sm.k[st] + c * kBK * kBlockCols, &tk, &sm.k_full[st], p.ok,
-                   c * kBlockCols, kt * kBK, kvh, b);
+          tma_load(sm.k[st] + c * BK * kBlockCols, &tk, &sm.k_full[st], p.ok,
+                   c * kBlockCols, kt * BK, kvh, b);
         mbar_expect_tx(&sm.v_full[st], kVTileBytes);
 #pragma unroll
         for (int c = 0; c < DV / kBlockCols; ++c)
-          tma_load(sm.v[st] + c * kBK * kBlockCols, &tv, &sm.v_full[st], p.ov,
-                   c * kBlockCols, kt * kBK, kvh, b);
+          tma_load(sm.v[st] + c * BK * kBlockCols, &tv, &sm.v_full[st], p.ov,
+                   c * kBlockCols, kt * BK, kvh, b);
       }
     }
   } else {                            // two consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<DH, DV, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b, h);
+    consume<DH, DV, BK, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b, h);
   }
 }
 
@@ -537,9 +631,11 @@ EncodeTiledFn encode_tiled() {
 // A 4-D map over a bf16 tensor with unit stride on Dh and element strides
 // `st` = (row, head, batch): dimension 0 is Dh, the others are ordered by
 // stride (an extent-1 dimension is never stepped and sorts last), and the
-// box is 64 columns x 128 rows, 128-byte swizzled.  Returns a CUresult.
+// box is 64 columns x `box_rows` rows, 128-byte swizzled.  Returns a
+// CUresult.
 int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
-             int rows, int heads, int batch, const long long* st) {
+             int rows, int heads, int batch, const long long* st,
+             int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const long long ext[3] = {rows, heads, batch};
@@ -565,7 +661,7 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
     dims[i + 1] = (cuuint64_t)ext[idx[i]];
     strides[i] = (cuuint64_t)(str[idx[i]] * 2);
     pos[idx[i]] = i + 1;
-    if (idx[i] == 0) box[i + 1] = kBQ;
+    if (idx[i] == 0) box[i + 1] = (cuuint32_t)box_rows;
   }
   order->row = pos[0];
   order->head = pos[1];
@@ -577,9 +673,12 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DH, int DV, bool kDump>
+template <int DH, int DV, int BK, bool kDump>
 int launch(const void* q, const void* k, const void* v,
            const long long* strides, Params& p, cudaStream_t stream) {
+  static_assert(sizeof(Smem<DH, DV, BK>) + 1024 <= kSmemLimit,
+                "the Q tile and two K / V stages must fit a block's shared "
+                "memory");
   const long long blocks = (long long)((p.S + kBQ - 1) / kBQ) * p.B * p.H;
   if (blocks == 0) return 0;
   if (p.T == 0) {                     // no key: o = 0 / max(0, 1e-30)
@@ -590,18 +689,16 @@ int launch(const void* q, const void* k, const void* v,
   const long long sq[3] = {strides[1], strides[2], strides[0]};
   const long long sk[3] = {strides[4], strides[5], strides[3]};
   const long long sv[3] = {strides[7], strides[8], strides[6]};
-  int rc = make_map(&tq, &p.oq, q, DH, p.S, p.H, p.B, sq);
-  if (rc == 0) rc = make_map(&tk, &p.ok, k, DH, p.T, p.KV, p.B, sk);
-  if (rc == 0) rc = make_map(&tv, &p.ov, v, DV, p.T, p.KV, p.B, sv);
+  int rc = make_map(&tq, &p.oq, q, DH, p.S, p.H, p.B, sq, kBQ);
+  if (rc == 0) rc = make_map(&tk, &p.ok, k, DH, p.T, p.KV, p.B, sk, BK);
+  if (rc == 0) rc = make_map(&tv, &p.ov, v, DV, p.T, p.KV, p.B, sv, BK);
   if (rc != 0) return rc;
-  const int smem = (int)sizeof(Smem<DH, DV>) + 1024;
-  static_assert(sizeof(Smem<192, 128>) + 1024 <= 232448,
-                "the 192 / 128 tiles must fit a block's shared memory");
+  const int smem = (int)sizeof(Smem<DH, DV, BK>) + 1024;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<DH, DV, kDump>,
+      flash_attention_wgmma_kernel<DH, DV, BK, kDump>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_wgmma_kernel<DH, DV, kDump>
+  flash_attention_wgmma_kernel<DH, DV, BK, kDump>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -614,7 +711,7 @@ extern "C" {
 // with unit stride on the head dim and the other strides (elements) in
 // `strides`: q's batch, seq, head, then k's, then v's, each a multiple of
 // 8, pointers 16-byte aligned.  o (B, S, H, dv) contiguous bf16.  (dh, dv)
-// is (64, 64), (128, 128) or (192, 128).  scale_log2 = log2(e) / sqrt(dh)
+// is (64, 64), (128, 128), (192, 128) or (256, 256).  scale_log2 = log2(e) / sqrt(dh)
 // in float32.  p_dump: null, or a
 // zeroed (B, H, S, T) contiguous bf16 buffer that receives the P fed to
 // P.V (a separate instantiation; for checks only).  Returns a
@@ -632,14 +729,17 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
   const cudaStream_t st = (cudaStream_t)stream;
   const bool dump = p_dump != nullptr;
   if (dh == 64 && dv == 64)
-    return dump ? launch<64, 64, true>(q, k, v, strides, p, st)
-                : launch<64, 64, false>(q, k, v, strides, p, st);
+    return dump ? launch<64, 64, 128, true>(q, k, v, strides, p, st)
+                : launch<64, 64, 128, false>(q, k, v, strides, p, st);
   if (dh == 128 && dv == 128)
-    return dump ? launch<128, 128, true>(q, k, v, strides, p, st)
-                : launch<128, 128, false>(q, k, v, strides, p, st);
+    return dump ? launch<128, 128, 128, true>(q, k, v, strides, p, st)
+                : launch<128, 128, 128, false>(q, k, v, strides, p, st);
   if (dh == 192 && dv == 128)
-    return dump ? launch<192, 128, true>(q, k, v, strides, p, st)
-                : launch<192, 128, false>(q, k, v, strides, p, st);
+    return dump ? launch<192, 128, 128, true>(q, k, v, strides, p, st)
+                : launch<192, 128, 128, false>(q, k, v, strides, p, st);
+  if (dh == 256 && dv == 256)
+    return dump ? launch<256, 256, 64, true>(q, k, v, strides, p, st)
+                : launch<256, 256, 64, false>(q, k, v, strides, p, st);
   return (int)cudaErrorInvalidValue;
 }
 

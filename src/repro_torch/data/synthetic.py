@@ -1,7 +1,8 @@
 """Deterministic, stateless synthetic token batches.
 
-Counterpart of `repro.data.synthetic` for the dense and MoE families
-(token batches only).  Batch t is a pure function of (seed, step): each
+Counterpart of `repro.data.synthetic` for the dense, MoE and VLM
+families (the VLM's batches add stub patch embeddings).  Batch t is a
+pure function of (seed, step): each
 batch draws from its own CPU `torch.Generator`, seeded from (seed,
 step), so there is no iterator state and every device gets the same
 tokens.  Tokens follow a Zipfian marginal
@@ -76,11 +77,22 @@ class SyntheticStream:
 
 def batch_for(cfg: ArchConfig, seq: int, global_batch_size: int, step: int,
               seed: int = 1234, device=None) -> dict:
-    """The batch of `step` for a dense- or MoE-family model, on `device`
-    (the families whose batches are tokens alone)."""
-    if cfg.family not in ("dense", "moe"):
+    """The batch of `step` for a dense-, MoE- or VLM-family model, on
+    `device`.  Tokens are `global_batch`'s.  The VLM's batch adds
+    `patches` (B, n_patches, D) float32 = 0.1 x standard normal (the
+    SigLIP stub), drawn from a CPU `torch.Generator` seeded from (seed +
+    7, step), as the reference keys its draw from `fold_in(key(seed + 7),
+    step)`; the values are not the reference's (torch cannot reproduce
+    `jax.random`)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"synthetic batches of the {cfg.family!r} family are not ported")
     batch = global_batch(DataConfig(cfg.vocab, seq, global_batch_size, seed),
                          step)
+    if cfg.family == "vlm":
+        key = np.random.SeedSequence([seed + 7, step]).generate_state(1)[0]
+        g = torch.Generator().manual_seed(int(key))
+        batch["patches"] = 0.1 * torch.randn(
+            (global_batch_size, cfg.vlm.n_patches, cfg.d_model),
+            generator=g, dtype=torch.float32)
     return {k: v.to(device) for k, v in batch.items()}

@@ -7,9 +7,10 @@ Dh) and v (B, T, KV, Dv), and read KV head h // (H // KV) for query head
 h by index (the reference's `ops` repeats KV heads in memory instead).
 
 - `flash_attention_wgmma` (`csrc/flash_attention_wgmma.cu`): bf16 at
-  the (Dh, Dv) pairs `TC_DIM_PAIRS` (64 / 64, 128 / 128, and MLA's 192 /
-  128), both products on tensor cores, P rounded to bf16; plain version
-  `ref.flash_attention_tc_ref`.
+  the (Dh, Dv) pairs `TC_DIM_PAIRS` (64 / 64, 128 / 128, MLA's 192 /
+  128 and paligemma's 256 / 256), both products on tensor cores, P
+  rounded to bf16, over 128-key tiles (64 at 256 / 256,
+  `ref.tc_kv_tile`); plain version `ref.flash_attention_tc_ref`.
 - `flash_attention_cuda_core` (`csrc/flash_attention.cu`): float32, and
   bf16 at any of `HEAD_DIMS` (Dv = Dh), float32 FFMA on CUDA cores;
   plain version `ref.flash_attention_ref`.
@@ -23,7 +24,8 @@ Every launch of either kernel counts in
 `repro_torch.kernels.LAUNCHES["flash_attention"]`; the tensor-core
 kernel's also in `LAUNCHES["flash_attention_wgmma"]` and under its
 instantiation, `LAUNCHES["flash_attention_wgmma_<Dh>_<Dv>"]` (MLA's
-prefill: `flash_attention_wgmma_192_128`).
+prefill: `flash_attention_wgmma_192_128`; paligemma's
+`flash_attention_wgmma_256_256`).
 """
 from __future__ import annotations
 
@@ -38,7 +40,11 @@ from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 TC_HEAD_DIMS = (64, 128)             # tensor cores where v's head dim is q/k's
-TC_DIM_PAIRS = tuple((d, d) for d in TC_HEAD_DIMS) + ((192, 128),)  # MLA's
+TC_DIM_PAIRS = tuple((d, d) for d in TC_HEAD_DIMS) + (
+    (192, 128),                      # MLA's
+    (256, 256))                      # paligemma's (64-key tiles)
+ROUTES = (f"routes: bf16 at (q/k, v) head dims {TC_DIM_PAIRS} on tensor "
+          f"cores (wgmma); float32, and bf16 at {HEAD_DIMS}, on CUDA cores")
 DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -99,8 +105,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"with H % KV == 0; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if (dh, v.shape[3]) not in dim_pairs:
-        raise ValueError(f"flash_attention supports head dims (q/k, v) "
-                         f"{dim_pairs}, not {(dh, v.shape[3])}")
+        raise ValueError(f"this flash_attention route takes head dims (q/k, "
+                         f"v) {dim_pairs}, not {(dh, v.shape[3])} in "
+                         f"{q.dtype}; {ROUTES}")
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {dtypes}; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -169,11 +176,12 @@ def _tc_counts(q: torch.Tensor, v: torch.Tensor) -> tuple[str, ...]:
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, prefix_len: int = 0,
-                          block_k: int = ref.TC_KV_TILE) -> torch.Tensor:
+                          block_k: int | None = None) -> torch.Tensor:
     """The tensor-core kernel: q: (B, S, H, Dh); k: (B, T, KV, Dh); v:
     (B, T, KV, Dv); bf16; H % KV == 0; (Dh, Dv) in `TC_DIM_PAIRS`.
     Returns (B, S, H, Dv) contiguous bf16.  `block_k` is the plain
-    version's KV block; the kernel streams 128-key tiles."""
+    version's KV block (default: the kernel's tile, `ref.tc_kv_tile`: 128
+    keys, 64 at 256 / 256)."""
     _check(q, k, v, prefix_len, TC_DIM_PAIRS, (torch.bfloat16,))
     if q.device.type == "cpu":
         return ref.flash_attention_tc_ref(q, k, v, causal=causal,

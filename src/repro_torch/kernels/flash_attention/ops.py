@@ -2,9 +2,10 @@
 kernels read (unit stride on Dh, strides that are multiples of 8 and not
 0, an aligned pointer; other inputs are copied) and call the wrapper of
 the route `kernel.route` names (bf16 at q/k and v head dims 64 / 64, 128 /
-128 and MLA's 192 / 128 on tensor cores, the rest on CUDA cores).  KV heads are not repeated: the
-kernels map query head h to KV head h // (H // KV).  Tail tiles are
-masked in the kernels, so nothing is padded.
+128, MLA's 192 / 128 and paligemma's 256 / 256 on tensor cores, the rest
+on CUDA cores; a pair neither route takes raises).  KV heads are not
+repeated: the kernels map query head h to KV head h // (H // KV).  Tail
+tiles are masked in the kernels, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -30,12 +31,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions), or no mask when not causal, with float32 scores and
     softmax statistics (P rounded to bf16 before P.V on the tensor-core
     route).  `block_k` is the KV block of the plain version (CPU
-    tensors; default: the route's kernel tile)."""
+    tensors; default: the route's kernel tile, on tensor cores the
+    instantiation's, `ref.tc_kv_tile`)."""
     q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
     if kernel.route(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
         return kernel.flash_attention_wgmma(
-            q, k, v, causal=causal, prefix_len=prefix_len,
-            block_k=block_k or ref.TC_KV_TILE)
+            q, k, v, causal=causal, prefix_len=prefix_len, block_k=block_k)
     return kernel.flash_attention_cuda_core(
         q, k, v, causal=causal, prefix_len=prefix_len,
         block_k=block_k or ref.KV_TILE)

@@ -12,10 +12,13 @@
   at head dims 16 and 32).
 - `flash_attention_tc_ref`: the same online softmax with the tensor-core
   kernel's arithmetic (`csrc/flash_attention_wgmma.cu`: bf16 at q/k and
-  v head dims 64 / 64, 128 / 128 and MLA's 192 / 128): raw float32
-  scores, scaled inside `exp2` with log2(e) / sqrt(Dh of q), masked
-  scores at -inf, P rounded to bf16 before a float32-accumulated P.V,
-  the output rounded once.  The reference's own `_blockwise_core`
+  v head dims 64 / 64, 128 / 128, MLA's 192 / 128 and 256 / 256), over
+  the instantiation's key tile (`tc_kv_tile`: the tile decides when the
+  running max moves, and so which p round to which bf16): raw float32
+  scores summed as the tensor cores sum them (`tc_scores`), scaled
+  inside `exp2` with log2(e) / sqrt(Dh of q) by one fused rounding, as
+  the kernel's `fmaf`, masked scores at -inf, P rounded to bf16 before a
+  float32-accumulated P.V, the output rounded once.  The reference's own `_blockwise_core`
   (src/repro/models/attention.py) rounds P to bf16 too.
   `flash_attention_tc_p` returns its bf16 P, and its `p_bf16` argument
   takes a kernel's P in its place.
@@ -35,7 +38,15 @@ import torch
 
 NEG_INF = -1e30
 KV_TILE = 64          # keys per block: the CUDA-core kernel's tile
-TC_KV_TILE = 128      # keys per block: the tensor-core kernel's tile
+TC_KV_TILE = 128      # keys per block: the tensor-core kernel's tile, but
+TC_KV_TILES = {(256, 256): 64}   # where two 128-key stages overflow a block
+
+
+def tc_kv_tile(head_dim: int, v_head_dim: int | None = None) -> int:
+    """Keys per tile of the tensor-core instantiation at q/k and v head
+    dims (v's defaults to q/k's)."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    return TC_KV_TILES.get((head_dim, dv), TC_KV_TILE)
 
 
 def score_scale_log2(dh: int) -> float:
@@ -121,15 +132,40 @@ def _rows(p: torch.Tensor, kvh: int) -> torch.Tensor:
         b, kvh, s * g, t)
 
 
+TC_K_STEP = 16      # head-dim elements a tensor-core product step sums
+
+
+def _toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    r = x.float()
+    return torch.where(r.double().abs() > x.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def tc_scores(qd: torch.Tensor, kd: torch.Tensor) -> torch.Tensor:
+    """q k^T (..., R, T) float32 from float64 q (..., R, D) and k (..., T,
+    D) holding bf16 values, summed as the tensor cores sum it: for each
+    step of TC_K_STEP head-dim elements (one `wgmma` k16), the exact sum
+    of its products (in float64) added to the float32 accumulator,
+    rounded toward zero.  On the H100 this leaves P one bf16 step from
+    the kernel's on ~6x fewer entries than a float32 product does."""
+    acc = None
+    for c0 in range(0, qd.shape[-1], TC_K_STEP):
+        part = torch.matmul(qd[..., c0:c0 + TC_K_STEP],
+                            kd[..., c0:c0 + TC_K_STEP].transpose(-1, -2))
+        acc = _toward_zero(part if acc is None else acc.double() + part)
+    return acc
+
+
 def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
     b, s, h, dh = q.shape
     t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
     c2 = score_scale_log2(dh)
     neg_inf = float("-inf")
-    qf = q.float().reshape(b, s, kvh, g, dh).permute(0, 2, 1, 3, 4)
+    qf = q.double().reshape(b, s, kvh, g, dh).permute(0, 2, 1, 3, 4)
     qf = qf.reshape(b, kvh, s * g, dh)
-    kf = k.float().permute(0, 2, 1, 3)
+    kf = k.double().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
     acc = torch.zeros((b, kvh, s * g, dv), dtype=torch.float32,
                       device=q.device)
@@ -141,7 +177,7 @@ def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
         if r0 >= s:
             break
         kj, vj = kf[:, :, j0:j0 + block_k], vf[:, :, j0:j0 + block_k]
-        sc = torch.matmul(qf[:, :, r0 * g:], kj.transpose(-1, -2))
+        sc = tc_scores(qf[:, :, r0 * g:], kj)
         if causal:
             ri = torch.arange(r0, s, device=q.device).repeat_interleave(g)
             ci = torch.arange(j0, j0 + kj.shape[2], device=q.device)
@@ -151,7 +187,9 @@ def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
         m_old = m[:, :, r0 * g:]
         m_new = torch.maximum(m_old, sc.amax(-1))
         m_use = torch.where(m_new == neg_inf, 0.0, m_new)
-        p = torch.exp2(sc * c2 - (m_use * c2)[..., None])
+        # exp2f(fmaf(s, c2, -m c2)): s c2 is exact in float64, one rounding
+        arg = sc.double() * c2 - (m_use * c2).double()[..., None]
+        p = torch.exp2(arg.float())
         corr = torch.exp2((m_old - m_use) * c2)
         l_r = l[:, :, r0 * g:]
         l_r.mul_(corr).add_(p.sum(-1))
@@ -170,7 +208,7 @@ def _tc_online(q, k, v, causal, prefix_len, block_k, p_in, p_out):
 
 def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           prefix_len: int = 0, block_k: int = TC_KV_TILE,
+                           prefix_len: int = 0, block_k: int | None = None,
                            p_bf16: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """q / k: (B, S, H, Dh) / (B, T, KV, Dh), v: (B, T, KV, Dv) with H %
@@ -179,10 +217,14 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     zero-padded to Dh with the padding sliced off the output (MLA's
     prefill, which the reference pads so).
 
-    Per KV block of `block_k` keys, with c = `score_scale_log2(Dh)`:
-    s = q K^T from float32 q and k (unscaled), masked entries -inf, m the
-    running row max of s (0 in place of -inf where a row has seen no
-    visible key), p = exp2(s c - m c), corr = exp2((m_old - m) c),
+    Per KV block of `block_k` keys (default: the instantiation's tile,
+    `tc_kv_tile(Dh, Dv)`), with c = `score_scale_log2(Dh)`:
+    s = q K^T (unscaled; `tc_scores`: per 16 head-dim elements the exact
+    sum of the products added to a float32 sum rounded toward zero, as
+    `wgmma` accumulates), masked entries -inf, m the running row max of s
+    (0 in place of -inf where a row has seen no visible key), p =
+    exp2(fma(s, c, -m c)) (one rounding of the argument, as the kernel's
+    `fmaf`), corr = exp2((m_old - m) c),
     l = l corr + sum(p) and acc = acc corr + bf16(p) V in float32;
     out = acc / max(l, 1e-30) cast to q's dtype once.  Blocks are skipped
     for rows that see none of their keys, as in `flash_attention_ref`.
@@ -193,15 +235,18 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     between the two is float32 summation order."""
     kvh = k.shape[2]
     p_in = None if p_bf16 is None else _rows(p_bf16, kvh)
+    block_k = block_k or tc_kv_tile(q.shape[3], v.shape[3])
     return _tc_online(q, k, v, causal, prefix_len, block_k, p_in, None)
 
 
 def flash_attention_tc_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, prefix_len: int = 0,
-                         block_k: int = TC_KV_TILE) -> torch.Tensor:
+                         block_k: int | None = None) -> torch.Tensor:
     """The bf16(p) that `flash_attention_tc_ref` feeds to P.V, (B, H, S,
-    T) bf16: p relative to the running max of its `block_k` block, 0 for
-    masked keys and for blocks a row does not reach."""
+    T) bf16: p relative to the running max of its `block_k` block
+    (default `tc_kv_tile(Dh, Dv)`), 0 for masked keys and for blocks a row
+    does not reach."""
+    block_k = block_k or tc_kv_tile(q.shape[3], v.shape[3])
     b, s, h, _ = q.shape
     t, kvh = k.shape[1], k.shape[2]
     p_out = torch.zeros((b, kvh, s * (h // kvh), t), dtype=torch.bfloat16,

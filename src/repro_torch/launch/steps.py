@@ -1,5 +1,5 @@
 """Step builders: the train step, the prefill forward and the decode step
-of the LM (the dense and MoE families).
+of the LM (the dense, MoE and VLM families).
 
 Counterpart of `repro.launch.steps` on one device.  The reference jits
 each step with the sharding policy of a mesh; the port runs eagerly on
@@ -88,8 +88,10 @@ def make_train_step(cfg: ArchConfig, *,
 
     `fn(state, batch)` takes `state = {"params": LM, "opt": adamw state,
     "step": int32 0-dim tensor}` (`train.trainer.init_state`) and a batch
-    of `inputs` / `targets` (B, S); it runs `lm_loss` (dense attention,
-    bf16 products, remat per block when `remat`), backward and AdamW,
+    of `inputs` / `targets` (B, S) (the VLM's also `patches` (B, P, D));
+    it runs the model's loss (`lm_loss`, or `paligemma_loss` for the VLM:
+    dense attention, bf16 products, remat per block when `remat`),
+    backward and AdamW,
     writes the parameters and moments in place (the reference donates
     its state) and returns (state, metrics): `lm_loss`'s metrics, AdamW's
     and `loss`, 0-dim tensors on the device.
@@ -152,7 +154,8 @@ def make_train_step(cfg: ArchConfig, *,
 @dataclasses.dataclass(frozen=True)
 class PrefillStep:
     fn: Callable[[lm.LM, dict], torch.Tensor]
-    batch_shapes: dict[str, tuple[int, ...]]   # the shape's batch: inputs (B, S)
+    # the shape's batch: inputs (B, S); the VLM's also patches (B, P, D)
+    batch_shapes: dict[str, tuple[int, ...]]
     device: torch.device
 
 
@@ -164,21 +167,27 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, *,
     `fn(params, batch)` returns the logits of `lm_hidden(params,
     batch["inputs"], cfg, attn_impl="blockwise")` under
     `torch.inference_mode()`: logits at every position, in the hidden
-    dtype (bf16).  `params` is an `LM` on the step's device, as
+    dtype (bf16).  The VLM family's batch also carries `patches` (B, P,
+    D), prepended as `prefix_embeds` (attention bidirectional over them):
+    its logits cover the P + S positions, patches included, as the
+    reference's do.  `params` is an `LM` on the step's device, as
     `init_lm(cfg, device=..., dtype=torch.bfloat16)` gives the serving
     weights."""
     dev = resolve_device(device)
     lm.check_dense(cfg)
+    shapes = {"inputs": (shape.batch, shape.seq)}
+    if cfg.family == "vlm":
+        shapes["patches"] = (shape.batch, cfg.vlm.n_patches, cfg.d_model)
 
     def prefill(params: lm.LM, batch: dict) -> torch.Tensor:
+        prefix = batch["patches"].to(dev) if cfg.family == "vlm" else None
         with torch.inference_mode():
             hidden, _ = lm.lm_hidden(params, batch["inputs"].to(dev), cfg,
+                                     prefix_embeds=prefix,
                                      attn_impl="blockwise")
             return lm.lm_logits(params, hidden, cfg)
 
-    return PrefillStep(fn=prefill,
-                       batch_shapes={"inputs": (shape.batch, shape.seq)},
-                       device=dev)
+    return PrefillStep(fn=prefill, batch_shapes=shapes, device=dev)
 
 
 # ---------------------------------------------------------------------------

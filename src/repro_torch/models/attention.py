@@ -107,11 +107,12 @@ def attention_fwd_blockwise(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     Runs `flash_attention` (a CUDA kernel on the card, its plain version
     on the CPU), which computes the scores and the softmax statistics in
     float32 from x's dtype and rounds the output once; in bf16 at head
-    dims 64 and 128 (qwen2.5-3b's 128) it takes the tensor-core route,
-    which rounds P to bf16 before P.V as the reference's jnp core
-    (`_blockwise_core`) does; the core also rounds the scores and P.V to
-    x's dtype.  `kv_block` is the plain version's KV block; the kernels
-    stream 64-key (CUDA cores) or 128-key (tensor cores) tiles."""
+    dims 64, 128 and 256 (qwen2.5-3b's 128, paligemma's 256) it takes the
+    tensor-core route, which rounds P to bf16 before P.V as the
+    reference's jnp core (`_blockwise_core`) does; the core also rounds
+    the scores and P.V to x's dtype.  `kv_block` is the plain version's
+    KV block; the kernels stream 64-key (CUDA cores; tensor cores at head
+    dim 256) or 128-key (tensor cores) tiles."""
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(p, x, cfg, positions)

@@ -116,6 +116,14 @@ def causal_mask(s: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
 
 
+def prefix_lm_mask(s: int, prefix_len: int, device=None) -> torch.Tensor:
+    """Bidirectional over the first `prefix_len` positions, causal after
+    (PaliGemma-style image-prefix attention)."""
+    idx = torch.arange(s, device=device)
+    pref = (idx[None, :] < prefix_len) & (idx[:, None] < prefix_len)
+    return causal_mask(s, device) | pref
+
+
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Decoder-only LM assembled from an ArchConfig: the dense family and
-the MoE family (deepseek-v2-lite with MLA, arctic with GQA).
+"""Decoder-only LM assembled from an ArchConfig: the dense family, the
+MoE family (deepseek-v2-lite with MLA, arctic with GQA) and the decoder
+of the VLM family (paligemma: image patches prepended as a prefix,
+`repro_torch.models.paligemma`).
 
 Counterpart of the dense and MoE families of `repro.models.lm`:
 `init_lm` builds the parameters as `nn.Module`s whose state-dict names
@@ -9,7 +11,8 @@ follow the reference's pytree (`emb`, `blocks.<i>.ln1.scale`,
 `ModuleList`.  MoE layers add their router aux loss, which `lm_hidden`
 sums over the layers and `lm_loss` adds to the loss.  `lm_hidden` / `lm_logits`
 are the forward of prefill (`repro_torch.launch.steps`), dense or
-blockwise, and `lm_loss` the training loss (`launch.steps
+blockwise, with an optional prefix of embeddings (the VLM's patches),
+and `lm_loss` the training loss (`launch.steps
 .make_train_step`); `init_decode_state` / `decode_step` the one-token
 decode of serving (`repro_torch.serve.engine`); the CIM-in-the-loop
 trainer has its own forward (`repro_torch.train.acim_lm`).
@@ -32,20 +35,25 @@ from repro_torch.models.common import (apply_norm, causal_mask, dense_init,
 
 
 # Where each family the port does not build stands in ROADMAP queue 1.
-_NOT_PORTED = {"vlm": "item 6.4 (paligemma)",
-               "hybrid": "item 6.5 (mamba2, zamba2)",
+_NOT_PORTED = {"hybrid": "item 6.5 (mamba2, zamba2)",
                "ssm": "item 6.6 (xlstm)", "audio": "item 6.6 (whisper)"}
+
+# The backbone's activation dtype: the reference casts the embeddings to
+# bf16 (`astype(jnp.bfloat16)`) whatever the parameters' dtype.  Read by
+# `lm_hidden` and `decode_step` at each call, so a float32 backbone can be
+# set on both packages to hold their arithmetic tightly.
+BACKBONE = torch.bfloat16
 
 
 def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless the port builds `cfg`: the dense decoder and the MoE
-    family, each with GQA or MLA attention, with RoPE (no learned
-    positions).  The message names the ROADMAP item that brings what is
-    missing."""
-    if cfg.family not in ("dense", "moe"):
+    """Raise unless the port builds `cfg`: the dense decoder, the MoE
+    family and the VLM family's decoder, each with GQA or MLA attention,
+    with RoPE (no learned positions).  The message names the ROADMAP item
+    that brings what is missing."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         item = _NOT_PORTED.get(cfg.family, "item 6")
         raise NotImplementedError(
-            f"the port builds the dense and MoE families only, not "
+            f"the port builds the dense, MoE and VLM families only, not "
             f"{cfg.name!r} ({cfg.family}): ROADMAP queue 1 {item}")
     if cfg.pos == "learned":
         raise NotImplementedError(
@@ -175,6 +183,7 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
+              mask: torch.Tensor | None = None,
               prefix_embeds: torch.Tensor | None = None,
               remat: bool = False,
               attn_impl: str = "dense") -> tuple[torch.Tensor, torch.Tensor]:
@@ -184,24 +193,41 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     (32k+ prefill).  `remat` runs each block under
     `torch.utils.checkpoint` (the reference's `jax.checkpoint
     (layer_step)`): backward keeps one (B, S, D) input a layer and
-    recomputes the rest."""
+    recomputes the rest.
+
+    `prefix_embeds` (B, P, D): modality-stub embeddings (the VLM's
+    patches) cast to the backbone's dtype and prepended to the token
+    embeddings, so S counts them; the blockwise attention then sees
+    every position below P in both directions (`prefix_len`, through
+    the flash attention kernels; MLA's blockwise form has no prefix, as
+    in the reference).  `mask` (S, S) bool is the dense attention's
+    (default causal; the VLM's loss passes `prefix_lm_mask`)."""
     check_dense(cfg)
+    x = params.emb[tokens].to(BACKBONE)
+    prefix_len = 0
     if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings (the VLM prefix) are "
-                                  "not ported")
-    x = params.emb[tokens].to(torch.bfloat16)
+        if (prefix_embeds.dim() != 3 or prefix_embeds.shape[0] != x.shape[0]
+                or prefix_embeds.shape[2] != x.shape[2]):
+            raise ValueError(f"prefix_embeds must be (B, P, D) = ("
+                             f"{x.shape[0]}, P, {x.shape[2]}), got "
+                             f"{tuple(prefix_embeds.shape)}")
+        x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
+        prefix_len = prefix_embeds.shape[1]
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
-    mask = causal_mask(s, x.device) if attn_impl == "dense" else None
+    if mask is None and attn_impl == "dense":
+        mask = causal_mask(s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
         if remat:
             x, a = checkpoint(_block_fwd, blk, x, cfg, mask=mask,
                               positions=positions, attn_impl=attn_impl,
-                              use_reentrant=False, preserve_rng_state=False)
+                              prefix_len=prefix_len, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             x, a = _block_fwd(blk, x, cfg, mask=mask, positions=positions,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, prefix_len=prefix_len)
         aux = aux + a
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
@@ -271,9 +297,9 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor,
                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """One decode step: tokens (B,) -> (logits (B, V) float32, new state).
 
-    The embedding goes to bf16, as in the reference; a Python loop over
-    the layers writes each layer's k / v (MLA: latent and rope key) into
-    the stacked cache in place at `state["pos"]`, so the new state holds
+    The embedding goes to bf16 (`BACKBONE`), as in the reference; a
+    Python loop over the layers writes each layer's k / v (MLA: latent
+    and rope key) into the stacked cache in place at `state["pos"]`, so the new state holds
     the same cache tensors.  Where the reference clamps a write past the
     cache's end, this raises."""
     check_dense(cfg)
@@ -282,7 +308,7 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor,
     if not 0 <= pos < _cache_len(caches):
         raise ValueError(f"decode position {pos} is outside the cache's "
                          f"{_cache_len(caches)} positions")
-    x = params.emb[tokens].to(torch.bfloat16)
+    x = params.emb[tokens].to(BACKBONE)
     for i, blk in enumerate(params.blocks):
         x, _ = _layer_decode(blk, x, {k: c[i] for k, c in caches.items()},
                              pos, cfg)

@@ -3,7 +3,8 @@ the port builds, plus the parameter accounting of the roofline terms.
 
 Counterpart of `repro.models.registry`.  `build_model(cfg)` gives the
 LM's `init`, `loss`, `init_decode_state` and `decode_step` for the
-dense and MoE families; the other families are not ported and raise,
+dense and MoE families, and the VLM's (`models.paligemma`: the loss over
+a batch with patches); the other families are not ported and raise,
 naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, paligemma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,10 +28,20 @@ class ModelAPI:
 
 
 def build_model(cfg: ArchConfig, *, remat: bool = False) -> ModelAPI:
-    """The LM's API (dense or MoE, GQA or MLA); raises
-    `NotImplementedError` for the families and variants that are not
-    ported (`lm.check_dense`)."""
+    """The LM's API (dense or MoE, GQA or MLA; the VLM's decoder with its
+    prefix loss); raises `NotImplementedError` for the families and
+    variants that are not ported (`lm.check_dense`)."""
     lm.check_dense(cfg)
+    if cfg.family == "vlm":
+        return ModelAPI(
+            cfg,
+            init=lambda seed=0, **kw: paligemma.init_paligemma(
+                cfg, seed=seed, **kw),
+            loss=lambda p, b: paligemma.paligemma_loss(p, b, cfg,
+                                                       remat=remat),
+            init_decode_state=lambda bs, s, **kw: paligemma.init_decode_state(
+                cfg, bs, s, **kw),
+            decode_step=lambda p, st, t: paligemma.decode_step(p, st, t, cfg))
     return ModelAPI(
         cfg,
         init=lambda seed=0, **kw: lm.init_lm(cfg, seed=seed, **kw),

@@ -25,10 +25,11 @@ Tolerances:
   scores, P rounded to bf16) on bf16 inputs against the reference's bf16
   `_blockwise_core`, which also rounds P to bf16 but rounds the scores
   and each block's P.V to bf16 as well: rel L2 <= 1e-2 (measured 3.9e-3
-  to 4.8e-3), max abs <= 0.05 (measured <= 0.016, one bf16 ulp at |out|
-  2-4).  Against the reference's `attention_ref` on the same bf16
-  values (float32 P): rel L2 <= 5e-3 (measured 1.9e-3 to 2.0e-3), max
-  abs <= 0.02 (measured 7.8e-3).
+  to 4.8e-3; at head dim 256 with the 64-key tile 3.4e-3 to 4.9e-3), max
+  abs <= 0.05 (measured <= 0.016, one bf16 ulp at |out| 2-4).  Against
+  the reference's `attention_ref` on the same bf16 values (float32 P):
+  rel L2 <= 5e-3 (measured 1.9e-3 to 2.0e-3), max abs <= 0.02 (measured
+  7.8e-3).
 
 `test_bf16_within_one_ulp_of_oracle` calls `flash_attention_ref` (the
 CUDA-core kernel's arithmetic) by name: on the CPU `flash_attention`
@@ -348,6 +349,75 @@ def test_tc_ref_takes_and_gives_its_p(b, s, h, kv, dh, causal, prefix_len):
     assert bool((one_block[..., ~vis] == 0).all())
     assert bool(((one_block - want).abs()
                  <= torch.from_numpy(_bf16_ulp(want.numpy())) + 1e-30).all())
+
+
+@pytest.mark.parametrize("b,s,h,kv,prefix_len", [
+    (1, 129, 8, 1, 256),              # paligemma's MQA; the prefix covers S
+    (2, 300, 8, 1, 256),              # 256 patches, then causal text
+    (1, 300, 4, 2, 100),              # a prefix ending inside a key tile
+    (2, 129, 4, 4, 0),                # causal, a ragged last tile
+])
+def test_tc_ref_256_matches_reference_blockwise_core(b, s, h, kv,
+                                                     prefix_len):
+    """The (256, 256) instantiation's plain version, at its 64-key tile
+    (the default there), against the reference's bf16 core with a prefix
+    (tolerances of `test_tc_ref_matches_reference_blockwise_core`); on the
+    CPU `flash_attention` takes it for bf16 at 256."""
+    dh = 256
+    q, k, v = _qkv(s + prefix_len + h, b, s, s, h, kv, dh)
+    g = h // kv
+    want = np.asarray(rblockwise_core(
+        *(jnp.asarray(a).astype(jnp.bfloat16)
+          for a in (q.reshape(b, s, kv, g, dh), k, v)),
+        kv_block=64, prefix_len=prefix_len, out_dtype=jnp.bfloat16)
+        .astype(jnp.float32)).reshape(b, s, h, dh)
+    got = _port(q, k, v, torch.bfloat16, fn=flash_attention_tc_ref,
+                prefix_len=prefix_len)
+    assert _rel_l2(got, want) <= 1e-2, _rel_l2(got, want)
+    assert np.abs(got - want).max() <= 0.05
+    assert fa_ref.tc_kv_tile(dh) == 64
+    np.testing.assert_array_equal(
+        _port(q, k, v, torch.bfloat16, fn=flash_attention_tc_ref,
+              prefix_len=prefix_len, block_k=64), got)
+    np.testing.assert_array_equal(
+        _port(q, k, v, torch.bfloat16, prefix_len=prefix_len), got)
+
+
+def test_tc_tile_follows_the_instantiation():
+    """The plain version's default key block is the instantiation's tile:
+    128 at (64, 64), (128, 128) and (192, 128), 64 at (256, 256).  The
+    tile decides when the running max moves, so a 128-key block gives
+    other P roundings at 256 than the kernel's 64."""
+    assert [fa_ref.tc_kv_tile(*pr) for pr in kernel.TC_DIM_PAIRS] == [
+        128, 128, 128, 64]
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(9, 1, 300, 300, 2, 1, 256))
+    p64 = fa_ref.flash_attention_tc_p(q, k, v, prefix_len=256)
+    assert torch.equal(p64, fa_ref.flash_attention_tc_p(q, k, v,
+                                                        prefix_len=256,
+                                                        block_k=64))
+    assert not torch.equal(p64, fa_ref.flash_attention_tc_p(
+        q, k, v, prefix_len=256, block_k=128))
+    out, p = kernel.flash_attention_wgmma_p(q, k, v, prefix_len=256)
+    assert torch.equal(p, p64)
+    assert torch.equal(out, flash_attention_tc_ref(q, k, v, prefix_len=256))
+
+
+def test_route_at_head_dim_256():
+    """bf16 at (256, 256) takes the tensor-core kernel; float32 at 256
+    has no route and raises on the CPU too, naming the routes."""
+    assert kernel.route(torch.bfloat16, 256) == "wgmma"
+    assert kernel.route(torch.bfloat16, 256, 256) == "wgmma"
+    assert (256, 256) in kernel.TC_DIM_PAIRS
+    assert kernel.route(torch.float32, 256) == "cuda_core"
+    z = torch.zeros((1, 8, 2, 256))
+    with pytest.raises(ValueError, match="routes: bf16 at"):
+        flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="head dims"):
+        kernel.flash_attention_cuda_core(z.bfloat16(), z.bfloat16(),
+                                         z.bfloat16())
+    with pytest.raises(ValueError, match="head dims"):      # (256, 128)
+        flash_attention(z.bfloat16(), z.bfloat16(), z[..., :128].bfloat16())
 
 
 def test_ops_copies_expanded_kv():

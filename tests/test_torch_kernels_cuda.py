@@ -621,9 +621,12 @@ def _assert_tc_close(got, q, k, v, **kw):
     ulps of every output element plus 2e-5; against the plain version's
     own P at most `TC_FLIP_SHARE` of the outputs lie beyond that, each
     within one ulp of its row's largest output plus 2e-5.  Measured on
-    the H100 by chip_smoke.py: P one step apart on 3.6e-5 to 7.9e-5 of
-    the visible entries; fed the kernel's P, <= 0.995 element ulps;
-    outputs beyond two ulps 3.7e-6 to 2.5e-5, each <= 0.427 row ulps."""
+    the H100 by chip_smoke.py, with the plain version summing the scores
+    as the tensor cores do (`ref.tc_scores`): P one step apart on 2.0e-6
+    to 8.4e-6 of the visible entries at head dims 64 and 128 and 1.5e-5
+    to 2.1e-5 at 256 (3.6e-5 to 1.4e-4 with float32 sums); fed the
+    kernel's P, <= 0.995 element ulps; outputs beyond two ulps 0 to
+    2.6e-5, each <= 0.23 row ulps."""
     out_p, p = fa_kernel.flash_attention_wgmma_p(q, k, v, **kw)
     assert torch.equal(out_p, got)
     step = (p.view(torch.int16)
@@ -1067,3 +1070,114 @@ def test_moe_a2a_on_card_positions_matches_dropfree(dev):
     for y in got.values():
         torch.testing.assert_close(y, want, atol=2e-3, rtol=2e-3)
         assert torch.equal(y, got[1])
+
+
+# ---------------------------------------------------------------------------
+# paligemma's (256, 256) tensor-core instantiation and the VLM family
+# ---------------------------------------------------------------------------
+def _vlm_wide_cfg():
+    """The reduced paligemma widened to the full config's head dim (2
+    layers, d 256, 8 heads over 1 KV head at 256, 16 patches): its
+    blockwise prefill runs the (256, 256) instantiation."""
+    return dataclasses.replace(registry.reduced("paligemma_3b"), d_model=256,
+                               n_heads=8, n_kv_heads=1, head_dim=256)
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,prefix_len", [
+    (1, 1000, 8, 1, True, 256),      # paligemma's MQA and its patch prefix
+    (1, 129, 8, 1, True, 256),       # the prefix covers every row
+    (2, 777, 4, 2, False, 0),        # GQA, no mask
+    (2, 300, 4, 4, True, 0),         # causal, a ragged last tile
+    (1, 200, 2, 1, True, 100)], ids=str)   # a prefix inside a key tile
+def test_flash_attention_256_256_matches_tc_plain(b, s, h, kv, causal,
+                                                  prefix_len, dev):
+    """The (256, 256) instantiation (64-key tiles) against
+    `flash_attention_tc_ref` at its tile as `_assert_tc_close` holds it,
+    with its launch counts; rel L2 against the float32-P
+    `flash_attention_ref` at most 1e-2, as at Dh 128."""
+    g = torch.Generator(device=dev).manual_seed(s + prefix_len + 256)
+    q = torch.randn((b, s, h, 256), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kv, 256), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    n0 = dict(LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal,
+                                 prefix_len=prefix_len)
+    for key in ("flash_attention", "flash_attention_wgmma",
+                "flash_attention_wgmma_256_256"):
+        assert LAUNCHES[key] == n0.get(key, 0) + 1, key
+    assert tuple(got.shape) == (b, s, h, 256)
+    _assert_tc_close(got, q, k, v, causal=causal, prefix_len=prefix_len)
+    f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      prefix_len=prefix_len).float()
+    assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
+
+
+def test_flash_attention_256_256_reads_strided_q(dev):
+    """q and k as RoPE leaves them (heads-major memory read through
+    strides) and q as a 256-wide view of wider rows: the same bits as on
+    contiguous copies."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((1, 8, 500, 256), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, 1, 500, 256), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, 500, 1, 256), generator=g, device=dev).bfloat16()
+    q, k = q.transpose(1, 2), k.transpose(1, 2)
+    assert fa_kernel.kernel_layout_ok(q) and not q.is_contiguous()
+    got = fa_kernel.flash_attention_wgmma(q, k, v, prefix_len=64)
+    _assert_tc_close(got, q, k, v, causal=True, prefix_len=64)
+    assert torch.equal(got, fa_kernel.flash_attention_wgmma(
+        q.contiguous(), k.contiguous(), v, prefix_len=64))
+    wide = torch.randn((1, 500, 8, 320), generator=g, device=dev).bfloat16()
+    qs = wide[..., :256]
+    assert fa_kernel.kernel_layout_ok(qs) and not qs.is_contiguous()
+    assert torch.equal(fa_kernel.flash_attention_wgmma(qs, k, v),
+                       fa_kernel.flash_attention_wgmma(qs.contiguous(), k, v))
+
+
+def test_flash_attention_256_refuses_float32(dev):
+    """No route takes float32 at head dim 256: the wrapper and ops raise
+    on the card, naming the routes; nothing falls back to a plain
+    version."""
+    q = torch.zeros((1, 64, 2, 256), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_wgmma(q, q, q)
+    with pytest.raises(ValueError, match="routes"):
+        fa_ops.flash_attention(q, q, q)
+
+
+def test_vlm_prefill_on_cuda_matches_cpu(dev):
+    """The widened reduced paligemma's prefill on the card (16 patches as
+    a prefix): one (256, 256) launch a layer; logits at every position,
+    patches included, within the bf16 backbone's rounding of the CPU run
+    (rel L2 3e-2, as the dense family's)."""
+    cfg = _vlm_wide_cfg()
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    batch = batch_for(cfg, 300, 2, 0)
+    shape = ShapeSpec("t", "prefill", 300, 2)
+    n0 = dict(LAUNCHES)
+    got = make_prefill_step(cfg, shape).fn(card, batch)
+    assert LAUNCHES["flash_attention_wgmma_256_256"] == \
+        n0.get("flash_attention_wgmma_256_256", 0) + cfg.n_layers
+    assert LAUNCHES["flash_attention"] == n0.get("flash_attention", 0) + cfg.n_layers
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, batch)
+    assert tuple(got.shape) == (2, 300 + cfg.vlm.n_patches, cfg.vocab)
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 3e-2
+
+
+def test_vlm_reduced_prefill_runs_the_cuda_core_route(dev):
+    """The reduced paligemma (head dim 16) prefill on the card: one
+    CUDA-core launch a layer and no tensor-core one; logits within rel L2
+    3e-2 of the CPU run."""
+    cfg = registry.reduced("paligemma_3b")
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    batch = batch_for(cfg, 300, 2, 1)
+    shape = ShapeSpec("t", "prefill", 300, 2)
+    n0 = dict(LAUNCHES)
+    got = make_prefill_step(cfg, shape).fn(card, batch)
+    assert LAUNCHES["flash_attention"] == n0.get("flash_attention", 0) + cfg.n_layers
+    assert LAUNCHES["flash_attention_wgmma"] == n0.get("flash_attention_wgmma", 0)
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, batch)
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 3e-2

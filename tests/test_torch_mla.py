@@ -202,11 +202,12 @@ def test_plain_192_128_matches_padded_core(s):
 
 
 def test_routes_of_head_dim_pairs():
-    """The tensor-core route takes bf16 at (64, 64), (128, 128) and (192,
-    128); any other pair, or float32 at (192, 128), raises with the pairs
-    it supports, on the CPU as on the card."""
+    """The tensor-core route takes bf16 at (64, 64), (128, 128), (192,
+    128) and (256, 256); any other pair, or float32 at (192, 128), raises
+    with the pairs it supports, on the CPU as on the card."""
     bf16 = torch.bfloat16
-    assert tkernel.TC_DIM_PAIRS == ((64, 64), (128, 128), (192, 128))
+    assert tkernel.TC_DIM_PAIRS == ((64, 64), (128, 128), (192, 128),
+                                    (256, 256))
     assert tkernel.route(bf16, 192, 128) == "wgmma"
     assert tkernel.route(bf16, 128) == tkernel.route(bf16, 128, 128) == "wgmma"
     for dh, dv, dtype in ((192, 128, torch.float32), (192, 192, bf16),

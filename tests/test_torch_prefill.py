@@ -245,15 +245,15 @@ def test_prefill_with_trained_norms_and_biases_matches_jax():
 def test_lm_hidden_refuses_what_is_not_ported(models):
     rcfg, tcfg, rp, model = models
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="prefix"):
+    with pytest.raises(ValueError, match="prefix_embeds"):  # not (B, P, D)
         tlm.lm_hidden(model, toks, tcfg, prefix_embeds=torch.zeros(
-            (1, 2, tcfg.d_model)))
+            (1, 2, tcfg.d_model + 1)))
     with pytest.raises(NotImplementedError, match="dense"):
         tlm.lm_hidden(model, toks, dataclasses.replace(tcfg, family="ssm"))
     with pytest.raises(ValueError, match="attn_impl"):
         tlm.lm_hidden(model, toks, tcfg, attn_impl="paged")
     with pytest.raises(NotImplementedError, match="dense"):
-        make_prefill_step(dataclasses.replace(tcfg, family="vlm"),
+        make_prefill_step(dataclasses.replace(tcfg, family="hybrid"),
                           SHAPES["prefill_32k"], device="cpu")
 
 
