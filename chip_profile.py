@@ -62,12 +62,24 @@ and prints:
    warm-up: one prefill under the profiler, its device time split into
    the (256, 256) flash attention instantiation, the GEMMs and the rest;
    then by stage (the attention layer with its kernel, the GeGLU MLP, the
-   tied head: CUDA events around those model functions).
+   tied head: CUDA events around those model functions);
+11. the full-width zamba2-2.7b prefill (54 Mamba2 layers in 9 groups,
+   one shared attention + FFN block, bf16 weights drawn on the card from
+   seed 0, 1 x 32768), after one warm-up: one prefill under the
+   profiler, its device time split into the (80, 80) flash attention
+   instantiation, the GEMMs and the rest; then by stage (CUDA events
+   around the model functions): the Mamba2 mixer and within it the
+   causal conv, the SSD's intra-chunk work, the chunk states, the chunk
+   recurrence, the inter-chunk output and the gated norm (the rest of
+   the mixer is its projections and elementwise work), the shared block
+   and within it the attention layer (its kernel's time from the
+   profiler), and the head; then its decode at batch 4 as section 6
+   measures qwen2.5-3b's.
 
     python3 chip_profile.py vlm moe      # only the sections named
 
 Arguments name sections to run (request, train, prefill, decode,
-lm_train, moe, islands, vlm); none runs them all.
+lm_train, moe, islands, vlm, hybrid); none runs them all.
 
 It checks nothing: `chip_smoke.py` holds the results against the
 golden rows and the trainer's losses.  It imports nothing of JAX.
@@ -84,7 +96,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ARRAY_SIZE = 16384
 SECTIONS = ("request", "train", "prefill", "decode", "lm_train", "moe",
-            "islands", "vlm")
+            "islands", "vlm", "hybrid")
 STAGE_PREFIX = "layout."
 
 
@@ -393,9 +405,70 @@ def profile_vlm_prefill(seq: int = 32768, batch: int = 1) -> dict:
                     for k, c, us in kernels[:15]]}
 
 
+HYBRID_RANGES = {"mamba2": ("mamba2", "mamba2_fwd"),
+                 "mamba2.conv": ("mamba2", "_causal_conv"),
+                 "mamba2.ssd_intra": ("mamba2", "_ssd_intra"),
+                 "mamba2.chunk_states": ("mamba2", "_chunk_states"),
+                 "mamba2.recurrence": ("mamba2", "_chunk_recurrence"),
+                 "mamba2.ssd_inter": ("mamba2", "_ssd_inter"),
+                 "mamba2.gated_norm": ("mamba2", "_gated_rmsnorm"),
+                 "shared": ("lm", "_shared_block_fwd"),
+                 "shared.attention": ("attention", "attention_fwd_blockwise"),
+                 "head": ("lm", "lm_logits")}
+
+
+def profile_hybrid(seq: int = 32768, batch: int = 1) -> dict:
+    """One full-width zamba2-2.7b prefill (bf16 weights drawn on the card
+    from seed 0) under the profiler, after a warm-up: its device time by
+    kernel class (the (80, 80) flash attention instantiation, the GEMMs,
+    the rest); then one more prefill with each model function of
+    `HYBRID_RANGES` bracketed by CUDA events; then `profile_decode` of the
+    same weights at batch 4."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, lm, mamba2
+
+    name = "zamba2-2.7b"
+    cfg = registry.get(name)
+    params = lm.init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
+    step = make_prefill_step(cfg, shape)
+    data = batch_for(cfg, seq, batch, 0)
+    wall_s, prof_s, prof = _profiled_prefill(step, params, data)
+    stages = _stage_device_s(lambda: step.fn(params, data), HYBRID_RANGES,
+                             {"attention": attention, "lm": lm,
+                              "mamba2": mamba2})
+    kernels = _device_kernels(prof)
+    flash = sum(r[2] for r in kernels if "flash_attention" in r[0]) / 1e6
+    gemm = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e6
+    device_s = sum(r[2] for r in kernels) / 1e6
+    inner = sum(v for k, v in stages.items() if k.startswith("mamba2."))
+    stages["mamba2.projections_and_rest"] = stages["mamba2"] - inner
+    stages["shared.attention_kernel"] = flash
+    stages["shared.rest"] = stages["shared"] - flash
+    del prof, data
+    torch.cuda.empty_cache()
+    dec = profile_decode(params, name=name)
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": batch * seq, "wall_s": wall_s, "profiled_s": prof_s,
+            "device_s": device_s, "flash_attention_s": flash,
+            "gemm_s": gemm, "rest_s": device_s - flash - gemm,
+            "stages_device_s": stages, "busy_share": device_s / prof_s,
+            "device_events": sum(r[1] for r in kernels),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:15]],
+            "decode": dec}
+
+
 def profile_decode(params, batch: int = 4, steps: int = 8,
-                   max_seq: int = 256) -> dict:
-    """`decode_step` of the full-width qwen2.5-3b at `batch`: step time
+                   max_seq: int = 256, name: str = "qwen2.5-3b") -> dict:
+    """`decode_step` of the full-width config `name` at `batch`: step time
     unprofiled, then `steps` steps under the profiler by kernel class,
     with the host's aten operators per step."""
     import torch
@@ -405,7 +478,7 @@ def profile_decode(params, batch: int = 4, steps: int = 8,
     from repro_torch.configs import registry
     from repro_torch.models.lm import decode_step, init_decode_state
 
-    cfg = registry.get("qwen2.5-3b")
+    cfg = registry.get(name)
     state = init_decode_state(cfg, batch, max_seq)
     toks = torch.arange(batch, device="cuda")
 
@@ -567,6 +640,8 @@ def main() -> int:
         out["islands"] = _print_islands()
     if "vlm" in want:
         out["vlm_prefill"] = _print_vlm()
+    if "hybrid" in want:
+        out["hybrid"] = _print_hybrid()
     print(json.dumps({"card": card, **out}))
     return 0
 
@@ -649,9 +724,10 @@ def _print_prefill(params) -> dict:
     return pre
 
 
-def _print_decode(params) -> dict:
-    dec = profile_decode(params)
-    print(f"decode (qwen2.5-3b, batch {dec['batch']}): "
+def _print_decode(params, dec: dict | None = None,
+                  name: str = "qwen2.5-3b") -> dict:
+    dec = dec or profile_decode(params)
+    print(f"decode ({name}, batch {dec['batch']}): "
           f"{dec['step_ms']:.3f} ms/step unprofiled, "
           f"{dec['profiled_step_ms']:.3f} profiled; device "
           f"{dec['device_ms_per_step']:.3f} ms/step (GEMMs "
@@ -731,6 +807,24 @@ def _print_vlm() -> dict:
     return vlm
 
 
+def _print_hybrid() -> dict:
+    hy = profile_hybrid()
+    print(f"prefill (zamba2-2.7b, 54 Mamba2 layers, 9 shared calls, 1 x "
+          f"32768): {hy['wall_s']:.3f} s unprofiled, {hy['profiled_s']:.3f} "
+          f"s profiled; device {hy['device_s']:.3f} s over "
+          f"{hy['device_events']} events: flash_attention (80, 80) "
+          f"{hy['flash_attention_s']:.3f} s "
+          f"({hy['flash_attention_s'] / hy['device_s']:.3f}), GEMMs "
+          f"{hy['gemm_s']:.3f} s ({hy['gemm_s'] / hy['device_s']:.3f}), "
+          f"rest {hy['rest_s']:.3f} s; busy share {hy['busy_share']:.3f}",
+          flush=True)
+    for name, sec in hy["stages_device_s"].items():
+        print(f"  stage {name:28s} device {sec:.4f} s "
+              f"({sec / hy['device_s']:.3f})")
+    for row in hy["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
+    _print_decode(None, hy["decode"], "zamba2-2.7b")
+    return hy
 
 
 if __name__ == "__main__":

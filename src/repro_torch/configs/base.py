@@ -3,9 +3,10 @@
 One `ArchConfig` instance fully determines a model.  The reference
 drives every family from it (dense, MoE, MLA, Mamba2, xLSTM,
 encoder-decoder, VLM prefix); the port builds the dense decoder, the
-MoE family with or without MLA and the VLM prefix family
-(`repro_torch.models.lm`, `repro_torch.models.paligemma`) and reads the
-other families' fields only in the codesign arithmetic
+MoE family with or without MLA, the VLM prefix family and the hybrid
+family (Mamba2 with a shared attention block: `repro_torch.models.lm`,
+`repro_torch.models.mamba2`, `repro_torch.models.paligemma`) and reads
+the other families' fields only in the codesign arithmetic
 (`repro_torch.core.codesign.extract_gemms`).
 
 A copy of `repro.configs.base` (the port imports nothing of the JAX

@@ -1,7 +1,8 @@
 // Causal / full flash attention on Hopper tensor cores (sm_90a), bf16, at
-// q/k and v head dims (Dh, Dv) of 64 / 64, 128 / 128, 192 / 128 (MLA's
-// prefill: nope 128 + rope 64 for q and k, v 128) and 256 / 256 (the
-// Gemma decoder of paligemma), plain C interface.
+// q/k and v head dims (Dh, Dv) of 64 / 64, 80 / 80 (zamba2's shared
+// attention block), 128 / 128, 192 / 128 (MLA's prefill: nope 128 + rope
+// 64 for q and k, v 128) and 256 / 256 (the Gemma decoder of paligemma),
+// plain C interface.
 //
 // flash_attention_wgmma replaces, for bf16 inputs at those head dims, the
 // Pallas kernel `flash_attention_kernel` (body `_kernel`) of
@@ -37,10 +38,11 @@
 //   (0.09 ms at 3.35 TB/s); at deepseek-v2-lite's (H = KV = 16, Dh 192, Dv
 //   128) 5.50e12 flops, 5.56 ms, against 0.6 GB; at paligemma-3b's (S = T
 //   = 33024 with 256 patches as a prefix, H 8, KV 1, Dh = Dv = 256)
-//   4.47e12 flops, 4.52 ms, against 304 MB.  Both products run on the
-//   tensor cores (`wgmma`), the only way to that rate; the K / V tiles come
-//   by TMA, so no thread spends instructions on loads, and P never leaves
-//   the registers.
+//   4.47e12 flops, 4.52 ms, against 304 MB; at zamba2-2.7b's (H = KV = 32,
+//   Dh = Dv = 80) 5.50e12 flops, 5.56 ms, against 671 MB.  Both products
+//   run on the tensor cores (`wgmma`), the only way to that rate; the K /
+//   V tiles come by TMA, so no thread spends instructions on loads, and P
+//   never leaves the registers.
 //
 //   Design.  One CTA of three warpgroups per (128-query tile, head,
 //   batch), the grid 1-D with the longest causal tiles first.  Warpgroup 0
@@ -81,9 +83,17 @@
 //   16 bf16 pairs; S and P are not live during the two products, so the
 //   peak is O, S and P across the softmax.  A 64-key tile pays the softmax,
 //   the O rescale and a barrier round per 64 keys, twice as often as a
-//   128-key one.  Tensor maps are built per call on the host
-//   (cuTensorMapEncodeTiled through the runtime's driver entry point) over
-//   q, k and v with their own strides.
+//   128-key one.  A head dim that is not a multiple of 64 (80) is padded
+//   in shared memory only: its tiles are those of the next multiple (two
+//   64-column blocks at 80, the Dh-128 code), the tensor maps span the
+//   data's own head dim, and TMA fills the box's columns past it with
+//   zeros (and still counts the whole box's bytes on the barrier).  S
+//   takes only the real k16 steps (5 at 80); P.V runs m64n128 over V's
+//   zero columns and the epilogue stores the 80 real ones, so the tensor
+//   cores do 208 / 160 = 1.3x the work an exact-80 design would.  Tensor
+//   maps are built per call on the host (cuTensorMapEncodeTiled through
+//   the runtime's driver entry point) over q, k and v with their own
+//   strides.
 //
 //   Left for later: the softmax of one tile overlapped with the next
 //   Q K^T (FA3's ping-pong between the two consumers, or two S buffers in
@@ -114,6 +124,11 @@ constexpr int kThreads = 384;       // producer + two consumer warpgroups
 constexpr int kBlockCols = 64;      // bf16 columns of one 128-byte swizzle row
 constexpr uint32_t kQBlockBytes = kBQ * 128;  // one 64-column block of Q
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
+
+// The shared-memory width of a head dim: whole 64-column swizzle blocks.
+__host__ __device__ constexpr int tile_dim(int d) {
+  return (d + kBlockCols - 1) / kBlockCols * kBlockCols;
+}
 
 // BK keys per K / V tile (a template parameter: 128, or 64 at Dh 256).
 template <int DH, int DV, int BK>
@@ -378,10 +393,12 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&a)[4],
 }
 
 // One consumer warpgroup: 64 query rows of the CTA's tile, all its key
-// tiles, and the rows' output.  With kDump it also stores the bf16 P it
-// feeds to P.V at p_dump[b, h, row, key] (rows < S, keys < T), for
+// tiles, and the rows' output.  DHD and DVD are the data's head dims,
+// DH and DV the tiles' (`tile_dim`).  With kDump it also stores the bf16
+// P it feeds to P.V at p_dump[b, h, row, key] (rows < S, keys < T), for
 // checking; the arithmetic is the same.
-template <int DH, int DV, int BK, bool kDump>
+template <int DHD, int DVD, int BK, bool kDump,
+          int DH = tile_dim(DHD), int DV = tile_dim(DVD)>
 __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
                                         int cw, int q0, int n_kt, int b,
                                         int h) {
@@ -416,8 +433,9 @@ __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
     const uint32_t k_addr = smem_u32(sm.k[st]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DHD / 16; ++kk) {
       // k16 step kk: 32 bytes into the swizzle row of 64-column block kk / 4
+      // (the steps past DHD would add the zero padding's exact 0)
       const uint32_t col = (kk % 4) * 32;
       wgmma_qk(s, sw128_desc(q_addr + (kk / 4) * kQBlockBytes + col, 16, 1024),
                sw128_desc(k_addr + (kk / 4) * kKVBlockBytes + col, 16, 1024),
@@ -522,23 +540,24 @@ __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
     const int r = row0 + 8 * i;
     if (r >= p.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = og + (((long long)b * p.S + r) * p.H + h) * DV + col0;
+    __nv_bfloat16* orow = og + (((long long)b * p.S + r) * p.H + h) * DVD + col0;
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
+    for (int j = 0; j < DVD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
           o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
   }
 }
 
-template <int DH, int DV, int BK, bool kDump>
+template <int DHD, int DVD, int BK, bool kDump>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const Params p) {
   static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
-  static_assert(DH % kBlockCols == 0 && DV % kBlockCols == 0,
-                "tiles are whole 64-column swizzle blocks");
+  static_assert(DHD % 16 == 0 && DVD % 16 == 0,
+                "head dims are whole k16 steps");
+  constexpr int DH = tile_dim(DHD), DV = tile_dim(DVD);
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   Smem<DH, DV, BK>& sm = *reinterpret_cast<Smem<DH, DV, BK>*>(smem_raw + pad);
@@ -574,6 +593,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x < 128) {            // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
+      // whole boxes: TMA counts the zeros it fills past DHD / DVD too
       constexpr uint32_t kTileBytes = BK * DH * 2, kVTileBytes = BK * DV * 2;
       mbar_expect_tx(&sm.q_full, kBQ * DH * 2);
 #pragma unroll
@@ -597,7 +617,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {                            // two consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<DH, DV, BK, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b, h);
+    consume<DHD, DVD, BK, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b,
+                                 h);
   }
 }
 
@@ -631,8 +652,8 @@ EncodeTiledFn encode_tiled() {
 // A 4-D map over a bf16 tensor with unit stride on Dh and element strides
 // `st` = (row, head, batch): dimension 0 is Dh, the others are ordered by
 // stride (an extent-1 dimension is never stepped and sorts last), and the
-// box is 64 columns x `box_rows` rows, 128-byte swizzled.  Returns a
-// CUresult.
+// box is 64 columns x `box_rows` rows, 128-byte swizzled; a box's columns
+// past dh are filled with zeros.  Returns a CUresult.
 int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
              int rows, int heads, int batch, const long long* st,
              int box_rows) {
@@ -673,32 +694,33 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DH, int DV, int BK, bool kDump>
+template <int DHD, int DVD, int BK, bool kDump>
 int launch(const void* q, const void* k, const void* v,
            const long long* strides, Params& p, cudaStream_t stream) {
+  constexpr int DH = tile_dim(DHD), DV = tile_dim(DVD);
   static_assert(sizeof(Smem<DH, DV, BK>) + 1024 <= kSmemLimit,
                 "the Q tile and two K / V stages must fit a block's shared "
                 "memory");
   const long long blocks = (long long)((p.S + kBQ - 1) / kBQ) * p.B * p.H;
   if (blocks == 0) return 0;
   if (p.T == 0) {                     // no key: o = 0 / max(0, 1e-30)
-    cudaMemsetAsync(p.o, 0, (size_t)p.B * p.S * p.H * DV * 2, stream);
+    cudaMemsetAsync(p.o, 0, (size_t)p.B * p.S * p.H * DVD * 2, stream);
     return (int)cudaGetLastError();
   }
   CUtensorMap tq, tk, tv;
   const long long sq[3] = {strides[1], strides[2], strides[0]};
   const long long sk[3] = {strides[4], strides[5], strides[3]};
   const long long sv[3] = {strides[7], strides[8], strides[6]};
-  int rc = make_map(&tq, &p.oq, q, DH, p.S, p.H, p.B, sq, kBQ);
-  if (rc == 0) rc = make_map(&tk, &p.ok, k, DH, p.T, p.KV, p.B, sk, BK);
-  if (rc == 0) rc = make_map(&tv, &p.ov, v, DV, p.T, p.KV, p.B, sv, BK);
+  int rc = make_map(&tq, &p.oq, q, DHD, p.S, p.H, p.B, sq, kBQ);
+  if (rc == 0) rc = make_map(&tk, &p.ok, k, DHD, p.T, p.KV, p.B, sk, BK);
+  if (rc == 0) rc = make_map(&tv, &p.ov, v, DVD, p.T, p.KV, p.B, sv, BK);
   if (rc != 0) return rc;
   const int smem = (int)sizeof(Smem<DH, DV, BK>) + 1024;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<DH, DV, BK, kDump>,
+      flash_attention_wgmma_kernel<DHD, DVD, BK, kDump>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_wgmma_kernel<DH, DV, BK, kDump>
+  flash_attention_wgmma_kernel<DHD, DVD, BK, kDump>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -711,7 +733,7 @@ extern "C" {
 // with unit stride on the head dim and the other strides (elements) in
 // `strides`: q's batch, seq, head, then k's, then v's, each a multiple of
 // 8, pointers 16-byte aligned.  o (B, S, H, dv) contiguous bf16.  (dh, dv)
-// is (64, 64), (128, 128), (192, 128) or (256, 256).  scale_log2 = log2(e) / sqrt(dh)
+// is (64, 64), (80, 80), (128, 128), (192, 128) or (256, 256).  scale_log2 = log2(e) / sqrt(dh)
 // in float32.  p_dump: null, or a
 // zeroed (B, H, S, T) contiguous bf16 buffer that receives the P fed to
 // P.V (a separate instantiation; for checks only).  Returns a
@@ -731,6 +753,9 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
   if (dh == 64 && dv == 64)
     return dump ? launch<64, 64, 128, true>(q, k, v, strides, p, st)
                 : launch<64, 64, 128, false>(q, k, v, strides, p, st);
+  if (dh == 80 && dv == 80)        // tiles of 128 columns, see tile_dim
+    return dump ? launch<80, 80, 128, true>(q, k, v, strides, p, st)
+                : launch<80, 80, 128, false>(q, k, v, strides, p, st);
   if (dh == 128 && dv == 128)
     return dump ? launch<128, 128, 128, true>(q, k, v, strides, p, st)
                 : launch<128, 128, 128, false>(q, k, v, strides, p, st);

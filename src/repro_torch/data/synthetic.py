@@ -1,9 +1,8 @@
 """Deterministic, stateless synthetic token batches.
 
-Counterpart of `repro.data.synthetic` for the dense, MoE and VLM
-families (the VLM's batches add stub patch embeddings).  Batch t is a
-pure function of (seed, step): each
-batch draws from its own CPU `torch.Generator`, seeded from (seed,
+Counterpart of `repro.data.synthetic` for the dense, MoE, hybrid and
+VLM families (the VLM's batches add stub patch embeddings).  Batch t is
+a pure function of (seed, step): each batch draws from its own CPU `torch.Generator`, seeded from (seed,
 step), so there is no iterator state and every device gets the same
 tokens.  Tokens follow a Zipfian marginal
 with periodic copy structure, so the LM loss actually decreases.  The
@@ -77,14 +76,15 @@ class SyntheticStream:
 
 def batch_for(cfg: ArchConfig, seq: int, global_batch_size: int, step: int,
               seed: int = 1234, device=None) -> dict:
-    """The batch of `step` for a dense-, MoE- or VLM-family model, on
-    `device`.  Tokens are `global_batch`'s.  The VLM's batch adds
+    """The batch of `step` for a dense-, MoE-, hybrid- or VLM-family
+    model, on `device`.  Tokens are `global_batch`'s (the hybrid family's
+    batch is tokens only, as the reference's).  The VLM's batch adds
     `patches` (B, n_patches, D) float32 = 0.1 x standard normal (the
     SigLIP stub), drawn from a CPU `torch.Generator` seeded from (seed +
     7, step), as the reference keys its draw from `fold_in(key(seed + 7),
     step)`; the values are not the reference's (torch cannot reproduce
     `jax.random`)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
         raise NotImplementedError(
             f"synthetic batches of the {cfg.family!r} family are not ported")
     batch = global_batch(DataConfig(cfg.vocab, seq, global_batch_size, seed),

@@ -8,8 +8,9 @@ h by index (the reference's `ops` repeats KV heads in memory instead).
 
 - `flash_attention_wgmma` (`csrc/flash_attention_wgmma.cu`): bf16 at
   the (Dh, Dv) pairs `TC_DIM_PAIRS` (64 / 64, 128 / 128, MLA's 192 /
-  128 and paligemma's 256 / 256), both products on tensor cores, P
-  rounded to bf16, over 128-key tiles (64 at 256 / 256,
+  128, paligemma's 256 / 256 and zamba2's 80 / 80, whose tiles are
+  padded to 128 columns in shared memory), both products on tensor
+  cores, P rounded to bf16, over 128-key tiles (64 at 256 / 256,
   `ref.tc_kv_tile`); plain version `ref.flash_attention_tc_ref`.
 - `flash_attention_cuda_core` (`csrc/flash_attention.cu`): float32, and
   bf16 at any of `HEAD_DIMS` (Dv = Dh), float32 FFMA on CUDA cores;
@@ -25,7 +26,7 @@ Every launch of either kernel counts in
 kernel's also in `LAUNCHES["flash_attention_wgmma"]` and under its
 instantiation, `LAUNCHES["flash_attention_wgmma_<Dh>_<Dv>"]` (MLA's
 prefill: `flash_attention_wgmma_192_128`; paligemma's
-`flash_attention_wgmma_256_256`).
+`flash_attention_wgmma_256_256`; zamba2's `flash_attention_wgmma_80_80`).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 TC_HEAD_DIMS = (64, 128)             # tensor cores where v's head dim is q/k's
 TC_DIM_PAIRS = tuple((d, d) for d in TC_HEAD_DIMS) + (
     (192, 128),                      # MLA's
-    (256, 256))                      # paligemma's (64-key tiles)
+    (256, 256),                      # paligemma's (64-key tiles)
+    (80, 80))                        # zamba2's (128-column tiles)
 ROUTES = (f"routes: bf16 at (q/k, v) head dims {TC_DIM_PAIRS} on tensor "
           f"cores (wgmma); float32, and bf16 at {HEAD_DIMS}, on CUDA cores")
 DTYPES = (torch.bfloat16, torch.float32)

@@ -2,8 +2,9 @@
 kernels read (unit stride on Dh, strides that are multiples of 8 and not
 0, an aligned pointer; other inputs are copied) and call the wrapper of
 the route `kernel.route` names (bf16 at q/k and v head dims 64 / 64, 128 /
-128, MLA's 192 / 128 and paligemma's 256 / 256 on tensor cores, the rest
-on CUDA cores; a pair neither route takes raises).  KV heads are not
+128, MLA's 192 / 128, paligemma's 256 / 256 and zamba2's 80 / 80 on
+tensor cores, the rest on CUDA cores; a pair neither route takes
+raises).  KV heads are not
 repeated: the kernels map query head h to KV head h // (H // KV).  Tail
 tiles are masked in the kernels, so nothing is padded.
 """

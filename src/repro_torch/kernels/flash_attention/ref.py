@@ -12,7 +12,8 @@
   at head dims 16 and 32).
 - `flash_attention_tc_ref`: the same online softmax with the tensor-core
   kernel's arithmetic (`csrc/flash_attention_wgmma.cu`: bf16 at q/k and
-  v head dims 64 / 64, 128 / 128, MLA's 192 / 128 and 256 / 256), over
+  v head dims 64 / 64, 80 / 80, 128 / 128, MLA's 192 / 128 and 256 /
+  256), over
   the instantiation's key tile (`tc_kv_tile`: the tile decides when the
   running max moves, and so which p round to which bf16): raw float32
   scores summed as the tensor cores sum them (`tc_scores`), scaled
@@ -39,7 +40,8 @@ import torch
 NEG_INF = -1e30
 KV_TILE = 64          # keys per block: the CUDA-core kernel's tile
 TC_KV_TILE = 128      # keys per block: the tensor-core kernel's tile, but
-TC_KV_TILES = {(256, 256): 64}   # where two 128-key stages overflow a block
+TC_KV_TILES = {(256, 256): 64,   # where two 128-key stages overflow a block
+               (80, 80): 128}    # 128-column tiles: 32 KB + 2 x 64 KB
 
 
 def tc_kv_tile(head_dim: int, v_head_dim: int | None = None) -> int:

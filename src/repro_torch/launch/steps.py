@@ -1,5 +1,6 @@
 """Step builders: the train step, the prefill forward and the decode step
-of the LM (the dense, MoE and VLM families).
+of the LM (the dense, MoE, VLM and hybrid families; the hybrid family's
+train step is not ported).
 
 Counterpart of `repro.launch.steps` on one device.  The reference jits
 each step with the sharding policy of a mesh; the port runs eagerly on
@@ -101,7 +102,16 @@ def make_train_step(cfg: ArchConfig, *,
     dense configs' `accum_dtype`, from zero as the reference's `gacc`)
     and divided by the count, the loss is their mean and the other
     metrics are the last microbatch's.  `cast_bf16` runs the loss on a
-    bf16 cast of the float32 leaves of stacked rank >= 2."""
+    bf16 cast of the float32 leaves of stacked rank >= 2.
+
+    The hybrid family raises `NotImplementedError`: its train step (the
+    reference's group-level remat, `jax.checkpoint` of a group over
+    `jax.checkpoint` of each layer) is not ported."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"the train step of {cfg.name!r} (hybrid family) is not ported: "
+            f"ROADMAP queue 1 item 6.11 (training of the hybrid family on "
+            f"the card)")
     dev = resolve_device(device)
     opt_cfg = opt_cfg or default_opt_cfg(cfg)
     api = build_model(cfg, remat=remat)
@@ -167,8 +177,11 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, *,
     `fn(params, batch)` returns the logits of `lm_hidden(params,
     batch["inputs"], cfg, attn_impl="blockwise")` under
     `torch.inference_mode()`: logits at every position, in the hidden
-    dtype (bf16).  The VLM family's batch also carries `patches` (B, P,
-    D), prepended as `prefix_embeds` (attention bidirectional over them):
+    dtype (bf16).  The hybrid family's prefill runs its Mamba2 layers'
+    chunked SSD and the shared block's blockwise attention (zamba2-2.7b:
+    head dim 80, `flash_attention_wgmma` at (80, 80) on the card).  The
+    VLM family's batch also carries `patches` (B, P, D), prepended as
+    `prefix_embeds` (attention bidirectional over them):
     its logits cover the P + S positions, patches included, as the
     reference's do.  `params` is an `LM` on the step's device, as
     `init_lm(cfg, device=..., dtype=torch.bfloat16)` gives the serving

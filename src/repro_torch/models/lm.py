@@ -1,15 +1,19 @@
 """Decoder-only LM assembled from an ArchConfig: the dense family, the
-MoE family (deepseek-v2-lite with MLA, arctic with GQA) and the decoder
+MoE family (deepseek-v2-lite with MLA, arctic with GQA), the decoder
 of the VLM family (paligemma: image patches prepended as a prefix,
-`repro_torch.models.paligemma`).
+`repro_torch.models.paligemma`) and the hybrid family (zamba2: Mamba2
+layers in groups, one weight-shared attention + FFN block at the start
+of every group).
 
-Counterpart of the dense and MoE families of `repro.models.lm`:
+Counterpart of the dense, MoE and hybrid families of `repro.models.lm`:
 `init_lm` builds the parameters as `nn.Module`s whose state-dict names
 follow the reference's pytree (`emb`, `blocks.<i>.ln1.scale`,
 `blocks.<i>.attn.wq`, `blocks.<i>.ffn.router`, ..., `final_norm.scale`,
-`head`), with the reference's stacked `blocks` axis unrolled into a
-`ModuleList`.  MoE layers add their router aux loss, which `lm_hidden`
-sums over the layers and `lm_loss` adds to the loss.  `lm_hidden` / `lm_logits`
+`head`; the hybrid family's `blocks.<i>.mamba.in_proj`, ... and its
+shared block's `shared.attn.wq`, ...), with the reference's stacked
+`blocks` axis unrolled into a `ModuleList`.  MoE layers add their
+router aux loss, which `lm_hidden` sums over the layers and `lm_loss`
+adds to the loss.  `lm_hidden` / `lm_logits`
 are the forward of prefill (`repro_torch.launch.steps`), dense or
 blockwise, with an optional prefix of embeddings (the VLM's patches),
 and `lm_loss` the training loss (`launch.steps
@@ -21,6 +25,8 @@ leaf, which its dtype and weight-decay rules read.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -28,15 +34,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import mlp
+from repro_torch.models import mamba2, mlp
 from repro_torch.models.common import (apply_norm, causal_mask, dense_init,
                                        embed_init, init_norm,
                                        softmax_cross_entropy)
 
 
 # Where each family the port does not build stands in ROADMAP queue 1.
-_NOT_PORTED = {"hybrid": "item 6.5 (mamba2, zamba2)",
-               "ssm": "item 6.6 (xlstm)", "audio": "item 6.6 (whisper)"}
+_NOT_PORTED = {"ssm": "item 6.6 (xlstm)", "audio": "item 6.6 (whisper)"}
 
 # The backbone's activation dtype: the reference casts the embeddings to
 # bf16 (`astype(jnp.bfloat16)`) whatever the parameters' dtype.  Read by
@@ -48,13 +53,25 @@ BACKBONE = torch.bfloat16
 def check_dense(cfg: ArchConfig) -> None:
     """Raise unless the port builds `cfg`: the dense decoder, the MoE
     family and the VLM family's decoder, each with GQA or MLA attention,
-    with RoPE (no learned positions).  The message names the ROADMAP item
-    that brings what is missing."""
-    if cfg.family not in ("dense", "moe", "vlm"):
+    and the hybrid family (Mamba2 with a shared attention block), with
+    RoPE (no learned positions).  The message names the ROADMAP item
+    that brings what is missing; a hybrid config without its `ssm` and
+    `hybrid` sub-configs, or whose layers do not fill whole groups,
+    raises `ValueError`."""
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
         item = _NOT_PORTED.get(cfg.family, "item 6")
         raise NotImplementedError(
-            f"the port builds the dense, MoE and VLM families only, not "
-            f"{cfg.name!r} ({cfg.family}): ROADMAP queue 1 {item}")
+            f"the port builds the dense, MoE, VLM and hybrid families "
+            f"only, not {cfg.name!r} ({cfg.family}): ROADMAP queue 1 {item}")
+    if cfg.family == "hybrid":
+        if cfg.ssm is None or cfg.hybrid is None:
+            raise ValueError(f"a hybrid-family config needs its ssm and "
+                             f"hybrid sub-configs; {cfg.name!r} has ssm="
+                             f"{cfg.ssm}, hybrid={cfg.hybrid}")
+        if cfg.n_layers % cfg.hybrid.shared_attn_every:
+            raise ValueError(f"{cfg.name!r}: {cfg.n_layers} layers are not "
+                             f"whole groups of "
+                             f"{cfg.hybrid.shared_attn_every}")
     if cfg.pos == "learned":
         raise NotImplementedError(
             f"learned positions ({cfg.name!r}) are not ported: ROADMAP "
@@ -62,14 +79,18 @@ def check_dense(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One attention + FFN layer (the reference's `_init_block`): `ln1`,
-    `attn` (MLA where the config has it), `ln2`, `ffn` (an MoE where the
-    config has one)."""
+    """One layer (the reference's `_init_block`): `ln1`, `attn` (MLA
+    where the config has it), `ln2`, `ffn` (an MoE where the config has
+    one); for the hybrid family `ln1` and the Mamba2 mixer `mamba`
+    only."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator):
         super().__init__()
         d = cfg.d_model
         self.ln1 = init_norm(d, cfg.norm)
+        if cfg.family == "hybrid":
+            self.mamba = mamba2.init_mamba2(cfg, generator)
+            return
         self.attn = (attn.init_mla(cfg, generator) if cfg.mla is not None
                      else attn.init_attention(cfg, generator))
         self.ln2 = init_norm(d, cfg.norm)
@@ -77,12 +98,60 @@ class Block(nn.Module):
                     else mlp.init_mlp(d, cfg.d_ff, cfg, generator))
 
 
+# ---------------------------------------------------------------------------
+# shared-attention block (Zamba2)
+# ---------------------------------------------------------------------------
+def _zamba_attn_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The shared block's attention config: the hybrid sub-config's heads,
+    head dim d_model / heads (80 for zamba2-2.7b), no bias, no qk-norm."""
+    hy = cfg.hybrid
+    return dataclasses.replace(cfg, n_heads=hy.attn_heads,
+                               n_kv_heads=hy.attn_kv_heads, head_dim=0,
+                               attn_bias=False, qk_norm=False)
+
+
+class SharedBlock(nn.Module):
+    """Zamba2's weight-shared block (the reference's
+    `_init_shared_block`): `ln1`, `attn` (`_zamba_attn_cfg`), `ln2` and
+    the gated FFN `ffn` of width `hybrid.shared_ff`."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = init_norm(d, cfg.norm)
+        self.attn = attn.init_attention(_zamba_attn_cfg(cfg), generator)
+        self.ln2 = init_norm(d, cfg.norm)
+        self.ffn = mlp.init_mlp(d, cfg.hybrid.shared_ff, cfg, generator)
+
+
+def _shared_block_fwd(p: SharedBlock, x: torch.Tensor, cfg: ArchConfig, *,
+                      mask: torch.Tensor | None, positions: torch.Tensor,
+                      attn_impl: str = "dense") -> torch.Tensor:
+    acfg = _zamba_attn_cfg(cfg)
+    h = apply_norm(p.ln1, x, cfg.norm)
+    if attn_impl == "blockwise":
+        a = attn.attention_fwd_blockwise(p.attn, h, acfg, positions=positions)
+    else:
+        a = attn.attention_fwd(p.attn, h, acfg, mask=mask, positions=positions)
+    x = x + a
+    h = apply_norm(p.ln2, x, cfg.norm)
+    return x + mlp.mlp_fwd(p.ffn, h, cfg)
+
+
+def n_stacked_layers(cfg: ArchConfig) -> int:
+    """The length of the reference's stacked `blocks` axis: every layer
+    (the xLSTM family, which stacks (mLSTM, sLSTM) pairs, is not
+    ported)."""
+    return cfg.n_layers
+
+
 def stacked_ndim(name: str, t: torch.Tensor) -> int:
     """The rank the reference gives parameter `name` (a state-dict name
     of `LM`).  The reference stacks every layer's leaves on a leading
     n_layers axis (`blocks.attn.wq` is (L, D, H*Dh)), so a tensor under
     `blocks.<i>.` counts its own rank plus one: `blocks.<i>.ln1.scale`
-    has rank 2 there, `final_norm.scale` rank 1.  The reference's rules
+    has rank 2 there, `final_norm.scale` rank 1, and so has the hybrid
+    family's unstacked `shared.ln1.scale`.  The reference's rules
     that test `ndim >= 2` read this rank: the serving cast
     (`_to_serving_dtype`), AdamW's weight decay and the train step's
     `cast_bf16`."""
@@ -111,10 +180,11 @@ def _place(module: nn.Module, prefix: str, device: torch.device,
 
 class LM(nn.Module):
     """Parameters drawn from `generator` in a fixed order (embedding,
-    layer 0, ..., layer L-1, final norm, head), on the generator's
-    device.  Each part is moved to `device` (default: the CPU) and cast
-    as `_serving` says right after it is drawn, so the drawing device
-    holds one layer in float32 at a time."""
+    layer 0, ..., layer L-1, final norm, head, the hybrid family's
+    shared block), on the generator's device.  Each part is moved to
+    `device` (default: the CPU) and cast as `_serving` says right after
+    it is drawn, so the drawing device holds one layer in float32 at a
+    time."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  device: torch.device | None = None,
@@ -132,6 +202,9 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(_serving("head", dense_init(
                 generator, (cfg.d_model, cfg.vocab)), dev, dtype))
+        if cfg.family == "hybrid":
+            self.shared = _place(SharedBlock(cfg, generator), "shared.", dev,
+                                 dtype)
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None,
@@ -157,11 +230,15 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
                attn_impl: str = "dense",
                prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer: (y, the MoE aux loss, float32, 0 without an MoE).
-    attn_impl: 'dense' | 'blockwise' (32k+ seqs)."""
+    attn_impl: 'dense' | 'blockwise' (32k+ seqs); a hybrid layer (Mamba2)
+    has no attention."""
     if attn_impl not in ("dense", "blockwise"):
         raise ValueError(f"attn_impl must be 'dense' or 'blockwise', not "
                          f"{attn_impl!r}")
     h = apply_norm(p.ln1, x, cfg.norm)
+    if cfg.family == "hybrid":
+        return x + mamba2.mamba2_fwd(p.mamba, h, cfg), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     if cfg.mla is not None:
         if attn_impl == "blockwise":
             a = attn.mla_fwd_blockwise(p.attn, h, cfg, positions=positions)
@@ -193,7 +270,9 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     (32k+ prefill).  `remat` runs each block under
     `torch.utils.checkpoint` (the reference's `jax.checkpoint
     (layer_step)`): backward keeps one (B, S, D) input a layer and
-    recomputes the rest.
+    recomputes the rest.  The hybrid family runs the shared block, then
+    `shared_attn_every` Mamba2 layers, group after group (the
+    reference's grouped scan), the shared block under `remat` too.
 
     `prefix_embeds` (B, P, D): modality-stub embeddings (the VLM's
     patches) cast to the backbone's dtype and prepended to the token
@@ -218,16 +297,20 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     positions = torch.arange(s, device=x.device)
     if mask is None and attn_impl == "dense":
         mask = causal_mask(s, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in params.blocks:
+
+    def run(fn, *args, **kw):
         if remat:
-            x, a = checkpoint(_block_fwd, blk, x, cfg, mask=mask,
-                              positions=positions, attn_impl=attn_impl,
-                              prefix_len=prefix_len, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, a = _block_fwd(blk, x, cfg, mask=mask, positions=positions,
-                              attn_impl=attn_impl, prefix_len=prefix_len)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False, **kw)
+        return fn(*args, **kw)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(params.blocks):
+        if cfg.family == "hybrid" and i % cfg.hybrid.shared_attn_every == 0:
+            x = run(_shared_block_fwd, params.shared, x, cfg, mask=mask,
+                    positions=positions, attn_impl=attn_impl)
+        x, a = run(_block_fwd, blk, x, cfg, mask=mask, positions=positions,
+                   attn_impl=attn_impl, prefix_len=prefix_len)
         aux = aux + a
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
@@ -260,25 +343,60 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int, *,
     """The decode state: every layer's cache stacked, zeroed on `device`
     (CUDA when None, raising without it), and the next position `pos` (a
     host int, shared by the batch).  The caches are k / v (L, B, KV, S,
-    Dh) each, or with MLA the latent `c_kv` (L, B, S, kv_lora) and the
-    rope key `k_rope` (L, B, S, rope)."""
+    Dh) each in `dtype`, or with MLA the latent `c_kv` (L, B, S, kv_lora)
+    and the rope key `k_rope` (L, B, S, rope).  The hybrid family's are
+    the Mamba2 states `ssm` (L, B, H, N, P) and `conv` (L, B, K - 1, D_i
+    + 2 G N) in float32 (`mamba2.init_mamba2_state`'s default), and its
+    `shared_caches` one k / v pair (B, KV, S, Dh) in `dtype` for each
+    group's call of the shared block, stacked to (L / per, ...)."""
     check_dense(cfg)
-    init = attn.init_mla_cache if cfg.mla is not None else attn.init_kv_cache
-    one = init(cfg, batch, max_seq, dtype=dtype, device=device)
+    if cfg.family == "hybrid":
+        one = mamba2.init_mamba2_state(cfg, batch, device=device)
+    else:
+        init = (attn.init_mla_cache if cfg.mla is not None
+                else attn.init_kv_cache)
+        one = init(cfg, batch, max_seq, dtype=dtype, device=device)
     caches = {k: v.new_zeros((cfg.n_layers,) + v.shape)
               for k, v in one.items()}
-    return {"caches": caches, "pos": 0}
+    state = {"caches": caches, "pos": 0}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+        sc = attn.init_kv_cache(_zamba_attn_cfg(cfg), batch, max_seq,
+                                dtype=dtype, device=device)
+        state["shared_caches"] = {k: v.new_zeros((groups,) + v.shape)
+                                  for k, v in sc.items()}
+    return state
 
 
-def _cache_len(caches: dict) -> int:
-    """Positions of a stacked decode cache: (L, B, KV, S, Dh) or MLA's
-    (L, B, S, C)."""
+def _cache_len(state: dict) -> int:
+    """Positions of a decode state's stacked attention cache: (L, B, KV,
+    S, Dh), MLA's (L, B, S, C), or the hybrid family's shared caches
+    (L / per, B, KV, S, Dh)."""
+    caches = state.get("shared_caches", state["caches"])
     return caches["k"].shape[3] if "k" in caches else caches["c_kv"].shape[2]
+
+
+def _shared_decode(p: SharedBlock, x_t: torch.Tensor, cache: dict, pos: int,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """The shared block's decode over one group's k / v cache (the same
+    weights at every group, a different cache each call)."""
+    h = apply_norm(p.ln1, x_t[:, None], cfg.norm)[:, 0]
+    a, _ = attn.attention_decode(p.attn, h, cache, pos, _zamba_attn_cfg(cfg))
+    x_t = x_t + a
+    h = apply_norm(p.ln2, x_t[:, None], cfg.norm)[:, 0]
+    return x_t + mlp.mlp_fwd(p.ffn, h, cfg)
 
 
 def _layer_decode(p: Block, x_t: torch.Tensor, cache: dict, pos: int,
                   cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """One layer's decode.  The hybrid family's Mamba2 state is written
+    back into `cache`'s tensors in place."""
     h = apply_norm(p.ln1, x_t[:, None], cfg.norm)[:, 0]
+    if cfg.family == "hybrid":
+        y, new = mamba2.mamba2_decode(p.mamba, h, cache, cfg)
+        for k, t in new.items():
+            cache[k].copy_(t)
+        return x_t + y, cache
     if cfg.mla is not None:
         a, cache = attn.mla_decode(p.attn, h, cache, pos, cfg)
     else:
@@ -299,19 +417,25 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor,
 
     The embedding goes to bf16 (`BACKBONE`), as in the reference; a
     Python loop over the layers writes each layer's k / v (MLA: latent
-    and rope key) into the stacked cache in place at `state["pos"]`, so the new state holds
-    the same cache tensors.  Where the reference clamps a write past the
-    cache's end, this raises."""
+    and rope key; the hybrid family: its Mamba2 state, and the shared
+    block's k / v at each group's start) into the stacked caches in
+    place at `state["pos"]`, so the new state holds the same cache
+    tensors.  Where the reference clamps a write past the cache's end,
+    this raises."""
     check_dense(cfg)
     pos = state["pos"]
     caches = state["caches"]
-    if not 0 <= pos < _cache_len(caches):
+    if not 0 <= pos < _cache_len(state):
         raise ValueError(f"decode position {pos} is outside the cache's "
-                         f"{_cache_len(caches)} positions")
+                         f"{_cache_len(state)} positions")
     x = params.emb[tokens].to(BACKBONE)
     for i, blk in enumerate(params.blocks):
+        if cfg.family == "hybrid" and i % cfg.hybrid.shared_attn_every == 0:
+            g = i // cfg.hybrid.shared_attn_every
+            x = _shared_decode(params.shared, x, {
+                k: c[g] for k, c in state["shared_caches"].items()}, pos, cfg)
         x, _ = _layer_decode(blk, x, {k: c[i] for k, c in caches.items()},
                              pos, cfg)
     x = apply_norm(params.final_norm, x[:, None], cfg.norm)[:, 0]
     return lm_logits(params, x, cfg).to(torch.float32), \
-        {"caches": caches, "pos": pos + 1}
+        dict(state, pos=pos + 1)

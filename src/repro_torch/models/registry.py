@@ -3,9 +3,9 @@ the port builds, plus the parameter accounting of the roofline terms.
 
 Counterpart of `repro.models.registry`.  `build_model(cfg)` gives the
 LM's `init`, `loss`, `init_decode_state` and `decode_step` for the
-dense and MoE families, and the VLM's (`models.paligemma`: the loss over
-a batch with patches); the other families are not ported and raise,
-naming the ROADMAP item that brings them.
+dense, MoE and hybrid families, and the VLM's (`models.paligemma`: the
+loss over a batch with patches); the other families are not ported and
+raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ class ModelAPI:
 
 
 def build_model(cfg: ArchConfig, *, remat: bool = False) -> ModelAPI:
-    """The LM's API (dense or MoE, GQA or MLA; the VLM's decoder with its
-    prefix loss); raises `NotImplementedError` for the families and
+    """The LM's API (dense or MoE, GQA or MLA; the hybrid family's Mamba2
+    groups with their shared block; the VLM's decoder with its prefix
+    loss); raises `NotImplementedError` for the families and
     variants that are not ported (`lm.check_dense`)."""
     lm.check_dense(cfg)
     if cfg.family == "vlm":
@@ -60,7 +61,8 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     counts the routed experts' `wi` / `wg` / `wo` at top_k of E (the
     shared experts and the dense residual FFN in full), the reference's
     6 N_active D convention: its rule picks the expert leaves by their
-    stacked rank, >= 3."""
+    stacked rank, >= 3.  The hybrid family's shared block counts once,
+    as the reference's one `shared` subtree."""
     with torch.device("meta"):
         model = lm.LM(cfg, torch.Generator(), device="meta")
     total = 0

@@ -5,7 +5,9 @@ Counterpart of `repro.serve.engine`.  A fixed pool of B slots holds
 independent sequences; finished slots are refilled from the request
 queue without stopping the decode loop (lightweight continuous
 batching).  Per-slot position/active bookkeeping lives on the host; the
-cache is the decode state's stacked tensor, written in place each step.
+cache is the decode state's stacked tensors (the hybrid family's also
+its Mamba2 states and its shared block's caches), written in place each
+step.
 Sampling: greedy, or at temperature T > 0 `argmax(logits / T + g)` with
 g standard Gumbel noise (the Gumbel-max form of `jax.random.categorical`,
 which the reference calls).  The noise is an explicit tensor from

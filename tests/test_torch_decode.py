@@ -236,8 +236,7 @@ def test_sample_is_gumbel_argmax():
 
 
 def test_build_model_raises_for_families_not_ported():
-    for name in ("whisper_large_v3", "zamba2_2_7b", "xlstm_125m",
-                 "granite_34b"):
+    for name in ("whisper_large_v3", "xlstm_125m", "granite_34b"):
         cfg = convert.arch_config_from_dict(
             dataclasses.asdict(rregistry.reduced(name)))
         with pytest.raises(NotImplementedError, match="ROADMAP"):

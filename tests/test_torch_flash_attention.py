@@ -385,11 +385,12 @@ def test_tc_ref_256_matches_reference_blockwise_core(b, s, h, kv,
 
 def test_tc_tile_follows_the_instantiation():
     """The plain version's default key block is the instantiation's tile:
-    128 at (64, 64), (128, 128) and (192, 128), 64 at (256, 256).  The
+    128 at (64, 64), (128, 128), (192, 128) and (80, 80), 64 at (256,
+    256).  The
     tile decides when the running max moves, so a 128-key block gives
     other P roundings at 256 than the kernel's 64."""
     assert [fa_ref.tc_kv_tile(*pr) for pr in kernel.TC_DIM_PAIRS] == [
-        128, 128, 128, 64]
+        128, 128, 128, 64, 128]
     q, k, v = (torch.from_numpy(a).bfloat16()
                for a in _qkv(9, 1, 300, 300, 2, 1, 256))
     p64 = fa_ref.flash_attention_tc_p(q, k, v, prefix_len=256)
@@ -430,3 +431,57 @@ def test_ops_copies_expanded_kv():
     assert torch.equal(ops.flash_attention(q, kx, vx),
                        ops.flash_attention(q, kx.contiguous(),
                                            vx.contiguous()))
+
+
+def test_route_at_head_dim_80():
+    """bf16 at (80, 80) (zamba2's shared attention) takes the tensor-core
+    kernel, whose CPU route is `flash_attention_tc_ref` at its 128-key
+    tile; float32 at 80 has no route and raises, naming the routes."""
+    assert kernel.route(torch.bfloat16, 80) == "wgmma"
+    assert kernel.route(torch.bfloat16, 80, 80) == "wgmma"
+    assert kernel.route(torch.float32, 80) == "cuda_core"
+    assert fa_ref.tc_kv_tile(80) == 128
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(80, 1, 150, 150, 4, 4, 80))
+    assert torch.equal(flash_attention(q, k, v),
+                       flash_attention_tc_ref(q, k, v))
+    out, p = kernel.flash_attention_wgmma_p(q, k, v)
+    assert torch.equal(out, flash_attention_tc_ref(q, k, v))
+    assert torch.equal(p, fa_ref.flash_attention_tc_p(q, k, v))
+    z = torch.zeros((1, 8, 2, 80))
+    with pytest.raises(ValueError, match="routes: bf16 at"):
+        flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.flash_attention_wgmma(z, z, z)
+    with pytest.raises(ValueError, match="head dims"):      # (80, 64)
+        flash_attention(z.bfloat16(), z.bfloat16(), z[..., :64].bfloat16())
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,prefix_len", [
+    (1, 200, 4, 4, True, 0),          # zamba2's MHA
+    (2, 160, 8, 2, True, 0),
+    (1, 130, 4, 4, False, 0),
+    (2, 96, 4, 4, True, 40)], ids=str)
+def test_tc_ref_at_80_matches_reference(b, s, h, kv, causal, prefix_len):
+    """`flash_attention_tc_ref` at (80, 80) against the reference's jnp
+    `attention_ref` (float32 P; no prefix there) and its bf16
+    `_blockwise_core` (P, scores and P.V rounded to bf16), with the
+    module docstring's tolerances (measured at 80: rel L2 1.9e-3 to
+    2.3e-3 against the oracle, 3.9e-3 to 4.5e-3 against the core)."""
+    dh = 80
+    q, k, v = _qkv(s + dh + prefix_len, b, s, s, h, kv, dh)
+    got = _port(q, k, v, torch.bfloat16, fn=flash_attention_tc_ref,
+                causal=causal, prefix_len=prefix_len)
+    if prefix_len == 0:
+        want = _jax_oracle(q, k, v, causal, jnp.bfloat16)
+        assert _rel_l2(got, want) <= 5e-3, _rel_l2(got, want)
+        assert np.abs(got - want).max() <= 0.02
+    if causal:
+        g = h // kv
+        core = np.asarray(rblockwise_core(
+            *(jnp.asarray(a).astype(jnp.bfloat16)
+              for a in (q.reshape(b, s, kv, g, dh), k, v)),
+            kv_block=32, prefix_len=prefix_len, out_dtype=jnp.bfloat16)
+            .astype(jnp.float32)).reshape(b, s, h, dh)
+        assert _rel_l2(got, core) <= 1e-2, _rel_l2(got, core)
+        assert np.abs(got - core).max() <= 0.05

@@ -1181,3 +1181,118 @@ def test_vlm_reduced_prefill_runs_the_cuda_core_route(dev):
     want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, batch)
     got, want = got.float().cpu(), want.float()
     assert float((got - want).norm() / want.norm()) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# zamba2's (80, 80) tensor-core instantiation (tiles padded to 128 columns
+# in shared memory) and the hybrid family
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,h,kv,causal,prefix_len", [
+    (1, 1000, 32, 32, True, 0),      # zamba2's 32 heads over 32 KV heads
+    (1, 129, 4, 4, True, 0),         # one row past a tile
+    (2, 100, 4, 4, True, 0),         # shorter than a tile
+    (2, 777, 4, 2, False, 0),        # GQA, no mask
+    (1, 300, 2, 1, True, 64)], ids=str)    # a prefix
+def test_flash_attention_80_80_matches_tc_plain(b, s, h, kv, causal,
+                                                prefix_len, dev):
+    """The (80, 80) instantiation against `flash_attention_tc_ref` as
+    `_assert_tc_close` holds it, with its launch counts; rel L2 against
+    the float32-P `flash_attention_ref` at most 1e-2, as at Dh 128."""
+    g = torch.Generator(device=dev).manual_seed(s + prefix_len + 80)
+    q = torch.randn((b, s, h, 80), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kv, 80), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    n0 = dict(LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal,
+                                 prefix_len=prefix_len)
+    for key in ("flash_attention", "flash_attention_wgmma",
+                "flash_attention_wgmma_80_80"):
+        assert LAUNCHES[key] == n0.get(key, 0) + 1, key
+    assert tuple(got.shape) == (b, s, h, 80) and got.is_contiguous()
+    _assert_tc_close(got, q, k, v, causal=causal, prefix_len=prefix_len)
+    f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      prefix_len=prefix_len).float()
+    assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
+
+
+def test_flash_attention_80_80_reads_strided_q(dev):
+    """q and k as RoPE leaves them (heads-major memory read through
+    strides) and q as an 80-wide view of 96-wide rows: the same bits as
+    on contiguous copies."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((1, 32, 500, 80), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, 32, 500, 80), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, 500, 32, 80), generator=g, device=dev).bfloat16()
+    q, k = q.transpose(1, 2), k.transpose(1, 2)
+    assert fa_kernel.kernel_layout_ok(q) and not q.is_contiguous()
+    got = fa_kernel.flash_attention_wgmma(q, k, v)
+    _assert_tc_close(got, q, k, v, causal=True, prefix_len=0)
+    assert torch.equal(got, fa_kernel.flash_attention_wgmma(
+        q.contiguous(), k.contiguous(), v))
+    wide = torch.randn((1, 500, 32, 96), generator=g, device=dev).bfloat16()
+    qs = wide[..., :80]
+    assert fa_kernel.kernel_layout_ok(qs) and not qs.is_contiguous()
+    assert torch.equal(fa_kernel.flash_attention_wgmma(qs, k, v),
+                       fa_kernel.flash_attention_wgmma(qs.contiguous(), k, v))
+
+
+def test_flash_attention_80_refuses_float32(dev):
+    """No route takes float32 at head dim 80: the wrapper and ops raise
+    on the card, naming the routes."""
+    q = torch.zeros((1, 64, 2, 80), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_wgmma(q, q, q)
+    with pytest.raises(ValueError, match="routes"):
+        fa_ops.flash_attention(q, q, q)
+
+
+def _hybrid_wide_cfg():
+    """The reduced zamba2 widened to the full config's shared-attention
+    head dim (4 Mamba2 layers in 2 groups, d 320, 4 heads at 80): its
+    blockwise prefill runs the (80, 80) instantiation once a group."""
+    return dataclasses.replace(registry.reduced("zamba2_2_7b"), d_model=320)
+
+
+@pytest.mark.parametrize("cfg_fn,inst", [
+    (_hybrid_wide_cfg, "flash_attention_wgmma_80_80"),
+    (lambda: registry.reduced("zamba2_2_7b"), None)], ids=["dh80", "dh16"])
+def test_hybrid_prefill_on_cuda_matches_cpu(cfg_fn, inst, dev):
+    """The reduced zamba2's prefill on the card, at head dim 80 (one (80,
+    80) launch a group) and at its own 16 (one CUDA-core launch a group,
+    no tensor-core one): logits within the bf16 backbone's rounding of
+    the CPU run (rel L2 5e-2, as `tests/test_torch_zamba2.py` holds the
+    bf16 port against the reference)."""
+    cfg = cfg_fn()
+    groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    batch = batch_for(cfg, 320, 2, 0)
+    shape = ShapeSpec("t", "prefill", 320, 2)
+    n0 = dict(LAUNCHES)
+    got = make_prefill_step(cfg, shape).fn(card, batch)
+    assert LAUNCHES["flash_attention"] == n0.get("flash_attention", 0) + groups
+    tc = LAUNCHES.get("flash_attention_wgmma", 0) - n0.get(
+        "flash_attention_wgmma", 0)
+    assert tc == (groups if inst else 0)
+    if inst:
+        assert LAUNCHES[inst] == n0.get(inst, 0) + groups
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, batch)
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 5e-2
+
+
+def test_hybrid_decode_on_cuda_matches_cpu(dev):
+    """Teacher-forced hybrid `decode_step` on the card against the CPU's
+    (float32 Mamba2 states, bf16 shared caches written in place): rel L2
+    5e-2 a step."""
+    cfg = _hybrid_wide_cfg()
+    cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 10),
+                         generator=torch.Generator().manual_seed(3))
+    st_cpu = lm.init_decode_state(cfg, 2, 16, device="cpu")
+    st_card = lm.init_decode_state(cfg, 2, 16, device=dev)
+    for t in range(10):
+        want, st_cpu = lm.decode_step(cpu, st_cpu, toks[:, t], cfg)
+        got, st_card = lm.decode_step(card, st_card, toks[:, t].to(dev), cfg)
+        assert float((got.cpu() - want).norm() / want.norm()) <= 5e-2, t

@@ -207,7 +207,7 @@ def test_routes_of_head_dim_pairs():
     with the pairs it supports, on the CPU as on the card."""
     bf16 = torch.bfloat16
     assert tkernel.TC_DIM_PAIRS == ((64, 64), (128, 128), (192, 128),
-                                    (256, 256))
+                                    (256, 256), (80, 80))
     assert tkernel.route(bf16, 192, 128) == "wgmma"
     assert tkernel.route(bf16, 128) == tkernel.route(bf16, 128, 128) == "wgmma"
     for dh, dv, dtype in ((192, 128, torch.float32), (192, 192, bf16),

@@ -358,8 +358,11 @@ def test_check_dense_admits_moe_and_names_the_item():
             assert tmodels.build_model(get(name)).cfg == get(name)
     cfg = registry.reduced("arctic_480b")
     tlm.check_dense(registry.reduced("paligemma_3b"))       # the VLM family
-    for family, item in (("hybrid", "6.5"), ("ssm", "6.6"),
-                         ("audio", "6.6")):
+    for get in (registry.get, registry.reduced):             # the hybrid one
+        tlm.check_dense(get("zamba2_2_7b"))
+        assert tmodels.build_model(get("zamba2_2_7b")).cfg == get(
+            "zamba2_2_7b")
+    for family, item in (("ssm", "6.6"), ("audio", "6.6")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tlm.check_dense(dataclasses.replace(cfg, family=family))
     with pytest.raises(NotImplementedError, match="item 6.7"):

@@ -252,7 +252,7 @@ def test_lm_hidden_refuses_what_is_not_ported(models):
         tlm.lm_hidden(model, toks, dataclasses.replace(tcfg, family="ssm"))
     with pytest.raises(ValueError, match="attn_impl"):
         tlm.lm_hidden(model, toks, tcfg, attn_impl="paged")
-    with pytest.raises(NotImplementedError, match="dense"):
+    with pytest.raises(ValueError, match="ssm and hybrid sub-configs"):
         make_prefill_step(dataclasses.replace(tcfg, family="hybrid"),
                           SHAPES["prefill_32k"], device="cpu")
 
