@@ -57,17 +57,20 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              the plain version's own P at most 1e-4 of the outputs
              beyond that, each within one ulp of its row's largest
              (see `_tc_check`; at 32768 the last check only); against
-             the float32-P plain versions within rel L2 1e-2; f32 and bf16
-             at head dims 16 and 32 run `flash_attention` (CUDA cores),
-             held against `flash_attention_ref` and the naive one (f32
-             within atol = rtol = 2e-5, bf16 within one output ulp plus
-             2e-5).  Cases: (4, 4096, 16 heads, 2 KV heads, 128) in bf16
-             and f32, with a prefix, S 4001, head dims 16-64.  At the
-             prefill's shape, (1, 32768, 16, 2, 128) causal bf16, both
-             kernels (each through its own wrapper) against their
-             blockwise plain versions, then both and the library
-             yardstick `scaled_dot_product_attention` timed in one
-             call, in turns.
+             the float32-P plain versions within rel L2 1e-2; f32, and
+             bf16 at head dims 16 and 32, run `flash_attention` (3xTF32
+             on tensor cores), held against `flash_attention_ref` and the
+             naive one (f32 within atol = rtol = 2e-5, bf16 within one
+             output ulp plus 2e-5).  Cases: (4, 4096, 16 heads, 2 KV
+             heads, 128) in bf16 and f32, with a prefix, S 4001, head dims
+             16-64.  At the prefill's shape, (1, 32768, 16, 2, 128)
+             causal, the 3xTF32 kernel in float32 (its own case) and the
+             bf16 kernel in bf16, each through its own wrapper, against
+             their blockwise plain versions, and the 3xTF32 kernel in
+             bf16 at head dim 32; then each with the library yardstick
+             `scaled_dot_product_attention` in the same dtype (float32
+             forced to the memory-efficient backend, KV repeated) timed
+             in one call, in turns.
 3. path    — `DesignSession().run(DesignRequest(array_size=16384))` at
              the full default budget (pop 256, 80 generations, coarse
              64, capacity 4): the front must lie inside the golden
@@ -111,16 +114,16 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              logits alone are 9.96 GB a sequence): a warm-up prefill and
              a timed one, then batch 4 x 4096.  Logits must be finite and
              each prefill must launch `flash_attention_wgmma` 36 times
-             (and no CUDA-core launch).  Then
+             (and no 3xTF32 launch).  Then
              one full-width layer at S 4096: `attention_fwd_blockwise`
              against the dense `attention_fwd` (rel L2 2e-2: the dense
              path rounds scores and probabilities to bf16); and a
              2-layer full-width model at seq 512 with the same CPU-drawn
              weights on the card and on the CPU: last-position logits
              within rel L2 5e-2 (both backbones are bf16), argmax
-             agreement printed.  Last, the CUDA-core route's path: the
+             agreement printed.  Last, the 3xTF32 route's path: the
              reduced qwen2.5 (head dim 16) prefill at 2 x 300 on the
-             card, one CUDA-core launch per layer, logits within rel L2
+             card, one 3xTF32 launch per layer, logits within rel L2
              5e-2 of the CPU run.
 6. service — the multi-tenant `DesignService` over `DesignSession` on
              the card: `DesignService(max_coalesce=4, coalesce_window_s=
@@ -231,7 +234,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              `make_prefill_step` at prefill_32k cut to batch 1 (a warm-up
              and a timed prefill), then 4 x 4096: finite logits, exactly
              27 launches of the (192, 128) instantiation each and no
-             CUDA-core launch.  (c) `ServeEngine` on the same weights,
+             3xTF32 launch.  (c) `ServeEngine` on the same weights,
              phase 9's six requests.  (d) teacher-forced `decode_step`
              against the prefill on 64 tokens: positions whose routes
              differ, whose claims the prefill dropped, or whose router
@@ -263,7 +266,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              to batch 1 (256 patches + 32768 tokens; a warm-up and a
              timed prefill), then 4 x (256 + 4096): finite logits at
              every position, patches included, exactly 18 launches of
-             the (256, 256) instantiation each and no CUDA-core launch.
+             the (256, 256) instantiation each and no 3xTF32 launch.
              (c) `ServeEngine` on the same weights, phase 9's six
              requests.  (d) teacher-forced `decode_step` (no prefix, as
              in the reference) against a prefill of the same 64 tokens
@@ -271,15 +274,15 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              width, 512 tokens after 256 patches, weights drawn on the
              CPU, card against CPU: last-position logits (rel L2 5e-2),
              argmax.  (f) the reduced config (head dim 16, 16 patches)
-             at 2 x 300 on the card: one CUDA-core launch a layer, logits
+             at 2 x 300 on the card: one 3xTF32 launch a layer, logits
              within rel L2 5e-2 of the CPU run.
 13. hybrid — the hybrid family (every earlier phase's weights freed
              first): zamba2-2.7b at full width and depth (54 Mamba2 layers
              in 9 groups of 6, one weight-shared attention + FFN block at
              the start of each group, 32 heads at head dim 80, 2.42 G
              bf16 parameters drawn from seed 0 on the card).  (a)
-             `flash_attention_wgmma` at (80, 80) (tiles padded to 128
-             columns in shared memory) held to `flash_attention_tc_ref`
+             `flash_attention_wgmma` at (80, 80) (exact tiles: a 64-column
+             block and a 16-column tail) held to `flash_attention_tc_ref`
              by `_tc_check` with its dumped P at (1, 4001), (1, 129)
              causal, (2, 777) full and (1, 1000) with a 64-position
              prefix, 32 heads over 32 KV heads, q / k / v as the shared
@@ -289,7 +292,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              ms, TFLOP/s, the share of its bound, the ratio to SDPA.  (b)
              `make_prefill_step` at prefill_32k cut to batch 1 (a warm-up
              and a timed prefill), then 4 x 4096: finite logits, exactly 9
-             launches of the (80, 80) instantiation each and no CUDA-core
+             launches of the (80, 80) instantiation each and no 3xTF32
              launch; seconds, tokens/s, peak memory.  (c) `ServeEngine`
              on the same weights, phase 9's six requests.  (d)
              teacher-forced `decode_step` against a prefill of the same
@@ -304,7 +307,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              call) at full width, 512 tokens, weights drawn on the CPU,
              card against CPU: last-position logits (rel L2 5e-2),
              argmax equal.  (g) The reduced config (shared attention at
-             head dim 16, chunk 16) at 2 x 320 on the card: one CUDA-core
+             head dim 16, chunk 16) at 2 x 320 on the card: one 3xTF32
              launch per shared call, logits within rel L2 5e-2 of the CPU
              run.
 14. report — one JSON line of per-kernel numbers (the `wavefront` row's
@@ -336,10 +339,12 @@ GOLDEN = ROOT / "src" / "repro_torch" / "_golden" / "layout_rows_16384.json"
 # int32 CUDA-core rate, for the roofline bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# The dense bf16 tensor-core peak (same data sheet).  Attention's two
-# products fit on tensor cores, so `flash_attention`'s bound uses this
-# rate: a CUDA-core kernel must not read as near its bound.
+# The dense bf16 tensor-core peak (same data sheet): the bf16 flash
+# kernels' bound.
 PEAK_BF16_TC_FLOPS = 989.4e12
+# The dense TF32 tensor-core peak (same data sheet): the float32 flash
+# route's bound, three TF32 products for each float32 one (3xTF32).
+PEAK_TF32_TC_FLOPS = 494.7e12
 FLOAT_RTOL = 1e-6
 
 # The trainer's full-width configuration (the reference example's
@@ -360,6 +365,7 @@ PREFILL_CONFIG = "qwen2.5-3b"
 PREFILL_BATCH = 1
 SMALL_PREFILL = (4, 4096)  # batch, seq: B > 1
 FLASH_RTOL = 2e-5          # f32 atol = rtol; bf16: one output ulp + this
+SMALL_HEAD_DIM = 32        # bf16 on the 3xTF32 route, timed at 1 x 32768
 TC_ULPS = 2.0              # tensor-core route vs its plain version fed
                            # the kernel's own P: bf16 ulps of each output
                            # element over FLASH_RTOL, every element
@@ -377,7 +383,7 @@ DENSE_CHECK_RTOL = 2e-2    # rel L2 (measured 3.8e-3 on the CPU at S 512)
 PREFILL_CPU_LAYERS = 2     # card vs CPU, full width
 PREFILL_CPU_SEQ = 512
 PREFILL_CPU_RTOL = 5e-2    # rel L2 of the last position's logits
-SMALL_ROUTE_SEQ = 300      # the reduced config's prefill (CUDA-core route)
+SMALL_ROUTE_SEQ = 300      # the reduced config's prefill (3xTF32 route)
 
 # The 16 kb request's layout settings, and the route_slots checks' cuts.
 COARSE, CAPACITY = 64, 4
@@ -477,12 +483,12 @@ VLM_CASES = ((1, 4001, 256, True), (1, 129, 256, True),
 VLM_SMALL_PREFILL = (4, 4096)                # text tokens; + 256 patches
 VLM_CPU_LAYERS, VLM_CPU_SEQ = 2, 512   # (e) card vs CPU, CPU-drawn weights
 VLM_CPU_RTOL = 5e-2        # rel L2 of the last position's logits
-VLM_SMALL_SEQ = 300        # (f) the reduced config's prefill (CUDA cores)
+VLM_SMALL_SEQ = 300        # (f) the reduced config's prefill (3xTF32)
 
 # Phase 13: the hybrid family.  zamba2-2.7b at full width and depth (54
 # Mamba2 layers in 9 groups of 6, one shared attention + FFN block at the
 # start of each group), its prefill attention on the (80, 80) tensor-core
-# instantiation (tiles padded to 128 columns in shared memory).
+# instantiation (exact 80-column tiles in shared memory).
 HYBRID_CONFIG = "zamba2-2.7b"
 HYBRID_INST = "flash_attention_wgmma_80_80"  # its launch count
 HYBRID_DIMS = (80, 80)
@@ -1265,7 +1271,7 @@ def _heads_first(x, rep: int):
 
 def flash_kernel_check(dev) -> list[dict]:
     """Both flash attention routes against their plain versions: the
-    CUDA-core kernel against `flash_attention_ref` (and the naive one),
+    3xTF32 kernel against `flash_attention_ref` (and the naive one),
     the tensor-core kernel against `flash_attention_tc_ref` (and, by rel
     L2, the float32-P versions); at the prefill's shape against the
     blockwise ones (the naive scores would take 68 GB), times of both
@@ -1331,21 +1337,28 @@ def flash_kernel_check(dev) -> list[dict]:
                   f"tolerance)", flush=True)
         del q, k, v, got, blockwise, naive
 
-    # the prefill's shape: both routes, called through their own wrappers
+    # the prefill's shape: the 3xTF32 kernel on its own case (float32) and
+    # the bf16 tensor-core kernel, each through its own wrapper, with SDPA
+    # in the same dtype; bf16 at head dim 32 on the 3xTF32 kernel
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     b, s, h, kv, dh = PREFILL_BATCH, 32768, 16, 2, 128
-    q, k, v = qkv(b, s, h, kv, dh, bf16)
-    cc = fk.flash_attention_cuda_core(q, k, v)
+    q32, k32, v32 = qkv(b, s, h, kv, dh, f32)
+    tf = fk.flash_attention_tf32x3(q32, k32, v32)
+    want = fa_ref.flash_attention_ref(q32, k32, v32)
+    torch.cuda.synchronize()
+    tf_err, tf_excess = _flash_excess(tf, want)
+    check(tf_excess <= 0, f"flash_attention_tf32x3 ({b}, {s}, {h}, {kv}, "
+                          f"{dh}) float32: max err {tf_err:.3e}, beyond "
+                          f"atol = rtol = {FLASH_RTOL} by {tf_excess:.3e}")
+    del tf, want
+    q, k, v = (x.to(bf16) for x in (q32, k32, v32))
     tcg = fk.flash_attention_wgmma(q, k, v)
     want = fa_ref.flash_attention_ref(q, k, v)
     want_tc = fa_ref.flash_attention_tc_ref(q, k, v)
-    torch.cuda.synchronize()
-    cc_err, cc_excess = _flash_excess(cc, want)
-    check(cc_excess <= 0, f"flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16 "
-                          f"(CUDA cores): max err {cc_err:.3e}, beyond one "
-                          f"ulp + {FLASH_RTOL} by {cc_excess:.3e}")
     rel_tc, rel_f32p = _rel_l2(tcg, want_tc), _rel_l2(tcg, want)
-    rel_cc, rel_tc_cc = _rel_l2(tcg, cc), _rel_l2(want_tc, want)
-    del cc, want, want_tc
+    rel_tc_f32p = _rel_l2(want_tc, want)
+    del want, want_tc
     # P at this shape would take 34 GB: the share check only
     tc = _tc_check(tcg, q, k, v, True, 0, dump=False)
     tc_err, tc_text = tc["err"], _tc_text(tc, 0)
@@ -1353,51 +1366,113 @@ def flash_kernel_check(dev) -> list[dict]:
           f"flash_attention_wgmma ({b}, {s}, {h}, {kv}, {dh}): {tc_text}; "
           f"rel L2 {rel_f32p:.3e} vs the float32-P plain version")
     del tcg
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    fns = {"cuda_core": (lambda: fk.flash_attention_cuda_core(q, k, v), 3),
+    d32 = SMALL_HEAD_DIM
+    q16, k16, v16 = qkv(b, s, h, kv, d32, bf16)
+    tf16 = fk.flash_attention_tf32x3(q16, k16, v16)
+    want = fa_ref.flash_attention_ref(q16, k16, v16)
+    torch.cuda.synchronize()
+    tf16_err, tf16_excess = _flash_excess(tf16, want)
+    check(tf16_excess <= 0, f"flash_attention_tf32x3 ({b}, {s}, {h}, {kv}, "
+                            f"{d32}) bf16: max err {tf16_err:.3e}, beyond one "
+                            f"ulp + {FLASH_RTOL} by {tf16_excess:.3e}")
+    del tf16, want
+
+    def heads(x, rep=1):     # (B, S, n, Dh) -> (B, n * rep, S, Dh)
+        return x.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+
+    # the memory-efficient backend (CUTLASS, float32 as 3xTF32 on
+    # mma.sync) takes float32; forced, so that it raises rather than
+    # falling back to the math backend; KV repeated outside the timing
+    q32h, k32h, v32h = heads(q32), heads(k32, h // kv), heads(v32, h // kv)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    q16h, k16h, v16h = heads(q16), heads(k16), heads(v16)
+
+    def sdpa_f32():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q32h, k32h, v32h,
+                                                  is_causal=True)
+
+    fns = {"tf32x3": (lambda: fk.flash_attention_tf32x3(q32, k32, v32), 5),
+           "sdpa_f32": (sdpa_f32, 5),
            "wgmma": (lambda: fk.flash_attention_wgmma(q, k, v), 20),
            "sdpa": (lambda: F.scaled_dot_product_attention(
-               qh, kh, vh, is_causal=True, enable_gqa=True), 20)}
+               qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+           "tf32x3_bf16_32": (
+               lambda: fk.flash_attention_tf32x3(q16, k16, v16), 10),
+           "sdpa_bf16_32": (lambda: F.scaled_dot_product_attention(
+               q16h, k16h, v16h, is_causal=True, enable_gqa=True), 20)}
     times = {n: [] for n in fns}
-    for order in (("cuda_core", "wgmma", "sdpa"), ("sdpa", "wgmma",
-                                                   "cuda_core")):
+    for order in (tuple(fns), tuple(reversed(tuple(fns)))):
         for n in order:
             times[n].append(cuda_ms(*fns[n]))
     ms = {n: sum(t) / len(t) for n, t in times.items()}
-    sdpa_out = fns["sdpa"][0]().transpose(1, 2)
-    sdpa_err = float((sdpa_out.float() - fns["wgmma"][0]().float()).abs().max())
-    del sdpa_out
-    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_ref(q, k, v), 1)
+    sdpa_err = float((sdpa_f32().transpose(1, 2)
+                      - fns["tf32x3"][0]()).abs().max())
+    sdpa_tc_err = float((fns["sdpa"][0]().transpose(1, 2).float()
+                         - fns["wgmma"][0]().float()).abs().max())
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_ref(q32, k32, v32), 1)
     tc_plain_ms = cuda_ms(lambda: fa_ref.flash_attention_tc_ref(q, k, v), 1)
-    flops = 4 * dh * h * b * _visible_pairs(s, s, True, 0)
+    pairs = _visible_pairs(s, s, True, 0)
+    flops = 4 * dh * h * b * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
-    print(f"kernel flash_attention ({b}, {s}, {h}, {kv}, {dh}) bf16 causal, "
-          f"one call in turns (ms each: {times}): bound {b_ms:.4f} ms "
-          f"({b_by}: {flops:.3e} flops, {nbytes / 1e6:.1f} MB); SDPA "
-          f"(library) {ms['sdpa']:.3f} ms", flush=True)
-    for n, err, rels in (("cuda_core", cc_err, f"vs float32-P blockwise "
-                          f"plain (within one ulp + {FLASH_RTOL})"),
-                         ("wgmma", tc_err, f"vs tc plain ({tc_text}); rel L2 "
-                          f"{rel_tc:.3e} vs tc plain, {rel_f32p:.3e} vs "
-                          f"float32-P blockwise plain, {rel_cc:.3e} vs the "
-                          f"CUDA-core kernel")):
-        print(f"  {n}: {ms[n]:.3f} ms, {flops / ms[n] / 1e9:.1f} TFLOP/s, "
-              f"{b_ms / ms[n]:.3f} of the bound, {ms[n] / ms['sdpa']:.2f}x "
-              f"SDPA; max err {err:.3e} {rels}", flush=True)
-    print(f"  plain versions: flash_attention_ref {plain_ms:.3f} ms, "
-          f"flash_attention_tc_ref {tc_plain_ms:.3f} ms (rel L2 "
-          f"{rel_tc_cc:.3e} apart); max |SDPA - wgmma| {sdpa_err:.3e}",
+    # float32: three TF32 products for each, at the TF32 peak; the FFMA
+    # bound of a CUDA-core design beside it
+    b32_ms, b32_by = bound(2 * nbytes, 3 * flops, PEAK_TF32_TC_FLOPS)
+    ffma_ms = bound(2 * nbytes, flops)[0]
+    flops32 = 4 * d32 * h * b * pairs
+    # bf16 at 32: the function's flops at the bf16 tensor-core peak; the
+    # design's (one TF32 product for S, two for P.V) beside it
+    bytes16 = (2 * q16.numel() + k16.numel() + v16.numel()) * 2
+    b16_ms, b16_by = bound(bytes16, flops32, PEAK_BF16_TC_FLOPS)
+    b16_tf32_ms = bound(bytes16, 1.5 * flops32, PEAK_TF32_TC_FLOPS)[0]
+    print(f"kernel flash_attention ({b}, {s}, {h}, {kv}, {dh}) causal, one "
+          f"call in turns (ms each: {times}); SDPA float32 forced to "
+          f"{SDPBackend.EFFICIENT_ATTENTION.name} (KV repeated to {h} "
+          f"heads), bf16 SDPA on its default backend with enable_gqa",
           flush=True)
-    common = dict(replaces="src/repro/kernels/flash_attention/kernel.py:59",
-                  bound_ms=b_ms, bound_by=b_by, library_ms=ms["sdpa"])
+    print(f"  tf32x3 float32: {ms['tf32x3']:.3f} ms, "
+          f"{flops / ms['tf32x3'] / 1e9:.1f} TFLOP/s, bound {b32_ms:.4f} ms "
+          f"({b32_by}: 3 x {flops:.3e} TF32 flops at "
+          f"{PEAK_TF32_TC_FLOPS / 1e12:.1f} T/s; FFMA bound {ffma_ms:.4f} "
+          f"ms), {b32_ms / ms['tf32x3']:.3f} of the bound, "
+          f"{ms['tf32x3'] / ms['sdpa_f32']:.3f}x SDPA float32 "
+          f"({ms['sdpa_f32']:.3f} ms); max err {tf_err:.3e} vs float32 "
+          f"blockwise plain (atol = rtol = {FLASH_RTOL}), max |SDPA - "
+          f"tf32x3| {sdpa_err:.3e}", flush=True)
+    print(f"  wgmma bf16: {ms['wgmma']:.3f} ms, "
+          f"{flops / ms['wgmma'] / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
+          f"({b_by}: {flops:.3e} flops, {nbytes / 1e6:.1f} MB), "
+          f"{b_ms / ms['wgmma']:.3f} of the bound, "
+          f"{ms['wgmma'] / ms['sdpa']:.3f}x SDPA ({ms['sdpa']:.3f} ms); max "
+          f"err {tc_err:.3e} vs tc plain ({tc_text}); rel L2 {rel_tc:.3e} vs "
+          f"tc plain, {rel_f32p:.3e} vs float32-P blockwise plain; max "
+          f"|SDPA - wgmma| {sdpa_tc_err:.3e}", flush=True)
+    print(f"  tf32x3 bf16 at head dim {d32}: {ms['tf32x3_bf16_32']:.3f} ms "
+          f"(bound {b16_ms:.4f} ms, {b16_by}: {flops32:.3e} flops at "
+          f"{PEAK_BF16_TC_FLOPS / 1e12:.1f} T/s; {b16_tf32_ms:.4f} ms for "
+          f"the design's one TF32 product for S and two for P.V), "
+          f"{ms['tf32x3_bf16_32'] / ms['sdpa_bf16_32']:.3f}x SDPA "
+          f"bf16 ({ms['sdpa_bf16_32']:.3f} ms); max err {tf16_err:.3e} vs "
+          f"float32-P blockwise plain (within one ulp + {FLASH_RTOL})",
+          flush=True)
+    print(f"  plain versions: flash_attention_ref (float32) {plain_ms:.3f} "
+          f"ms, flash_attention_tc_ref (bf16) {tc_plain_ms:.3f} ms (the "
+          f"two rel L2 {rel_tc_f32p:.3e} apart on the bf16 inputs)",
+          flush=True)
+    common = dict(replaces="src/repro/kernels/flash_attention/kernel.py:59")
     return [dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/csrc/flash_attention.cu",
-                 max_abs_err=cc_err, ms=ms["cuda_core"], plain_ms=plain_ms,
-                 **common),
+                 max_abs_err=tf_err, ms=ms["tf32x3"], plain_ms=plain_ms,
+                 bound_ms=b32_ms, bound_by=b32_by,
+                 library_ms=ms["sdpa_f32"], bound_ffma_ms=ffma_ms,
+                 bf16_32_ms=ms["tf32x3_bf16_32"], bf16_32_bound_ms=b16_ms,
+                 bf16_32_tf32_bound_ms=b16_tf32_ms,
+                 bf16_32_library_ms=ms["sdpa_bf16_32"], **common),
             dict(name="flash_attention_wgmma", route="cuda",
                  source="src/repro_torch/csrc/flash_attention_wgmma.cu",
                  max_abs_err=tc_err, ms=ms["wgmma"], plain_ms=tc_plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=ms["sdpa"],
                  **common)]
 
 
@@ -1725,7 +1800,8 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     just after: (seconds, flash_attention launches of either route, the
     logits if `keep` else None); the logits must be finite and of the
     batch's shape (the VLM's cover its patches too), and every attention
-    call (`_attn_calls`) must launch the route `tensor_cores` names, and,
+    call (`_attn_calls`) must launch the route `tensor_cores` names (the
+    bf16 `wgmma` kernel, else the 3xTF32 one), and,
     where `inst` names a tensor-core instantiation's count, that
     instantiation."""
     import torch
@@ -1739,6 +1815,7 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n, n_tc = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_wgmma"]
+    n_tf = LAUNCHES["flash_attention_tf32x3"]
     b, s = batch["inputs"].shape
     if "patches" in batch:
         s += batch["patches"].shape[1]
@@ -1749,10 +1826,12 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     check(all(bool(torch.isfinite(x).all()) for x in logits.split(2048, 1)),
           f"prefill {what}: non-finite logits")
     calls = _attn_calls(cfg)
-    check(n == calls and n_tc == (n if tensor_cores else 0),
+    check(n == calls and n_tc == (n if tensor_cores else 0)
+          and n_tf == n - n_tc,
           f"prefill {what}: flash_attention launched {n} times, "
-          f"flash_attention_wgmma {n_tc}; want {calls} and "
-          f"{calls if tensor_cores else 0}")
+          f"flash_attention_wgmma {n_tc}, flash_attention_tf32x3 {n_tf}; "
+          f"want {calls}, {calls if tensor_cores else 0} and "
+          f"{0 if tensor_cores else calls}")
     check(inst is None or LAUNCHES[inst] == calls,
           f"prefill {what}: {inst} launched {LAUNCHES[inst]} times, want "
           f"{calls}")
@@ -1851,7 +1930,7 @@ def prefill_phase(flash_ms: float) -> tuple[dict, object]:
           f"{'agrees' if int(on_card.argmax()) == int(on_cpu.argmax()) else 'differs'}"
           f" ({int(on_card.argmax())} vs {int(on_cpu.argmax())})", flush=True)
 
-    # the CUDA-core route: a config whose head dim the tensor-core kernel
+    # the 3xTF32 route: a config whose head dim the bf16 tensor-core kernel
     # does not take (the reduced qwen2.5, head dim 16), card vs CPU
     small = registry.reduced(PREFILL_CONFIG)
     s_shape = dataclasses.replace(shape, batch=2, seq=SMALL_ROUTE_SEQ)
@@ -1859,18 +1938,18 @@ def prefill_phase(flash_ms: float) -> tuple[dict, object]:
     s_host = init_lm(small, seed=0, device="cpu", dtype=torch.bfloat16)
     s_batch = batch_for(small, SMALL_ROUTE_SEQ, 2, 3)
     _, n_cc, s_logits = _prefill(s_step, copy.deepcopy(s_host).to(dev),
-                                 s_batch, small, "CUDA-core route",
+                                 s_batch, small, "3xTF32 route",
                                  tensor_cores=False, keep=True)
     with torch.inference_mode():
         want = make_prefill_step(small, s_shape, device="cpu").fn(
             s_host, s_batch)
     rel = float((s_logits.float().cpu() - want.float()).norm()
                 / want.float().norm())
-    check(rel <= PREFILL_CPU_RTOL, f"CUDA-core route prefill card vs CPU: "
+    check(rel <= PREFILL_CPU_RTOL, f"3xTF32 route prefill card vs CPU: "
                                    f"rel L2 {rel:.3e}")
     print(f"prefill route check: {small.name} (head dim "
           f"{small.resolved_head_dim}), 2 x {SMALL_ROUTE_SEQ}: flash_attention "
-          f"(CUDA cores) {n_cc} launches; logits card vs CPU rel L2 "
+          f"(3xTF32) {n_cc} launches; logits card vs CPU rel L2 "
           f"{rel:.3e} (tolerance {PREFILL_CPU_RTOL})", flush=True)
     # the full-width serving weights stay for phase 9's decode
     return {"flash_attention_wgmma": launches, "flash_attention": n_cc}, params
@@ -3352,7 +3431,7 @@ def moe_phase(card: str) -> tuple[dict, dict]:
     print(f"moe prefill ({card}): {cfg.name} {shape.batch} x {shape.seq} "
           f"tokens, {cfg.n_layers} layers: {dt:.3f} s ({warm_s:.3f} s "
           f"warm-up), {tokens / dt:,.0f} tokens/s; {MLA_INST} {launches} "
-          f"launches, no CUDA-core launch; attention share "
+          f"launches, no 3xTF32 launch; attention share "
           f"~{cfg.n_layers * row['ms'] / 1e3 / dt:.3f} of the wall time; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB", flush=True)
@@ -3552,8 +3631,8 @@ def _vlm_cpu_check(cfg) -> None:
 
 
 def _vlm_route_check() -> None:
-    """(f) The CUDA-core route: the reduced paligemma (head dim 16, 16
-    patches) prefill at 2 x VLM_SMALL_SEQ on the card, one CUDA-core
+    """(f) The 3xTF32 route: the reduced paligemma (head dim 16, 16
+    patches) prefill at 2 x VLM_SMALL_SEQ on the card, one 3xTF32
     launch a layer, logits within VLM_CPU_RTOL of the CPU run."""
     import torch
 
@@ -3569,7 +3648,7 @@ def _vlm_route_check() -> None:
     batch = batch_for(small, VLM_SMALL_SEQ, 2, 3)
     _, n_cc, logits = _prefill(make_prefill_step(small, shape),
                                copy.deepcopy(host).to("cuda"), batch, small,
-                               "vlm CUDA-core route", tensor_cores=False,
+                               "vlm 3xTF32 route", tensor_cores=False,
                                keep=True)
     with torch.inference_mode():
         want = make_prefill_step(small, shape, device="cpu").fn(host, batch)
@@ -3577,7 +3656,7 @@ def _vlm_route_check() -> None:
                 / want.float().norm())
     text = (f"vlm route check: {small.name} (head dim "
             f"{small.resolved_head_dim}, {small.vlm.n_patches} patches), 2 x "
-            f"{VLM_SMALL_SEQ}: flash_attention (CUDA cores) {n_cc} launches; "
+            f"{VLM_SMALL_SEQ}: flash_attention (3xTF32) {n_cc} launches; "
             f"logits at all positions card vs CPU rel L2 {rel:.3e} "
             f"(tolerance {VLM_CPU_RTOL})")
     check(rel <= VLM_CPU_RTOL, text)
@@ -3633,7 +3712,7 @@ def vlm_phase(card: str) -> tuple[dict, dict]:
           f"{cfg.n_layers} layers: {dt:.3f} s ({warm_s:.3f} s warm-up), "
           f"{n_pos / dt:,.0f} positions/s, "
           f"{shape.batch * shape.seq / dt:,.0f} text tokens/s; {VLM_INST} "
-          f"{launches} launches, no CUDA-core launch; attention share "
+          f"{launches} launches, no 3xTF32 launch; attention share "
           f"~{cfg.n_layers * row['ms'] / 1e3 / dt:.3f} of the wall time; "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -3899,9 +3978,9 @@ def _hybrid_cpu_check(cfg) -> None:
 
 
 def _hybrid_route_check() -> None:
-    """(g) The CUDA-core route: the reduced zamba2 (shared attention at
+    """(g) The 3xTF32 route: the reduced zamba2 (shared attention at
     head dim 16, chunk 16) prefill at 2 x HYBRID_SMALL_SEQ on the card,
-    one CUDA-core launch per shared call, logits within HYBRID_CPU_RTOL
+    one 3xTF32 launch per shared call, logits within HYBRID_CPU_RTOL
     of the CPU run."""
     import torch
 
@@ -3917,7 +3996,7 @@ def _hybrid_route_check() -> None:
     batch = batch_for(small, HYBRID_SMALL_SEQ, 2, 3)
     _, n_cc, logits = _prefill(make_prefill_step(small, shape),
                                copy.deepcopy(host).to("cuda"), batch, small,
-                               "hybrid CUDA-core route", tensor_cores=False,
+                               "hybrid 3xTF32 route", tensor_cores=False,
                                keep=True)
     with torch.inference_mode():
         want = make_prefill_step(small, shape, device="cpu").fn(host, batch)
@@ -3925,7 +4004,7 @@ def _hybrid_route_check() -> None:
                 / want.float().norm())
     text = (f"hybrid route check: {small.name} (shared attention head dim "
             f"16, chunk {small.ssm.chunk}), 2 x {HYBRID_SMALL_SEQ}: "
-            f"flash_attention (CUDA cores) {n_cc} launches; logits at all "
+            f"flash_attention (3xTF32) {n_cc} launches; logits at all "
             f"positions card vs CPU rel L2 {rel:.3e} (tolerance "
             f"{HYBRID_CPU_RTOL})")
     check(rel <= HYBRID_CPU_RTOL, text)
@@ -3979,7 +4058,7 @@ def hybrid_phase(card: str) -> tuple[dict, dict]:
           f"tokens, {cfg.n_layers} Mamba2 layers and {_attn_calls(cfg)} "
           f"shared calls: {dt:.3f} s ({warm_s:.3f} s warm-up), "
           f"{tokens / dt:,.0f} tokens/s; {HYBRID_INST} {launches} launches, "
-          f"no CUDA-core launch; attention share "
+          f"no 3xTF32 launch; attention share "
           f"~{_attn_calls(cfg) * row['ms'] / 1e3 / dt:.3f} of the wall time; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB", flush=True)
@@ -4094,14 +4173,17 @@ def main() -> int:
     # wavefront's launches by path and its time at the per-net shape; the
     # mesh phase's launches of nsga2_evolve and nds_rank, and nds_rank at
     # the migration shape; the MoE phase's all-to-all check beside the
-    # (192, 128) instantiation; the (256, 256) instantiation at prefix 0
+    # (192, 128) instantiation; the (256, 256) instantiation at prefix 0;
+    # the 3xTF32 flash kernel's FFMA bound and its bf16 head-dim-32 case
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
              "net_ms", "net_plain_ms", "net_bound_ms", "mesh_launches",
              "migration_shape", "migration_ms", "migration_plain_ms",
              "migration_bound_ms", "migration_bound_by", "a2a_rel_l2",
-             "a2a_ms", "prefix0_ms", "prefix0_bound_ms")
+             "a2a_ms", "prefix0_ms", "prefix0_bound_ms", "bound_ffma_ms",
+             "bf16_32_ms", "bf16_32_bound_ms", "bf16_32_tf32_bound_ms",
+             "bf16_32_library_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}))

@@ -11,7 +11,7 @@
 // attention.py: the VLM's image patches), and at 192 / 128 the jnp
 // blockwise core that MLA's prefill runs on v padded to 192
 // (`mla_fwd_blockwise`); float32 and the other head dims stay on the
-// CUDA-core kernel of flash_attention.cu.  For q (B, S, H, Dh), k (B, T,
+// 3xTF32 kernel of flash_attention.cu.  For q (B, S, H, Dh), k (B, T,
 // KV, Dh) and v (B, T, KV, Dv), query head h reading KV head h / (H / KV)
 // (paligemma's MQA: all 8 heads read head 0), it computes
 //
@@ -65,7 +65,9 @@
 //   or V tile BK x 128 B, the layout the `wgmma` descriptors name (swizzle
 //   mode 1, 8-row groups 1024 B apart; K-major steps advance 32 B inside
 //   the swizzle atom and a block's bytes every 4 steps, MN-major ones 2048
-//   B, with a V block's bytes between its 64-column blocks).  TMA zero-fills
+//   B, with a V block's bytes between its 64-column blocks); a head dim of
+//   64 k + 16 (80) adds a 16-column tail block with 32-byte swizzle (see
+//   below).  TMA zero-fills
 //   rows past S or T, so nothing is padded; keys past T are masked.  A -inf
 //   mask is applied only on tiles that need one (the diagonal, the prefix
 //   boundary, the ragged tail); a row that has seen no visible key keeps m =
@@ -83,17 +85,24 @@
 //   16 bf16 pairs; S and P are not live during the two products, so the
 //   peak is O, S and P across the softmax.  A 64-key tile pays the softmax,
 //   the O rescale and a barrier round per 64 keys, twice as often as a
-//   128-key one.  A head dim that is not a multiple of 64 (80) is padded
-//   in shared memory only: its tiles are those of the next multiple (two
-//   64-column blocks at 80, the Dh-128 code), the tensor maps span the
-//   data's own head dim, and TMA fills the box's columns past it with
-//   zeros (and still counts the whole box's bytes on the barrier).  S
-//   takes only the real k16 steps (5 at 80); P.V runs m64n128 over V's
-//   zero columns and the epilogue stores the 80 real ones, so the tensor
-//   cores do 208 / 160 = 1.3x the work an exact-80 design would.  Tensor
-//   maps are built per call on the host (cuTensorMapEncodeTiled through
-//   the runtime's driver entry point) over q, k and v with their own
-//   strides.
+//   128-key one.  A head dim of 64 k + 16 (80) has exact tiles: its k
+//   64-column blocks as above and a 16-column tail block of 32-byte rows
+//   with 32-byte swizzle, each loaded by its own TMA map (two boxes a row
+//   at 80), the tail named by descriptors of layout type 3 (K-major 8-row
+//   groups 256 B apart; MN-major V 16 keys 512 B on).  S is the 5 k16
+//   steps (the fifth on the tail), P.V two register-A `wgmma` a k16 step,
+//   m64n64k16 on the main block and m64n16k16 on the tail, into one O of
+//   40 floats a thread; the epilogue stores the 80 columns.  Q 20 KB + 2
+//   x 40 KB of K and V.  A 128-column tile padded with zeros made the
+//   tensor cores do 208 / 160 = 1.3x this work; the products and their
+//   order per output element are the same, and on the same inputs the two
+//   give bit-equal outputs and P (tools/time_flash.py --compare, on the
+//   H100).  Five 16-column boxes a row (all 32-byte swizzle) took 14.4 ms
+//   at zamba2's shape whatever the clock, against 11.5 with two boxes and
+//   13.2 padded on a rested card (H100 80GB HBM3 at 700 W): the count of
+//   TMA box rows, not the tensor cores, bounded that layout.  Tensor maps
+//   are built per call on the host (cuTensorMapEncodeTiled through the
+//   runtime's driver entry point) over q, k and v with their own strides.
 //
 //   Left for later: the softmax of one tile overlapped with the next
 //   Q K^T (FA3's ping-pong between the two consumers, or two S buffers in
@@ -125,10 +134,15 @@ constexpr int kBlockCols = 64;      // bf16 columns of one 128-byte swizzle row
 constexpr uint32_t kQBlockBytes = kBQ * 128;  // one 64-column block of Q
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
 
-// The shared-memory width of a head dim: whole 64-column swizzle blocks.
-__host__ __device__ constexpr int tile_dim(int d) {
-  return (d + kBlockCols - 1) / kBlockCols * kBlockCols;
+constexpr int kTailCols = 16;       // bf16 columns of one 32-byte swizzle row
+
+// The columns of a head dim in whole 64-column blocks, and in the
+// 16-column tail block that 64 k + 16 (80) adds: a tile is exactly as wide
+// as its head dim.
+__host__ __device__ constexpr int main_cols(int d) {
+  return d / kBlockCols * kBlockCols;
 }
+__host__ __device__ constexpr int tail_cols(int d) { return d - main_cols(d); }
 
 // BK keys per K / V tile (a template parameter: 128, or 64 at Dh 256).
 template <int DH, int DV, int BK>
@@ -219,6 +233,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
          (1ull << 62);
+}
+
+// The same with 32-byte swizzle (layout type 3): the tail block.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -348,6 +371,18 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
                                                  const uint32_t (&a)[4],
                                                  uint64_t db) {
@@ -392,19 +427,27 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&a)[4],
   wgmma_rs_m64n64(o, a, db);
 }
 
+__device__ __forceinline__ void wgmma_pv(float (&o)[8], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n16(o, a, db);
+}
+
 // One consumer warpgroup: 64 query rows of the CTA's tile, all its key
-// tiles, and the rows' output.  DHD and DVD are the data's head dims,
-// DH and DV the tiles' (`tile_dim`).  With kDump it also stores the bf16
-// P it feeds to P.V at p_dump[b, h, row, key] (rows < S, keys < T), for
-// checking; the arithmetic is the same.
-template <int DHD, int DVD, int BK, bool kDump,
-          int DH = tile_dim(DHD), int DV = tile_dim(DVD)>
-__device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
+// tiles, and the rows' output, at q/k and v head dims DHD and DVD.  With
+// kDump it also stores the bf16 P it feeds to P.V at p_dump[b, h, row,
+// key] (rows < S, keys < T), for checking; the arithmetic is the same.
+template <int DHD, int DVD, int BK, bool kDump>
+__device__ __forceinline__ void consume(Smem<DHD, DVD, BK>& sm, const Params& p,
                                         int cw, int q0, int n_kt, int b,
                                         int h) {
-  constexpr int kO = DV / 2;          // O floats per thread: DV / 8 chunks x 4
+  constexpr int kO = DVD / 2;         // O floats per thread: DVD / 8 chunks x 4
   constexpr int kS = BK / 2;          // S floats per thread: BK / 8 chunks x 4
   constexpr uint32_t kKVBlockBytes = BK * 128;  // one 64-column block of K, V
+  // a 16-column tail block (32-byte rows) after the 64-column blocks
+  constexpr int kMainQK = main_cols(DHD), kMainV = main_cols(DVD);
+  static_assert(tail_cols(DHD) % kTailCols == 0 && tail_cols(DHD) <= kTailCols &&
+                    tail_cols(DVD) == tail_cols(DHD),
+                "a head dim is 64 k or 64 k + 16, the same for q/k and v");
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int r_lo = q0 + cw * 64;      // this consumer's first row
@@ -413,6 +456,7 @@ __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
   const float c2 = p.scale_log2;
   // the consumer's 64 rows of each 64-column block: 64 rows x 128 bytes in
   const uint32_t q_addr = smem_u32(sm.q) + cw * 64 * 128;
+  const uint32_t q_tail = smem_u32(sm.q) + kMainQK * kBQ * 2 + cw * 64 * 32;
 
   // Accumulator fragment: element 4 j + 2 i + e is (row0 + 8 i, 8 j + col0
   // + e); P's register pair 2 j + i packs elements 4 j + 2 i and + 1.
@@ -433,14 +477,16 @@ __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
     const uint32_t k_addr = smem_u32(sm.k[st]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DHD / 16; ++kk) {
+    for (int kk = 0; kk < kMainQK / 16; ++kk) {
       // k16 step kk: 32 bytes into the swizzle row of 64-column block kk / 4
-      // (the steps past DHD would add the zero padding's exact 0)
       const uint32_t col = (kk % 4) * 32;
       wgmma_qk(s, sw128_desc(q_addr + (kk / 4) * kQBlockBytes + col, 16, 1024),
                sw128_desc(k_addr + (kk / 4) * kKVBlockBytes + col, 16, 1024),
                kk);
     }
+    if (tail_cols(DHD) > 0)           // the tail block's k16 step
+      wgmma_qk(s, sw32_desc(q_tail, 16, 256),
+               sw32_desc(k_addr + kMainQK * BK * 2, 16, 256), kMainQK / 16);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -505,7 +551,7 @@ __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
+    for (int j = 0; j < DVD / 8; ++j) {
       o[4 * j] *= corr[0];
       o[4 * j + 1] *= corr[0];
       o[4 * j + 2] *= corr[1];
@@ -521,7 +567,18 @@ __device__ __forceinline__ void consume(Smem<DH, DV, BK>& sm, const Params& p,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                              pk[4 * kk + 3]};
-      wgmma_pv(o, a, sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
+      if constexpr (tail_cols(DVD) == 0) {
+        wgmma_pv(o, a, sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
+      } else {
+        // columns [0, kMainV) from the 64-column blocks, the rest (O's
+        // last 8 floats a thread) from the tail block: m64n16, MN-major
+        // 32-byte swizzle, 16 keys two 8-row groups of 256 B
+        wgmma_pv(*reinterpret_cast<float(*)[kMainV / 2]>(o), a,
+                 sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
+        wgmma_pv(*reinterpret_cast<float(*)[kTailCols / 2]>(o + kMainV / 2),
+                 a, sw32_desc(v_addr + kMainV * BK * 2 + kk * 512, BK * 32,
+                              256));
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -553,14 +610,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tq_tail,
+                             const __grid_constant__ CUtensorMap tk_tail,
+                             const __grid_constant__ CUtensorMap tv_tail,
                              const Params p) {
   static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
   static_assert(DHD % 16 == 0 && DVD % 16 == 0,
                 "head dims are whole k16 steps");
-  constexpr int DH = tile_dim(DHD), DV = tile_dim(DVD);
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  Smem<DH, DV, BK>& sm = *reinterpret_cast<Smem<DH, DV, BK>*>(smem_raw + pad);
+  Smem<DHD, DVD, BK>& sm =
+      *reinterpret_cast<Smem<DHD, DVD, BK>*>(smem_raw + pad);
 
   const int bh_count = p.B * p.H;
   const int n_qt = (p.S + kBQ - 1) / kBQ;
@@ -594,25 +654,35 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       // whole boxes: TMA counts the zeros it fills past DHD / DVD too
-      constexpr uint32_t kTileBytes = BK * DH * 2, kVTileBytes = BK * DV * 2;
-      mbar_expect_tx(&sm.q_full, kBQ * DH * 2);
+      constexpr uint32_t kTileBytes = BK * DHD * 2, kVTileBytes = BK * DVD * 2;
+      constexpr int kMainQK = main_cols(DHD), kMainV = main_cols(DVD);
+      mbar_expect_tx(&sm.q_full, kBQ * DHD * 2);
 #pragma unroll
-      for (int c = 0; c < DH / kBlockCols; ++c)
+      for (int c = 0; c < kMainQK / kBlockCols; ++c)
         tma_load(sm.q + c * kBQ * kBlockCols, &tq, &sm.q_full, p.oq,
                  c * kBlockCols, q0, h, b);
+      if (tail_cols(DHD) > 0)
+        tma_load(sm.q + kMainQK * kBQ, &tq_tail, &sm.q_full, p.oq, kMainQK,
+                 q0, h, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % kStages;
         mbar_wait(&sm.empty[st], ((kt / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.k_full[st], kTileBytes);
 #pragma unroll
-        for (int c = 0; c < DH / kBlockCols; ++c)
+        for (int c = 0; c < kMainQK / kBlockCols; ++c)
           tma_load(sm.k[st] + c * BK * kBlockCols, &tk, &sm.k_full[st], p.ok,
                    c * kBlockCols, kt * BK, kvh, b);
+        if (tail_cols(DHD) > 0)
+          tma_load(sm.k[st] + kMainQK * BK, &tk_tail, &sm.k_full[st], p.ok,
+                   kMainQK, kt * BK, kvh, b);
         mbar_expect_tx(&sm.v_full[st], kVTileBytes);
 #pragma unroll
-        for (int c = 0; c < DV / kBlockCols; ++c)
+        for (int c = 0; c < kMainV / kBlockCols; ++c)
           tma_load(sm.v[st] + c * BK * kBlockCols, &tv, &sm.v_full[st], p.ov,
                    c * kBlockCols, kt * BK, kvh, b);
+        if (tail_cols(DVD) > 0)
+          tma_load(sm.v[st] + kMainV * BK, &tv_tail, &sm.v_full[st], p.ov,
+                   kMainV, kt * BK, kvh, b);
       }
     }
   } else {                            // two consumer warpgroups
@@ -652,11 +722,11 @@ EncodeTiledFn encode_tiled() {
 // A 4-D map over a bf16 tensor with unit stride on Dh and element strides
 // `st` = (row, head, batch): dimension 0 is Dh, the others are ordered by
 // stride (an extent-1 dimension is never stepped and sorts last), and the
-// box is 64 columns x `box_rows` rows, 128-byte swizzled; a box's columns
-// past dh are filled with zeros.  Returns a CUresult.
+// box is 64 columns x `box_rows` rows, 128-byte swizzled, or with `tail`
+// 16 columns, 32-byte swizzled.  Returns a CUresult.
 int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
              int rows, int heads, int batch, const long long* st,
-             int box_rows) {
+             int box_rows, bool tail = false) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const long long ext[3] = {rows, heads, batch};
@@ -675,7 +745,7 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
     }
   cuuint64_t dims[4] = {(cuuint64_t)dh, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {kBlockCols, 1, 1, 1};
+  cuuint32_t box[4] = {tail ? kTailCols : kBlockCols, 1, 1, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   int pos[3];
   for (int i = 0; i < 3; ++i) {
@@ -689,7 +759,8 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
   order->batch = pos[2];
   return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                      const_cast<void*>(ptr), dims, strides, box, ones,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     tail ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -697,8 +768,7 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
 template <int DHD, int DVD, int BK, bool kDump>
 int launch(const void* q, const void* k, const void* v,
            const long long* strides, Params& p, cudaStream_t stream) {
-  constexpr int DH = tile_dim(DHD), DV = tile_dim(DVD);
-  static_assert(sizeof(Smem<DH, DV, BK>) + 1024 <= kSmemLimit,
+  static_assert(sizeof(Smem<DHD, DVD, BK>) + 1024 <= kSmemLimit,
                 "the Q tile and two K / V stages must fit a block's shared "
                 "memory");
   const long long blocks = (long long)((p.S + kBQ - 1) / kBQ) * p.B * p.H;
@@ -714,14 +784,24 @@ int launch(const void* q, const void* k, const void* v,
   int rc = make_map(&tq, &p.oq, q, DHD, p.S, p.H, p.B, sq, kBQ);
   if (rc == 0) rc = make_map(&tk, &p.ok, k, DHD, p.T, p.KV, p.B, sk, BK);
   if (rc == 0) rc = make_map(&tv, &p.ov, v, DVD, p.T, p.KV, p.B, sv, BK);
+  CUtensorMap tq_tail = tq, tk_tail = tk, tv_tail = tv;   // unread at 64 k
+  if (tail_cols(DHD) > 0) {
+    if (rc == 0)
+      rc = make_map(&tq_tail, &p.oq, q, DHD, p.S, p.H, p.B, sq, kBQ, true);
+    if (rc == 0)
+      rc = make_map(&tk_tail, &p.ok, k, DHD, p.T, p.KV, p.B, sk, BK, true);
+    if (rc == 0)
+      rc = make_map(&tv_tail, &p.ov, v, DVD, p.T, p.KV, p.B, sv, BK, true);
+  }
   if (rc != 0) return rc;
-  const int smem = (int)sizeof(Smem<DH, DV, BK>) + 1024;
+  const int smem = (int)sizeof(Smem<DHD, DVD, BK>) + 1024;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_wgmma_kernel<DHD, DVD, BK, kDump>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   flash_attention_wgmma_kernel<DHD, DVD, BK, kDump>
-      <<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv, p);
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv, tq_tail,
+                                                     tk_tail, tv_tail, p);
   return (int)cudaGetLastError();
 }
 
@@ -753,7 +833,7 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
   if (dh == 64 && dv == 64)
     return dump ? launch<64, 64, 128, true>(q, k, v, strides, p, st)
                 : launch<64, 64, 128, false>(q, k, v, strides, p, st);
-  if (dh == 80 && dv == 80)        // tiles of 128 columns, see tile_dim
+  if (dh == 80 && dv == 80)        // a 64-column block and a 16-column tail
     return dump ? launch<80, 80, 128, true>(q, k, v, strides, p, st)
                 : launch<80, 80, 128, false>(q, k, v, strides, p, st);
   if (dh == 128 && dv == 128)

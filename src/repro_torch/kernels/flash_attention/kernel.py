@@ -9,11 +9,13 @@ h by index (the reference's `ops` repeats KV heads in memory instead).
 - `flash_attention_wgmma` (`csrc/flash_attention_wgmma.cu`): bf16 at
   the (Dh, Dv) pairs `TC_DIM_PAIRS` (64 / 64, 128 / 128, MLA's 192 /
   128, paligemma's 256 / 256 and zamba2's 80 / 80, whose tiles are
-  padded to 128 columns in shared memory), both products on tensor
-  cores, P rounded to bf16, over 128-key tiles (64 at 256 / 256,
-  `ref.tc_kv_tile`); plain version `ref.flash_attention_tc_ref`.
-- `flash_attention_cuda_core` (`csrc/flash_attention.cu`): float32, and
-  bf16 at any of `HEAD_DIMS` (Dv = Dh), float32 FFMA on CUDA cores;
+  exactly 80 columns), both products on tensor cores, P rounded to
+  bf16, over 128-key tiles (64 at 256 / 256, `ref.tc_kv_tile`); plain
+  version `ref.flash_attention_tc_ref`.
+- `flash_attention_tf32x3` (`csrc/flash_attention.cu`): float32 at any
+  of `HEAD_DIMS`, and bf16 at `TF32X3_BF16_HEAD_DIMS` (Dv = Dh), both
+  products on TF32 tensor cores as three products of split operands
+  (3xTF32; bf16 inputs need one for S and two for P.V), float32 P;
   plain version `ref.flash_attention_ref`.
 
 `route(dtype, head_dim, v_head_dim)` names the wrapper that `ops.flash_attention`
@@ -22,7 +24,8 @@ CUDA tensors it launches its kernel or raises, with no fallback to the
 other route.  `flash_attention_wgmma_p` also returns the bf16 P the
 tensor-core kernel fed to its P.V, to hold against `ref.flash_attention_tc_p`.
 Every launch of either kernel counts in
-`repro_torch.kernels.LAUNCHES["flash_attention"]`; the tensor-core
+`repro_torch.kernels.LAUNCHES["flash_attention"]`; the 3xTF32 kernel's
+also in `LAUNCHES["flash_attention_tf32x3"]`; the bf16 tensor-core
 kernel's also in `LAUNCHES["flash_attention_wgmma"]` and under its
 instantiation, `LAUNCHES["flash_attention_wgmma_<Dh>_<Dv>"]` (MLA's
 prefill: `flash_attention_wgmma_192_128`; paligemma's
@@ -40,13 +43,15 @@ from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+TF32X3_BF16_HEAD_DIMS = (16, 32)     # bf16 on the 3xTF32 kernel
 TC_HEAD_DIMS = (64, 128)             # tensor cores where v's head dim is q/k's
 TC_DIM_PAIRS = tuple((d, d) for d in TC_HEAD_DIMS) + (
     (192, 128),                      # MLA's
     (256, 256),                      # paligemma's (64-key tiles)
-    (80, 80))                        # zamba2's (128-column tiles)
+    (80, 80))                        # zamba2's (80-column tiles)
 ROUTES = (f"routes: bf16 at (q/k, v) head dims {TC_DIM_PAIRS} on tensor "
-          f"cores (wgmma); float32, and bf16 at {HEAD_DIMS}, on CUDA cores")
+          f"cores (wgmma); float32 at {HEAD_DIMS}, and bf16 at "
+          f"{TF32X3_BF16_HEAD_DIMS}, on TF32 tensor cores (tf32x3)")
 DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -74,17 +79,18 @@ def _fn(name: str):
 def route(dtype: torch.dtype, head_dim: int,
           v_head_dim: int | None = None) -> str:
     """The kernel that runs attention of this dtype and q/k and v head
-    dims (v's defaults to q/k's): "wgmma" (tensor cores) for bf16 at a
-    pair of `TC_DIM_PAIRS`, else "cuda_core"."""
+    dims (v's defaults to q/k's): "wgmma" (bf16 tensor cores) for bf16 at
+    a pair of `TC_DIM_PAIRS`, else "tf32x3" (whose wrapper raises on a
+    pair it does not take)."""
     pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
     if dtype == torch.bfloat16 and pair in TC_DIM_PAIRS:
         return "wgmma"
-    return "cuda_core"
+    return "tf32x3"
 
 
 def kernel_layout_ok(t: torch.Tensor) -> bool:
     """What both kernels' loads need (16-byte vectors; TMA on the
-    tensor-core route): unit stride on Dh, the other strides multiples
+    bf16 tensor-core route): unit stride on Dh, the other strides multiples
     of 8 elements and not 0 on a dimension of extent > 1 (a tensor map
     takes no zero stride, e.g. of `expand`), a 16-byte aligned pointer."""
     return (t.stride(3) == 1
@@ -151,22 +157,25 @@ def _launch(name: str, counts: tuple[str, ...], q: torch.Tensor,
     return out
 
 
-def flash_attention_cuda_core(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, causal: bool = True,
-                              prefix_len: int = 0,
-                              block_k: int = ref.KV_TILE) -> torch.Tensor:
-    """The CUDA-core kernel: q: (B, S, H, Dh); k/v: (B, T, KV, Dh); one
-    dtype of `DTYPES`; H % KV == 0; Dh in `HEAD_DIMS`.  Returns (B, S, H,
-    Dh) contiguous in q's dtype.  `block_k` is the plain version's KV
-    block; the kernel streams 64-key tiles."""
-    _check(q, k, v, prefix_len, tuple((d, d) for d in HEAD_DIMS), DTYPES)
+def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           prefix_len: int = 0,
+                           block_k: int = ref.KV_TILE) -> torch.Tensor:
+    """The 3xTF32 kernel: q: (B, S, H, Dh); k/v: (B, T, KV, Dh); float32
+    with Dh in `HEAD_DIMS`, or bf16 with Dh in `TF32X3_BF16_HEAD_DIMS`;
+    H % KV == 0.  Returns (B, S, H, Dh) contiguous in q's dtype.
+    `block_k` is the plain version's KV block; the kernel streams 32-key
+    tiles at Dh 128, 64-key ones below."""
+    bf16 = q.dtype == torch.bfloat16
+    dims = TF32X3_BF16_HEAD_DIMS if bf16 else HEAD_DIMS
+    _check(q, k, v, prefix_len, tuple((d, d) for d in dims), DTYPES)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        prefix_len=prefix_len, block_k=block_k)
     scale = float(np.float32(1.0 / q.shape[3] ** 0.5))
-    return _launch("flash_attention", ("flash_attention",), q, k, v, 64,
-                   int(q.dtype == torch.bfloat16), int(causal), prefix_len,
-                   scale)
+    return _launch("flash_attention",
+                   ("flash_attention", "flash_attention_tf32x3"), q, k, v,
+                   128, int(bf16), int(causal), prefix_len, scale)
 
 
 def _tc_counts(q: torch.Tensor, v: torch.Tensor) -> tuple[str, ...]:

@@ -3,8 +3,8 @@ kernels read (unit stride on Dh, strides that are multiples of 8 and not
 0, an aligned pointer; other inputs are copied) and call the wrapper of
 the route `kernel.route` names (bf16 at q/k and v head dims 64 / 64, 128 /
 128, MLA's 192 / 128, paligemma's 256 / 256 and zamba2's 80 / 80 on
-tensor cores, the rest on CUDA cores; a pair neither route takes
-raises).  KV heads are not
+bf16 tensor cores, float32 and bf16 at 16 / 32 on TF32 tensor cores as
+3xTF32; a pair neither route takes raises).  KV heads are not
 repeated: the kernels map query head h to KV head h // (H // KV).  Tail
 tiles are masked in the kernels, so nothing is padded.
 """
@@ -38,6 +38,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kernel.route(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
         return kernel.flash_attention_wgmma(
             q, k, v, causal=causal, prefix_len=prefix_len, block_k=block_k)
-    return kernel.flash_attention_cuda_core(
+    return kernel.flash_attention_tf32x3(
         q, k, v, causal=causal, prefix_len=prefix_len,
         block_k=block_k or ref.KV_TILE)

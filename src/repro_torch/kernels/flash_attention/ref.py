@@ -8,8 +8,8 @@
   q converted to float32 and scaled, S = q K^T in float32, masked
   scores at -1e30, a running (max, sum, acc) in float32, P.V in float32,
   acc / max(sum, 1e-30) cast to q's dtype once.  It is the plain version
-  of the CUDA-core kernel (`csrc/flash_attention.cu`: float32, and bf16
-  at head dims 16 and 32).
+  of the 3xTF32 kernel (`csrc/flash_attention.cu`: float32, and bf16 at
+  head dims 16 and 32), which scales each score after its product.
 - `flash_attention_tc_ref`: the same online softmax with the tensor-core
   kernel's arithmetic (`csrc/flash_attention_wgmma.cu`: bf16 at q/k and
   v head dims 64 / 64, 80 / 80, 128 / 128, MLA's 192 / 128 and 256 /
@@ -38,10 +38,12 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
-KV_TILE = 64          # keys per block: the CUDA-core kernel's tile
+KV_TILE = 64          # keys per block of `flash_attention_ref` (the 3xTF32
+                      # kernel's tile below head dim 128; it changes only
+                      # the rounding)
 TC_KV_TILE = 128      # keys per block: the tensor-core kernel's tile, but
 TC_KV_TILES = {(256, 256): 64,   # where two 128-key stages overflow a block
-               (80, 80): 128}    # 128-column tiles: 32 KB + 2 x 64 KB
+               (80, 80): 128}    # 80-column tiles: 20 KB + 2 x 40 KB
 
 
 def tc_kv_tile(head_dim: int, v_head_dim: int | None = None) -> int:

@@ -111,8 +111,9 @@ def attention_fwd_blockwise(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     tensor-core route, which rounds P to bf16 before P.V as the
     reference's jnp core (`_blockwise_core`) does; the core also rounds
     the scores and P.V to x's dtype.  `kv_block` is the plain version's
-    KV block; the kernels stream 64-key (CUDA cores; tensor cores at head
-    dim 256) or 128-key (tensor cores) tiles."""
+    KV block; the kernels stream 32-key (3xTF32 at head dim 128), 64-key
+    (3xTF32 below 128; bf16 tensor cores at head dim 256) or 128-key (bf16
+    tensor cores) tiles."""
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(p, x, cfg, positions)

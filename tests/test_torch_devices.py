@@ -139,7 +139,7 @@ def test_wrappers_launch_on_their_tensors_device(launches):
     am.acim_matmul_wgmma(x, w, 16, 4, splits=1)
     q = torch.empty((1, 64, 2, 64), dtype=torch.bfloat16, device=meta)
     kv = torch.empty((1, 64, 1, 64), dtype=torch.bfloat16, device=meta)
-    fa.flash_attention_cuda_core(q, kv, kv)
+    fa.flash_attention_tf32x3(q.float(), kv.float(), kv.float())
     fa.flash_attention_wgmma(q, kv, kv)
     assert launches == [
         ("nds_rank", meta), ("dominance_matrix", meta), ("wavefront", meta),

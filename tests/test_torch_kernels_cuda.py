@@ -647,10 +647,10 @@ def _assert_tc_close(got, q, k, v, **kw):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_attention_matches_plain(b, s, h, kv, dh, causal, prefix_len,
                                        dtype, dev):
-    """Each route against its own plain version.  float32 (CUDA cores):
-    atol = rtol = 2e-5.  bf16 at head dims 16 and 32 (CUDA cores): both
-    compute in float32 and round once, so one bf16 ulp of the output plus
-    2e-5.  bf16 at head dims 64 and 128 (tensor cores): against
+    """Each route against its own plain version.  float32 (3xTF32 tensor
+    cores): atol = rtol = 2e-5.  bf16 at head dims 16 and 32 (3xTF32):
+    both compute in float32 and round once, so one bf16 ulp of the output
+    plus 2e-5.  bf16 at head dims 64 and 128 (bf16 tensor cores): against
     `flash_attention_tc_ref` as `_assert_tc_close` holds it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(s + dh)
@@ -658,10 +658,11 @@ def test_flash_attention_matches_plain(b, s, h, kv, dh, causal, prefix_len,
     k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev).to(dtype)
             for _ in range(2))
     tc = fa_kernel.route(dtype, dh) == "wgmma"
-    n0, n0_tc = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_wgmma"]
+    n0 = dict(LAUNCHES)
     got = fa_ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
-    assert LAUNCHES["flash_attention"] == n0 + 1
-    assert LAUNCHES["flash_attention_wgmma"] == n0_tc + tc
+    for key, n in (("flash_attention", 1), ("flash_attention_wgmma", tc),
+                   ("flash_attention_tf32x3", 1 - tc)):
+        assert LAUNCHES[key] == n0.get(key, 0) + n, key
     plain = fa_ref.flash_attention_tc_ref if tc else fa_ref.flash_attention_ref
     want = plain(q, k, v, causal=causal, prefix_len=prefix_len)
     if prefix_len == 0:    # strides the kernel cannot read: ops copies
@@ -711,6 +712,94 @@ def test_flash_attention_wgmma_matches_tc_plain(b, s, h, kv, dh, causal,
         prefix_len=prefix_len))
     f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal,
                                       prefix_len=prefix_len).float()
+    assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
+
+
+def _qkv_t(dev, seed, b, s, t, h, kv, dh, dv, dtype):
+    """q (B, S, H, Dh), k (B, T, KV, Dh), v (B, T, KV, Dv) normals."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, s, h, dh), (b, t, kv, dh), (b, t, kv, dv))]
+
+
+T_NOT_S = [(1000, 333, True), (333, 1000, True), (777, 1201, False),
+           (1200, 77, False), (130, 4001, True)]     # ragged T: no whole tile
+
+
+@pytest.mark.parametrize("s,t,causal", T_NOT_S, ids=str)
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 128),
+                                      (torch.float32, 64),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 32)], ids=str)
+def test_flash_attention_tf32x3_at_t_other_than_s(s, t, causal, dtype, dh,
+                                                  dev):
+    """The 3xTF32 kernel with k / v longer or shorter than q (causal keeps
+    key c for query r when c <= r, as the TPU kernel's oracle): against
+    `flash_attention_ref` and the naive `attention_ref`, float32 at atol =
+    rtol = 2e-5, bf16 within one bf16 ulp + 2e-5, and its launch count."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, kv = 2, 4, 2
+    q, k, v = _qkv_t(dev, s + t + dh, b, s, t, h, kv, dh, dh, dtype)
+    n0 = dict(LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    for key in ("flash_attention", "flash_attention_tf32x3"):
+        assert LAUNCHES[key] == n0.get(key, 0) + 1, key
+    assert LAUNCHES.get("flash_attention_wgmma", 0) == n0.get(
+        "flash_attention_wgmma", 0)
+    naive = fa_ref.attention_ref(
+        *(x.permute(0, 2, 1, 3).repeat_interleave(rep, 1).reshape(
+            b * h, -1, dh) for x, rep in ((q, 1), (k, h // kv), (v, h // kv))),
+        causal=causal).reshape(b, h, s, dh).permute(0, 2, 1, 3)
+    for want in (fa_ref.flash_attention_ref(q, k, v, causal=causal), naive):
+        g32, w32 = got.float(), want.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g32, w32, atol=2e-5, rtol=2e-5)
+        else:
+            bound = _bf16_ulp(torch.maximum(g32.abs(), w32.abs())) + 2e-5
+            assert bool(((g32 - w32).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("b,s,dh", [(4, 4096, 128), (4, 4096, 64),
+                                    (1, 32768, 128)], ids=str)
+def test_flash_attention_tf32x3_at_long_rows(b, s, dh, q_scale, dev):
+    """The 3xTF32 kernel where its sums are longest (4096 and 32768 keys,
+    causal, H 16, KV 2) and with q scaled by 4 (scores of magnitude ~30,
+    a peaked softmax): against `flash_attention_ref` at atol = rtol =
+    2e-5.  The tensor cores round each `wgmma`'s sum toward zero, so O
+    kept in their accumulator across all the key tiles drifted past this
+    bound (1.45x at 4096 keys, 5.9x at 32768, with q scaled by 4); the
+    kernel moves O into float32 every tile at head dim 64 and every 512
+    keys at 128 (`csrc/flash_attention.cu`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(s + dh)
+    q = torch.randn((b, s, 16, dh), generator=g, device=dev) * q_scale
+    k, v = (torch.randn((b, s, 2, dh), generator=g, device=dev)
+            for _ in range(2))
+    n0 = LAUNCHES["flash_attention_tf32x3"]
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    assert LAUNCHES["flash_attention_tf32x3"] == n0 + 1
+    torch.testing.assert_close(got, fa_ref.flash_attention_ref(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s,t,causal", T_NOT_S, ids=str)
+@pytest.mark.parametrize("dh,dv", fa_kernel.TC_DIM_PAIRS, ids=str)
+def test_flash_attention_wgmma_at_t_other_than_s(s, t, causal, dh, dv, dev):
+    """Every bf16 tensor-core instantiation with k / v longer or shorter
+    than q: against `flash_attention_tc_ref` as `_assert_tc_close` holds
+    it, rel L2 against the float32-P `flash_attention_ref` at most 1e-2,
+    and its launch counts."""
+    q, k, v = _qkv_t(dev, s + t + dh + dv, 1, s, t, 4, 2, dh, dv,
+                     torch.bfloat16)
+    n0 = dict(LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    for key in ("flash_attention", "flash_attention_wgmma",
+                f"flash_attention_wgmma_{dh}_{dv}"):
+        assert LAUNCHES[key] == n0.get(key, 0) + 1, key
+    assert tuple(got.shape) == (1, s, 4, dv)
+    _assert_tc_close(got, q, k, v, causal=causal, prefix_len=0)
+    f32p = fa_ref.flash_attention_ref(q, k, v, causal=causal).float()
     assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
 
 
@@ -1166,9 +1255,10 @@ def test_vlm_prefill_on_cuda_matches_cpu(dev):
 
 
 def test_vlm_reduced_prefill_runs_the_cuda_core_route(dev):
-    """The reduced paligemma (head dim 16) prefill on the card: one
-    CUDA-core launch a layer and no tensor-core one; logits within rel L2
-    3e-2 of the CPU run."""
+    """The reduced paligemma (head dim 16) prefill on the card: one launch
+    a layer of the 3xTF32 kernel (the route that replaced the CUDA-core
+    one) and no bf16 tensor-core one; logits within rel L2 3e-2 of the
+    CPU run."""
     cfg = registry.reduced("paligemma_3b")
     cpu = init_lm(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
     card = init_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
@@ -1177,6 +1267,8 @@ def test_vlm_reduced_prefill_runs_the_cuda_core_route(dev):
     n0 = dict(LAUNCHES)
     got = make_prefill_step(cfg, shape).fn(card, batch)
     assert LAUNCHES["flash_attention"] == n0.get("flash_attention", 0) + cfg.n_layers
+    assert LAUNCHES["flash_attention_tf32x3"] == n0.get(
+        "flash_attention_tf32x3", 0) + cfg.n_layers
     assert LAUNCHES["flash_attention_wgmma"] == n0.get("flash_attention_wgmma", 0)
     want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, batch)
     got, want = got.float().cpu(), want.float()
@@ -1258,7 +1350,7 @@ def _hybrid_wide_cfg():
     (lambda: registry.reduced("zamba2_2_7b"), None)], ids=["dh80", "dh16"])
 def test_hybrid_prefill_on_cuda_matches_cpu(cfg_fn, inst, dev):
     """The reduced zamba2's prefill on the card, at head dim 80 (one (80,
-    80) launch a group) and at its own 16 (one CUDA-core launch a group,
+    80) launch a group) and at its own 16 (one 3xTF32 launch a group,
     no tensor-core one): logits within the bf16 backbone's rounding of
     the CPU run (rel L2 5e-2, as `tests/test_torch_zamba2.py` holds the
     bf16 port against the reference)."""

@@ -212,7 +212,7 @@ def test_routes_of_head_dim_pairs():
     assert tkernel.route(bf16, 128) == tkernel.route(bf16, 128, 128) == "wgmma"
     for dh, dv, dtype in ((192, 128, torch.float32), (192, 192, bf16),
                           (128, 64, bf16), (256, 128, bf16)):
-        assert tkernel.route(dtype, dh, dv) == "cuda_core"
+        assert tkernel.route(dtype, dh, dv) == "tf32x3"
         z = [torch.zeros((1, 8, 2, d), dtype=dtype) for d in (dh, dh, dv)]
         with pytest.raises(ValueError, match="head dims"):
             tops.flash_attention(*z)

@@ -23,7 +23,7 @@ Tolerances:
 - `lm_hidden` with `prefix_embeds`, float32 backbone, dense attention
   under `prefix_lm_mask` and blockwise attention with the prefix (the
   reduced config's head dim 16 runs the float32 plain version of the
-  CUDA-core kernel; no route takes float32 at 256, so the widened
+  3xTF32 kernel; no route takes float32 at 256, so the widened
   blockwise case runs in bf16, below): rtol 1e-5 and atol 1e-5, 1e-5 of
   the final norm's O(1) outputs, for elements near 0 (measured max abs
   5.2e-6, rel L2 <= 1.1e-6).

@@ -18,7 +18,7 @@ through a stand-in whose `bfloat16` is float32, the port's
 
 - `lm_hidden` / `lm_logits`, float32 backbone, dense attention and
   blockwise (the shared block's head dim 16 runs the float32 plain
-  version of the CUDA-core kernel): rtol 1e-5, atol 1e-5 (measured max
+  version of the 3xTF32 kernel): rtol 1e-5, atol 1e-5 (measured max
   abs 6.7e-6, rel L2 1.1e-6).  bf16 backbone: rel L2 <= 5e-2 (measured
   1.8e-2 to 2.2e-2: four chunked SSDs whose bf16 products and sums
   round at other places in XLA and in PyTorch, against 1.0e-2 for two
@@ -167,14 +167,14 @@ def test_lm_hidden_and_logits_match_jax(models, attn_impl, backbone,
 
 def test_lm_hidden_runs_the_shared_block_once_a_group(models, monkeypatch):
     """Blockwise: one `flash_attention` call per group, on the shared
-    block's q (B, S, 4, 16) (the CUDA-core route's plain version on the
+    block's q (B, S, 4, 16) (the 3xTF32 route's plain version on the
     CPU); the Mamba2 layers run `mamba2_fwd` once each."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import mamba2 as tmamba
 
     _, tcfg, _, model = models
     seen, mixers = [], []
-    real_fa, real_m = fk.flash_attention_cuda_core, tmamba.mamba2_fwd
+    real_fa, real_m = fk.flash_attention_tf32x3, tmamba.mamba2_fwd
 
     def spy_fa(q, k, v, **kw):
         seen.append(tuple(q.shape))
@@ -184,7 +184,7 @@ def test_lm_hidden_runs_the_shared_block_once_a_group(models, monkeypatch):
         mixers.append(p)
         return real_m(p, x, cfg)
 
-    monkeypatch.setattr(fk, "flash_attention_cuda_core", spy_fa)
+    monkeypatch.setattr(fk, "flash_attention_tf32x3", spy_fa)
     monkeypatch.setattr(tmamba, "mamba2_fwd", spy_m)
     with torch.no_grad():
         tlm.lm_hidden(model, torch.from_numpy(_tokens(tcfg)), tcfg,
