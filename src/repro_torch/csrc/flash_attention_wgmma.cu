@@ -46,46 +46,88 @@
 //
 //   Design.  One CTA of three warpgroups per (128-query tile, head,
 //   batch), the grid 1-D with the longest causal tiles first.  Warpgroup 0
-//   is the producer: it gives up registers (`setmaxnreg` 40) and one
-//   thread issues the TMA loads, the Q tile once and then K and V tiles of
-//   BK keys into a ring of kStages stages, each with a `full` mbarrier for
-//   K, one for V and an `empty` one that the consumers' 256 threads arrive
-//   on.  Warpgroups 1 and 2 are consumers of 64 query rows each (`setmaxnreg`
-//   232).  Per key tile a consumer runs S = Q K^T as Dh/16 `wgmma`
-//   m64nBKk16 with both operands in shared memory (K-major), the online
-//   softmax on the f32 accumulator fragment (a row's BK scores lie in the
-//   4 lanes of a quad: max and sum by two xor shuffles; the row sum is kept
-//   per thread and reduced once at the end), converts P to bf16 pairs in
-//   place (the m64nBK accumulator fragment is the register A operand of
-//   m64nDVk16, four registers per 16 keys), rescales O in registers and runs
-//   O += P V as BK/16 register-A `wgmma` m64nDVk16 with V from shared memory
-//   as an MN-major B operand (the descriptor's transpose bit).  Every tile
-//   is stored by TMA with 128-byte swizzle in column blocks of 64 (Dh / 64
-//   of them a row), a block of the 128-row Q tile 16 KB and of a BK-row K
-//   or V tile BK x 128 B, the layout the `wgmma` descriptors name (swizzle
-//   mode 1, 8-row groups 1024 B apart; K-major steps advance 32 B inside
-//   the swizzle atom and a block's bytes every 4 steps, MN-major ones 2048
-//   B, with a V block's bytes between its 64-column blocks); a head dim of
-//   64 k + 16 (80) adds a 16-column tail block with 32-byte swizzle (see
-//   below).  TMA zero-fills
-//   rows past S or T, so nothing is padded; keys past T are masked.  A -inf
-//   mask is applied only on tiles that need one (the diagonal, the prefix
-//   boundary, the ragged tail); a row that has seen no visible key keeps m =
-//   -inf and p = 0, and a tile none of a row's keys lies in leaves its m, l
-//   and O as they were (corr = exp2(0) = 1).  A CTA stops at the last key
-//   tile a row of its can see (with a prefix, at least up to the prefix).
+//   is the producer: it gives up registers (`setmaxnreg` 24); its thread
+//   0 issues the TMA loads of the Q tile and then of the K tiles of BK
+//   keys into a ring of kStages stages, its thread 32 (another warp, so
+//   that neither waits behind the other) those of the V tiles into a
+//   second ring.  Each stage has a `full` mbarrier and an `empty` one on
+//   which every consumer warp arrives once: a K stage as soon as S over it
+//   has landed, a V stage once P.V has.  Warpgroups 1 and 2 are consumers
+//   of 64 query rows each (`setmaxnreg` 240).  Per key tile a consumer
+//   runs S = Q K^T as Dh/16 `wgmma` m64nBKk16 with both operands in shared
+//   memory (K-major), the online softmax on the f32 accumulator fragment
+//   (a row's BK scores lie in the 4 lanes of a quad: max and sum by two
+//   xor shuffles; the row sum is kept per thread and reduced once at the
+//   end), packs P into bf16 pairs (the m64nBK accumulator fragment is the
+//   register A operand of m64nDVk16, four registers per 16 keys), rescales
+//   O in registers and runs O += P V as BK/16 register-A `wgmma` m64nDVk16
+//   with V from shared memory as an MN-major B operand (the descriptor's
+//   transpose bit).  Every tile is stored by TMA with 128-byte swizzle in
+//   column blocks of 64 (Dh / 64 of them a row), a block of the 128-row Q
+//   tile 16 KB and of a BK-row K or V tile BK x 128 B, the layout the
+//   `wgmma` descriptors name (swizzle mode 1, 8-row groups 1024 B apart;
+//   K-major steps advance 32 B inside the swizzle atom and a block's bytes
+//   every 4 steps, MN-major ones 2048 B, with a V block's bytes between
+//   its 64-column blocks); a head dim of 64 k + 16 (80) adds a 16-column
+//   tail block with 32-byte swizzle (see below).  TMA zero-fills rows past
+//   S or T, so nothing is padded; keys past T are masked.  A -inf mask is
+//   applied only on tiles that need one (the diagonal, the prefix
+//   boundary, the ragged tail); a row that has seen no visible key keeps m
+//   = -inf and p = 0, and a tile none of a row's keys lies in leaves its
+//   m, l and O as they were (corr = exp2(0) = 1).  A CTA stops at the last
+//   key tile a row of its can see (with a prefix, at least up to the
+//   prefix).
+//
+//   Schedule (`consume`, FA3's intra-warpgroup pipeline).  For key tile j
+//   a consumer issues S_j, then rescales O by tile j - 1's corr and issues
+//   P_{j-1} V_{j-1} behind it; `wgmma.wait_group 1` waits for S_j alone,
+//   so the softmax of tile j runs while P_{j-1} V_{j-1} is on the tensor
+//   cores, and P_j is packed into the A registers once that has landed
+//   (the prologue issues S_0 alone, the epilogue the last P.V alone).  O's
+//   rescale is skipped where every lane of a warp has corr = 1 for both
+//   its rows: a product by 1 is exact.  At 80 / 80 the two consumers also
+//   take turns issuing their products by two named barriers (FA3's
+//   ping-pong, `ping_pong`), so that one's softmax runs under the other's
+//   products.  At 256 / 256 with an even GQA group (paligemma-3b: 8 query
+//   heads on 1), the CTAs run in clusters of two, query heads h and h + 1
+//   of one tile, and each producer multicasts half of every K and V tile
+//   into both CTAs (`kPair`): K and V are read from L2 once for the two.
+//   What an output element sums is that of the loop before this
+//   schedule: the same key tile, m, l, corr and bf16 P, the same order of k16 steps
+//   into S and into O, so on the same inputs outputs and P are bit-equal
+//   to it (`tools/time_flash.py --compare` on the H100).
+//
+//   What each step did, from `tools/flash_wgmma_variants.py` (each step
+//   undone in turn; medians of 80 launches in one run on an H100 80GB
+//   HBM3 at 700 W; ms at paligemma-3b's (1, 33024, 8, 1) 256 / 256 causal
+//   with a prefix of 256, then at deepseek-v2-lite's (1, 32768, 16, 16)
+//   192 / 128 causal): the loop before this schedule 7.50 and 10.00, this
+//   schedule 6.80 and 9.36, SDPA 6.89 and 9.59.  At 256 / 256: without the
+//   pairs 7.11, without the overlap 7.12, with O rescaled every tile 7.37,
+//   with the turns 6.81.  At 192 / 128 builds of the same code read 8.86
+//   to 9.36, and every step sits inside that spread (without the overlap
+//   9.11, O rescaled every tile 9.28, with the turns 9.01).  The turns: at
+//   80 / 80 13.22 ms with them against 15.99 without, at 64 / 64 5.17
+//   against 5.02.  Rejected, in earlier runs of the tool: a third K stage
+//   at 256 / 256 (224 KB fits; 6.95 ms with two stages against 7.02 with
+//   three); the pairs' arrive on the partner's empty barrier with
+//   `.release.cluster` semantics (9.58 ms against 6.95 without pairs: that
+//   release waits on the cluster; the default `.release.cta` arrive,
+//   CUTLASS's, does not); the pairs at 128 / 128 (7.39 ms against 7.37).
+//   The 240 / 24 register split against the earlier 232 / 40 moved nothing
+//   beyond the spread; no instantiation spills.
 //
 //   Shared memory (checked at compile time for every instantiation): Q plus
 //   kStages K and V tiles.  At Dh 128, 32 KB + 2 x 64 KB, one CTA per SM;
 //   at 192 / 128, 48 KB + 2 x 80 KB = 208 KB of the 227 KB a block may have
 //   (v padded to 192 would need 240 KB: hence a separate Dv).  At 256 / 256
 //   a 128-key tile would need 64 KB + 2 x 128 KB = 320 KB, so the key tile
-//   is 64: 64 KB + 2 x 64 KB = 192 KB.  Registers (232 a consumer thread):
+//   is 64: 64 KB + 2 x 64 KB = 192 KB.  Registers (240 a consumer thread):
 //   at 256 / 256, O is m64n256 f32, 128 a thread, S m64n64 f32, 32, and P
-//   16 bf16 pairs; S and P are not live during the two products, so the
-//   peak is O, S and P across the softmax.  A 64-key tile pays the softmax,
-//   the O rescale and a barrier round per 64 keys, twice as often as a
-//   128-key one.  A head dim of 64 k + 16 (80) has exact tiles: its k
+//   16 bf16 pairs, all live across the softmax (P of the previous tile is
+//   P.V's operand in flight); at 192 / 128 O 64, S 64 and P 32.  A 64-key
+//   tile pays the softmax and the O rescale per 64 keys, twice as often as
+//   a 128-key one.  A head dim of 64 k + 16 (80) has exact tiles: its k
 //   64-column blocks as above and a 16-column tail block of 32-byte rows
 //   with 32-byte swizzle, each loaded by its own TMA map (two boxes a row
 //   at 80), the tail named by descriptors of layout type 3 (K-major 8-row
@@ -94,21 +136,15 @@
 //   m64n64k16 on the main block and m64n16k16 on the tail, into one O of
 //   40 floats a thread; the epilogue stores the 80 columns.  Q 20 KB + 2
 //   x 40 KB of K and V.  A 128-column tile padded with zeros made the
-//   tensor cores do 208 / 160 = 1.3x this work; the products and their
-//   order per output element are the same, and on the same inputs the two
-//   give bit-equal outputs and P (tools/time_flash.py --compare, on the
-//   H100).  Five 16-column boxes a row (all 32-byte swizzle) took 14.4 ms
-//   at zamba2's shape whatever the clock, against 11.5 with two boxes and
-//   13.2 padded on a rested card (H100 80GB HBM3 at 700 W): the count of
-//   TMA box rows, not the tensor cores, bounded that layout.  Tensor maps
+//   tensor cores do 208 / 160 = 1.3x this work; five 16-column boxes a
+//   row (all 32-byte swizzle) were slower than two.  Tensor maps
 //   are built per call on the host (cuTensorMapEncodeTiled through the
 //   runtime's driver entry point) over q, k and v with their own strides.
 //
-//   Left for later: the softmax of one tile overlapped with the next
-//   Q K^T (FA3's ping-pong between the two consumers, or two S buffers in
-//   one); persistent CTAs with a causal tile scheduler; several GQA query
-//   heads per CTA sharing one K / V stream (paligemma's 8 heads read one);
-//   the output through shared memory and a TMA store; fp8.
+//   Left for later: persistent CTAs with a causal tile scheduler; pairs
+//   of query tiles of one head sharing K / V at 192 / 128 (MHA, so no two
+//   heads share one); the output through shared memory and a TMA store;
+//   fp8.
 //
 // A second instantiation (kDump, chosen by a non-null p_dump) also stores
 // the bf16 P each consumer feeds to P.V, so that a check can hold the
@@ -128,13 +164,29 @@
 namespace {
 
 constexpr int kBQ = 128;            // query rows per CTA: two consumers x 64
-constexpr int kStages = 2;          // depth of the K / V ring
+constexpr int kStages = 2;          // depth of the K ring and of the V ring
 constexpr int kThreads = 384;       // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // setmaxnreg
 constexpr int kBlockCols = 64;      // bf16 columns of one 128-byte swizzle row
 constexpr uint32_t kQBlockBytes = kBQ * 128;  // one 64-column block of Q
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
 
 constexpr int kTailCols = 16;       // bf16 columns of one 32-byte swizzle row
+
+// Named barriers of the two consumers' schedule (0 is __syncthreads'):
+// consumer c waits on kSchedBar + c before it issues its products.
+constexpr int kSchedBar = 1;
+
+// Whether the two consumers take those turns: at 80 / 80 only, the one
+// instantiation where they gained on the H100 (tools/flash_wgmma_variants.py;
+// elsewhere each consumer's overlap of its softmax with its own P.V hides
+// the softmax, and the turns only added waits).
+__host__ __device__ constexpr bool ping_pong(int dh, int dv) {
+  return dh == 80 && dv == 80;
+}
+
+static_assert(128 * (kProducerRegs + 2 * kConsumerRegs) <= 65536,
+              "the three warpgroups' registers must fit the SM's 65,536");
 
 // The columns of a head dim in whole 64-column blocks, and in the
 // 16-column tail block that 64 k + 16 (80) adds: a tile is exactly as wide
@@ -145,6 +197,8 @@ __host__ __device__ constexpr int main_cols(int d) {
 __host__ __device__ constexpr int tail_cols(int d) { return d - main_cols(d); }
 
 // BK keys per K / V tile (a template parameter: 128, or 64 at Dh 256).
+// K and V stages are released separately: K once S = Q K^T has landed, V
+// once P.V has.
 template <int DH, int DV, int BK>
 struct Smem {
   alignas(1024) __nv_bfloat16 q[kBQ * DH];
@@ -152,8 +206,9 @@ struct Smem {
   alignas(1024) __nv_bfloat16 v[kStages][BK * DV];
   alignas(8) uint64_t q_full;
   uint64_t k_full[kStages];
+  uint64_t k_empty[kStages];
   uint64_t v_full[kStages];
-  uint64_t empty[kStages];
+  uint64_t v_empty[kStages];
 };
 
 // Positions (1..3) of the row, head and batch coordinates in a tensor
@@ -188,6 +243,29 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive on the barrier at the same shared-memory offset in CTA `cta` of
+// the cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(smem_u32(bar)), "r"(cta) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of both CTAs of the cluster: the partner's barriers are
+// initialised (at the start) and no longer written (at the end).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Wait for the completion of the barrier's phase of parity `parity`.
@@ -225,6 +303,24 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same box into the same shared-memory offset of both CTAs of the
+// cluster (`mask` 0b11), completing on the barrier at `bar`'s offset in
+// each.
+__device__ __forceinline__ void tma_load_pair(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, const MapOrder& m,
+                                              int col, int row, int head,
+                                              int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col),
+         "r"(map_coord(m, 1, row, head, batch)),
+         "r"(map_coord(m, 2, row, head, batch)),
+         "r"(map_coord(m, 3, row, head, batch)), "h"((uint16_t)0x3)
+      : "memory");
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1);
 // offsets in bytes.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -252,8 +348,20 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The two consumers' named barriers, 256 threads each: one consumer waits
+// (bar.sync) while the other arrives.
+__device__ __forceinline__ void sched_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void sched_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across
@@ -432,19 +540,200 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[8], const uint32_t (&a)[4],
   wgmma_rs_m64n16(o, a, db);
 }
 
-// One consumer warpgroup: 64 query rows of the CTA's tile, all its key
-// tiles, and the rows' output, at q/k and v head dims DHD and DVD.  With
-// kDump it also stores the bf16 P it feeds to P.V at p_dump[b, h, row,
-// key] (rows < S, keys < T), for checking; the arithmetic is the same.
-template <int DHD, int DVD, int BK, bool kDump>
+// S = Q K^T over one K tile at k_addr into s (64 x BK f32), issued and
+// committed, not waited for.
+template <int DHD, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_addr,
+                                         uint32_t q_tail, uint32_t k_addr) {
+  constexpr uint32_t kKVBlockBytes = BK * 128;  // one 64-column block of K
+  constexpr int kMainQK = main_cols(DHD);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kMainQK / 16; ++kk) {
+    // k16 step kk: 32 bytes into the swizzle row of 64-column block kk / 4
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_qk(s, sw128_desc(q_addr + (kk / 4) * kQBlockBytes + col, 16, 1024),
+             sw128_desc(k_addr + (kk / 4) * kKVBlockBytes + col, 16, 1024),
+             kk);
+  }
+  if (tail_cols(DHD) > 0)             // the tail block's k16 step
+    wgmma_qk(s, sw32_desc(q_tail, 16, 256),
+             sw32_desc(k_addr + kMainQK * BK * 2, 16, 256), kMainQK / 16);
+  wgmma_commit();
+}
+
+// O += P V over one V tile at v_addr, P the bf16 pairs pk, issued and
+// committed, not waited for.
+template <int DVD, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[DVD / 2],
+                                         uint32_t (&pk)[BK / 4],
+                                         uint32_t v_addr) {
+  constexpr uint32_t kKVBlockBytes = BK * 128;  // one 64-column block of V
+  constexpr int kMainV = main_cols(DVD);
+  fence_regs(pk);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                           pk[4 * kk + 3]};
+    if constexpr (tail_cols(DVD) == 0) {
+      wgmma_pv(o, a, sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
+    } else {
+      // columns [0, kMainV) from the 64-column blocks, the rest (O's
+      // last 8 floats a thread) from the tail block: m64n16, MN-major
+      // 32-byte swizzle, 16 keys two 8-row groups of 256 B
+      wgmma_pv(*reinterpret_cast<float(*)[kMainV / 2]>(o), a,
+               sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
+      wgmma_pv(*reinterpret_cast<float(*)[kTailCols / 2]>(o + kMainV / 2),
+               a, sw32_desc(v_addr + kMainV * BK * 2 + kk * 512, BK * 32,
+                            256));
+    }
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one landed S tile, keys k0 .. k0 + BK - 1, of a
+// thread's rows row0 and row0 + 8 (a consumer's rows start at r_lo): the
+// mask, the row max, corr = exp2((m_old - m_new) c2), p = exp2(s c2 - m
+// c2) in place of s, and l = l corr + the tile's sum of p.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const Params& p, int r_lo,
+                                             int row0, int col0, int k0) {
+  const float c2 = p.scale_log2;
+  // every key of the tile is visible to every row of the consumer when
+  // the tile ends inside T and either lies at or below the first row or
+  // inside a prefix that holds all 64 rows
+  const bool need_mask =
+      k0 + BK > p.T ||
+      (p.causal && k0 + BK - 1 > r_lo &&
+       !(r_lo + 63 < p.prefix_len && k0 + BK <= p.prefix_len));
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + 8 * (e / 2);
+        const int c = k0 + 8 * j + col0 + (e % 2);
+        const bool vis = c < p.T && (!p.causal || c <= r ||
+                                     (r < p.prefix_len && c < p.prefix_len));
+        if (!vis) s[4 * j + e] = -INFINITY;
+      }
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
+  float mc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    corr[i] = exp2f((m[i] - m_use) * c2);
+    mc[i] = m_use * c2;
+    m[i] = m_new;
+  }
+
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float p0 = exp2f(fmaf(s[4 * j + 2 * i], c2, -mc[i]));
+      const float p1 = exp2f(fmaf(s[4 * j + 2 * i + 1], c2, -mc[i]));
+      sum[i] += p0 + p1;
+      s[4 * j + 2 * i] = p0;
+      s[4 * j + 2 * i + 1] = p1;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+}
+
+// P of one tile (p in s) as the bf16 pairs pk, the register A operand of
+// P.V (P's register pair 2 j + i packs elements 4 j + 2 i and + 1); with
+// kDump also stored at p_dump[b, h, row, key].
+template <int BK, bool kDump>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&pk)[BK / 4], const Params& p,
+                                       int b, int h, int row0, int col0,
+                                       int k0) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float p0 = s[4 * j + 2 * i], p1 = s[4 * j + 2 * i + 1];
+      pk[2 * j + i] = pack_bf16(p0, p1);
+      if (kDump) {
+        const int r = row0 + 8 * i, c = k0 + 8 * j + col0;
+        if (r < p.S) {
+          __nv_bfloat16* prow =
+              p.p_dump + (((long long)b * p.H + h) * p.S + r) * p.T;
+          if (c < p.T) prow[c] = __float2bfloat16_rn(p0);
+          if (c + 1 < p.T) prow[c + 1] = __float2bfloat16_rn(p1);
+        }
+      }
+    }
+}
+
+// O *= corr, row by row.  Skipped where every lane of the warp has corr = 1
+// for both its rows (no row's max moved): a product by 1 is exact, so the
+// skip changes no bit.  A row that has seen no visible key has m = -inf
+// and corr = 0, as before, and is multiplied.
+template <int N>
+__device__ __forceinline__ void rescale_o(float (&o)[N],
+                                          const float (&corr)[2]) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+  }
+}
+
+// Release a K or V stage: one arrive a consumer warp, once the warp's
+// product over it has landed, on this CTA's empty barrier and, with
+// kPair, on the partner's too (its producer multicasts into both CTAs).
+template <bool kPair>
+__device__ __forceinline__ void release(uint64_t* bar, uint32_t partner) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+    mbar_arrive(bar);
+    if (kPair) mbar_arrive_cta(bar, partner);
+  }
+}
+
+// One consumer warpgroup (cw 0 or 1): 64 query rows of the CTA's tile, all
+// its key tiles, and the rows' output, at q/k and v head dims DHD and DVD.
+// With kDump it also stores the bf16 P it feeds to P.V at p_dump[b, h,
+// row, key] (rows < S, keys < T), for checking; the arithmetic is the same.
+//
+// Key tile j: S_j = Q K_j^T is issued, then O is rescaled by tile j - 1's
+// corr and P_{j-1} V_{j-1} is issued behind it (at 80 / 80 both in this
+// consumer's turn of the named barriers); the softmax of S_j runs while
+// P_{j-1} V_{j-1} is in flight, and P_j is packed once P_{j-1} V_{j-1} has
+// landed.  O sees the sequence O = O corr_j + P_j V_j tile after tile, as
+// before this schedule, and S and O sum their k16 steps in the same
+// order.  K_j's stage is released once S_j has landed, V_j's
+// once P_j V_j has.  Consumer 0 takes the first turn; each turn ends with
+// an arrive on the other's barrier, but consumer 1's last, so that each
+// barrier sees as many arrives as waits.
+template <int DHD, int DVD, int BK, bool kDump, bool kPair>
 __device__ __forceinline__ void consume(Smem<DHD, DVD, BK>& sm, const Params& p,
                                         int cw, int q0, int n_kt, int b,
-                                        int h) {
+                                        int h, uint32_t partner) {
   constexpr int kO = DVD / 2;         // O floats per thread: DVD / 8 chunks x 4
   constexpr int kS = BK / 2;          // S floats per thread: BK / 8 chunks x 4
-  constexpr uint32_t kKVBlockBytes = BK * 128;  // one 64-column block of K, V
   // a 16-column tail block (32-byte rows) after the 64-column blocks
-  constexpr int kMainQK = main_cols(DHD), kMainV = main_cols(DVD);
+  constexpr int kMainQK = main_cols(DHD);
   static_assert(tail_cols(DHD) % kTailCols == 0 && tail_cols(DHD) <= kTailCols &&
                     tail_cols(DVD) == tail_cols(DHD),
                 "a head dim is 64 k or 64 k + 16, the same for q/k and v");
@@ -453,138 +742,61 @@ __device__ __forceinline__ void consume(Smem<DHD, DVD, BK>& sm, const Params& p,
   const int r_lo = q0 + cw * 64;      // this consumer's first row
   const int row0 = r_lo + warp * 16 + lane / 4;   // rows row0 and row0 + 8
   const int col0 = 2 * (lane % 4);    // columns 8 j + col0 + {0, 1}
-  const float c2 = p.scale_log2;
   // the consumer's 64 rows of each 64-column block: 64 rows x 128 bytes in
   const uint32_t q_addr = smem_u32(sm.q) + cw * 64 * 128;
   const uint32_t q_tail = smem_u32(sm.q) + kMainQK * kBQ * 2 + cw * 64 * 32;
+  const int my_bar = kSchedBar + cw, other_bar = kSchedBar + 1 - cw;
 
   // Accumulator fragment: element 4 j + 2 i + e is (row0 + 8 i, 8 j + col0
-  // + e); P's register pair 2 j + i packs elements 4 j + 2 i and + 1.
+  // + e).
   float o[kO];
 #pragma unroll
   for (int i = 0; i < kO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};          // per thread; the quad's sum at the end
+  float corr[2];
+  float s[kS];
+  uint32_t pk[BK / 4];
 
+  constexpr bool kTurns = ping_pong(DHD, DVD);
   mbar_wait(&sm.q_full, 0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt % kStages;
-    const uint32_t ph = (kt / kStages) & 1;
-    const int k0 = kt * BK;
+  if (kTurns && cw == 1) sched_arrive(kSchedBar);   // consumer 0 goes first
+  mbar_wait(&sm.k_full[0], 0);
+  if (kTurns) sched_wait(my_bar);
+  issue_qk<DHD, BK>(s, q_addr, q_tail, smem_u32(sm.k[0]));
+  if (kTurns && (cw == 0 || n_kt > 1)) sched_arrive(other_bar);
+  wgmma_wait<0>();
+  fence_regs(s);
+  release<kPair>(&sm.k_empty[0], partner);
+  softmax_tile<BK>(s, m, l, corr, p, r_lo, row0, col0, 0);
+  pack_p<BK, kDump>(s, pk, p, b, h, row0, col0, 0);
 
-    float s[kS];
-    mbar_wait(&sm.k_full[st], ph);
-    const uint32_t k_addr = smem_u32(sm.k[st]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kMainQK / 16; ++kk) {
-      // k16 step kk: 32 bytes into the swizzle row of 64-column block kk / 4
-      const uint32_t col = (kk % 4) * 32;
-      wgmma_qk(s, sw128_desc(q_addr + (kk / 4) * kQBlockBytes + col, 16, 1024),
-               sw128_desc(k_addr + (kk / 4) * kKVBlockBytes + col, 16, 1024),
-               kk);
-    }
-    if (tail_cols(DHD) > 0)           // the tail block's k16 step
-      wgmma_qk(s, sw32_desc(q_tail, 16, 256),
-               sw32_desc(k_addr + kMainQK * BK * 2, 16, 256), kMainQK / 16);
-    wgmma_commit();
-    wgmma_wait_all();
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int ks = kt % kStages, vs = (kt - 1) % kStages;
+    mbar_wait(&sm.k_full[ks], (kt / kStages) & 1);
+    if (kTurns) sched_wait(my_bar);
+    issue_qk<DHD, BK>(s, q_addr, q_tail, smem_u32(sm.k[ks]));
+    rescale_o(o, corr);               // tile kt - 1's corr
+    mbar_wait(&sm.v_full[vs], ((kt - 1) / kStages) & 1);
+    issue_pv<DVD, BK>(o, pk, smem_u32(sm.v[vs]));
+    if (kTurns && (cw == 0 || kt + 1 < n_kt)) sched_arrive(other_bar);
+    wgmma_wait<1>();                  // S_kt has landed
     fence_regs(s);
-
-    // every key of the tile is visible to every row of the consumer when
-    // the tile ends inside T and either lies at or below the first row or
-    // inside a prefix that holds all 64 rows
-    const bool need_mask =
-        k0 + BK > p.T ||
-        (p.causal && k0 + BK - 1 > r_lo &&
-         !(r_lo + 63 < p.prefix_len && k0 + BK <= p.prefix_len));
-    if (need_mask) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row0 + 8 * (e / 2);
-          const int c = k0 + 8 * j + col0 + (e % 2);
-          const bool vis = c < p.T && (!p.causal || c <= r ||
-                                       (r < p.prefix_len && c < p.prefix_len));
-          if (!vis) s[4 * j + e] = -INFINITY;
-        }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
-    float corr[2], mc[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      corr[i] = exp2f((m[i] - m_use) * c2);
-      mc[i] = m_use * c2;
-      m[i] = m_new;
-    }
-
-    uint32_t pk[BK / 4];
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float p0 = exp2f(fmaf(s[4 * j + 2 * i], c2, -mc[i]));
-        const float p1 = exp2f(fmaf(s[4 * j + 2 * i + 1], c2, -mc[i]));
-        sum[i] += p0 + p1;
-        pk[2 * j + i] = pack_bf16(p0, p1);
-        if (kDump) {
-          const int r = row0 + 8 * i, c = k0 + 8 * j + col0;
-          if (r < p.S) {
-            __nv_bfloat16* prow =
-                p.p_dump + (((long long)b * p.H + h) * p.S + r) * p.T;
-            if (c < p.T) prow[c] = __float2bfloat16_rn(p0);
-            if (c + 1 < p.T) prow[c + 1] = __float2bfloat16_rn(p1);
-          }
-        }
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
-#pragma unroll
-    for (int j = 0; j < DVD / 8; ++j) {
-      o[4 * j] *= corr[0];
-      o[4 * j + 1] *= corr[0];
-      o[4 * j + 2] *= corr[1];
-      o[4 * j + 3] *= corr[1];
-    }
-
-    mbar_wait(&sm.v_full[st], ph);
-    const uint32_t v_addr = smem_u32(sm.v[st]);
+    release<kPair>(&sm.k_empty[ks], partner);
+    softmax_tile<BK>(s, m, l, corr, p, r_lo, row0, col0, kt * BK);
+    wgmma_wait<0>();                  // P_{kt-1} V_{kt-1} has landed
+    fence_regs(o);
     fence_regs(pk);
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
-                             pk[4 * kk + 3]};
-      if constexpr (tail_cols(DVD) == 0) {
-        wgmma_pv(o, a, sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
-      } else {
-        // columns [0, kMainV) from the 64-column blocks, the rest (O's
-        // last 8 floats a thread) from the tail block: m64n16, MN-major
-        // 32-byte swizzle, 16 keys two 8-row groups of 256 B
-        wgmma_pv(*reinterpret_cast<float(*)[kMainV / 2]>(o), a,
-                 sw128_desc(v_addr + kk * 2048, kKVBlockBytes, 1024));
-        wgmma_pv(*reinterpret_cast<float(*)[kTailCols / 2]>(o + kMainV / 2),
-                 a, sw32_desc(v_addr + kMainV * BK * 2 + kk * 512, BK * 32,
-                              256));
-      }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
-    mbar_arrive(&sm.empty[st]);
+    release<kPair>(&sm.v_empty[vs], partner);
+    pack_p<BK, kDump>(s, pk, p, b, h, row0, col0, kt * BK);
   }
+
+  const int vs = (n_kt - 1) % kStages;
+  rescale_o(o, corr);
+  mbar_wait(&sm.v_full[vs], ((n_kt - 1) / kStages) & 1);
+  issue_pv<DVD, BK>(o, pk, smem_u32(sm.v[vs]));
+  wgmma_wait<0>();
+  fence_regs(o);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -605,7 +817,12 @@ __device__ __forceinline__ void consume(Smem<DHD, DVD, BK>& sm, const Params& p,
   }
 }
 
-template <int DHD, int DVD, int BK, bool kDump>
+// With kPair the grid runs in clusters of two CTAs, query heads h and h + 1
+// (h even) of one query tile, which read the same KV head: each CTA's
+// producer loads half the column blocks of every K and V tile and
+// multicasts them into both CTAs, so K and V come from L2 once for the
+// two; each empty barrier then counts the consumer warps of both CTAs.
+template <int DHD, int DVD, int BK, bool kDump, bool kPair>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -617,6 +834,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
   static_assert(DHD % 16 == 0 && DVD % 16 == 0,
                 "head dims are whole k16 steps");
+  // whole boxes: TMA counts the zeros it fills past DHD / DVD too
+  constexpr int kMainQK = main_cols(DHD), kMainV = main_cols(DVD);
+  constexpr int kKBlocks = kMainQK / kBlockCols, kVBlocks = kMainV / kBlockCols;
+  static_assert(!kPair || (tail_cols(DHD) == 0 && kKBlocks % 2 == 0 &&
+                           kVBlocks % 2 == 0),
+                "a pair splits K and V into halves of whole column blocks");
+  // consumer warps that release each stage: 8 a CTA, of both with kPair
+  constexpr uint32_t kReleases = kPair ? 16 : 8;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   Smem<DHD, DVD, BK>& sm =
@@ -637,28 +862,33 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     kend = min(kend, p.T);
   }
   const int n_kt = (kend + BK - 1) / BK;
+  const uint32_t rank = kPair ? cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&sm.k_full[st], 1);
+      mbar_init(&sm.k_empty[st], kReleases);
       mbar_init(&sm.v_full[st], 1);
-      mbar_init(&sm.empty[st], 256);   // every consumer thread arrives
+      mbar_init(&sm.v_empty[st], kReleases);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if (kPair)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {            // producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      // whole boxes: TMA counts the zeros it fills past DHD / DVD too
-      constexpr uint32_t kTileBytes = BK * DHD * 2, kVTileBytes = BK * DVD * 2;
-      constexpr int kMainQK = main_cols(DHD), kMainV = main_cols(DVD);
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    // the column blocks of K and V this CTA loads: all, or its half
+    constexpr int kKLoad = kPair ? kKBlocks / 2 : kKBlocks;
+    constexpr int kVLoad = kPair ? kVBlocks / 2 : kVBlocks;
+    if (threadIdx.x == 0) {           // Q, then the K ring
       mbar_expect_tx(&sm.q_full, kBQ * DHD * 2);
 #pragma unroll
-      for (int c = 0; c < kMainQK / kBlockCols; ++c)
+      for (int c = 0; c < kKBlocks; ++c)
         tma_load(sm.q + c * kBQ * kBlockCols, &tq, &sm.q_full, p.oq,
                  c * kBlockCols, q0, h, b);
       if (tail_cols(DHD) > 0)
@@ -666,30 +896,48 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  q0, h, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % kStages;
-        mbar_wait(&sm.empty[st], ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.k_full[st], kTileBytes);
+        mbar_wait(&sm.k_empty[st], ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.k_full[st], BK * DHD * 2);   // both halves
 #pragma unroll
-        for (int c = 0; c < kMainQK / kBlockCols; ++c)
-          tma_load(sm.k[st] + c * BK * kBlockCols, &tk, &sm.k_full[st], p.ok,
-                   c * kBlockCols, kt * BK, kvh, b);
+        for (int i = 0; i < kKLoad; ++i) {
+          const int c = rank * kKLoad + i;
+          if (kPair)
+            tma_load_pair(sm.k[st] + c * BK * kBlockCols, &tk, &sm.k_full[st],
+                          p.ok, c * kBlockCols, kt * BK, kvh, b);
+          else
+            tma_load(sm.k[st] + c * BK * kBlockCols, &tk, &sm.k_full[st],
+                     p.ok, c * kBlockCols, kt * BK, kvh, b);
+        }
         if (tail_cols(DHD) > 0)
           tma_load(sm.k[st] + kMainQK * BK, &tk_tail, &sm.k_full[st], p.ok,
                    kMainQK, kt * BK, kvh, b);
-        mbar_expect_tx(&sm.v_full[st], kVTileBytes);
+      }
+    } else if (threadIdx.x == 32) {   // the V ring, from another warp
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&sm.v_empty[st], ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.v_full[st], BK * DVD * 2);
 #pragma unroll
-        for (int c = 0; c < kMainV / kBlockCols; ++c)
-          tma_load(sm.v[st] + c * BK * kBlockCols, &tv, &sm.v_full[st], p.ov,
-                   c * kBlockCols, kt * BK, kvh, b);
+        for (int i = 0; i < kVLoad; ++i) {
+          const int c = rank * kVLoad + i;
+          if (kPair)
+            tma_load_pair(sm.v[st] + c * BK * kBlockCols, &tv, &sm.v_full[st],
+                          p.ov, c * kBlockCols, kt * BK, kvh, b);
+          else
+            tma_load(sm.v[st] + c * BK * kBlockCols, &tv, &sm.v_full[st],
+                     p.ov, c * kBlockCols, kt * BK, kvh, b);
+        }
         if (tail_cols(DVD) > 0)
           tma_load(sm.v[st] + kMainV * BK, &tv_tail, &sm.v_full[st], p.ov,
                    kMainV, kt * BK, kvh, b);
       }
     }
   } else {                            // two consumer warpgroups
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<DHD, DVD, BK, kDump>(sm, p, threadIdx.x / 128 - 1, q0, n_kt, b,
-                                 h);
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    consume<DHD, DVD, BK, kDump, kPair>(sm, p, threadIdx.x / 128 - 1, q0,
+                                        n_kt, b, h, rank ^ 1);
   }
+  if (kPair) cluster_sync();          // the partner no longer arrives here
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -745,7 +993,7 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
     }
   cuuint64_t dims[4] = {(cuuint64_t)dh, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {tail ? kTailCols : kBlockCols, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)(tail ? kTailCols : kBlockCols), 1, 1, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   int pos[3];
   for (int i = 0; i < 3; ++i) {
@@ -765,7 +1013,9 @@ int make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int dh,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DHD, int DVD, int BK, bool kDump>
+// With kPair, in clusters of two CTAs (the caller checks that H / KV is
+// even, so that heads h and h + 1 of a cluster read one KV head).
+template <int DHD, int DVD, int BK, bool kDump, bool kPair>
 int launch(const void* q, const void* k, const void* v,
            const long long* strides, Params& p, cudaStream_t stream) {
   static_assert(sizeof(Smem<DHD, DVD, BK>) + 1024 <= kSmemLimit,
@@ -795,13 +1045,23 @@ int launch(const void* q, const void* k, const void* v,
   }
   if (rc != 0) return rc;
   const int smem = (int)sizeof(Smem<DHD, DVD, BK>) + 1024;
+  const auto kernel = flash_attention_wgmma_kernel<DHD, DVD, BK, kDump, kPair>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<DHD, DVD, BK, kDump>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_wgmma_kernel<DHD, DVD, BK, kDump>
-      <<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv, tq_tail,
-                                                     tk_tail, tv_tail, p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kPair ? 2 : 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = kPair ? 1 : 0;
+  cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, tq_tail, tk_tail, tv_tail, p);
   return (int)cudaGetLastError();
 }
 
@@ -831,20 +1091,25 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
   const cudaStream_t st = (cudaStream_t)stream;
   const bool dump = p_dump != nullptr;
   if (dh == 64 && dv == 64)
-    return dump ? launch<64, 64, 128, true>(q, k, v, strides, p, st)
-                : launch<64, 64, 128, false>(q, k, v, strides, p, st);
+    return dump ? launch<64, 64, 128, true, false>(q, k, v, strides, p, st)
+                : launch<64, 64, 128, false, false>(q, k, v, strides, p, st);
   if (dh == 80 && dv == 80)        // a 64-column block and a 16-column tail
-    return dump ? launch<80, 80, 128, true>(q, k, v, strides, p, st)
-                : launch<80, 80, 128, false>(q, k, v, strides, p, st);
+    return dump ? launch<80, 80, 128, true, false>(q, k, v, strides, p, st)
+                : launch<80, 80, 128, false, false>(q, k, v, strides, p, st);
   if (dh == 128 && dv == 128)
-    return dump ? launch<128, 128, 128, true>(q, k, v, strides, p, st)
-                : launch<128, 128, 128, false>(q, k, v, strides, p, st);
+    return dump ? launch<128, 128, 128, true, false>(q, k, v, strides, p, st)
+                : launch<128, 128, 128, false, false>(q, k, v, strides, p, st);
   if (dh == 192 && dv == 128)
-    return dump ? launch<192, 128, 128, true>(q, k, v, strides, p, st)
-                : launch<192, 128, 128, false>(q, k, v, strides, p, st);
-  if (dh == 256 && dv == 256)
-    return dump ? launch<256, 256, 64, true>(q, k, v, strides, p, st)
-                : launch<256, 256, 64, false>(q, k, v, strides, p, st);
+    return dump ? launch<192, 128, 128, true, false>(q, k, v, strides, p, st)
+                : launch<192, 128, 128, false, false>(q, k, v, strides, p, st);
+  if (dh == 256 && dv == 256) {
+    // heads h and h + 1 share a KV head: pairs of CTAs share K / V loads
+    if (KV > 0 && H % KV == 0 && (H / KV) % 2 == 0)
+      return dump ? launch<256, 256, 64, true, true>(q, k, v, strides, p, st)
+                  : launch<256, 256, 64, false, true>(q, k, v, strides, p, st);
+    return dump ? launch<256, 256, 64, true, false>(q, k, v, strides, p, st)
+                : launch<256, 256, 64, false, false>(q, k, v, strides, p, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

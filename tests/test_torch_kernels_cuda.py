@@ -689,7 +689,9 @@ def test_flash_attention_matches_plain(b, s, h, kv, dh, causal, prefix_len,
     (2, 300, 4, 1, 64, True, 300),      # prefix = S
     (2, 777, 8, 2, 128, True, 200),     # prefix inside the sequence
     (2, 333, 8, 2, 64, False, 0),       # no mask
-    (1, 100, 2, 1, 128, False, 0)], ids=str)
+    (1, 100, 2, 1, 128, False, 0),      # fewer keys than one tile
+    (2, 300, 4, 2, 128, True, 150),     # 1-3 key tiles, a prefix inside one
+    (1, 384, 4, 1, 64, False, 0)], ids=str)   # three key tiles, unmasked
 def test_flash_attention_wgmma_matches_tc_plain(b, s, h, kv, dh, causal,
                                                prefix_len, dev):
     """The tensor-core kernel against `flash_attention_tc_ref`, also on
@@ -724,6 +726,13 @@ def _qkv_t(dev, seed, b, s, t, h, kv, dh, dv, dtype):
 
 T_NOT_S = [(1000, 333, True), (333, 1000, True), (777, 1201, False),
            (1200, 77, False), (130, 4001, True)]     # ragged T: no whole tile
+# the tensor-core kernel's pipeline edges (its prologue issues S of the
+# first key tile alone, its epilogue P.V of the last alone): fewer keys
+# than one tile, two key tiles, three (an odd count), and causal query
+# tiles of one, two and three key tiles (at 256 / 256's 64-key tiles:
+# two, three, five, and two to five)
+TILE_EDGES = [(300, 100, False), (300, 192, False), (100, 300, False),
+              (257, 300, True)]
 
 
 @pytest.mark.parametrize("s,t,causal", T_NOT_S, ids=str)
@@ -783,13 +792,14 @@ def test_flash_attention_tf32x3_at_long_rows(b, s, dh, q_scale, dev):
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("s,t,causal", T_NOT_S, ids=str)
+@pytest.mark.parametrize("s,t,causal", T_NOT_S + TILE_EDGES, ids=str)
 @pytest.mark.parametrize("dh,dv", fa_kernel.TC_DIM_PAIRS, ids=str)
 def test_flash_attention_wgmma_at_t_other_than_s(s, t, causal, dh, dv, dev):
     """Every bf16 tensor-core instantiation with k / v longer or shorter
-    than q: against `flash_attention_tc_ref` as `_assert_tc_close` holds
-    it, rel L2 against the float32-P `flash_attention_ref` at most 1e-2,
-    and its launch counts."""
+    than q, and at the edges of its pipeline (`TILE_EDGES`): against
+    `flash_attention_tc_ref` as `_assert_tc_close` holds it, rel L2
+    against the float32-P `flash_attention_ref` at most 1e-2, and its
+    launch counts."""
     q, k, v = _qkv_t(dev, s + t + dh + dv, 1, s, t, 4, 2, dh, dv,
                      torch.bfloat16)
     n0 = dict(LAUNCHES)
@@ -1041,7 +1051,10 @@ def _mla_cfg():
     (1, 1024, 16, 16, True, 0),      # deepseek's heads, one KV head each
     (2, 129, 4, 4, True, 0),         # one row past a tile
     (2, 777, 4, 2, False, 0),        # GQA, no mask
-    (1, 777, 4, 4, True, 200)], ids=str)   # a prefix inside the sequence
+    (1, 777, 4, 4, True, 200),       # a prefix inside the sequence
+    (2, 100, 4, 4, True, 0),         # fewer keys than one tile
+    (1, 300, 4, 4, True, 150),       # 1-3 key tiles, a prefix inside one
+    (1, 384, 4, 2, False, 0)], ids=str)    # three key tiles, unmasked
 def test_flash_attention_192_128_matches_tc_plain(b, s, h, kv, causal,
                                                   prefix_len, dev):
     """The (192, 128) instantiation against `flash_attention_tc_ref` as
@@ -1172,20 +1185,26 @@ def _vlm_wide_cfg():
                                n_heads=8, n_kv_heads=1, head_dim=256)
 
 
-@pytest.mark.parametrize("b,s,h,kv,causal,prefix_len", [
-    (1, 1000, 8, 1, True, 256),      # paligemma's MQA and its patch prefix
-    (1, 129, 8, 1, True, 256),       # the prefix covers every row
-    (2, 777, 4, 2, False, 0),        # GQA, no mask
-    (2, 300, 4, 4, True, 0),         # causal, a ragged last tile
-    (1, 200, 2, 1, True, 100)], ids=str)   # a prefix inside a key tile
+@pytest.mark.parametrize("b,s,h,kv,causal,prefix_len,q_scale", [
+    (1, 1000, 8, 1, True, 256, 1),   # paligemma's MQA and its patch prefix
+    (1, 129, 8, 1, True, 256, 1),    # the prefix covers every row
+    (2, 777, 4, 2, False, 0, 1),     # GQA, no mask
+    (2, 300, 4, 4, True, 0, 1),      # causal, a ragged last tile
+    (1, 200, 2, 1, True, 100, 1),    # a prefix inside a key tile
+    (2, 50, 4, 4, True, 0, 1),       # fewer keys than one tile
+    (1, 1000, 8, 1, True, 256, 4),   # q x 4: a peaked softmax, m moving
+    (2, 777, 4, 2, False, 0, 4)], ids=str)   # late and O's rescale skipped
 def test_flash_attention_256_256_matches_tc_plain(b, s, h, kv, causal,
-                                                  prefix_len, dev):
+                                                  prefix_len, q_scale, dev):
     """The (256, 256) instantiation (64-key tiles) against
     `flash_attention_tc_ref` at its tile as `_assert_tc_close` holds it,
     with its launch counts; rel L2 against the float32-P
-    `flash_attention_ref` at most 1e-2, as at Dh 128."""
+    `flash_attention_ref` at most 1e-2, as at Dh 128.  With q scaled by 4
+    the row maxima move on later tiles too, so the kernel's skip of O's
+    rescale (where no row of a warp moved) is taken and not taken."""
     g = torch.Generator(device=dev).manual_seed(s + prefix_len + 256)
     q = torch.randn((b, s, h, 256), generator=g, device=dev).bfloat16()
+    q = q * q_scale
     k, v = (torch.randn((b, s, kv, 256), generator=g, device=dev).bfloat16()
             for _ in range(2))
     n0 = dict(LAUNCHES)
@@ -1284,7 +1303,9 @@ def test_vlm_reduced_prefill_runs_the_cuda_core_route(dev):
     (1, 129, 4, 4, True, 0),         # one row past a tile
     (2, 100, 4, 4, True, 0),         # shorter than a tile
     (2, 777, 4, 2, False, 0),        # GQA, no mask
-    (1, 300, 2, 1, True, 64)], ids=str)    # a prefix
+    (1, 300, 2, 1, True, 64),        # a prefix
+    (1, 300, 4, 2, True, 150),       # 1-3 key tiles, a prefix inside one
+    (1, 384, 4, 4, False, 0)], ids=str)    # three key tiles, unmasked
 def test_flash_attention_80_80_matches_tc_plain(b, s, h, kv, causal,
                                                 prefix_len, dev):
     """The (80, 80) instantiation against `flash_attention_tc_ref` as

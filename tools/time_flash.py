@@ -1,29 +1,38 @@
 """Time the flash attention kernels of the checkout at TREE (its own
-`src`) on the card, at the shapes of the float32 route and the (80, 80)
-instantiation:
+`src`) on the card, at the shapes of the float32 route and the bf16
+instantiations:
 
     python3 tools/time_flash.py TREE [--tf32x3] [--others] [--dump DIR]
+    python3 tools/time_flash.py --compare A B
 
 Through `ops.flash_attention`, so each tree runs its own route: float32
 at (1, 32768, 16, 2, 128) causal (3xTF32, or the CUDA-core kernel of a
-tree from before it), bf16 at (1, 32768, 16, 2, 32) causal on the same
-route, and bf16 at zamba2's (1, 32768, 32, 32, 80) causal (the (80, 80)
-`wgmma` instantiation; contiguous, then with q and k read through RoPE's
-strides as the shared block hands them over, then on the q, k and v
-that zamba2-2.7b's shared block projects from random inputs with its
-seed-0 weights drawn on the card; left out with `--tf32x3`), each beside
-SDPA on the same inputs
-(float32 forced to the memory-efficient backend, KV repeated to the
-query heads).  With `--others` it also times the other bf16
-instantiations at their paths' shapes: (1, 32768, 16, 2, 128), (1,
-32768, 16, 16, 192 / 128) and (1, 32768, 8, 1, 256), all causal.  It
-prints three means of a few launches each (five at head dim 80).  With `--dump DIR` it also
-saves the (80, 80) instantiation's output and the bf16 P it fed to P.V
-on seeded small inputs to DIR/flash80_<tree>.pt; `--compare A B` then
-says whether two such files hold equal tensors.  To compare two
-versions, run it on one machine for each tree in turns (A, B,
-B, A).
+tree from before it), bf16 at (1, 32768, 16, 2, 32) and (1, 32768, 16, 2,
+16) causal on the same route (16 is the reduced configs' head dim), and
+bf16 at zamba2's (1, 32768, 32, 32, 80) causal (the (80, 80) `wgmma`
+instantiation; contiguous, then with q and k read through RoPE's strides
+as the shared block hands them over, then on the q, k and v that
+zamba2-2.7b's shared block projects from random inputs with its seed-0
+weights drawn on the card; left out with `--tf32x3`), each beside SDPA
+on the same inputs (float32 forced to the memory-efficient backend, KV
+repeated to the query heads) and its bound (`chip_smoke.bound`: the
+bf16 tensor-core peak, float32 as three TF32 products).  With `--others`
+it also times the other bf16 `wgmma` instantiations at their paths'
+shapes, all causal: (1, 32768, 16, 2, 128) (qwen2.5-3b), (1, 32768, 16,
+16, 192 / 128) (deepseek-v2-lite-16b), (1, 33024, 8, 1, 256) with a
+prefix of 256 (paligemma-3b's 256 patches; SDPA without the prefix) and
+(1, 32768, 16, 2, 64).  It prints three means of a few launches each
+(five at head dim 80), in turns with SDPA.
+
+With `--dump DIR` it also saves, for every (Dh, Dv) of `TC_DIM_PAIRS`,
+the `wgmma` output and the bf16 P it fed to P.V on seeded small inputs
+(`DUMP_CASES`: a ragged causal sequence, k / v longer than q unmasked,
+fewer keys than one tile, a prefix that ends inside a tile, one to three
+key tiles, q scaled by 4) to DIR/flash_<tree>.pt; `--compare A B` then
+says, key by key, whether two such files hold equal tensors.  To compare
+two versions, run it on one machine for each tree in turns (A, B, B, A).
 """
+import subprocess
 import sys
 from pathlib import Path
 
@@ -31,7 +40,8 @@ if sys.argv[1] == "--compare":
     import torch
 
     a, b = (torch.load(p) for p in sys.argv[2:4])
-    for key in a:
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    for key in sorted(a):
         print(f"AB compare {key}: {'equal' if torch.equal(a[key], b[key]) else 'NOT equal'}",
               flush=True)
     sys.exit(0)
@@ -49,6 +59,13 @@ from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 SEQ = 32768
+# name: (B, S, T, H, KV, causal, prefix_len, q scale)
+DUMP_CASES = {"causal_2001": (1, 2001, 2001, 4, 2, True, 0, 1.0),
+              "full_777x1201": (2, 777, 1201, 4, 2, False, 0, 1.0),
+              "short_100": (2, 100, 100, 2, 1, True, 0, 1.0),
+              "prefix_200_of_300": (1, 300, 300, 4, 1, True, 200, 1.0),
+              "keys_130_of_400": (1, 400, 130, 4, 4, True, 0, 1.0),
+              "q_x4_1000": (1, 1000, 1000, 4, 1, True, 0, 4.0)}
 
 
 def qkv(seed, b, s, t, h, kv, dh, dtype, dv=None):
@@ -81,8 +98,9 @@ def shared_block_qkv():
                                  torch.arange(SEQ, device=dev))
 
 
-def case(what, dtype, h, kv, dh, reps, rope=False, given=None, dv=None):
-    q, k, v = given or qkv(0, 1, SEQ, SEQ, h, kv, dh, dtype, dv)
+def case(what, dtype, h, kv, dh, reps, rope=False, given=None, dv=None,
+         seq=SEQ, prefix_len=0):
+    q, k, v = given or qkv(0, 1, seq, seq, h, kv, dh, dtype, dv)
     if rope:                          # heads-major memory, (B, S, n, Dh) view
         q, k = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k))
     qh, kh, vh = heads(q), heads(k, h // kv), heads(v, h // kv)
@@ -94,19 +112,36 @@ def case(what, dtype, h, kv, dh, reps, rope=False, given=None, dv=None):
                                                       is_causal=True)
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
 
+    def kernel():
+        return fa.flash_attention(q, k, v, prefix_len=prefix_len)
+
     route = fk.route(dtype, dh, v.shape[-1])
     ms, lib = [], []
     for _ in range(5 if dh == 80 else 3):      # in turns
-        ms.append(round(c.cuda_ms(lambda: fa.flash_attention(q, k, v), reps), 4))
+        ms.append(round(c.cuda_ms(kernel, reps), 4))
         lib.append(round(c.cuda_ms(sdpa, reps), 4))
-    err = float((fa.flash_attention(q, k, v).float()
-                 - sdpa().transpose(1, 2).float()).abs().max())
-    print(f"AB {root}: {what} ({route}) ms {ms}; SDPA ms {lib}; max |kernel "
-          f"- SDPA| {err:.3e}", flush=True)
+    err = float((kernel().float() - sdpa().transpose(1, 2).float()).abs().max())
+    flops = 2 * (dh + v.shape[-1]) * h * c._visible_pairs(seq, seq, True,
+                                                          prefix_len)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    if dtype == torch.float32:        # three TF32 products a float32 one
+        b_ms, b_by = c.bound(nbytes, 3 * flops, c.PEAK_TF32_TC_FLOPS)
+    else:
+        b_ms, b_by = c.bound(nbytes, flops, c.PEAK_BF16_TC_FLOPS)
+    mean = sum(ms) / len(ms)
+    print(f"AB {root}: {what} ({route}) ms {ms}; SDPA ms {lib}; bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / mean:.3f} of it, "
+          f"{mean / (sum(lib) / len(lib)):.3f}x SDPA; max |kernel - SDPA| "
+          f"{err:.3e}", flush=True)
 
 
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True, timeout=60)
+print(f"AB {root}: card {smi.stdout.strip()}", flush=True)
 case(f"float32 (1, {SEQ}, 16, 2, 128) causal", torch.float32, 16, 2, 128, 3)
 case(f"bf16 (1, {SEQ}, 16, 2, 32) causal", torch.bfloat16, 16, 2, 32, 5)
+case(f"bf16 (1, {SEQ}, 16, 2, 16) causal", torch.bfloat16, 16, 2, 16, 5)
 if "--tf32x3" not in sys.argv:
     case(f"bf16 (1, {SEQ}, 32, 32, 80) causal", torch.bfloat16, 32, 32, 80,
          10)
@@ -121,20 +156,24 @@ if "--others" in sys.argv:
          10)
     case(f"bf16 (1, {SEQ}, 16, 16, 192 / 128) causal", torch.bfloat16, 16,
          16, 192, 10, dv=128)
-    case(f"bf16 (1, {SEQ}, 8, 1, 256) causal", torch.bfloat16, 8, 1, 256, 10)
+    case(f"bf16 (1, {SEQ + 256}, 8, 1, 256) causal, prefix 256",
+         torch.bfloat16, 8, 1, 256, 10, seq=SEQ + 256, prefix_len=256)
+    case(f"bf16 (1, {SEQ}, 16, 2, 64) causal", torch.bfloat16, 16, 2, 64, 10)
 
 if "--dump" in sys.argv:
     out_dir = Path(sys.argv[sys.argv.index("--dump") + 1])
     out_dir.mkdir(parents=True, exist_ok=True)
     saved = {}
-    for name, (b, s, t, h, kv, causal) in {
-            "causal_4001": (1, 4001, 4001, 4, 4, True),
-            "full_777x1201": (2, 777, 1201, 4, 2, False)}.items():
-        q, k, v = qkv(1, b, s, t, h, kv, 80, torch.bfloat16)
-        out, p = fk.flash_attention_wgmma_p(q, k, v, causal=causal)
-        saved[f"{name}_out"], saved[f"{name}_p"] = out.cpu(), p.cpu()
-        saved[f"{name}_out_nodump"] = fk.flash_attention_wgmma(
-            q, k, v, causal=causal).cpu()
+    for dh, dv in fk.TC_DIM_PAIRS:
+        for name, (b, s, t, h, kv, causal, pre, scale) in DUMP_CASES.items():
+            q, k, v = qkv(1, b, s, t, h, kv, dh, torch.bfloat16, dv)
+            q = q * scale
+            kw = dict(causal=causal, prefix_len=pre)
+            tag = f"{dh}_{dv}_{name}"
+            out, p = fk.flash_attention_wgmma_p(q, k, v, **kw)
+            saved[f"{tag}_out"], saved[f"{tag}_p"] = out.cpu(), p.cpu()
+            saved[f"{tag}_out_nodump"] = fk.flash_attention_wgmma(
+                q, k, v, **kw).cpu()
     tag = Path(root).resolve().name
-    torch.save(saved, out_dir / f"flash80_{tag}.pt")
-    print(f"AB {root}: saved {sorted(saved)} to {out_dir}", flush=True)
+    torch.save(saved, out_dir / f"flash_{tag}.pt")
+    print(f"AB {root}: saved {len(saved)} tensors to {out_dir}", flush=True)
