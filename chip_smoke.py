@@ -34,8 +34,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              a grid (uint32 counts) against `route_slots_ref`; then
              timed alone on the whole bucket
              (`bucket_ms`); the standalone `wavefront` on the same grids
-             and on 241 x 2178 and 122 x 1090, `trace_paths` on one slot
-             of them.  `acim_matmul` has two routes, each held to the
+             (with its BFS levels and ms a level) and on 241 x 2178 and
+             122 x 1090, `trace_paths` on one slot of them; `nds_rank`
+             at (3, 512, 4) and (1, 2048, 4), timed at (1, 512, 4) by
+             events and by the profiler's device time.  `acim_matmul` has two routes, each held to the
              plain version at the trainer's FFN shapes, (1024, 768) @
              (768, 3072) and (1024, 3072) @ (3072, 768), with the codesign
              pick's (N, B) and with N = 128, B = 5: the wgmma route
@@ -166,7 +168,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              clock) equal to the golden row, wires totalling the
              wirelength, exactly one `wavefront` launch per net of two or
              more pins; seconds per spec; then `wavefront` against its
-             plain version and timed at that per-net shape (1, 122, 274).
+             plain version and timed at that per-net shape (1, 122, 274),
+             with its BFS levels and ms a level.
              Launches zeroed before each run and read after it.
 8. mesh    — the device-mesh explorer on the one card, a mesh being a
              tuple of device positions: (a) sharded cells, (4096, 0),
@@ -179,7 +182,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              golden exhaustive front covering >= 0.8 of it, facts "ring"
              with 5 rounds, 6 `nsga2_evolve` and 5 `nds_rank` launches a
              position; `nds_rank` at the migration shape (8, 96, 4)
-             against plain, timed, with its bound; (c)
+             against plain, timed by events and by the profiler's device
+             time, with its bound; (c)
              `DesignSession().run(DesignRequest(16384, islands=4))`:
              layout rows equal to golden, provenance "ring", 3 rounds;
              the island dispatch timed against the single-island explore
@@ -631,13 +635,48 @@ def _objectives_batch(dev, rng):
     return torch.cat([f, pad], 1).contiguous()
 
 
+def wavefront_bucket(dev, rng, gen, specs):
+    """The standalone `wavefront`'s input at the 16 kb front's bucket: the
+    grids of `specs` at 20 % random occupancy (drawn from `gen`), blocked
+    beyond each grid's extent, padded to the batch's; one seed a grid at a
+    random cell (from `rng`).  Returns (occ, seed, grids (B, 2) int32 on
+    `dev`, grids as numpy int64)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eda.placer import geometry, layout_operands
+    from repro_torch.eda.router import grid_shape
+    from repro_torch.kernels.maze_route import ref as mr_ref
+
+    geom = geometry()
+    grids = np.array([grid_shape(o.width, o.height, COARSE) for o in
+                      (layout_operands(s, geom) for s in specs)], np.int64)
+    bsz, gh, gw = len(grids), int(grids[:, 0].max()), int(grids[:, 1].max())
+    grids_t = torch.tensor(grids, dtype=torch.int32, device=dev)
+    outside = mr_ref.outside_grids((bsz, gh, gw), grids_t, dev)
+    occ = (torch.rand((bsz, gh, gw), generator=gen, device=dev) < 0.2) \
+        | outside
+    seed = torch.zeros_like(occ)
+    hy = torch.tensor(rng.integers(0, grids[:, 0]), device=dev)
+    hx = torch.tensor(rng.integers(0, grids[:, 1]), device=dev)
+    seed[torch.arange(bsz, device=dev), hy, hx] = True
+    return occ, seed, grids_t, grids
+
+
+def bfs_levels(dist) -> int:
+    """BFS levels a `wavefront` launch runs through on `dist`: its largest
+    finite value plus one, the most over the batch (0 with no seed)."""
+    from repro_torch.kernels.maze_route import ref as mr_ref
+
+    finite = dist[dist < mr_ref.INF]
+    return int(finite.max()) + 1 if finite.numel() else 0
+
+
 def kernel_phase() -> list[dict]:
     import numpy as np
     import torch
 
     from repro_torch.core import pareto
-    from repro_torch.eda.placer import geometry, layout_operands
-    from repro_torch.eda.router import grid_shape
     from repro_torch.kernels.maze_route import kernel as mr
     from repro_torch.kernels.maze_route import ref as mr_ref
     from repro_torch.kernels.pareto_dom import kernel as pd
@@ -663,15 +702,19 @@ def kernel_phase() -> list[dict]:
     nbytes = c * p * m * 4 + c * p * 4
     ops = c * p * p * m * 2 + fronts * c * p * (p // 32) * 2
     b_ms, b_by = bound(nbytes, ops)
+    # the event time includes the wrapper's host time; the profiler's
+    # device time is kept beside it
     rows.append(dict(
         name="nds_rank", route="cuda", source="src/repro_torch/csrc/pareto_dom.cu",
         replaces="src/repro/kernels/pareto_dom/kernel.py:112",
         max_abs_err=err, ms=cuda_ms(lambda: pd.nds_rank(f1), 200),
         plain_ms=cuda_ms(lambda: pareto.non_dominated_rank(f1), 20),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_ms=profiler_ms(lambda: pd.nds_rank(f1), 50, "nds_rank")))
     print(f"kernel nds_rank: equal to plain on (3, 512, 4) and (1, 2048, 4); "
-          f"{rows[-1]['ms']:.4f} ms vs plain {rows[-1]['plain_ms']:.4f} ms "
-          f"at (1, 512, 4)", flush=True)
+          f"{rows[-1]['ms']:.4f} ms by events (profiler device "
+          f"{rows[-1]['device_ms']:.5f} ms) vs plain "
+          f"{rows[-1]['plain_ms']:.4f} ms at (1, 512, 4)", flush=True)
 
     # -- dominance_matrix: (1, 512, 4), the composite loop's pool; its
     # event time includes the wrapper's host time, so the profiler's
@@ -715,21 +758,11 @@ def kernel_phase() -> list[dict]:
     # padded to the batch's extent (the main path's bucket), and the
     # large grids one at a time (241 x 2178: bitsets in device memory)
     gen = torch.Generator(device=dev).manual_seed(0)
-    geom = geometry()
     from repro_torch.core.acim_spec import MacroSpec
     specs = [MacroSpec(p_["row"]["h"], p_["row"]["w"], p_["row"]["l"],
                        p_["row"]["b_adc"]) for p_ in golden_points()]
-    grids = np.array([grid_shape(o.width, o.height, 64) for o in
-                      (layout_operands(s, geom) for s in specs)], np.int64)
-    bsz, gh, gw = len(grids), int(grids[:, 0].max()), int(grids[:, 1].max())
-    grids_t = torch.tensor(grids, dtype=torch.int32, device=dev)
-    outside = mr_ref.outside_grids((bsz, gh, gw), grids_t, dev)
-    occ = (torch.rand((bsz, gh, gw), generator=gen, device=dev) < 0.2) \
-        | outside
-    seed = torch.zeros_like(occ)
-    hy = torch.tensor(rng.integers(0, grids[:, 0]), device=dev)
-    hx = torch.tensor(rng.integers(0, grids[:, 1]), device=dev)
-    seed[torch.arange(bsz, device=dev), hy, hx] = True
+    occ, seed, grids_t, grids = wavefront_bucket(dev, rng, gen, specs)
+    bsz, gh, gw = occ.shape
     dist = mr.wavefront(occ, seed, grids_t)
     want = mr_ref.wavefront_distance_ref(occ, seed, grids_t)
     check(torch.equal(dist, want),
@@ -746,6 +779,10 @@ def kernel_phase() -> list[dict]:
     cells = bsz * gh * gw
     real = int((grids[:, 0] * grids[:, 1]).sum())
     b_ms, b_by = bound(cells * 4 + real * 2 + bsz * 8, real * 4 * 2)
+    # the event time includes the wrapper reading `grids` back to size
+    # the launch; the profiler's device time is kept beside it, and ms a
+    # level is the device's
+    levels = bfs_levels(want)
     rows.append(dict(
         name="wavefront", route="cuda", source="src/repro_torch/csrc/maze_route.cu",
         replaces="src/repro/kernels/maze_route/kernel.py:71",
@@ -753,10 +790,15 @@ def kernel_phase() -> list[dict]:
         ms=cuda_ms(lambda: mr.wavefront(occ, seed, grids_t), 20),
         plain_ms=cuda_ms(lambda: mr_ref.wavefront_distance_ref(
             occ, seed, grids_t), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, levels=levels,
+        device_ms=profiler_ms(lambda: mr.wavefront(occ, seed, grids_t), 20,
+                              "wavefront")))
+    rows[-1]["ms_per_level"] = rows[-1]["device_ms"] / levels
     print(f"kernel wavefront: equal to plain on ({bsz}, {gh}, {gw}), "
-          f"(1, 241, 2178) and (1, 122, 1090); {rows[-1]['ms']:.4f} ms vs plain "
-          f"{rows[-1]['plain_ms']:.4f} ms", flush=True)
+          f"(1, 241, 2178) and (1, 122, 1090); {rows[-1]['ms']:.4f} ms by "
+          f"events (profiler device {rows[-1]['device_ms']:.4f} ms) vs plain "
+          f"{rows[-1]['plain_ms']:.4f} ms; {levels} BFS levels, "
+          f"{rows[-1]['ms_per_level'] * 1e3:.4f} us a level", flush=True)
 
     # -- trace_paths: one slot on the wavefront above; two star targets
     # per grid (occupied ones take the blocked-entry step), a few
@@ -2283,15 +2325,18 @@ def flow_check(specs, golden_rows) -> dict:
     net_plain_ms = cuda_ms(lambda: mr_ref.wavefront_distance_ref(occ, seed),
                            5)
     net_bound_ms, _ = bound(cells * (4 + 2), 0)
+    net_levels = bfs_levels(dist)
     print(f"layout flow: generate_layout on the card for the {len(times)} "
           f"specs with the largest grids ({first.routing.grid_shape} first): "
           f"metrics equal to golden, wires total the wirelength, {total} "
           f"wavefront launches (one a net); s per spec "
           f"{[round(t, 3) for t in times]}; wavefront at "
           f"{tuple(occ.shape)}: {net_ms:.4f} ms, plain {net_plain_ms:.4f} "
-          f"ms, bound {net_bound_ms:.6f} ms (bytes)", flush=True)
+          f"ms, bound {net_bound_ms:.6f} ms (bytes); {net_levels} BFS levels, "
+          f"{net_ms / net_levels * 1e3:.4f} us a level", flush=True)
     return dict(launches=total, seconds=times, net_ms=net_ms,
-                net_plain_ms=net_plain_ms, net_bound_ms=net_bound_ms)
+                net_plain_ms=net_plain_ms, net_bound_ms=net_bound_ms,
+                net_levels=net_levels, net_ms_per_level=net_ms / net_levels)
 
 
 def layout_engines_phase() -> dict:
@@ -2365,12 +2410,15 @@ def _migration_rank_check(dev) -> dict:
                        c * p * p * m * 2 + fronts * p * (p // 32) * 2)
     out = dict(migration_shape=list(f.shape),
                migration_ms=cuda_ms(lambda: pd.nds_rank(f), 200),
+               migration_device_ms=profiler_ms(lambda: pd.nds_rank(f), 50,
+                                               "nds_rank"),
                migration_plain_ms=cuda_ms(
                    lambda: pareto.non_dominated_rank(f), 20),
                migration_bound_ms=b_ms, migration_bound_by=b_by)
     print(f"mesh nds_rank at the migration shape {tuple(f.shape)}: equal to "
           f"plain ({fronts} fronts over the {c} populations); "
-          f"{out['migration_ms']:.4f} ms vs plain "
+          f"{out['migration_ms']:.4f} ms by events (profiler device "
+          f"{out['migration_device_ms']:.5f} ms) vs plain "
           f"{out['migration_plain_ms']:.4f} ms, bound {b_ms:.7f} ms "
           f"({b_by})", flush=True)
     return out
@@ -4160,9 +4208,10 @@ def main() -> int:
             r.update({k: v for k, v in mesh.items() if k != "launches"})
         if r["name"] == "wavefront":
             r.update(concurrent_launches=conc["launches"],
-                     flow_launches=seq["launches"], net_ms=seq["net_ms"],
-                     net_plain_ms=seq["net_plain_ms"],
-                     net_bound_ms=seq["net_bound_ms"])
+                     flow_launches=seq["launches"],
+                     **{k: seq[k] for k in ("net_ms", "net_plain_ms",
+                                            "net_bound_ms", "net_levels",
+                                            "net_ms_per_level")})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # route_slots' whole-bucket time and bound (its row's own are on the
@@ -4170,16 +4219,20 @@ def main() -> int:
     # dominance_matrix's profiler device time and the launch floor;
     # acim_matmul's one-pass f32 bound and its ADC-flip share; the
     # service phase's launches of nsga2_evolve and route_slots;
-    # wavefront's launches by path and its time at the per-net shape; the
-    # mesh phase's launches of nsga2_evolve and nds_rank, and nds_rank at
-    # the migration shape; the MoE phase's all-to-all check beside the
+    # wavefront's BFS levels and ms a level, its launches by path and its
+    # time and levels at the per-net shape; nds_rank's profiler device
+    # time; the mesh phase's launches of nsga2_evolve and nds_rank, and
+    # nds_rank at the migration shape; the MoE phase's all-to-all check
+    # beside the
     # (192, 128) instantiation; the (256, 256) instantiation at prefix 0;
     # the 3xTF32 flash kernel's FFMA bound and its bf16 head-dim-32 case
     extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
-             "net_ms", "net_plain_ms", "net_bound_ms", "mesh_launches",
-             "migration_shape", "migration_ms", "migration_plain_ms",
+             "levels", "ms_per_level", "net_ms", "net_plain_ms",
+             "net_bound_ms", "net_levels", "net_ms_per_level",
+             "mesh_launches", "migration_shape", "migration_ms",
+             "migration_device_ms", "migration_plain_ms",
              "migration_bound_ms", "migration_bound_by", "a2a_rel_l2",
              "a2a_ms", "prefix0_ms", "prefix0_bound_ms", "bound_ffma_ms",
              "bf16_32_ms", "bf16_32_bound_ms", "bf16_32_tf32_bound_ms",

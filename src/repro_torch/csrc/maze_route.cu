@@ -61,17 +61,48 @@
 // same bit-parallel BFS from a seed plane to the full field (no early
 // stop), writing each cell's level into the int32 output: dist = 0 on
 // seeds (even when occupied), INF = 2^29 where unreachable, blocked or
-// beyond the grid's own extent.  Its four bitsets sit in shared memory,
-// or in a device-memory scratch when the plane's do not fit.  trace_paths keeps its entry point, one
-// net slot over a given int32 field, on the same `trace_slot` walk (one
-// warp per grid, atomics into the int32 occupancy).
+// beyond the grid's own extent.  One CTA per grid.
+//
+//   Bound on the H100: latency again.  Its bytes (occ and seed read once,
+//   the int32 field written once) are ~0.03 ms for the 16 kb front's 86
+//   grids; what binds is one block barrier per BFS level, ~400 levels for
+//   a sequential-flow net on 122 x 274, ~1,300 for the front's longest
+//   grid.  A level's own work is small: every grid of the paths holds at
+//   most ~1,100 bitset words (the padded 1118 x 274 plane is the union of
+//   tall narrow and short wide grids).
+//
+//   Design (`wavefront_reg_kernel`, grids of up to kLevelCells cells whose
+//   state fits shared memory, ~3,080 bitset words: every grid of the
+//   paths): 1024 threads, thread t
+//   owning words t, t + 1024, ... of the grid's row-major words.  Each
+//   word's `open` bits (free and not yet reached) stay in the owner's
+//   registers for the whole launch; the two frontier buffers and the
+//   grid's levels (uint16, bit-major so that a warp's lanes store to
+//   different banks) sit in shared memory, and the whole H x W field is
+//   written once at the end, 16 bytes a store.  So a level touches no
+//   device memory: the earlier kernel's stores of each level's cells to
+//   the field took 16-29 % of its time.  occ and seed are read four bytes
+//   a load into each word's bits.  A level sweeps every word of the grid:
+//   sweeping only the rows next to the last level's new cells cost more
+//   in its block-wide row reduction than it saved (tools/time_wavefront.py
+//   measures each step).  Larger grids (241 x 2178, 122 x 1090) keep the
+//   earlier kernel (`wavefront_kernel`: 512 threads, four bitsets in
+//   shared memory, or in a device-memory scratch when they do not fit,
+//   each level's cells stored to the field).
+//
+// trace_paths keeps its entry point, one net slot over a given int32
+// field, on the same `trace_slot` walk (one warp per grid, atomics into
+// the int32 occupancy).
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -84,6 +115,11 @@ constexpr int kNone = 4;          // no direction
 // kernels' static shared memory (route_slots' `Slot`).
 constexpr int kSmemReserve = 10 * 1024;
 constexpr int kSmemLimit = 232448 - kSmemReserve;
+// wavefront_reg_kernel: threads; the most cells of a grid (its levels are
+// uint16 in shared memory, 0xffff for "not reached").
+constexpr int kWaveThreads = 1024;
+constexpr int kLevelCells = 0xfffe;
+constexpr uint16_t kUnreached = 0xffff;
 
 // The bitsets of one grid, row-major, `wpr` words per row; bit j of word w
 // is column 32 w + j.  (The two frontier buffers are passed beside it as
@@ -573,6 +609,151 @@ wavefront_kernel(const uint8_t* __restrict__ occ,
     wavefront_grid(occ, seed, grids, dist, H, W, sbits, max_words);
 }
 
+// The plane's word k as (row, word of the row), by a correctly rounded
+// reciprocal of the words per row (exact while k + 1/2 < 2^22).
+__device__ __forceinline__ int row_of(int k, float inv_wpr) {
+  return __float2int_rz(((float)k + 0.5f) * inv_wpr);
+}
+
+// Bytes p[i, i + n) (1 <= n <= 32) as bits, bit j set where byte i + j is
+// not 0, from the aligned 4-byte words that hold them, each read once (an
+// aligned load that holds one byte of an allocation stays inside it; the
+// bytes outside the range are dropped).
+__device__ __forceinline__ uint32_t load_bits(const uint8_t* __restrict__ p,
+                                              size_t i, int n) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p + i);
+  const uint32_t* q =
+      reinterpret_cast<const uint32_t*>(addr & ~(uintptr_t)3);
+  const int off = (int)(addr & 3), nw = (off + n + 3) >> 2;
+  uint64_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    if (j < nw) {
+      // bytes 0 / 1, then byte j of the word to bit j
+      const uint32_t v = __vcmpne4(__ldg(q + j), 0u) & 0x01010101u;
+      bits |= (uint64_t)((v * 0x01020408u) >> 24) << (4 * j);
+    }
+  }
+  return (uint32_t)(bits >> off) & (n == 32 ? 0xffffffffu : (1u << n) - 1u);
+}
+
+// Index of the level of bit `bit` of word k in a grid of `stride` (its
+// words, made odd) words: bit-major, so the lanes of a warp, which hold
+// neighbouring words, store their cells' levels to different banks.
+__device__ __forceinline__ int level_at(int bit, int k, int stride) {
+  return bit * stride + k;
+}
+
+// The field of grid blockIdx.x, whose own extent holds at most WPT *
+// kWaveThreads bitset words and kLevelCells cells (see the design note at
+// the top).  Shared memory: two frontier buffers of max_words words, then
+// the grid's levels, 32 (max_words | 1) uint16.
+template <int WPT>
+__global__ void __launch_bounds__(kWaveThreads, 1)
+wavefront_reg_kernel(const uint8_t* __restrict__ occ,
+                     const uint8_t* __restrict__ seed,
+                     const int* __restrict__ grids, int* __restrict__ dist,
+                     int H, int W, int max_words) {
+  extern __shared__ __align__(16) uint32_t fr[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int gh = grids ? min(grids[2 * b], H) : H;
+  const int gw = grids ? min(grids[2 * b + 1], W) : W;
+  const int wpr = (gw + 31) >> 5, words = gh * wpr, stride = words | 1;
+  const float inv = __frcp_rn((float)wpr);
+  const size_t base = (size_t)b * H * W;
+  int* const db = dist + base;
+  uint16_t* const lv = reinterpret_cast<uint16_t*>(fr + 2 * max_words);
+
+  // Nothing reached yet: every level 0xffff.
+  for (int i = tid; i < 16 * stride; i += kWaveThreads)
+    reinterpret_cast<uint32_t*>(lv)[i] = 0xffffffffu;
+  __syncthreads();
+  // Level `level` into the cells of bits m of word k.
+  auto put = [&](uint32_t m, int k, int level) {
+    for (uint32_t q = m; q; q &= q - 1)
+      lv[level_at(__ffs(q) - 1, k, stride)] = (uint16_t)level;
+  };
+
+  // Each owned word's open bits (free, not a seed) and whether it begins
+  // or ends its row (bits 2 i, 2 i + 1 of `edge`); the seeds are level 0
+  // and the first frontier (buffer cur), the other buffer zero.
+  uint32_t* cur = fr;
+  uint32_t* nxt = fr + max_words;
+  uint32_t open[WPT];
+  uint32_t edge = 0;
+  bool found = false;
+#pragma unroll
+  for (int i = 0; i < WPT; ++i) {
+    open[i] = 0;
+    const int k = tid + i * kWaveThreads;
+    if (k >= words) continue;
+    const int r = row_of(k, inv), w = k - r * wpr;
+    const int n = min(32, gw - (w << 5));
+    const size_t c0 = base + (size_t)r * W + (w << 5);
+    const uint32_t blocked = load_bits(occ, c0, n);
+    const uint32_t sd = load_bits(seed, c0, n);
+    const uint32_t valid = n == 32 ? 0xffffffffu : (1u << n) - 1u;
+    open[i] = valid & ~blocked & ~sd;
+    edge |= (uint32_t)(w == 0) << (2 * i);
+    edge |= (uint32_t)(w == wpr - 1) << (2 * i + 1);
+    cur[k] = sd;
+    nxt[k] = 0;
+    if (sd) {
+      put(sd, k, 0);
+      found = true;
+    }
+  }
+
+  // One barrier a level: it publishes the last level's frontier and
+  // levels, and whether any thread found a cell.
+  for (int level = 1; __syncthreads_or(found); ++level) {
+    found = false;
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+      const int k = tid + i * kWaveThreads;
+      if (k >= words) continue;
+      const uint32_t c = cur[k];
+      const uint32_t left =
+          (c << 1) | ((edge >> (2 * i)) & 1u ? 0u : cur[k - 1] >> 31);
+      const uint32_t right =
+          (c >> 1) | ((edge >> (2 * i + 1)) & 1u ? 0u : cur[k + 1] << 31);
+      const uint32_t up = k >= wpr ? cur[k - wpr] : 0u;
+      const uint32_t down = k + wpr < words ? cur[k + wpr] : 0u;
+      const uint32_t m = (left | right | up | down) & open[i];
+      nxt[k] = m;
+      if (m) {
+        open[i] &= ~m;
+        put(m, k, level);
+        found = true;
+      }
+    }
+    uint32_t* const t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // The field, 16 bytes a store: a grid cell's level (INF where not
+  // reached), INF beyond the grid.
+  const int cells = H * W;
+  const int head = min(cells, (int)(((16u - (reinterpret_cast<uintptr_t>(
+                                   db) & 15u)) & 15u) >> 2));
+  auto at = [&](int p) {
+    const int y = p / W, x = p - y * W;
+    if (y >= gh || x >= gw) return kInf;
+    const int v = lv[level_at(x & 31, y * wpr + (x >> 5), stride)];
+    return v == kUnreached ? kInf : v;
+  };
+  const int nv = (cells - head) >> 2;
+  int4* const v = reinterpret_cast<int4*>(db + head);
+  for (int i = tid; i < nv; i += kWaveThreads) {
+    const int p = head + 4 * i;
+    v[i] = make_int4(at(p), at(p + 1), at(p + 2), at(p + 3));
+  }
+  if (tid < head) db[tid] = at(tid);
+  if (tid < cells - head - 4 * nv)
+    db[head + 4 * nv + tid] = at(head + 4 * nv + tid);
+}
+
 __global__ void trace_paths_kernel(const int* __restrict__ dist,
                                    const int* __restrict__ tgts,
                                    const uint8_t* __restrict__ tmask,
@@ -630,14 +811,54 @@ __global__ void trace_paths_kernel(const int* __restrict__ dist,
 
 // The most dynamic shared memory a launch of `kernel` may ask for is a
 // per-function attribute, shared by every host thread.  It is set to the
-// limit, the same value on every call: set to each launch's own size, it
+// limit, the same value every time: set to each launch's own size, it
 // raced between threads launching at once (one thread's smaller size
 // landed between another's set and launch, which then failed with
-// cudaErrorInvalidValue).
+// cudaErrorInvalidValue).  It is set once per kernel and device, not on
+// every launch; a thread that finds it unset sets the same value.
 template <class K>
 int allow_smem(K* kernel) {
-  return (int)cudaFuncSetAttribute(
+  static std::mutex lock;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  const int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  const std::pair<const void*, int> key{(const void*)kernel, dev};
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    if (done.count(key)) return 0;
+  }
+  const int set = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (set == 0) {
+    std::lock_guard<std::mutex> hold(lock);
+    done.insert(key);
+  }
+  return set;
+}
+
+template <int WPT>
+int launch_wavefront_reg(const uint8_t* occ, const uint8_t* seed,
+                         const int* grids, int* dist, int B, int H, int W,
+                         int max_words, cudaStream_t stream) {
+  const int err = allow_smem(wavefront_reg_kernel<WPT>);
+  if (err != 0) return err;
+  const int smem = max_words * 8 + 64 * (max_words | 1);
+  wavefront_reg_kernel<WPT><<<B, kWaveThreads, smem, stream>>>(
+      occ, seed, grids, dist, H, W, max_words);
+  return (int)cudaGetLastError();
+}
+
+// Which kernel a wavefront launch runs, for grids of at most max_words
+// bitset words and max_cells cells: 0 wavefront_reg_kernel (at most
+// 4 kWaveThreads words: its shared memory holds ~3,080); 1 the earlier
+// kernel with the plane's four bitsets in shared memory; 2 the same with
+// them in the device-memory scratch.
+int wave_plan(int H, int W, int max_words, int max_cells) {
+  if (max_cells <= kLevelCells &&
+      max_words * 8 + 64 * (max_words | 1) <= kSmemLimit)
+    return 0;
+  return 16LL * H * ((W + 31) / 32) <= kSmemLimit ? 1 : 2;
 }
 
 }  // namespace
@@ -647,19 +868,43 @@ extern "C" {
 // Dynamic shared memory (bytes) a launch of these kernels may ask for.
 int maze_route_smem_limit(void) { return kSmemLimit; }
 
-// The BFS field of B grids.  The four bitsets of an H x W plane,
-// 16 * H * ceil(W / 32) bytes, sit in shared memory when g_bits is null
-// (they must fit maze_route_smem_limit()), else in g_bits, B * 4 *
-// H * ceil(W / 32) words.
+// Bytes of the device-memory scratch g_bits that B = 1 grid of a
+// `wavefront` launch needs on a plane of H x W whose grids hold at most
+// max_words bitset words and max_cells cells: 0 but for plan 2 (see
+// wave_plan).
+long long wavefront_scratch_bytes(int H, int W, int max_words,
+                                  int max_cells) {
+  return wave_plan(H, W, max_words, max_cells) == 2
+             ? 16LL * H * ((W + 31) / 32) : 0;
+}
+
+// The BFS field of B grids.  Plan 0 runs `wavefront_reg_kernel`.  Else the
+// four bitsets of the H x W plane, 16 H ceil(W / 32) bytes, sit in shared
+// memory (plan 1) or in g_bits, B * 4 * H * ceil(W / 32) words (plan 2);
+// g_bits is null but for plan 2.
 int wavefront(const uint8_t* occ, const uint8_t* seed, const int* grids,
               int* dist, uint32_t* g_bits, int B, int H, int W,
-              void* stream) {
-  const int max_words = H * ((W + 31) / 32);
-  const int smem = g_bits ? 0 : max_words * 16;
+              int max_words, int max_cells, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int plan = wave_plan(H, W, max_words, max_cells);
+  if (plan == 0) {
+    const int wpt = (max_words + kWaveThreads - 1) / kWaveThreads;
+    if (wpt <= 1)
+      return launch_wavefront_reg<1>(occ, seed, grids, dist, B, H, W,
+                                     max_words, s);
+    if (wpt <= 2)
+      return launch_wavefront_reg<2>(occ, seed, grids, dist, B, H, W,
+                                     max_words, s);
+    return launch_wavefront_reg<4>(occ, seed, grids, dist, B, H, W,
+                                   max_words, s);
+  }
+  if ((plan == 2) != (g_bits != nullptr)) return (int)cudaErrorInvalidValue;
+  const int plane_words = H * ((W + 31) / 32);
+  const int smem = g_bits ? 0 : plane_words * 16;
   const int err = allow_smem(wavefront_kernel);
   if (err != 0) return err;
-  wavefront_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      occ, seed, grids, dist, H, W, g_bits, max_words);
+  wavefront_kernel<<<B, kThreads, smem, s>>>(occ, seed, grids, dist, H, W,
+                                             g_bits, plane_words);
   return (int)cudaGetLastError();
 }
 

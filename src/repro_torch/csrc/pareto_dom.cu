@@ -8,17 +8,23 @@
 //   Bound on the H100: neither bytes nor arithmetic.  A cell reads
 //   P*M*4 bytes and writes P*4 (10 KB at P = 512), and the dominance tests
 //   are P*P*M*2 = 2.1 M compares; both are microseconds of the card.  What
-//   bounds it is the serial peel: one block-wide barrier per front.
-//   Design (`rank_points`, shared with nsga2_evolve): one CTA per cell,
-//   everything in shared memory.  Thread (w, j) packs the word "which of
-//   points 32w..32w+31 dominate point j" in a register: a warp shares w, so
-//   the 32 dominators' loads are broadcasts and the lanes' own points are
-//   consecutive (P/32 x P words, 32 KB at P = 512).  Fronts then peel with
-//   (word & alive word) and one `__syncthreads_or` per front: the alive
-//   words are double-buffered by front parity, so a front reads one buffer
-//   and writes the other.  Above the shared-memory budget the packed words
-//   live in a global scratch buffer the wrapper allocates (same kernel,
-//   other branch).
+//   bounds it is one SM's issue of a cell's compares and the serial peel:
+//   one block-wide barrier per front.  At the paths' shapes, (8, 96, 4)
+//   and (1, 512, 4), the wrapper's host time a call is of the order of
+//   the kernel's.
+//   Design, P <= kRankRegPoints (`nds_rank_reg_kernel`): one CTA per cell
+//   of P threads, thread j for point j.  Thread j packs its P / 32 words
+//   "which of points 32w..32w+31 dominate j" into registers (the
+//   dominators' loads are broadcasts from shared memory); each front then
+//   ORs (word & alive word) over its own registers and the alive words,
+//   which are each warp's ballot of its live points, double-buffered in
+//   shared memory by front parity, with one `__syncthreads_or` per front
+//   (P = 32: the warp's own vote, no barrier).
+//   Larger P (`nds_rank_kernel`, `rank_points`, shared with nsga2_evolve):
+//   min(P, 1024) threads; thread (w, j) packs word w of point j, the
+//   P/32 x P words in shared memory, or above the shared-memory budget in
+//   a global scratch buffer the wrapper allocates (same kernel, other
+//   branch); fronts peel as above.
 //
 // nsga2_evolve replaces the rest of the reference's generation loop around
 // that kernel (`evolve_from` of src/repro/core/nsga2.py: a `fori_loop` of
@@ -86,9 +92,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 namespace {
 
-constexpr int kRankThreads = 512;
+constexpr int kRankThreads = 1024;   // nds_rank_kernel: at most
+constexpr int kRankRegPoints = 512;  // nds_rank_reg_kernel up to this P
 constexpr int kEvolveThreads = 1024;
 constexpr int kDomThreads = 128;     // dominance_matrix: 4 warps
 constexpr int kDomCols = 32 * 16;    // ... of 32 lanes x 16 columns
@@ -101,17 +112,28 @@ constexpr int kCalFields = 15;       // see `Cal`
 constexpr uint64_t kPadKey = ~0ull;  // sorts after every real key
 
 // Opt a kernel into kSmemLimit bytes of dynamic shared memory once per
-// device, not on every launch.
+// kernel and device, not on every launch (the same value every time, so
+// threads that race here set the same thing).  The record is keyed by the
+// kernel: the instantiations of one template share a function type.
 template <class K>
-void allow_smem(K* kernel) {
-  static bool done[64];
+int allow_smem(K* kernel) {
+  static std::mutex lock;
+  static std::set<std::pair<const void*, int>> done;
   int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && !done[dev]) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemLimit);
-    done[dev] = true;
+  const int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  const std::pair<const void*, int> key{(const void*)kernel, dev};
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    if (done.count(key)) return 0;
   }
+  const int set = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (set == 0) {
+    std::lock_guard<std::mutex> hold(lock);
+    done.insert(key);
+  }
+  return set;
 }
 
 // ---------------------------------------------------------------------------
@@ -205,6 +227,61 @@ __device__ int rank_points(const float* f, int n, int* rank,
     if (!__syncthreads_or(left)) break;
   }
   return front;
+}
+
+// Front index of the P <= KW * 32 points of cell blockIdx.x, one thread a
+// point (P threads).  Shared memory: the cell's P x M objectives, then two
+// rows of KW alive words.
+template <int M, int KW>
+__global__ void __launch_bounds__(kRankRegPoints)
+nds_rank_reg_kernel(const float* __restrict__ f, int* __restrict__ ranks,
+                    int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* fs = reinterpret_cast<float*>(smem);                      // P*M
+  uint32_t* alive = reinterpret_cast<uint32_t*>(fs + P * M);       // 2 KW
+  const int c = blockIdx.x, j = threadIdx.x, lane = j & 31, W = P >> 5;
+  const float* fc = f + (size_t)c * P * M;
+  for (int i = j; i < P * M; i += P) fs[i] = fc[i];
+  if (j < KW) alive[j] = j < W ? 0xffffffffu : 0u;
+  __syncthreads();
+  // dom[w] bit t: point 32 w + t dominates j
+  const Point<M> pj = load_point<M>(fs, j);
+  uint32_t dom[KW];
+#pragma unroll
+  for (int w = 0; w < KW; ++w) {
+    uint32_t word = 0;
+    if (w < W) {
+#pragma unroll 4
+      for (int t = 0; t < 32; ++t)
+        word |= (uint32_t)dominates<M>(load_point<M>(fs, (w << 5) + t), pj)
+                << t;
+    }
+    dom[w] = word;
+  }
+  // Peel: a point none of whose alive dominators is left joins this front.
+  int rank = -1;
+  if constexpr (KW == 1) {
+    uint32_t al = 0xffffffffu;
+    for (int front = 0; al; ++front) {
+      if (rank < 0 && !(dom[0] & al)) rank = front;
+      al = __ballot_sync(0xffffffffu, rank < 0);
+    }
+  } else {
+    for (int front = 0;; ++front) {
+      const uint32_t* cur = alive + (front & 1) * KW;
+      if (rank < 0) {
+        uint32_t hit = 0;
+#pragma unroll
+        for (int w = 0; w < KW; ++w)
+          if (w < W) hit |= dom[w] & cur[w];
+        if (!hit) rank = front;
+      }
+      const uint32_t word = __ballot_sync(0xffffffffu, rank < 0);
+      if (lane == 0) alive[((front + 1) & 1) * KW + (j >> 5)] = word;
+      if (!__syncthreads_or(rank < 0)) break;
+    }
+  }
+  ranks[(size_t)c * P + j] = rank;
 }
 
 template <int M>
@@ -684,13 +761,31 @@ int launch_dominance(const float* f, uint8_t* out, int C, int P,
   return (int)cudaGetLastError();
 }
 
+template <int M, int KW>
+int launch_nds_rank_reg(const float* f, int* ranks, int C, int P,
+                        size_t smem, cudaStream_t stream) {
+  const int err = allow_smem(nds_rank_reg_kernel<M, KW>);
+  if (err != 0) return err;
+  nds_rank_reg_kernel<M, KW><<<C, P, smem, stream>>>(f, ranks, P);
+  return (int)cudaGetLastError();
+}
+
 template <int M>
 int launch_nds_rank(const float* f, int* ranks, uint32_t* scratch, int C,
                     int P, int packed_in_smem, size_t smem,
                     cudaStream_t stream) {
-  allow_smem(nds_rank_kernel<M>);
-  nds_rank_kernel<M><<<C, kRankThreads, smem, stream>>>(f, ranks, scratch, P,
-                                                        packed_in_smem);
+  if (P <= kRankRegPoints) {
+    const int w = P / 32;
+    if (w <= 1) return launch_nds_rank_reg<M, 1>(f, ranks, C, P, smem, stream);
+    if (w <= 2) return launch_nds_rank_reg<M, 2>(f, ranks, C, P, smem, stream);
+    if (w <= 4) return launch_nds_rank_reg<M, 4>(f, ranks, C, P, smem, stream);
+    if (w <= 8) return launch_nds_rank_reg<M, 8>(f, ranks, C, P, smem, stream);
+    return launch_nds_rank_reg<M, 16>(f, ranks, C, P, smem, stream);
+  }
+  const int err = allow_smem(nds_rank_kernel<M>);
+  if (err != 0) return err;
+  nds_rank_kernel<M><<<C, P < kRankThreads ? P : kRankThreads, smem,
+                       stream>>>(f, ranks, scratch, P, packed_in_smem);
   return (int)cudaGetLastError();
 }
 
@@ -702,15 +797,19 @@ extern "C" {
 int pareto_dom_smem_limit(void) { return kSmemLimit; }
 
 // Shared-memory bytes nds_rank needs with the packed words in shared
-// memory (packed_in_smem = 1) or in global scratch (0).
+// memory (packed_in_smem = 1) or in global scratch (0).  Up to
+// kRankRegPoints points the words are in registers, and both are the
+// same.
 size_t nds_rank_smem_bytes(int P, int M, int packed_in_smem) {
   const size_t W = P / 32;
+  if (P <= kRankRegPoints) return (size_t)P * M * 4 + 2 * 16 * 4;
   size_t b = (size_t)P * M * 4 + (size_t)P * 4 + 2 * W * 4;
   if (packed_in_smem) b += W * (size_t)P * 4;
   return b;
 }
 
-// M in [1, kMaxM]; P a multiple of 32.
+// M in [1, kMaxM]; P a multiple of 32 (scratch unused up to
+// kRankRegPoints).
 int nds_rank(const float* f, int* ranks, uint32_t* scratch, int C, int P,
              int M, int packed_in_smem, void* stream) {
   const size_t smem = nds_rank_smem_bytes(P, M, packed_in_smem);

@@ -29,12 +29,13 @@ _MAX_H, _MAX_W = 2 ** 15, 2 ** 16
 # targets of real slots a grid has (a walk enters a cell once): uint16 up
 # to this, else uint32, all in the device-memory scratch.
 _COUNT_MAX = 2 ** 16 - 1
-# Bitsets per grid: four in `wavefront` (free, visited, two frontiers),
-# seven in `route_slots` (and the cells whose arrival resolves a target,
-# two backtrace-direction planes), a 4-byte word per 32 cells of a row;
-# route_slots' uint16 counts take 2 bytes a cell.  Each sits in shared
-# memory when it fits, else in a device-memory scratch.
-_WAVE_BITSETS, _ROUTE_BITSETS, _ROUTE_CELL_BYTES = 4, 7, 2
+# Bitsets per grid in `route_slots`: free, visited, two frontiers, the
+# cells whose arrival resolves a target and two backtrace-direction
+# planes, a 4-byte word per 32 cells of a row; its uint16 counts take 2
+# bytes a cell.  Each sits in shared memory when it fits, else in a
+# device-memory scratch (`wavefront` sizes its own: its library's
+# `wavefront_scratch_bytes`).
+_ROUTE_BITSETS, _ROUTE_CELL_BYTES = 7, 2
 # The kernels split a word index into (row, word) by a float reciprocal,
 # exact below 2^22 words per grid.
 _MAX_WORDS = 2 ** 22
@@ -45,6 +46,8 @@ _LIB_LOCK = threading.Lock()   # first calls may race from several threads
 
 def _lib():
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
@@ -52,7 +55,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.maze_route_smem_limit.argtypes = []
         lib.maze_route_smem_limit.restype = i
-        lib.wavefront.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.wavefront_scratch_bytes.argtypes = [i, i, i, i]
+        lib.wavefront_scratch_bytes.restype = ctypes.c_longlong
+        lib.wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.wavefront.restype = i
         lib.trace_paths.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.trace_paths.restype = i
@@ -90,7 +95,8 @@ def wavefront(occ: torch.Tensor, seed: torch.Tensor,
 
     `grids` (B, 2) int32 gives each grid's own (gh, gw): the kernel
     expands only those cells and writes `INF` beyond them (cells there
-    count as blocked)."""
+    count as blocked).  On the card the wrapper reads them back to size
+    the launch by the largest grid."""
     b, h, w = occ.shape
     _need(occ, torch.bool, (b, h, w), "occ")
     _need(seed, torch.bool, (b, h, w), "seed")
@@ -104,16 +110,26 @@ def wavefront(occ: torch.Tensor, seed: torch.Tensor,
     if words >= _MAX_WORDS:
         raise ValueError(f"wavefront: a {h} x {w} plane has {words} bitset "
                          f"words; the kernel takes fewer than {_MAX_WORDS}")
+    # The largest grid's bitset words and cells pick the kernel, its shared
+    # memory and its scratch: each grid's own extent, read back from the
+    # card, or the plane's.
+    if grids is None or b == 0:
+        max_words, max_cells = words, h * w
+    else:
+        g = np.minimum(grids.cpu().numpy().astype(np.int64), [h, w])
+        g = np.maximum(g, 0)
+        max_words = int((g[:, 0] * ((g[:, 1] + 31) // 32)).max())
+        max_cells = int((g[:, 0] * g[:, 1]).max())
     lib = _lib()
-    g_bits = None
-    if 4 * _WAVE_BITSETS * words > lib.maze_route_smem_limit():
-        g_bits = torch.empty(b * _WAVE_BITSETS * words, dtype=torch.int32,
-                             device=occ.device)
+    scratch = lib.wavefront_scratch_bytes(h, w, max_words, max_cells)
+    g_bits = torch.empty(b * scratch // 4, dtype=torch.int32,
+                         device=occ.device) if scratch else None
     dist = torch.empty((b, h, w), dtype=torch.int32, device=occ.device)
     _build.launch(occ, lib.wavefront, "wavefront", occ.data_ptr(),
                   seed.data_ptr(), None if grids is None else grids.data_ptr(),
                   dist.data_ptr(),
-                  None if g_bits is None else g_bits.data_ptr(), b, h, w)
+                  None if g_bits is None else g_bits.data_ptr(), b, h, w,
+                  max_words, max_cells)
     count_launch("wavefront")
     return dist
 

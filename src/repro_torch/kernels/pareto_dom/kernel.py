@@ -33,10 +33,15 @@ _CAL_FIELDS = ("inv_pre", "adc_off_db", "t_com", "t_set_per_b",
 
 _LIB = None
 _LIB_LOCK = threading.Lock()   # first calls may race from several threads
+# nds_rank's plan by (P, M): whether the packed dominance words fit shared
+# memory (read from the library once, not on every call).
+_RANK_PLAN: dict[tuple[int, int], bool] = {}
 
 
 def _lib():
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
@@ -77,17 +82,19 @@ def nds_rank(f: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"nds_rank takes 1 to {MAX_OBJECTIVES} objectives, "
                          f"got M={m}")
     lib = _lib()
-    limit = lib.pareto_dom_smem_limit()
-    packed_in_smem = int(lib.nds_rank_smem_bytes(p, m, 1) <= limit)
-    if lib.nds_rank_smem_bytes(p, m, 0) > limit:
-        raise ValueError(f"nds_rank: P={p}, M={m} exceeds shared memory")
+    packed_in_smem = _RANK_PLAN.get((p, m))
+    if packed_in_smem is None:
+        limit = lib.pareto_dom_smem_limit()
+        if lib.nds_rank_smem_bytes(p, m, 0) > limit:
+            raise ValueError(f"nds_rank: P={p}, M={m} exceeds shared memory")
+        packed_in_smem = _RANK_PLAN[(p, m)] = \
+            lib.nds_rank_smem_bytes(p, m, 1) <= limit
     ranks = torch.empty((c, p), dtype=torch.int32, device=f.device)
-    scratch = (torch.empty(0, dtype=torch.int32, device=f.device)
-               if packed_in_smem else
-               torch.empty((c, p // 32, p), dtype=torch.int32, device=f.device))
+    scratch = None if packed_in_smem else torch.empty(
+        (c, p // 32, p), dtype=torch.int32, device=f.device)
     _build.launch(f, lib.nds_rank, "nds_rank", f.data_ptr(),
-                  ranks.data_ptr(), scratch.data_ptr(), c, p, m,
-                  packed_in_smem)
+                  ranks.data_ptr(), None if scratch is None
+                  else scratch.data_ptr(), c, p, m, int(packed_in_smem))
     count_launch("nds_rank")
     return ranks
 

@@ -40,6 +40,7 @@ from repro_torch.serve.design_service import DesignService
 from repro_torch.train import acim_lm
 from route_slots_model import (hub_heavy_bucket, random_bucket,
                                route_slots_model)
+from wavefront_model import corridor_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -51,19 +52,33 @@ def dev():
     return torch.device("cuda")
 
 
-def _objectives(p, seed, dev):
+def _objectives(p, seed, dev, cells=2, m=4):
+    """Even cells on an integer lattice, odd ones continuous with copied
+    rows; the last 3 rows of each +inf."""
     rng = np.random.default_rng(seed)
-    f = np.empty((2, p, 4), np.float32)
-    f[0] = rng.integers(0, 5, (p, 4))
-    f[1] = rng.normal(size=(p, 4))
-    f[1, p // 2:p // 2 + 5] = f[1, :5]
+    f = np.empty((cells, p, m), np.float32)
+    for c in range(cells):
+        if c % 2 == 0:
+            f[c] = rng.integers(0, 5, (p, m))
+        else:
+            f[c] = rng.normal(size=(p, m))
+            f[c, p // 2:p // 2 + 5] = f[c, :5]
     f[:, -3:] = np.inf
     return torch.from_numpy(f).to(dev)
 
 
-@pytest.mark.parametrize("p", [37, 512, 2048])
-def test_pareto_kernels_match_plain(p, dev):
-    f = _objectives(p, p, dev)
+# (P, cells, M): the register kernel at one warp (32), three (96, the
+# migration's 8 cells), sixteen (512); the shared-memory one at 1024 and
+# the device-memory one at 2048; M 1 and 8 beside 4.
+@pytest.mark.parametrize("p,cells,m", [
+    pytest.param(37, 2, 4, id="37"), pytest.param(512, 2, 4, id="512"),
+    pytest.param(2048, 2, 4, id="2048"), pytest.param(32, 3, 4, id="32"),
+    pytest.param(96, 8, 4, id="96x8"), pytest.param(1024, 2, 4, id="1024"),
+    pytest.param(96, 8, 1, id="96x8-m1"), pytest.param(512, 2, 8, id="512-m8"),
+    pytest.param(1024, 2, 8, id="1024-m8"),
+    pytest.param(1024, 2, 1, id="1024-m1")])
+def test_pareto_kernels_match_plain(p, cells, m, dev):
+    f = _objectives(p, p, dev, cells, m)
     n0 = LAUNCHES["nds_rank"], LAUNCHES["dominance_matrix"]
     assert torch.equal(pd_ops.non_dominated_rank(f),
                        pareto.non_dominated_rank(f))
@@ -72,7 +87,40 @@ def test_pareto_kernels_match_plain(p, dev):
         (n0[0] + 1, n0[1] + 1)
 
 
+def _wavefront_cases():
+    """(name, occ, seed, grids) numpy inputs of the standalone wavefront:
+    one-row and one-column planes, widths around a word, the sequential
+    flow's per-net shape, several / occupied / no seeds, the corridors
+    whose frontier leaves the rows where it began, grids smaller than
+    the plane."""
+    rng = np.random.default_rng(3)
+    out = []
+    for h, w in ((1, 274), (122, 1), (1, 1), (40, 31), (40, 32), (40, 33),
+                 (40, 274), (122, 274)):
+        occ = rng.random((3, h, w)) < 0.25
+        seed = np.zeros_like(occ)
+        for b, n in enumerate((1, 4, 0)):
+            seed[b, rng.integers(0, h, n), rng.integers(0, w, n)] = True
+        seed[0, 0, 0] = occ[0, 0, 0] = True           # an occupied seed
+        out.append((f"{h}x{w}", occ, seed, None))
+    occ = rng.random((1, 122, 274)) < 0.2             # one net of the flow
+    seed = np.zeros_like(occ)
+    seed[0, 61, 137] = True
+    out.append(("net 122x274", occ, seed, None))
+    out += [(name, occ, seed, None) for name, occ, seed in corridor_cases()]
+    occ = rng.random((4, 60, 300)) < 0.2
+    seed = rng.random((4, 60, 300)) < 0.002
+    grids = np.array([[60, 300], [30, 33], [1, 200], [59, 1]], np.int32)
+    out.append(("grids", occ, seed, grids))
+    return out
+
+
 def test_route_kernels_match_plain(dev):
+    for name, occ, seed, grids in _wavefront_cases():
+        o, s = torch.from_numpy(occ).to(dev), torch.from_numpy(seed).to(dev)
+        gr = None if grids is None else torch.from_numpy(grids).to(dev)
+        assert torch.equal(mr.wavefront(o, s, gr),
+                           mr_ref.wavefront_distance_ref(o, s, gr)), name
     g = torch.Generator(device=dev).manual_seed(0)
     o = torch.rand((4, 122, 274), generator=g, device=dev) < 0.2
     s = torch.zeros_like(o)
