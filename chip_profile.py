@@ -22,11 +22,12 @@ and prints:
    their summed time against the wall time (the device's busy share;
    the rest is host time the device idles through);
 4. for the CIM-in-the-loop trainer at full width (d 768, 12 layers,
-   seq 128, batch 8, the codesign pick's macro), after 2 warm-up steps:
-   the mean step time of 5 steps, then 3 steps under the profiler with
-   the device kernels with the most time, the `acim_matmul` kernels'
-   device time per step by route (wgmma, cuda_core; split-K's zeroing
-   memsets beside), and the busy share;
+   seq 128, batch 8), on the codesign pick's macro (N 256) and on
+   `NARROW_SPEC` (N 8, B 3, a point of the 1 kb front), each after 2
+   warm-up steps: the mean step time of 5 steps, then 3 steps under the
+   profiler with the device kernels with the most time, the
+   `acim_matmul` kernels' device time per step by route (wgmma, mma,
+   cuda_core; split-K's zeroing memsets beside), and the busy share;
 5. for the long-context prefill of qwen2.5-3b at full width (36 layers,
    bf16 serving weights drawn from seed 0, batch 1 x 32768,
    `make_prefill_step`), after one warm-up prefill: one prefill under the
@@ -95,6 +96,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARRAY_SIZE = 16384
+NARROW_SPEC = (128, 8, 16, 3)   # the trainer's mma-route macro (N 8, B 3)
 SECTIONS = ("request", "train", "prefill", "decode", "lm_train", "moe",
             "islands", "vlm", "hybrid")
 STAGE_PREFIX = "layout."
@@ -160,8 +162,9 @@ def profile_request(request) -> dict:
                     for k, c, us in kernels[:15]]}
 
 
-def profile_train(steps: int = 3) -> dict:
-    """Full-width trainer steps under the profiler (after warm-up)."""
+def profile_train(steps: int = 3, spec=None) -> dict:
+    """Full-width trainer steps under the profiler (after warm-up), on
+    `spec` (default: the codesign pick)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -171,7 +174,7 @@ def profile_train(steps: int = 3) -> dict:
     from repro_torch.train import acim_lm
 
     cfg = acim_lm.build_cfg(768, 12)
-    cim = CIMConfig(acim_lm.pick_macro(cfg).spec)
+    cim = CIMConfig(spec or acim_lm.pick_macro(cfg).spec)
     model = init_lm(cfg, seed=0)
     batches = [batch_for(cfg, 128, 8, i, device="cuda") for i in range(10)]
     for i in range(2):
@@ -192,17 +195,18 @@ def profile_train(steps: int = 3) -> dict:
     kernels = _device_kernels(prof)
     device_s = sum(r[2] for r in kernels) / 1e6
     acim_s = sum(r[2] for r in kernels if "acim_matmul" in r[0]) / 1e6
-    # per route: the tensor-core kernel and the CUDA-core one
-    wgmma_s = sum(r[2] for r in kernels
-                  if "acim_matmul_wgmma_kernel" in r[0]) / 1e6
+    # per route: the two tensor-core kernels and the CUDA-core one
+    route_s = {r_: sum(r[2] for r in kernels
+                       if f"acim_matmul_{r_}_kernel" in r[0]) / 1e6
+               for r_ in ("wgmma", "mma")}
     memset_s = sum(r[2] for r in kernels if "Memset" in r[0]) / 1e6
     return {"spec": str(cim.spec), "step_ms": step_ms,
             "profiled_step_ms": 1e3 * wall / steps,
             "device_ms_per_step": 1e3 * device_s / steps,
             "acim_matmul_ms_per_step": 1e3 * acim_s / steps,
             "acim_matmul_ms_per_step_by_route": {
-                "wgmma": 1e3 * wgmma_s / steps,
-                "cuda_core": 1e3 * (acim_s - wgmma_s) / steps},
+                **{r_: 1e3 * v / steps for r_, v in route_s.items()},
+                "cuda_core": 1e3 * (acim_s - sum(route_s.values())) / steps},
             "memset_ms_per_step": 1e3 * memset_s / steps,
             "busy_share": device_s / wall,
             "launches_per_step": sum(r[1] for r in kernels) / steps,
@@ -677,7 +681,18 @@ def _print_request() -> dict:
 
 
 def _print_train() -> dict:
-    train = profile_train()
+    """The trainer on the codesign pick (N 256, the wgmma route) and on
+    `NARROW_SPEC` (N 8, the mma route)."""
+    from repro_torch.core.acim_spec import MacroSpec
+
+    out = {}
+    for name, spec in (("pick", None), ("narrow", MacroSpec(*NARROW_SPEC))):
+        out[name] = _print_train_on(spec)
+    return out
+
+
+def _print_train_on(spec) -> dict:
+    train = profile_train(spec=spec)
     by_route = train["acim_matmul_ms_per_step_by_route"]
     print(f"trainer (d 768, 12 layers, {train['spec']}): {train['step_ms']:.2f}"
           f" ms/step unprofiled; profiled {train['profiled_step_ms']:.2f} "

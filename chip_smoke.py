@@ -37,17 +37,21 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              (with its BFS levels and ms a level) and on 241 x 2178 and
              122 x 1090, `trace_paths` on one slot of them; `nds_rank`
              at (3, 512, 4) and (1, 2048, 4), timed at (1, 512, 4) by
-             events and by the profiler's device time.  `acim_matmul` has two routes, each held to the
+             events and by the profiler's device time.  `acim_matmul` has three routes, each held to the
              plain version at the trainer's FFN shapes, (1024, 768) @
-             (768, 3072) and (1024, 3072) @ (3072, 768), with the codesign
-             pick's (N, B) and with N = 128, B = 5: the wgmma route
+             (768, 3072) and (1024, 3072) @ (3072, 768): the wgmma route
              (tensor cores on an exact bf16 term split, split-K on the
-             second shape) and the cuda_core route: bit-equal on +-1
-             operands, and on mismatch-folded weights, with +-1 and with
-             float activations, equal but for ADC flips (a whole number
-             of deltas each) on at most 0.1 % of outputs; both timed on
-             the trainer's operands, f32 and bf16 torch.matmul printed
-             beside as a scale.  `dominance_matrix` is held to its plain
+             second shape) with the codesign pick's (N, B) and with N =
+             128, B = 5; the mma route (`mma.sync` on the same split, a
+             chunk the lanes of a k8 step, the ADC in three
+             instructions) at N 8 / B 3, N 4 / B 2 and N 2 / B 1; the
+             cuda_core route at all of those and at N 24 / B 3:
+             bit-equal on +-1 operands, and on mismatch-folded weights,
+             with +-1 and with float activations, equal but for ADC flips
+             (a whole number of deltas each) on at most 0.1 % of outputs;
+             all timed on the trainer's operands, two routes at one N in
+             turns, f32 and bf16 torch.matmul printed beside as a
+             scale.  `dominance_matrix` is held to its plain
              version at five shapes and timed by events and by the
              profiler's device time, with the launch floor.
              Flash attention has two routes: bf16 at head dims 64 and
@@ -106,9 +110,15 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              batch and mismatch draws, at full width and 2 layers (rtol
              1e-2: the bfloat16 backbone rounds differently on the two
              devices, and a rounding can flip a binarized activation).
-             Then the CUDA-core route's path: the same check with a
-             macro of N 8 (MacroSpec(16, 64, 2, 3)), whose forward runs
-             only `acim_matmul_cuda_core` launches, 2 per layer.
+             Then the mma route's path: 20 steps of the same trainer at
+             full width on MacroSpec(128, 8, 16, 3) (N 8, B 3, a point
+             of the 1 kb exhaustive front): finite losses (whether the
+             last is below the first is printed: a 3-bit ADC over 8
+             products is no claim to train as the pick does), exactly
+             24 x 20 `acim_matmul_mma` launches and no other
+             `acim_matmul` route, the step ms beside the pick's; and the
+             step-0 check on that macro, 2 `acim_matmul_mma` launches
+             per layer.
 5. prefill — `make_prefill_step(qwen2.5-3b, prefill_32k)` at full width
              (36 layers, d 2048, vocab 151,936) with bf16 serving
              weights drawn from seed 0 (CPU generator), on synthetic tokens
@@ -357,12 +367,22 @@ TRAIN = dict(d_model=768, layers=12, seq=128, batch=8, lr=3e-3, steps=20)
 ACIM_SHAPES = ((1024, 768, 3072), (1024, 3072, 768))
 ACIM_FLIP_SHARE = 1e-3     # mismatch-folded weights: outputs an ADC flip
                            # may move (measured share printed)
+# The mma route's macros (h, w, l, b): N 8 / B 3 and N 4 / B 2 on the 1 kb
+# exhaustive front, N 2 / B 1 in its space; its row is taken at N 8, B 3.
+ACIM_SMALL_N = ((128, 8, 16, 3), (128, 8, 32, 2), (64, 16, 32, 1))
+ACIM_SMALL_N_ROW = (8, 3)
+ACIM_CUDA_CORE_MACRO = (48, 64, 2, 3)   # N 24: an N only the CUDA cores take
+# Instructions a conversion in the ADC bound: a float32 ADC's (rint by
+# the magic constant, two clamps, the sum); the mma kernel's own (FFMA
+# rint, DPX clamp, integer add) gives a side figure.
+ACIM_ADC_INSTR = 5
+ACIM_KERNEL_ADC_INSTR = 3
 CPU_CHECK_LAYERS = 2       # depth of the step-0 card-vs-CPU check
 CPU_CHECK_RTOL = 1e-2
 
-# A macro of the explorer's space whose chunk (N 8) is no whole k16 step:
-# the trainer's forward then takes acim_matmul's CUDA-core route.
-NARROW_MACRO_ARGS = (16, 64, 2, 3)
+# A point of the 1 kb exhaustive front whose chunk (N 8, B 3) is no whole
+# k16 step: the trainer's forward then takes acim_matmul's mma route.
+NARROW_MACRO_ARGS = (128, 8, 16, 3)
 
 # The prefill phase: qwen2.5-3b at full width, prefill_32k cut to batch 1.
 PREFILL_CONFIG = "qwen2.5-3b"
@@ -1100,21 +1120,69 @@ def _term_passes(x, w) -> int:
     return terms(x) * terms(w)
 
 
-def acim_kernel_check(dev, rng) -> list[dict]:
-    """Both acim_matmul routes against their plain version at the
-    trainer's FFN shapes, with the codesign pick's (N, B) and with N 128,
-    B 5: bit-equal on +-1 operands; whole ADC steps on at most
-    ACIM_FLIP_SHARE of outputs on mismatch-folded weights with +-1 and
-    with float activations in [-1, 1].  Timed on the trainer's operands
-    (+-1 activations, mismatch-folded weights).  One row per route at the
-    first shape and the pick; f32 and bf16 torch.matmul of the same
-    shapes are printed as a scale (the product without the ADC)."""
+def _acim_operands(dev, rng, m, k, c, spec):
+    """+-1 x and w, float x in [-1, 1] and mismatch-folded w: the checks'
+    operands (the trainer's are x and wm)."""
     import torch
 
     from repro_torch.core.acim_numerics import NoiseParams
+    from repro_torch.kernels.acim_matmul import ops as am
+
+    x = torch.tensor(rng.choice([-1.0, 1.0], (m, k)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.choice([-1.0, 1.0], (k, c)), dtype=torch.float32,
+                     device=dev)
+    xf = torch.rand((m, k), device=dev) * 2 - 1
+    wm = am.mismatch_weights(w, spec, torch.randn((k, c), device=dev),
+                             NoiseParams.from_cal())
+    return x, w, xf, wm
+
+
+def acim_bound(m: int, k: int, c: int, n: int,
+               passes: int) -> tuple[float, str, dict]:
+    """(ms, by, side) for one acim_matmul at (m, k, c), N, on any route:
+    the larger of the bytes, the `passes` bf16 term products at the
+    tensor-core peak and the M C K / N conversions at ACIM_ADC_INSTR
+    instructions each at the float32 instruction rate (an FFMA counts
+    two operations).  `side`: the same with the mma kernel's own
+    ACIM_KERNEL_ADC_INSTR (`bound_adc3_ms`), and the floor of a kernel
+    that keeps products and conversions on the CUDA cores, one float32
+    FFMA pass plus the conversions on one pipe
+    (`bound_cuda_core_pipe_ms`)."""
+    nbytes = (m * k + k * c + m * c) * 4
+    conv = m * c * k / n
+
+    def adc(instr: int) -> float:
+        return conv * instr / (PEAK_OPS_PER_S / 2) * 1e3
+
+    tc, tc_by = bound(nbytes, passes * 2 * m * k * c, PEAK_BF16_TC_FLOPS)
+    ms, by = ((adc(ACIM_ADC_INSTR), "operations")
+              if adc(ACIM_ADC_INSTR) > tc else (tc, tc_by))
+    side = dict(bound_adc3_ms=max(tc, adc(ACIM_KERNEL_ADC_INSTR)),
+                bound_cuda_core_pipe_ms=bound(nbytes, 2 * m * k * c)[0]
+                + adc(ACIM_ADC_INSTR))
+    return ms, by, side
+
+
+def acim_kernel_check(dev, rng) -> list[dict]:
+    """The three acim_matmul routes against their plain version at the
+    trainer's FFN shapes: the wgmma and the CUDA-core route with the
+    codesign pick's (N, B) and with N 128, B 5, the mma route at N 8 / B
+    3, N 4 / B 2 and N 2 / B 1 (`ACIM_SMALL_N`) with the CUDA-core route
+    at the same N, and the CUDA-core route at N 24 / B 3 (an N it
+    serves): bit-equal on +-1 operands; whole ADC steps on at most
+    ACIM_FLIP_SHARE of outputs on mismatch-folded weights with +-1 and
+    with float activations in [-1, 1].  Timed on the trainer's operands
+    (+-1 activations, mismatch-folded weights); at the small N the mma
+    and CUDA-core routes in turns (cuda_core, mma, mma, cuda_core).
+    One row per route at the first shape and an N it serves: wgmma at
+    the pick, mma at N 8 / B 3, cuda_core at N 24 / B 3 (its N 256 and N
+    8 times beside).  f32 and bf16 torch.matmul of the same shapes are
+    printed as a scale (the product without the ADC)."""
+    import torch
+
     from repro_torch.core.acim_spec import MacroSpec
     from repro_torch.kernels.acim_matmul import kernel as ak
-    from repro_torch.kernels.acim_matmul import ops as am
     from repro_torch.kernels.acim_matmul import ref as am_ref
     from repro_torch.train import acim_lm
 
@@ -1122,34 +1190,35 @@ def acim_kernel_check(dev, rng) -> list[dict]:
     cfg = acim_lm.build_cfg(TRAIN["d_model"], TRAIN["layers"])
     pick = acim_lm.pick_macro(cfg).spec
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    run = {"wgmma": ak.acim_matmul_wgmma,
+    run = {"wgmma": ak.acim_matmul_wgmma, "mma": ak.acim_matmul_mma,
            "cuda_core": ak.acim_matmul_cuda_core}
-    rows = {}
-    for spec in (pick, MacroSpec(256, 64, 2, 5)):
+    cases = ([(spec, ("wgmma", "cuda_core"))
+              for spec in (pick, MacroSpec(256, 64, 2, 5))]
+             + [(MacroSpec(*a), ("cuda_core", "mma")) for a in ACIM_SMALL_N]
+             + [(MacroSpec(*ACIM_CUDA_CORE_MACRO), ("cuda_core",))])
+    rows, by_n = {}, {}
+    for spec, routes in cases:
         n, b = spec.n_caps, spec.b_adc
         delta = 2.0 * n / 2 ** b
         for m, k, c in ACIM_SHAPES:
-            x = torch.tensor(rng.choice([-1.0, 1.0], (m, k)),
-                             dtype=torch.float32, device=dev)
-            w = torch.tensor(rng.choice([-1.0, 1.0], (k, c)),
-                             dtype=torch.float32, device=dev)
-            xf = torch.rand((m, k), device=dev) * 2 - 1
-            wm = am.mismatch_weights(w, spec, torch.randn((k, c), device=dev),
-                                     NoiseParams.from_cal())
+            x, w, xf, wm = _acim_operands(dev, rng, m, k, c, spec)
             want = am_ref.acim_matmul_ref(x, w, n=n, b_adc=b)
             want_m = am_ref.acim_matmul_ref(x, wm, n=n, b_adc=b)
             want_f = am_ref.acim_matmul_ref(xf, wm, n=n, b_adc=b)
             plain_ms = cuda_ms(lambda: am_ref.acim_matmul_ref(
                 x, wm, n=n, b_adc=b), 5)
-            f32_ms = cuda_ms(lambda: torch.matmul(x, wm), 20)
-            xb, wb = x.bfloat16(), wm.bfloat16()
-            bf16_ms = cuda_ms(lambda: torch.matmul(xb, wb), 20)
-            print(f"scale acim_matmul ({m}, {k}, {c}): the product without "
-                  f"the ADC, not the same function (never called by the "
-                  f"port): f32 torch.matmul {f32_ms:.4f} ms, bf16 "
-                  f"torch.matmul {bf16_ms:.4f} ms", flush=True)
-            nbytes = (m * k + k * c + m * c) * 4
-            for route, fn in run.items():
+            if n == pick.n_caps:
+                f32_ms = cuda_ms(lambda: torch.matmul(x, wm), 20)
+                xb, wb = x.bfloat16(), wm.bfloat16()
+                bf16_ms = cuda_ms(lambda: torch.matmul(xb, wb), 20)
+                print(f"scale acim_matmul ({m}, {k}, {c}): the product "
+                      f"without the ADC, not the same function (never "
+                      f"called by the port): f32 torch.matmul {f32_ms:.4f} "
+                      f"ms, bf16 torch.matmul {bf16_ms:.4f} ms", flush=True)
+            passes = _term_passes(x, wm)
+            res = {}
+            for route in routes:
+                fn = run[route]
                 got = fn(x, w, n, b)
                 torch.cuda.synchronize()
                 check(torch.equal(got, want),
@@ -1161,36 +1230,52 @@ def acim_kernel_check(dev, rng) -> list[dict]:
                       f"acim_matmul {route}: {share:.2e} / {share_f:.2e} of "
                       f"outputs flipped on mismatch-folded ({m}, {k}, {c}), "
                       f"N={n}, B={b} (+-1 / float x)")
-                ms = cuda_ms(lambda: fn(x, wm, n, b), 20)
-                b_f32, _ = bound(nbytes, 2 * m * k * c)
+                res[route] = dict(share=max(share, share_f), turns=[],
+                                  err=float((got - want).abs().max()))
+            # in turns: first, second, second, first
+            for route in (routes + routes[::-1]) * 2:
+                res[route]["turns"].append(
+                    cuda_ms(lambda: run[route](x, wm, n, b), 20))
+            for route in routes:
+                t = sorted(res[route]["turns"])[len(res[route]["turns"]) // 2]
+                b_ms, b_by, side = acim_bound(m, k, c, n, passes)
+                extra = f"; {passes} bf16 passes"
                 if route == "wgmma":
-                    passes = _term_passes(x, wm)
-                    b_ms, b_by = bound(nbytes, passes * 2 * m * k * c,
-                                       PEAK_BF16_TC_FLOPS)
-                    extra = (f"bound {b_ms:.4f} ms ({b_by}: {passes} bf16 "
-                             f"passes at the tensor-core peak; one f32 FFMA "
-                             f"pass {b_f32:.4f} ms); splits "
-                             f"{ak.split_k(m, c, k, n, sms)}")
+                    extra += f"; splits {ak.split_k(m, c, k, n, sms)}"
+                elif route == "mma":
+                    extra += (f"; ADC at {ACIM_KERNEL_ADC_INSTR} "
+                              f"instructions {side['bound_adc3_ms']:.5f} ms;"
+                              f" splits {ak.mma_split_k(m, c, k, sms)}")
                 else:
-                    b_ms, b_by = bound(nbytes, 2 * m * k * c)
-                    extra = f"bound {b_ms:.4f} ms ({b_by}: f32 FFMA)"
+                    extra += (f"; products and ADC on one CUDA-core pipe "
+                              f"{side['bound_cuda_core_pipe_ms']:.5f} ms")
                 print(f"kernel acim_matmul_{route}: equal to plain on +-1 "
                       f"({m}, {k}, {c}), N={n}, B={b}; mismatch-folded: "
-                      f"{share:.2e} (+-1 x) and {share_f:.2e} (float x) of "
-                      f"outputs whole ADC steps apart; {ms:.4f} ms vs plain "
-                      f"{plain_ms:.4f} ms, {extra}", flush=True)
+                      f"{res[route]['share']:.2e} of outputs (+-1 or float x, "
+                      f"the larger) whole ADC steps apart; {t:.5f} ms "
+                      f"(turns {[round(v, 5) for v in res[route]['turns']]}) "
+                      f"vs plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                      f"({b_by}){extra}", flush=True)
+                by_n.setdefault(route, {})[f"N{n}B{b} {m}x{k}x{c}"] = dict(
+                    ms=t, bound_ms=b_ms, **side)
                 name = f"acim_matmul_{route}"
-                if name not in rows:   # the main path's first shape and pick
+                src = "acim_matmul" if route == "cuda_core" else name
+                served = {"wgmma": n == pick.n_caps,
+                          "mma": (n, b) == ACIM_SMALL_N_ROW,
+                          "cuda_core": n % 16 and n not in ak.MMA_N}[route]
+                if served and name not in rows:   # the first shape
                     rows[name] = dict(
                         name=name, route="cuda",
-                        source=("src/repro_torch/csrc/acim_matmul_wgmma.cu"
-                                if route == "wgmma" else
-                                "src/repro_torch/csrc/acim_matmul.cu"),
+                        source=f"src/repro_torch/csrc/{src}.cu",
                         replaces="src/repro/kernels/acim_matmul/kernel.py:60",
-                        max_abs_err=float((got - want).abs().max()), ms=ms,
+                        max_abs_err=res[route]["err"], ms=t,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None, bound_f32_ms=b_f32,
-                        flip_share=max(share, share_f))
+                        library_ms=None, n=n, b=b,
+                        bound_f32_ms=bound((m * k + k * c + m * c) * 4,
+                                           2 * m * k * c)[0],
+                        **side, flip_share=res[route]["share"])
+    for name, row in rows.items():
+        row["by_n"] = by_n[name.removeprefix("acim_matmul_")]
     return list(rows.values())
 
 
@@ -1789,12 +1874,40 @@ def train_phase() -> dict:
     print(f"train check: step-0 loss at {CPU_CHECK_LAYERS} layers, card vs "
           f"CPU plain, rel diff {rel:.2e} (rtol {CPU_CHECK_RTOL})", flush=True)
 
-    # the CUDA-core route's path: a macro whose chunk is no whole k16 step
-    # (N 8, the explorer's narrow macros), the same step-0 check
+    # the mma route's path: the same trainer at full width on a macro of
+    # the 1 kb exhaustive front whose chunk is N 8 (NARROW_MACRO_ARGS)
     from repro_torch.core.acim_spec import MacroSpec
 
     spec_n = MacroSpec(*NARROW_MACRO_ARGS)
     narrow = CIMConfig(spec_n)
+    LAUNCHES.clear()
+    log_n = acim_lm.train(init_lm(cfg, seed=0), cfg, narrow,
+                          steps=TRAIN["steps"], seq=TRAIN["seq"],
+                          batch=TRAIN["batch"], lr=TRAIN["lr"],
+                          log=lambda s_: print("  " + s_))
+    torch.cuda.synchronize()
+    narrow_launches = dict(LAUNCHES)
+    losses_n = log_n.losses
+    check(all(math.isfinite(v) for v in losses_n),
+          f"non-finite loss on {spec_n}: {losses_n}")
+    n_mma = narrow_launches.get("acim_matmul_mma", 0)
+    check(n_mma == want_n and narrow_launches.get("acim_matmul", 0) == want_n
+          and narrow_launches.get("acim_matmul_wgmma", 0) == 0
+          and narrow_launches.get("acim_matmul_cuda_core", 0) == 0,
+          f"N {spec_n.n_caps} run launches: {narrow_launches}, want "
+          f"{want_n} acim_matmul_mma and no other acim_matmul route")
+    steady_n = log_n.step_s[1:]
+    step_ms_n = 1e3 * sum(steady_n) / len(steady_n)
+    print(f"train narrow run: {spec_n} (N={spec_n.n_caps}, B="
+          f"{spec_n.b_adc}), {TRAIN['steps']} steps at full width: loss "
+          f"{losses_n[0]:.4f} -> {losses_n[-1]:.4f} (last below first: "
+          f"{losses_n[-1] < losses_n[0]}); step {1e3 * log_n.step_s[0]:.1f} "
+          f"ms first, {step_ms_n:.2f} ms mean of steps 1-"
+          f"{TRAIN['steps'] - 1} (the pick's {step_ms:.2f}); "
+          f"acim_matmul_mma {n_mma} launches", flush=True)
+    print(f"train narrow losses: {[round(v, 4) for v in losses_n]}")
+
+    # step 0 on the card against the CPU on that macro
     losses0 = []
     for dev in (model.emb.device, torch.device("cpu")):
         m_ = init_lm(cut, seed=0, device=dev)
@@ -1804,22 +1917,23 @@ def train_phase() -> dict:
             losses0.append(float(acim_lm.loss_fn(m_, b_, cut, narrow)))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            narrow_launches = dict(LAUNCHES)
+            check_launches = dict(LAUNCHES)
     card, host = losses0
     rel = abs(card - host) / abs(host)
-    n_cc = narrow_launches.get("acim_matmul_cuda_core", 0)
-    check(n_cc == 2 * cut.n_layers
-          and narrow_launches.get("acim_matmul_wgmma", 0) == 0,
-          f"N {spec_n.n_caps} forward launches: {narrow_launches}")
+    check(check_launches.get("acim_matmul_mma", 0) == 2 * cut.n_layers
+          and check_launches.get("acim_matmul", 0) == 2 * cut.n_layers,
+          f"N {spec_n.n_caps} forward launches: {check_launches}")
     check(math.isfinite(card) and rel <= CPU_CHECK_RTOL,
           f"N {spec_n.n_caps} step-0 loss on the card {card} vs CPU "
           f"{host}: rel {rel:.2e}")
     print(f"train route check: {spec_n} (N={spec_n.n_caps}) at "
-          f"{CPU_CHECK_LAYERS} layers: acim_matmul_cuda_core {n_cc} "
-          f"launches; step-0 loss card vs CPU rel diff {rel:.2e} (rtol "
-          f"{CPU_CHECK_RTOL})", flush=True)
+          f"{CPU_CHECK_LAYERS} layers: acim_matmul_mma "
+          f"{check_launches['acim_matmul_mma']} launches; step-0 loss card "
+          f"vs CPU rel diff {rel:.2e} (rtol {CPU_CHECK_RTOL})", flush=True)
     return {"acim_matmul_wgmma": launches["acim_matmul_wgmma"],
-            "acim_matmul_cuda_core": n_cc,
+            "acim_matmul_mma": n_mma,
+            "acim_matmul_cuda_core": launches.get("acim_matmul_cuda_core", 0)
+            + narrow_launches.get("acim_matmul_cuda_core", 0),
             "nsga2_evolve": launches["nsga2_evolve"]}
 
 
@@ -4161,8 +4275,9 @@ def main() -> int:
     rows = kernel_phase()
     launches = path_phase()
     train = train_phase()
-    launches.update(acim_matmul_wgmma=train["acim_matmul_wgmma"],
-                    acim_matmul_cuda_core=train["acim_matmul_cuda_core"])
+    launches.update({k: train[k] for k in ("acim_matmul_wgmma",
+                                           "acim_matmul_mma",
+                                           "acim_matmul_cuda_core")})
     flash_ms = next(r["ms"] for r in rows
                     if r["name"] == "flash_attention_wgmma")
     prefill_launches, params = prefill_phase(flash_ms)
@@ -4217,7 +4332,8 @@ def main() -> int:
     # route_slots' whole-bucket time and bound (its row's own are on the
     # cut its plain version runs); nsga2_evolve's fronts peeled;
     # dominance_matrix's profiler device time and the launch floor;
-    # acim_matmul's one-pass f32 bound and its ADC-flip share; the
+    # acim_matmul's one-pass f32 bound, its bound with the mma kernel's
+    # own ADC and that of one CUDA-core pipe, and its ADC-flip share; the
     # service phase's launches of nsga2_evolve and route_slots;
     # wavefront's BFS levels and ms a level, its launches by path and its
     # time and levels at the per-net shape; nds_rank's profiler device
@@ -4226,8 +4342,10 @@ def main() -> int:
     # beside the
     # (192, 128) instantiation; the (256, 256) instantiation at prefix 0;
     # the 3xTF32 flash kernel's FFMA bound and its bf16 head-dim-32 case
-    extra = ("bucket_ms", "bucket_bound_ms", "fronts", "device_ms",
-             "floor_ms", "floor_device_ms", "bound_f32_ms", "flip_share",
+    extra = ("n", "b", "by_n", "bucket_ms", "bucket_bound_ms", "fronts",
+             "device_ms",
+             "floor_ms", "floor_device_ms", "bound_f32_ms", "bound_adc3_ms",
+             "bound_cuda_core_pipe_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
              "levels", "ms_per_level", "net_ms", "net_plain_ms",
              "net_bound_ms", "net_levels", "net_ms_per_level",

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("pareto_dom", "maze_route", "acim_matmul", "acim_matmul_wgmma",
-           "flash_attention", "flash_attention_wgmma")
+           "acim_matmul_mma", "flash_attention", "flash_attention_wgmma")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,22 +1,26 @@
 """`ctypes` wrappers of the acim_matmul CUDA kernels.
 
-Both replace `repro.kernels.acim_matmul.kernel.acim_matmul_kernel` (the
+All replace `repro.kernels.acim_matmul.kernel.acim_matmul_kernel` (the
 bit-serial QR macro: per N-row chunk an exact float32 partial sum through
-the SAR ADC, chunks accumulated digitally).  Two routes, chosen by the
+the SAR ADC, chunks accumulated digitally).  Three routes, chosen by the
 chunk size N (`route`):
 
 - "wgmma" (`csrc/acim_matmul_wgmma.cu`), N a multiple of 16: bf16 tensor
   cores on an exact three-term split of each float32 operand, the ADC in
   registers, K split across CTAs at chunk boundaries where that keeps the
   sum exact (`split_k`);
-- "cuda_core" (`csrc/acim_matmul.cu`), every other N (the explorer's
-  space holds N = 4 and 8): float32 FFMA on the CUDA cores.
+- "mma" (`csrc/acim_matmul_mma.cu`), N 2, 4 and 8 (the explorer's narrow
+  macros): `mma.sync` m16n8k8 on the same split, one chunk a k8 step's
+  lanes, the ADC in three instructions a conversion, K split across CTAs
+  in whole k-tiles (`mma_split_k`);
+- "cuda_core" (`csrc/acim_matmul.cu`), every other N (12, 24, 40, ...:
+  no macro of the explorer's space): float32 FFMA on the CUDA cores.
 
 For tensors on the CPU `acim_matmul` runs the plain version (`ref.py`);
 for CUDA tensors it launches the route's kernel, counts the launch in
 `repro_torch.kernels.LAUNCHES["acim_matmul"]` and under the route's own
-key (`acim_matmul_wgmma`, `acim_matmul_cuda_core`), and raises on a
-launch error.
+key (`acim_matmul_wgmma`, `acim_matmul_mma`, `acim_matmul_cuda_core`),
+and raises on a launch error.
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ from repro_torch.kernels.acim_matmul import ref
 
 # The wgmma kernel's output tile; split_k fills the card with these.
 TILE_M = TILE_N = 128
+# The mma kernel's output tile and k-tile, and the chunk sizes it takes.
+MMA_TILE_M, MMA_TILE_N, MMA_TILE_K = 128, 64, 32
+MMA_N = (2, 4, 8)
 
 _FNS: dict = {}
 _FNS_LOCK = threading.Lock()   # first calls may race from several threads
@@ -51,8 +58,11 @@ def _fn(name: str):
 
 def route(n: int) -> str:
     """The kernel that runs chunk size `n`: "wgmma" (tensor cores) where
-    a chunk is whole k16 steps, else "cuda_core"."""
-    return "wgmma" if n % 16 == 0 else "cuda_core"
+    a chunk is whole k16 steps, "mma" (tensor cores, a chunk the lanes of
+    a k8 step) at N 2, 4 and 8, else "cuda_core"."""
+    if n % 16 == 0:
+        return "wgmma"
+    return "mma" if n in MMA_N else "cuda_core"
 
 
 def split_k(m: int, c: int, k: int, n: int, sms: int) -> int:
@@ -65,6 +75,23 @@ def split_k(m: int, c: int, k: int, n: int, sms: int) -> int:
     if n & (n - 1) or chunks < 2 or tiles == 0 or tiles >= sms:
         return 1
     return max(1, min(chunks, sms // tiles))
+
+
+def mma_split_k(m: int, c: int, k: int, sms: int) -> int:
+    """How many CTAs share an output tile's K on the mma route (whole
+    k-tiles; every N it takes is a power of two, so the cross-CTA sum is
+    exact in any order).  Where the grid has fewer tiles than SMs, the
+    fewest splits s (up to 8) whose busiest SM's share of the work,
+    ceil(tiles s / sms) / s of a tile's, is within 5 % of the least: at
+    the FFN's down projection (96 tiles of 128 x 64, 132 SMs) 4 splits,
+    384 CTAs (0.75 of a tile an SM against 1 for 1-3 splits)."""
+    k_tiles = -(-k // MMA_TILE_K)
+    tiles = -(-m // MMA_TILE_M) * -(-c // MMA_TILE_N)
+    if k_tiles < 2 or tiles == 0 or tiles >= sms:
+        return 1
+    load = {s: -(-tiles * s // sms) / s for s in range(1, min(8, k_tiles) + 1)}
+    least = min(load.values())
+    return min(s for s, v in load.items() if v <= 1.05 * least)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, n: int, b_adc: int) -> None:
@@ -86,13 +113,17 @@ def acim_matmul(x: torch.Tensor, w: torch.Tensor, n: int,
                 b_adc: int) -> torch.Tensor:
     """x: (M, K) float32, w: (K, C) float32, both contiguous on one
     device, K a multiple of the chunk size `n` (ops pads; on the wgmma
-    route also C to a multiple of 4).  Returns (M, C) float32: y = sum
-    over K-chunks of ADC_b(x_c @ w_c), on `route(n)`'s kernel."""
+    route also C to a multiple of 4, on the mma route K and C).  Returns
+    (M, C) float32: y = sum over K-chunks of ADC_b(x_c @ w_c), on
+    `route(n)`'s kernel."""
     _check(x, w, n, b_adc)
     if x.device.type == "cpu":
         return ref.acim_matmul_ref(x, w, n=n, b_adc=b_adc)
-    if route(n) == "wgmma":
+    r = route(n)
+    if r == "wgmma":
         return acim_matmul_wgmma(x, w, n, b_adc)
+    if r == "mma":
+        return acim_matmul_mma(x, w, n, b_adc)
     return acim_matmul_cuda_core(x, w, n, b_adc)
 
 
@@ -147,4 +178,33 @@ def acim_matmul_wgmma(x: torch.Tensor, w: torch.Tensor, n: int, b_adc: int,
                   x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, c, n,
                   b_adc, splits)
     _count("acim_matmul_wgmma")
+    return out
+
+
+def acim_matmul_mma(x: torch.Tensor, w: torch.Tensor, n: int, b_adc: int,
+                    splits: int | None = None) -> torch.Tensor:
+    """The tensor-core kernel for N 2, 4 and 8, CUDA tensors only: K % 4
+    == 0 and C % 4 == 0 (16-byte rows), both operands 16-byte aligned.
+    `splits` CTAs share each output tile's K (default `mma_split_k`)."""
+    _check(x, w, n, b_adc)
+    m, k = x.shape
+    c = w.shape[1]
+    if n not in MMA_N or k % 4 or c % 4:
+        raise ValueError(f"the mma route needs N in {MMA_N}, K % 4 == 0 and "
+                         f"C % 4 == 0; got N={n}, K={k}, C={c}")
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits={splits}")
+    out = _out(x, w)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("the mma route loads 16-byte pieces: x and w must "
+                         "be 16-byte aligned")
+    if out.numel() == 0:
+        return out
+    if splits is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = mma_split_k(m, c, k, sms)
+    _build.launch(x, _fn("acim_matmul_mma"), "acim_matmul_mma",
+                  x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, c, n,
+                  b_adc, splits)
+    _count("acim_matmul_mma")
     return out

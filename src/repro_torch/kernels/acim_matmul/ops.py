@@ -1,10 +1,11 @@
 """Public acim_matmul entry points: fold the leading dims into M, zero-pad
 K to a multiple of the chunk size N (zero rows are caps held at V_CM,
-contributing no charge) and, on the wgmma route, C to a multiple of 4,
-call the kernel wrapper (which picks the route); fold the static
-capacitor mismatch (Eq. 5) into the weights; and a straight-through
-gradient so the simulated macro can sit inside a training graph
-(`repro_torch.quant.cim_linear`).
+contributing no charge; on the mma route to a multiple of 4 too: a
+chunk of zeros converts to exactly 0) and, on the tensor-core routes, C
+to a multiple of 4, call the kernel wrapper (which picks the route);
+fold the static capacitor mismatch (Eq. 5) into the weights; and a
+straight-through gradient so the simulated macro can sit inside a
+training graph (`repro_torch.quant.cim_linear`).
 """
 from __future__ import annotations
 
@@ -37,13 +38,14 @@ def acim_matmul(x: torch.Tensor, w: torch.Tensor,
     c = w.shape[-1]
     xm = x.reshape(-1, k).to(torch.float32)
     wm = w.to(torch.float32)
-    pad = (-k) % n
+    route = kernel.route(n)
+    # The tensor-core routes load rows as 16-byte vectors: zero columns to
+    # a multiple of 4, cut off again below (and on the mma route K too).
+    pad = (-k) % (max(n, 4) if route == "mma" else n)
     if pad:
         xm = F.pad(xm, (0, pad))
         wm = F.pad(wm, (0, 0, 0, pad))
-    # The wgmma route loads w's rows as 16-byte vectors: zero columns to a
-    # multiple of 4, cut off again below.
-    cpad = (-c) % 4 if kernel.route(n) == "wgmma" else 0
+    cpad = (-c) % 4 if route in ("wgmma", "mma") else 0
     if cpad:
         wm = F.pad(wm, (0, cpad))
     y = kernel.acim_matmul(xm.contiguous(), wm.contiguous(), n, b_adc)

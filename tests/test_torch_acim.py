@@ -156,7 +156,11 @@ def test_quantize_symmetric_and_binarize(bits):
 # ---------------------------------------------------------------------------
 # kernels.acim_matmul (on the CPU: the wrapper's plain version)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("m,k,c,n,b", SHAPES)
+# The chunk sizes of the mma route (N 8, 4, 2; a macro has N >= 2^B).
+SMALL_N_SHAPES = [(16, 64, 16, 8, 3), (7, 100, 33, 4, 2), (5, 64, 130, 2, 1)]
+
+
+@pytest.mark.parametrize("m,k,c,n,b", SHAPES + SMALL_N_SHAPES)
 def test_acim_matmul_bit_equal_to_jax(m, k, c, n, b):
     x, w = _pm1(m * 7 + k, (m, k)), _pm1(k * 5 + c, (k, c))
     want = rk.acim_matmul(jnp.asarray(x), jnp.asarray(w),

@@ -128,7 +128,8 @@ def test_model_on_mismatch_weights_within_whole_deltas(m, k, c, n, b, splits,
                          2.0 * n / 2 ** b)
 
 
-@pytest.mark.parametrize("n,want", [(4, "cuda_core"), (8, "cuda_core"),
+@pytest.mark.parametrize("n,want", [(4, "mma"), (8, "mma"), (2, "mma"),
+                                    (12, "cuda_core"), (24, "cuda_core"),
                                     (16, "wgmma"), (48, "wgmma"),
                                     (256, "wgmma"), (2048, "wgmma")])
 def test_route(n, want):
@@ -148,7 +149,7 @@ def test_split_k():
 def test_wrapper_refuses_bad_operands():
     x, w = torch.ones(4, 64), torch.ones(64, 8)
     for fn in (tkernel.acim_matmul, tkernel.acim_matmul_wgmma,
-               tkernel.acim_matmul_cuda_core):
+               tkernel.acim_matmul_mma, tkernel.acim_matmul_cuda_core):
         with pytest.raises(ValueError, match="K % n"):
             fn(x[:, :60].contiguous(), w[:60], 32, 3)
         with pytest.raises(ValueError, match="float32"):
@@ -166,6 +167,14 @@ def test_wrapper_refuses_bad_operands():
         tkernel.acim_matmul_wgmma(x, w, 32, 3)
     with pytest.raises(ValueError, match="run on cuda"):
         tkernel.acim_matmul_cuda_core(x, w, 32, 3)
+    with pytest.raises(ValueError, match="N in"):       # other N
+        tkernel.acim_matmul_mma(x, w, 16, 3)
+    with pytest.raises(ValueError, match="K % 4"):
+        tkernel.acim_matmul_mma(torch.ones(4, 6), torch.ones(6, 8), 2, 1)
+    with pytest.raises(ValueError, match="C % 4"):
+        tkernel.acim_matmul_mma(x, w[:, :6].contiguous(), 8, 3)
+    with pytest.raises(ValueError, match="run on cuda"):
+        tkernel.acim_matmul_mma(x, w, 8, 3)
 
 
 @pytest.mark.parametrize("n", [16, 8])

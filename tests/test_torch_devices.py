@@ -29,7 +29,8 @@ KERNELS = pathlib.Path(pd.__file__).resolve().parents[1]
 # C entry points that launch a kernel, by wrapper file
 ENTRIES = {"pareto_dom": {"nds_rank", "dominance_matrix", "nsga2_evolve"},
            "maze_route": {"wavefront", "trace_paths", "route_slots"},
-           "acim_matmul": {"acim_matmul", "acim_matmul_wgmma"},
+           "acim_matmul": {"acim_matmul", "acim_matmul_wgmma",
+                           "acim_matmul_mma"},
            "flash_attention": {"name"}}   # `_fn(name)`: both routes
 
 
@@ -137,6 +138,7 @@ def test_wrappers_launch_on_their_tensors_device(launches):
     w = torch.empty((32, 16), device=meta)
     am.acim_matmul_cuda_core(x, w, 16, 4)
     am.acim_matmul_wgmma(x, w, 16, 4, splits=1)
+    am.acim_matmul_mma(x, w, 8, 3, splits=1)
     q = torch.empty((1, 64, 2, 64), dtype=torch.bfloat16, device=meta)
     kv = torch.empty((1, 64, 1, 64), dtype=torch.bfloat16, device=meta)
     fa.flash_attention_tf32x3(q.float(), kv.float(), kv.float())
@@ -144,6 +146,7 @@ def test_wrappers_launch_on_their_tensors_device(launches):
     assert launches == [
         ("nds_rank", meta), ("dominance_matrix", meta), ("wavefront", meta),
         ("acim_matmul", meta), ("acim_matmul_wgmma", meta),
+        ("acim_matmul_mma", meta),
         ("flash_attention", meta), ("flash_attention_wgmma", meta)]
 
 

@@ -512,20 +512,31 @@ def _acim_route(route, x, w, spec):
     k, c = w.shape
     wp = torch.nn.functional.pad(w, (0, (-c) % 4, 0, (-k) % n))
     xp = torch.nn.functional.pad(x, (0, (-k) % n)).contiguous()
-    fn = (am_kernel.acim_matmul_wgmma if route == "wgmma"
-          else am_kernel.acim_matmul_cuda_core)
+    if route == "mma":       # K to a multiple of 4 too, as ops pads it
+        kp = (-k) % max(n, 4)
+        wp = torch.nn.functional.pad(w, (0, (-c) % 4, 0, kp))
+        xp = torch.nn.functional.pad(x, (0, kp)).contiguous()
+    fn = {"wgmma": am_kernel.acim_matmul_wgmma,
+          "mma": am_kernel.acim_matmul_mma,
+          "cuda_core": am_kernel.acim_matmul_cuda_core}[route]
     return fn(xp, wp.contiguous(), n, b)[:, :c]
 
 
 # (route, spec): the wgmma route takes N % 16 == 0: N 16 (a chunk of one
 # k16 step), 48 (not a power of two: no split-K), 128, 256 (the pick),
-# 2048 (a chunk longer than the k-tile); the CUDA-core route any N.
+# 2048 (a chunk longer than the k-tile); the mma route N 8, 4 and 2 (a
+# k8 step one chunk, two or four, the 1 kb front's N 8 / B 3 and N 4 /
+# B 2, and its N 8 / B 1, where every +-1 chunk sum of -4 lies on an ADC
+# decision boundary before the mismatch and the kernel joins the hi
+# product apart); the CUDA-core route any N.
 ACIM_ROUTE_SPECS = [
     ("wgmma", (256, 64, 2, 5)), ("wgmma", (512, 32, 2, 4)),
     ("wgmma", (32, 64, 2, 3)), ("wgmma", (96, 64, 2, 4)),
     ("wgmma", (4096, 64, 2, 6)),
+    ("mma", (128, 8, 16, 3)), ("mma", (128, 8, 32, 2)),
+    ("mma", (64, 16, 32, 1)), ("mma", (128, 8, 16, 1)),
     ("cuda_core", (256, 64, 2, 5)), ("cuda_core", (512, 32, 2, 4)),
-    ("cuda_core", (8, 64, 2, 2))]
+    ("cuda_core", (8, 64, 2, 2)), ("cuda_core", (48, 64, 2, 3))]
 
 
 # Macros whose mismatch-folded outputs are also held within 1e-3 of the
@@ -535,7 +546,9 @@ ACIM_ROUTE_SPECS = [
 # ones (H100 run); there, and everywhere, the bound is held against the
 # exact (float64) macro.
 ACIM_PLAIN_BOUND_SPECS = [MacroSpec(256, 64, 2, 5), MacroSpec(512, 32, 2, 4),
-                          MacroSpec(8, 64, 2, 2)]
+                          MacroSpec(8, 64, 2, 2), MacroSpec(128, 8, 16, 3),
+                          MacroSpec(128, 8, 32, 2), MacroSpec(64, 16, 32, 1),
+                          MacroSpec(128, 8, 16, 1)]
 
 
 @pytest.mark.parametrize("m,k,c", [(1024, 768, 3072), (1024, 3072, 768),
@@ -603,6 +616,49 @@ def test_acim_matmul_wgmma_splits_k(dev):
     for splits in (1, 2, 5, 12):
         assert torch.equal(am_kernel.acim_matmul_wgmma(x, w, 256, 4, splits),
                            want)
+
+
+def test_acim_matmul_mma_splits_k(dev):
+    """The FFN's down projection takes split-K on the mma route; every
+    split factor gives the same bits on +-1 operands, and a ragged K / C
+    (zero k-tiles past K, columns past C) too."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert am_kernel.mma_split_k(1024, 768, 3072, sms) > 1
+    g = torch.Generator(device=dev).manual_seed(2)
+    for m, k, c in ((1024, 3072, 768), (200, 1000, 100)):
+        x = torch.where(torch.rand((m, k), generator=g, device=dev) < 0.5,
+                        1.0, -1.0)
+        w = torch.where(torch.rand((k, c), generator=g, device=dev) < 0.5,
+                        1.0, -1.0)
+        for n, b in ((8, 3), (4, 2), (2, 1), (8, 1), (4, 1)):
+            want = am_ref.acim_matmul_ref(x, w, n=n, b_adc=b)
+            for splits in (1, 2, 3, 7):
+                assert torch.equal(
+                    am_kernel.acim_matmul_mma(x, w, n, b, splits), want)
+
+
+def test_trainer_forward_runs_the_mma_route(dev):
+    """A CIM trainer forward on MacroSpec(128, 8, 16, 3) (N 8, B 3, a
+    point of the 1 kb exhaustive front): every acim_matmul launch is on
+    the mma route, two per layer, and the loss equals the CPU's within
+    the step-0 check's rtol."""
+    cfg = acim_lm.build_cfg(64, 2)
+    cim = CIMConfig(MacroSpec(128, 8, 16, 3))
+    batch = batch_for(cfg, 32, 2, 0)
+    losses = []
+    for d in (dev, torch.device("cpu")):
+        model = init_lm(cfg, seed=0, device=d)
+        LAUNCHES.clear()
+        with torch.no_grad():
+            losses.append(float(acim_lm.loss_fn(
+                model, {k: v.to(d) for k, v in batch.items()}, cfg, cim)))
+        if d.type == "cuda":
+            assert LAUNCHES["acim_matmul"] == LAUNCHES["acim_matmul_mma"] \
+                == 2 * cfg.n_layers
+            assert LAUNCHES["acim_matmul_wgmma"] == 0
+            assert LAUNCHES["acim_matmul_cuda_core"] == 0
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
 
 
 def test_trainer_forward_runs_the_wgmma_route(dev):
