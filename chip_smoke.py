@@ -121,7 +121,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              per layer.
 5. prefill — `make_prefill_step(qwen2.5-3b, prefill_32k)` at full width
              (36 layers, d 2048, vocab 151,936) with bf16 serving
-             weights drawn from seed 0 (CPU generator), on synthetic tokens
+             weights drawn from seed 0 on the card, on synthetic tokens
              at batch 1 x 32768 (the shape's batch of 32 cut to 1: its
              logits alone are 9.96 GB a sequence): a warm-up prefill and
              a timed one, then batch 4 x 4096.  Logits must be finite and
@@ -130,8 +130,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              one full-width layer at S 4096: `attention_fwd_blockwise`
              against the dense `attention_fwd` (rel L2 2e-2: the dense
              path rounds scores and probabilities to bf16); and a
-             2-layer full-width model at seq 512 with the same CPU-drawn
-             weights on the card and on the CPU: last-position logits
+             2-layer full-width model at seq 512 with the same weights
+             (drawn on the card, copied) on the card and on the CPU: last-position logits
              within rel L2 5e-2 (both backbones are bf16), argmax
              agreement printed.  Last, the 3xTF32 route's path: the
              reduced qwen2.5 (head dim 16) prefill at 2 x 300 on the
@@ -211,8 +211,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              at >= 0.9 of them.  The script's wall time is printed
              before phase 8 and after phase 9.
 10. train  — the training stack on qwen2.5-3b at full width (3.397 G
-             float32 master parameters from seed 0, the serving weights of
-             phases 5 and 9 freed first): (a) `make_train_step(remat=True)`
+             float32 master parameters drawn from seed 0 on the card, the
+             serving weights of phases 5 and 9 freed first): (a) `make_train_step(remat=True)`
              with the default AdamW for 5 steps of `SyntheticStream`
              batches at the launcher's defaults (8 x 256), then 2 steps of
              `train_4k` cut to 4 sequences with its 4 microbatches: ms a
@@ -318,16 +318,58 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              (batch 1, 524,288 positions, 48.3 GB of shared caches): 8
              steps, finite logits, ms a step against the bytes bound,
              peak memory.  (f) One group (6 Mamba2 layers, one shared
-             call) at full width, 512 tokens, weights drawn on the CPU,
-             card against CPU: last-position logits (rel L2 5e-2),
+             call) at full width, 512 tokens, the same weights on the
+             card and on the CPU: last-position logits (rel L2 5e-2),
              argmax equal.  (g) The reduced config (shared attention at
              head dim 16, chunk 16) at 2 x 320 on the card: one 3xTF32
              launch per shared call, logits within rel L2 5e-2 of the CPU
-             run.
-14. report — one JSON line of per-kernel numbers (the `wavefront` row's
+             run.  The script's wall time is printed after phases 10-15.
+14. dense  — the dense family's other configs (every earlier phase's
+             weights freed first, each model freed before the next):
+             qwen3-8b (36 layers, 32 heads over 8 KV heads, QK norm),
+             codeqwen1.5-7b (32 layers, 32 heads over 32, QKV bias) and
+             granite-34b (88 layers, 48 heads over 1, learned positions,
+             LayerNorm, GELU MLP with biases; 34.17 G parameters, 68.3 GB
+             of bf16 weights), each at full width and depth with bf16
+             weights drawn from seed 0 on the card.  (a)
+             `make_prefill_step` at prefill_32k cut to batch 1 (a warm-up
+             and a timed prefill), then 4 x 4096 (granite's learned
+             positions reach 4095 in every row): finite logits, exactly
+             one `flash_attention_wgmma` (128, 128) launch a layer (36, 32
+             and 88) and no 3xTF32 launch; seconds, tokens/s, peak
+             memory.  (b) `ServeEngine` on the same weights, phase 9's six
+             requests.  (c) teacher-forced `decode_step` (granite's reads
+             `pos_emb` at each step) against the prefill on 64 tokens:
+             phase 9's bounds.  (d) 2 layers at full width, 512 tokens,
+             the same weights on the card and on the CPU: last-position
+             logits within rel L2 5e-2, argmax equal.
+15. family train — the hybrid and VLM families' train steps (every
+             earlier phase's weights freed first): zamba2-2.7b, then
+             paligemma-3b, at full width and depth with float32 masters
+             drawn from seed 0 on the card.  (a)
+             `make_train_step(remat=True)` (zamba2: a checkpoint a group
+             of 6 Mamba2 layers and its shared call, one a layer inside
+             it) with the default AdamW for 5 steps at 8 x 256
+             (paligemma's batches carry their 256 patches), then 2 steps
+             of `train_4k` with its microbatches, cut to 8 sequences in 8
+             for zamba2, to 4 in 4 for paligemma (at 8 its float32 CE
+             over 257,216 entries runs out of memory: FAMILY_TRAIN): ms a
+             step, tokens/s, peak
+             memory, finite losses and grad norms, no launch of a kernel
+             of ours, and step 0's loss against the CE of its batch
+             through the prefill path (blockwise attention, the (80, 80)
+             or (256, 256) instantiation) on the bf16 cast of the same
+             weights, within TRAIN_CE_RTOL.  (b) one group of zamba2 (6 Mamba2
+             layers, one shared call) and 2 layers of paligemma at full
+             width, 2 x 64 tokens, one step each as phase 10 (b): the
+             card against the CPU, two microbatches against one, remat
+             against none, within the TRAIN_CHECK_* bounds.
+16. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
-             its migration-shape time), the nvidia-smi line,
+             its migration-shape time; the (128, 128) flash row its
+             launches on each prefill path, phases 5 and 14, as
+             `launches_by_path`), the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -453,7 +495,7 @@ DECODE_RTOL = 5e-2         # rel L2 of each position's logits (bf16 both)
 DECODE_TOP1 = 0.9          # share of positions whose argmax agrees
 
 # Phase 10: the training stack on qwen2.5-3b at full width (3.397 G float32
-# master parameters from seed 0).  (a) the launcher's defaults (--seq 256
+# master parameters drawn from seed 0 on the card).  (a) the launcher's defaults (--seq 256
 # --batch 8) for 5 steps, then train_4k cut to 4 sequences (one card's
 # time; microbatches_for gives 4, one 4096-token sequence each) for 2.
 TRAIN_LM_STEPS, TRAIN_LM_SHAPE = 5, (8, 256)        # steps, (batch, seq)
@@ -533,6 +575,25 @@ HYBRID_LONG_STEPS = 8      # (e) long_500k decode steps at 524,288 positions
 HYBRID_CPU_SEQ = 512       # (f) one group at full width, card vs CPU
 HYBRID_CPU_RTOL = 5e-2     # rel L2 of the last position's logits
 HYBRID_SMALL_SEQ = 320     # (g) the reduced config's prefill (chunk 16)
+
+# Phase 14: the dense family's other configs at full width and depth, their
+# prefills on the (128, 128) tensor-core instantiation at GQA groups of 4
+# (qwen3-8b, 32 heads over 8), 1 (codeqwen1.5-7b, MHA) and 48 (granite-34b,
+# MQA, with learned positions); bf16 weights drawn on the card from seed 0.
+DENSE_CONFIGS = ("qwen3-8b", "codeqwen1.5-7b", "granite-34b")
+DENSE_INST = "flash_attention_wgmma_128_128"
+DENSE_SMALL_PREFILL = (4, 4096)
+
+# Phase 15: the hybrid and VLM families' train steps at full width and
+# depth (float32 masters drawn on the card from seed 0), as phase 10's:
+# (config, its prefill's instantiation, the sequences train_4k is cut to
+# (run in its microbatches), layers of the step-variant check: one group
+# of zamba2, two layers of paligemma).  paligemma's train_4k runs 4
+# sequences, one a microbatch: at two a microbatch the float32 CE over
+# its 257,216-entry vocabulary (7.85 GiB a copy, several live in its
+# backward) ran out of the card's memory beside the 40 GB train state.
+FAMILY_TRAIN = (("zamba2-2.7b", "flash_attention_wgmma_80_80", 8, 6),
+                ("paligemma-3b", "flash_attention_wgmma_256_256", 4, 2))
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -1994,6 +2055,36 @@ def _prefill(step, params, batch, cfg, what: str, tensor_cores: bool = True,
     return dt, n, logits if keep else None
 
 
+def _card_vs_cpu_prefill(cut, seq: int) -> tuple[float, tuple, float]:
+    """`cut` (a config cut to a few layers at full width) with bf16
+    weights drawn from seed 0 on the card and copied to the CPU, run on
+    both over one `seq`-token sequence (blockwise attention): (rel L2 of
+    the last position's logits card vs CPU, (card argmax, CPU argmax),
+    the draw and copy's seconds)."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
+
+    t0 = time.perf_counter()
+    card = init_lm(cut, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    host = copy.deepcopy(card).to("cpu")
+    draw_s = time.perf_counter() - t0
+    toks = batch_for(cut, seq, 1, 2)["inputs"]
+    last = []
+    for model, d in ((card, torch.device("cuda")),
+                     (host, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            hid, _ = lm_hidden(model, toks.to(d), cut, attn_impl="blockwise")
+            last.append(lm_logits(model, hid[:, -1:], cut).float().cpu())
+        print(f"  {cut.name} cut to {cut.n_layers} layers, prefill of {seq} "
+              f"tokens on {d}: {time.perf_counter() - t0:.2f} s", flush=True)
+    on_card, on_cpu = last
+    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+    return rel, (int(on_card.argmax()), int(on_cpu.argmax())), draw_s
+
+
 def prefill_phase(flash_ms: float) -> tuple[dict, object]:
     import torch
 
@@ -2003,19 +2094,18 @@ def prefill_phase(flash_ms: float) -> tuple[dict, object]:
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import attention as attn
     from repro_torch.models.common import apply_norm, causal_mask
-    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
+    from repro_torch.models.lm import init_lm
 
     dev = torch.device("cuda")
     cfg = registry.get(PREFILL_CONFIG)
     t0 = time.perf_counter()
-    params = init_lm(cfg, seed=0, dtype=torch.bfloat16)
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
     torch.cuda.synchronize()
     n_params = sum(p_.numel() for p_ in params.parameters())
     n_bytes = sum(p_.numel() * p_.element_size() for p_ in params.parameters())
     print(f"prefill init: {cfg.name}, {n_params:,} parameters, "
           f"{n_bytes / 1e9:.2f} GB serving weights, drawn from seed 0 on the "
-          f"CPU and moved layer by layer in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
 
     shape = dataclasses.replace(SHAPES["prefill_32k"], batch=PREFILL_BATCH)
     step = make_prefill_step(cfg, shape)
@@ -2060,31 +2150,17 @@ def prefill_phase(flash_ms: float) -> tuple[dict, object]:
           flush=True)
     del blk, x, h, dense, block
 
-    # the same CPU-drawn weights on the card and on the CPU
-    cut = dataclasses.replace(cfg, n_layers=PREFILL_CPU_LAYERS)
-    t0 = time.perf_counter()
-    host = init_lm(cut, seed=0, device="cpu", dtype=torch.bfloat16)
-    draw_s = time.perf_counter() - t0
-    card = copy.deepcopy(host).to(dev)
-    toks = batch_for(cut, PREFILL_CPU_SEQ, 1, 2)["inputs"]
-    last = []
-    for model, d in ((card, dev), (host, torch.device("cpu"))):
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            hid, _ = lm_hidden(model, toks.to(d), cut, attn_impl="blockwise")
-            last.append(lm_logits(model, hid[:, -1:], cut).float().cpu())
-        print(f"  {PREFILL_CPU_LAYERS}-layer prefill at seq {PREFILL_CPU_SEQ} "
-              f"on {d}: {time.perf_counter() - t0:.2f} s", flush=True)
-    on_card, on_cpu = last
-    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+    # the same weights on the card and on the CPU
+    rel, top, draw_s = _card_vs_cpu_prefill(
+        dataclasses.replace(cfg, n_layers=PREFILL_CPU_LAYERS), PREFILL_CPU_SEQ)
     check(math.isfinite(rel) and rel <= PREFILL_CPU_RTOL,
           f"prefill card vs CPU: last-position logits rel L2 {rel:.3e}")
     print(f"prefill check: {PREFILL_CPU_LAYERS} layers, full width, seq "
-          f"{PREFILL_CPU_SEQ} (weights drawn on the CPU in {draw_s:.1f} s): "
+          f"{PREFILL_CPU_SEQ} (weights drawn and copied in {draw_s:.1f} s): "
           f"last-position logits card vs CPU rel L2 {rel:.3e} (tolerance "
           f"{PREFILL_CPU_RTOL}), argmax "
-          f"{'agrees' if int(on_card.argmax()) == int(on_cpu.argmax()) else 'differs'}"
-          f" ({int(on_card.argmax())} vs {int(on_cpu.argmax())})", flush=True)
+          f"{'agrees' if top[0] == top[1] else 'differs'} ({top[0]} vs "
+          f"{top[1]})", flush=True)
 
     # the 3xTF32 route: a config whose head dim the bf16 tensor-core kernel
     # does not take (the reduced qwen2.5, head dim 16), card vs CPU
@@ -2934,8 +3010,8 @@ def _one_step(cfg, state, batch, **kw):
 
 
 def _copy_state(state, device):
-    """A train state's copy on `device` (fresh moments: the copies are of
-    step-0 states)."""
+    """A train state's copy on `device` (fresh default AdamW moments: the
+    copies are of step-0 states)."""
     from repro_torch.optim import adamw
 
     params = copy.deepcopy(state["params"]).to(device)
@@ -2945,133 +3021,89 @@ def _copy_state(state, device):
             "step": state["step"].to(device)}
 
 
-def lm_train_phase(card: str) -> dict:
-    """(a) full-width steps, (b) card-vs-CPU and the step's variants at 2
-    layers, (c) restart exactness on the reduced config."""
-    import shutil
-
+def _card_train_state(cfg) -> dict:
+    """A train state on the card: float32 masters drawn from seed 0 by the
+    card's generator (seconds; the CPU's takes ~10 s a G), zero AdamW
+    moments (the config's policy), step 0."""
     import torch
 
-    from repro_torch import convert
-    from repro_torch.checkpoint import ckpt
-    from repro_torch.configs import registry
-    from repro_torch.data.synthetic import batch_for
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.launch.shapes import SHAPES, ShapeSpec, microbatches_for
-    from repro_torch.launch.steps import make_prefill_step, make_train_step
-    from repro_torch.models import lm
-    from repro_torch.models.common import softmax_cross_entropy
-    from repro_torch.runtime.fault_tolerance import (RESTART_EXIT_CODE,
-                                                     PreemptionGuard)
-    from repro_torch.train.trainer import TrainerConfig, init_state, train
+    from repro_torch.launch.steps import default_opt_cfg
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import adamw
 
-    dev = torch.device("cuda")
-    t_phase = time.perf_counter()
-    cfg = registry.get(PREFILL_CONFIG)
-    torch.cuda.empty_cache()
-    # -- (a) full width: 3.397 G float32 masters, AdamW moments
-    (state, draw_ms) = _sync_ms(lambda: init_state(
-        cfg, TrainerConfig(seed=0), device=dev))
-    n_params = sum(p.numel() for p in state["params"].parameters())
-    check(n_params == cfg.n_params(), f"train: {n_params} parameters")
-    b, s = TRAIN_LM_SHAPE
-    batches = [batch_for(cfg, s, b, i, seed=0, device=dev)
-               for i in range(TRAIN_LM_STEPS)]
-    # step 0's loss against the CE of its batch through the prefill path
-    # (blockwise attention, flash_attention_wgmma) on the bf16 serving cast
-    # of the same weights
-    with torch.device("meta"):
-        serve = lm.LM(cfg, torch.Generator(), device="meta",
-                      dtype=torch.bfloat16)
-    serve = serve.to_empty(device=dev)
-    serve.load_state_dict(state["params"].state_dict())
-    prefill = make_prefill_step(cfg, ShapeSpec("train_ce", "prefill", s, b))
-    logits, ce_launches = _counted(lambda: prefill.fn(serve, batches[0]))
-    check(ce_launches.get("flash_attention_wgmma", 0) == cfg.n_layers,
-          f"train CE check: prefill launches {ce_launches}")
-    with torch.inference_mode():
-        ce = float(softmax_cross_entropy(logits, batches[0]["targets"])[0])
-    del serve, logits
-    torch.cuda.empty_cache()
+    params = init_lm(cfg, seed=0, draw_on="cuda")
+    return {"params": params,
+            "opt": adamw.init(dict(params.named_parameters()),
+                              default_opt_cfg(cfg)),
+            "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+
+def _train_run(step, state, batches) -> tuple[dict, dict]:
+    """`step.fn` over `batches` with the launch counts zeroed just before
+    and read just after: (state, {losses, gnorms, ms, launches, peak_gb}),
+    the peak since the call."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
     torch.cuda.reset_peak_memory_stats()
-    step = make_train_step(cfg, remat=True)
-    losses, gnorms, ms = [], [], []
+    out = dict(losses=[], gnorms=[], ms=[])
     LAUNCHES.clear()
     for batch in batches:
         (state, met), dt = _sync_ms(lambda: step.fn(state, batch))
-        losses.append(float(met["loss"]))
-        gnorms.append(float(met["grad_norm"]))
-        ms.append(dt)
-    step_launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    check(all(math.isfinite(x) for x in losses + gnorms),
-          f"train: losses {losses}, grad norms {gnorms}")
-    check(abs(losses[0] - ce) <= TRAIN_CE_RTOL * abs(ce),
-          f"train: step-0 loss {losses[0]} vs the prefill path's CE {ce}")
-    check(not any(step_launches.values()),
-          f"train: the train step launched kernels of ours {step_launches}")
-    steady = sorted(ms[1:])[len(ms[1:]) // 2]
-    print(f"train ({card}): {cfg.name} full width, {n_params} float32 "
-          f"master parameters drawn in {draw_ms / 1e3:.1f} s; "
-          f"make_train_step(remat=True), default AdamW, {b} x {s}: "
-          f"{TRAIN_LM_STEPS} steps {[round(x, 2) for x in ms]} ms (median "
-          f"after the first {steady:.2f} ms a step = {b * s / steady * 1e3:.0f}"
-          f" tokens/s); losses {[round(x, 5) for x in losses]}, grad norms "
-          f"{[round(x, 4) for x in gnorms]}; peak memory {peak:.2f} GB; "
-          f"step-0 loss {losses[0]:.6f} vs the prefill path's CE {ce:.6f} "
-          f"(rel {abs(losses[0] - ce) / ce:.3e}, tolerance {TRAIN_CE_RTOL}; "
-          f"{ce_launches.get('flash_attention_wgmma', 0)} "
-          f"flash_attention_wgmma launches); launches of the port's kernels "
-          f"in the steps: {step_launches}", flush=True)
-    shape4k = SHAPES["train_4k"]
-    mb = microbatches_for(cfg, shape4k)
-    check(mb == 4, f"train_4k microbatches {mb}")
-    step4k = make_train_step(cfg, remat=True, microbatches=mb)
-    torch.cuda.reset_peak_memory_stats()
-    l4k, g4k, ms4k = [], [], []
-    for i in range(TRAIN_4K_STEPS):
-        batch = batch_for(cfg, shape4k.seq, TRAIN_4K_BATCH,
-                          TRAIN_LM_STEPS + i, seed=0, device=dev)
-        (state, met), dt = _sync_ms(lambda: step4k.fn(state, batch))
-        l4k.append(float(met["loss"]))
-        g4k.append(float(met["grad_norm"]))
-        ms4k.append(dt)
-    peak4k = torch.cuda.max_memory_allocated() / 1e9
-    check(all(math.isfinite(x) for x in l4k + g4k),
-          f"train_4k: losses {l4k}, grad norms {g4k}")
-    tok4k = TRAIN_4K_BATCH * shape4k.seq
-    print(f"train_4k ({card}): cut to {TRAIN_4K_BATCH} x {shape4k.seq}, "
-          f"{mb} microbatches, remat: {[round(x, 2) for x in ms4k]} ms a "
-          f"step (last {tok4k / ms4k[-1] * 1e3:.0f} tokens/s); losses "
-          f"{[round(x, 5) for x in l4k]}, grad norms "
-          f"{[round(x, 4) for x in g4k]}; peak memory {peak4k:.2f} GB",
-          flush=True)
-    del step, step4k
-    # the launcher's TrainerConfig keeps remat off: does the full width
-    # fit without it?  One step at the launcher's shape, measured either
-    # way (the state is not used after it)
-    no_remat = make_train_step(cfg, remat=False)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    fits, loss_nr = _try_step(lambda: no_remat.fn(state, batches[0]))
-    peak_nr = torch.cuda.max_memory_allocated() / 1e9
-    print(f"train without remat ({card}): {b} x {s}: "
-          + (f"fits, {fits:.2f} ms, loss {loss_nr:.5f}" if fits else
-             "does not fit (CUDA out of memory)")
-          + f"; peak memory {peak_nr:.2f} GB of "
-          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}",
-          flush=True)
-    del state, no_remat, batches
-    torch.cuda.empty_cache()
+        out["losses"].append(float(met["loss"]))
+        out["gnorms"].append(float(met["grad_norm"]))
+        out["ms"].append(dt)
+    out["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return state, out
 
-    # -- (b) 2 layers at full width: the card against the CPU, two
-    # microbatches against one, remat against none (each from the same
-    # step-0 state and batch)
-    small = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
-    host = init_state(small, TrainerConfig(seed=0), device="cpu")
+
+def _prefill_ce(cfg, state, batch) -> tuple[float, dict]:
+    """The loss (CE with the z-loss) of `batch` through the prefill path
+    (blockwise attention, the config's flash attention instantiation) on
+    the bf16 serving cast of `state`'s float32 masters, over the text
+    positions (the VLM's logits cover its patches too): (loss, the
+    prefill's launches)."""
+    import torch
+
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import softmax_cross_entropy
+
+    with torch.device("meta"):
+        serve = lm.LM(cfg, torch.Generator(), device="meta",
+                      dtype=torch.bfloat16)
+    serve = serve.to_empty(device="cuda")
+    serve.load_state_dict(state["params"].state_dict())
+    b, s = batch["inputs"].shape
+    prefill = make_prefill_step(cfg, ShapeSpec("train_ce", "prefill", s, b))
+    logits, launches = _counted(lambda: prefill.fn(serve, batch))
+    with torch.inference_mode():
+        ce = float(softmax_cross_entropy(logits[:, -s:],
+                                         batch["targets"])[0])
+    del serve, logits
+    torch.cuda.empty_cache()
+    return ce, launches
+
+
+def _step_variants(card: str, small) -> None:
+    """One step each of `small` (a config cut to a few layers at full
+    width) from the same step-0 state (float32 masters drawn on the card,
+    copied to the CPU) and TRAIN_CHECK_SHAPE batch: the card against the CPU, two
+    microbatches against one, remat against none, held to the
+    TRAIN_CHECK_* bounds (remat against none bit-equal expected; else
+    measured and bounded)."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+
+    dev = torch.device("cuda")
+    base = _card_train_state(small)
+    host = _copy_state(base, "cpu")
     b, s = TRAIN_CHECK_SHAPE
     batch = batch_for(small, s, b, 0, seed=0)
-    base = _copy_state(host, dev)
     on_card, m_card = _one_step(small, _copy_state(base, dev), batch,
                                 remat=True)
     t0 = time.perf_counter()
@@ -3101,9 +3133,107 @@ def lm_train_phase(card: str) -> dict:
             plain["params"], TRAIN_CHECK_LOSS_RTOL, TRAIN_CHECK_GNORM_RTOL))
     del plain, on_card, base
     torch.cuda.empty_cache()
-    print(f"train check ({card}): {small.n_layers} layers at full width, "
-          f"{b} x {s} tokens, one step each (the CPU's {cpu_s:.1f} s):\n  "
-          + "\n  ".join(lines), flush=True)
+    print(f"train check ({card}): {small.name} cut to {small.n_layers} "
+          f"layers at full width, {b} x {s} tokens, one step each (the "
+          f"CPU's {cpu_s:.1f} s):\n  " + "\n  ".join(lines), flush=True)
+
+
+def lm_train_phase(card: str) -> dict:
+    """(a) full-width steps, (b) card-vs-CPU and the step's variants at 2
+    layers, (c) restart exactness on the reduced config."""
+    import shutil
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES, microbatches_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.runtime.fault_tolerance import (RESTART_EXIT_CODE,
+                                                     PreemptionGuard)
+    from repro_torch.train.trainer import TrainerConfig, init_state, train
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = registry.get(PREFILL_CONFIG)
+    torch.cuda.empty_cache()
+    # -- (a) full width: 3.397 G float32 masters, AdamW moments
+    (state, draw_ms) = _sync_ms(lambda: _card_train_state(cfg))
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    check(n_params == cfg.n_params(), f"train: {n_params} parameters")
+    b, s = TRAIN_LM_SHAPE
+    batches = [batch_for(cfg, s, b, i, seed=0, device=dev)
+               for i in range(TRAIN_LM_STEPS)]
+    # step 0's loss against the CE of its batch through the prefill path
+    # (blockwise attention, flash_attention_wgmma) on the bf16 serving cast
+    # of the same weights
+    ce, ce_launches = _prefill_ce(cfg, state, batches[0])
+    check(ce_launches.get("flash_attention_wgmma", 0) == cfg.n_layers,
+          f"train CE check: prefill launches {ce_launches}")
+    state, run = _train_run(make_train_step(cfg, remat=True), state,
+                            batches)
+    losses, gnorms, ms = run["losses"], run["gnorms"], run["ms"]
+    step_launches, peak = run["launches"], run["peak_gb"]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"train: losses {losses}, grad norms {gnorms}")
+    check(abs(losses[0] - ce) <= TRAIN_CE_RTOL * abs(ce),
+          f"train: step-0 loss {losses[0]} vs the prefill path's CE {ce}")
+    check(not step_launches,
+          f"train: the train step launched kernels of ours {step_launches}")
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    print(f"train ({card}): {cfg.name} full width, {n_params} float32 "
+          f"master parameters drawn on the card in {draw_ms / 1e3:.2f} s; "
+          f"make_train_step(remat=True), default AdamW, {b} x {s}: "
+          f"{TRAIN_LM_STEPS} steps {[round(x, 2) for x in ms]} ms (median "
+          f"after the first {steady:.2f} ms a step = {b * s / steady * 1e3:.0f}"
+          f" tokens/s); losses {[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in gnorms]}; peak memory {peak:.2f} GB; "
+          f"step-0 loss {losses[0]:.6f} vs the prefill path's CE {ce:.6f} "
+          f"(rel {abs(losses[0] - ce) / ce:.3e}, tolerance {TRAIN_CE_RTOL}; "
+          f"{ce_launches.get('flash_attention_wgmma', 0)} "
+          f"flash_attention_wgmma launches); launches of the port's kernels "
+          f"in the steps: {step_launches}", flush=True)
+    shape4k = SHAPES["train_4k"]
+    mb = microbatches_for(cfg, shape4k)
+    check(mb == 4, f"train_4k microbatches {mb}")
+    state, run4k = _train_run(
+        make_train_step(cfg, remat=True, microbatches=mb), state,
+        [batch_for(cfg, shape4k.seq, TRAIN_4K_BATCH, TRAIN_LM_STEPS + i,
+                   seed=0, device=dev) for i in range(TRAIN_4K_STEPS)])
+    l4k, g4k, ms4k = run4k["losses"], run4k["gnorms"], run4k["ms"]
+    peak4k = run4k["peak_gb"]
+    check(all(math.isfinite(x) for x in l4k + g4k),
+          f"train_4k: losses {l4k}, grad norms {g4k}")
+    tok4k = TRAIN_4K_BATCH * shape4k.seq
+    print(f"train_4k ({card}): cut to {TRAIN_4K_BATCH} x {shape4k.seq}, "
+          f"{mb} microbatches, remat: {[round(x, 2) for x in ms4k]} ms a "
+          f"step (last {tok4k / ms4k[-1] * 1e3:.0f} tokens/s); losses "
+          f"{[round(x, 5) for x in l4k]}, grad norms "
+          f"{[round(x, 4) for x in g4k]}; peak memory {peak4k:.2f} GB",
+          flush=True)
+    # the launcher's TrainerConfig keeps remat off: does the full width
+    # fit without it?  One step at the launcher's shape, measured either
+    # way (the state is not used after it)
+    no_remat = make_train_step(cfg, remat=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fits, loss_nr = _try_step(lambda: no_remat.fn(state, batches[0]))
+    peak_nr = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train without remat ({card}): {b} x {s}: "
+          + (f"fits, {fits:.2f} ms, loss {loss_nr:.5f}" if fits else
+             "does not fit (CUDA out of memory)")
+          + f"; peak memory {peak_nr:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}",
+          flush=True)
+    del state, no_remat, batches
+    torch.cuda.empty_cache()
+
+    # -- (b) 2 layers at full width: the card against the CPU, two
+    # microbatches against one, remat against none
+    _step_variants(card, dataclasses.replace(cfg,
+                                             n_layers=TRAIN_CHECK_LAYERS))
 
     # -- (c) restart exactness on the card: preempted and resumed against
     # uninterrupted, and a checkpoint written and read back by the port
@@ -4104,37 +4234,17 @@ def _long_500k(card: str, cfg, params) -> None:
 
 def _hybrid_cpu_check(cfg) -> None:
     """(f) One group (6 Mamba2 layers and one shared call) at full width,
-    HYBRID_CPU_SEQ tokens, weights drawn on the CPU, card against CPU:
+    HYBRID_CPU_SEQ tokens, the same weights on the card and the CPU:
     the last position's logits within HYBRID_CPU_RTOL, argmax equal."""
-    import torch
-
-    from repro_torch.data.synthetic import batch_for
-    from repro_torch.models.lm import init_lm, lm_hidden, lm_logits
-
     cut = dataclasses.replace(cfg, n_layers=cfg.hybrid.shared_attn_every)
-    t0 = time.perf_counter()
-    host = init_lm(cut, seed=0, device="cpu", dtype=torch.bfloat16)
-    draw_s = time.perf_counter() - t0
-    card_model = copy.deepcopy(host).to("cuda")
-    tokens = batch_for(cut, HYBRID_CPU_SEQ, 1, 2)["inputs"]
-    last = []
-    for model, d in ((card_model, torch.device("cuda")),
-                     (host, torch.device("cpu"))):
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            hid, _ = lm_hidden(model, tokens.to(d), cut, attn_impl="blockwise")
-            last.append(lm_logits(model, hid[:, -1:], cut).float().cpu())
-        print(f"  one group's prefill of {HYBRID_CPU_SEQ} tokens on {d}: "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-    on_card, on_cpu = last
-    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
-    same = int(on_card.argmax()) == int(on_cpu.argmax())
+    rel, top, draw_s = _card_vs_cpu_prefill(cut, HYBRID_CPU_SEQ)
+    same = top[0] == top[1]
     text = (f"hybrid check: {cut.name} one group ({cut.n_layers} Mamba2 "
             f"layers, one shared call) at full width, {HYBRID_CPU_SEQ} tokens "
-            f"(weights drawn on the CPU in {draw_s:.1f} s): last-position "
+            f"(weights drawn and copied in {draw_s:.1f} s): last-position "
             f"logits card vs CPU rel L2 {rel:.3e} (tolerance "
             f"{HYBRID_CPU_RTOL}), argmax {'agrees' if same else 'differs'} "
-            f"({int(on_card.argmax())} vs {int(on_cpu.argmax())})")
+            f"({top[0]} vs {top[1]})")
     check(math.isfinite(rel) and rel <= HYBRID_CPU_RTOL and same, text)
     print(text, flush=True)
 
@@ -4261,6 +4371,202 @@ def hybrid_phase(card: str) -> tuple[dict, dict]:
     return row, {HYBRID_INST: launches}
 
 
+# ----------------------------------------------------------------------
+# Phase 14: the dense family's other configs (qwen3-8b, codeqwen1.5-7b,
+# granite-34b)
+# ----------------------------------------------------------------------
+def dense_configs_phase(card: str) -> dict:
+    """Phase 14; returns each config's 1 x 32768 prefill's launches of
+    the (128, 128) instantiation."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import init_lm
+
+    launches = {}
+    for name in DENSE_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_cfg = time.perf_counter()
+        cfg = registry.get(name)
+        params = init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(p_.numel() for p_ in params.parameters())
+        check(n_params == cfg.n_params(), f"{n_params} != {cfg.n_params()}")
+        print(f"dense init: {cfg.name}, {n_params:,} parameters "
+              f"({cfg.n_layers} layers, {cfg.n_heads} heads over "
+              f"{cfg.n_kv_heads} KV heads, positions {cfg.pos}), "
+              f"{n_params * 2 / 1e9:.2f} GB bf16, drawn from seed 0 on the "
+              f"card in {time.perf_counter() - t_cfg:.2f} s", flush=True)
+
+        # (a) the full-depth prefill at 1 x 32768, then 4 x 4096
+        shape = dataclasses.replace(SHAPES["prefill_32k"],
+                                    batch=PREFILL_BATCH)
+        step = make_prefill_step(cfg, shape)
+        batch = batch_for(cfg, shape.seq, shape.batch, 0)
+        torch.cuda.reset_peak_memory_stats()
+        warm_s, _, _ = _prefill(step, params, batch, cfg,
+                                f"{name} warm-up", inst=DENSE_INST)
+        dt, n, _ = _prefill(step, params, batch, cfg, f"{name} timed",
+                            inst=DENSE_INST)
+        launches[name] = n
+        print(f"dense prefill ({card}): {cfg.name} {shape.batch} x "
+              f"{shape.seq} tokens, {cfg.n_layers} layers: {dt:.3f} s "
+              f"({warm_s:.3f} s warm-up), {shape.seq / dt:,.0f} tokens/s; "
+              f"{DENSE_INST} {n} launches, no 3xTF32 launch; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+        del batch
+        b4, s4 = DENSE_SMALL_PREFILL
+        step4 = make_prefill_step(cfg, dataclasses.replace(shape, batch=b4,
+                                                           seq=s4))
+        torch.cuda.reset_peak_memory_stats()
+        dt4, n4, _ = _prefill(step4, params, batch_for(cfg, s4, b4, 1), cfg,
+                              f"{name} {b4} x {s4}", inst=DENSE_INST)
+        print(f"dense prefill: {cfg.name} {b4} x {s4} tokens: {dt4:.3f} s, "
+              f"{b4 * s4 / dt4:,.0f} tokens/s; {DENSE_INST} {n4} launches; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        del step, step4
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(0)
+        _serve(card, cfg, params, rng)                             # (b)
+        toks = torch.tensor(rng.integers(0, cfg.vocab,
+                                         (1, DECODE_CHECK_SEQ)),
+                            device="cuda")
+        check_step = make_prefill_step(cfg, ShapeSpec(
+            "decode_check", "prefill", DECODE_CHECK_SEQ, 1))
+        _teacher_forced(card, cfg, params, toks,                   # (c)
+                        lambda: check_step.fn(params, {"inputs": toks}),
+                        DENSE_INST)
+        del params, check_step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) 2 layers at full width, card against CPU
+        rel, top, draw_s = _card_vs_cpu_prefill(
+            dataclasses.replace(cfg, n_layers=PREFILL_CPU_LAYERS),
+            PREFILL_CPU_SEQ)
+        text = (f"dense check: {cfg.name} cut to {PREFILL_CPU_LAYERS} layers "
+                f"at full width, {PREFILL_CPU_SEQ} tokens (weights drawn and "
+                f"copied in {draw_s:.1f} s): last-position logits card vs "
+                f"CPU rel L2 {rel:.3e} (tolerance {PREFILL_CPU_RTOL}), argmax "
+                f"{'agrees' if top[0] == top[1] else 'differs'} ({top[0]} vs "
+                f"{top[1]})")
+        check(math.isfinite(rel) and rel <= PREFILL_CPU_RTOL
+              and top[0] == top[1], text)
+        print(text, flush=True)
+        print(f"dense configs: {cfg.name} {time.perf_counter() - t_cfg:.2f} s",
+              flush=True)
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 15: the hybrid and VLM families' train steps
+# ----------------------------------------------------------------------
+def family_train_phase(card: str) -> dict:
+    """Phase 15; returns each config's step ms, peak memory and train_4k
+    ms and peak."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES, microbatches_for
+    from repro_torch.launch.steps import make_train_step
+
+    dev = torch.device("cuda")
+    rows = {}
+    for name, inst, batch4k, check_layers in FAMILY_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_cfg = time.perf_counter()
+        cfg = registry.get(name)
+        state, draw_ms = _sync_ms(lambda: _card_train_state(cfg))
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        check(n_params == cfg.n_params(), f"train {name}: {n_params} "
+                                          f"parameters")
+        # -- (a) TRAIN_LM_STEPS steps at the launcher's defaults, step 0's
+        # loss against the CE of its batch through the prefill path
+        b, s = TRAIN_LM_SHAPE
+        batches = [batch_for(cfg, s, b, i, seed=0, device=dev)
+                   for i in range(TRAIN_LM_STEPS)]
+        ce, ce_launches = _prefill_ce(cfg, state, batches[0])
+        check(ce_launches.get(inst, 0) == _attn_calls(cfg),
+              f"train {name} CE check: prefill launches {ce_launches}")
+        state, run = _train_run(make_train_step(cfg, remat=True), state,
+                                batches)
+        losses, ms = run["losses"], run["ms"]
+        gap = abs(losses[0] - ce) / abs(ce)
+        rtol = TRAIN_CE_RTOL
+        steady = sorted(ms[1:])[len(ms[1:]) // 2]
+        positions = s + (cfg.vlm.n_patches if cfg.family == "vlm" else 0)
+        print(f"train ({card}): {cfg.name} full width and depth, {n_params} "
+              f"float32 master parameters drawn on the card in "
+              f"{draw_ms / 1e3:.2f} s; make_train_step(remat=True), default "
+              f"AdamW, {b} x {s} tokens ({positions} positions a sequence): "
+              f"{TRAIN_LM_STEPS} steps {[round(x, 2) for x in ms]} ms "
+              f"(median after the first {steady:.2f} ms a step = "
+              f"{b * s / steady * 1e3:.0f} tokens/s, "
+              f"{b * positions / steady * 1e3:.0f} positions/s); losses "
+              f"{[round(x, 5) for x in losses]}, grad norms "
+              f"{[round(x, 4) for x in run['gnorms']]}; peak memory "
+              f"{run['peak_gb']:.2f} GB; step-0 loss {losses[0]:.6f} vs the "
+              f"prefill path's CE {ce:.6f} (rel {gap:.3e}, tolerance {rtol}; "
+              f"{ce_launches.get(inst, 0)} {inst} launches); launches of the "
+              f"port's kernels in the steps: {run['launches']}", flush=True)
+        check(all(math.isfinite(x) for x in losses + run["gnorms"]),
+              f"train {name}: losses {losses}, grad norms {run['gnorms']}")
+        check(gap <= rtol, f"train {name}: step-0 loss {losses[0]} vs the "
+                           f"prefill path's CE {ce}")
+        check(not run["launches"], f"train {name}: the train step launched "
+                                   f"kernels of ours {run['launches']}")
+        del batches
+        # train_4k cut to batch4k sequences, its microbatches
+        shape4k = SHAPES["train_4k"]
+        mb = microbatches_for(cfg, shape4k)
+        batches = [batch_for(cfg, shape4k.seq, batch4k,
+                             TRAIN_LM_STEPS + i, seed=0, device=dev)
+                   for i in range(TRAIN_4K_STEPS)]
+        state, run4k = _train_run(make_train_step(cfg, remat=True,
+                                                  microbatches=mb),
+                                  state, batches)
+        tok4k = batch4k * shape4k.seq
+        print(f"train_4k ({card}): {cfg.name} cut to "
+              f"{batch4k} x {shape4k.seq}, {mb} microbatches, "
+              f"remat: {[round(x, 2) for x in run4k['ms']]} ms a step (last "
+              f"{tok4k / run4k['ms'][-1] * 1e3:.0f} tokens/s); losses "
+              f"{[round(x, 5) for x in run4k['losses']]}, grad norms "
+              f"{[round(x, 4) for x in run4k['gnorms']]}; peak memory "
+              f"{run4k['peak_gb']:.2f} GB; launches of the port's kernels "
+              f"{run4k['launches']}", flush=True)
+        check(all(math.isfinite(x) for x in run4k["losses"] + run4k["gnorms"]),
+              f"train_4k {name}: losses {run4k['losses']}")
+        check(not run4k["launches"], f"train_4k {name}: launches "
+                                     f"{run4k['launches']}")
+        del state, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- (b) a cut at full width: card vs CPU, microbatches, remat
+        _step_variants(card, dataclasses.replace(cfg, n_layers=check_layers))
+        rows[name] = dict(step_ms=steady, peak_gb=run["peak_gb"],
+                          ce_gap=gap, train_4k_ms=run4k["ms"],
+                          train_4k_peak_gb=run4k["peak_gb"])
+        print(f"family train: {cfg.name} {time.perf_counter() - t_cfg:.2f} s",
+              flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4309,6 +4615,12 @@ def main() -> int:
     launches.update(hybrid_launches)
     print(f"chip_smoke wall after phase 13: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    dense_launches = dense_configs_phase(card)
+    print(f"chip_smoke wall after phase 14: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    family_train_phase(card)
+    print(f"chip_smoke wall after phase 15: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a
     # round with BFS lanes) and the sequential flow (a launch a net).
@@ -4321,6 +4633,10 @@ def main() -> int:
             r["mesh_launches"] = mesh["launches"][r["name"]]
         if r["name"] == "nds_rank":
             r.update({k: v for k, v in mesh.items() if k != "launches"})
+        if r["name"] == "flash_attention_wgmma":
+            # the (128, 128) instantiation's paths: each prefill at 1 x 32768
+            r["launches_by_path"] = {PREFILL_CONFIG: r["launches"],
+                                     **dense_launches}
         if r["name"] == "wavefront":
             r.update(concurrent_launches=conc["launches"],
                      flow_launches=seq["launches"],
@@ -4334,7 +4650,8 @@ def main() -> int:
     # dominance_matrix's profiler device time and the launch floor;
     # acim_matmul's one-pass f32 bound, its bound with the mma kernel's
     # own ADC and that of one CUDA-core pipe, and its ADC-flip share; the
-    # service phase's launches of nsga2_evolve and route_slots;
+    # service phase's launches of nsga2_evolve and route_slots; the
+    # (128, 128) flash instantiation's launches on each prefill path;
     # wavefront's BFS levels and ms a level, its launches by path and its
     # time and levels at the per-net shape; nds_rank's profiler device
     # time; the mesh phase's launches of nsga2_evolve and nds_rank, and
@@ -4347,6 +4664,7 @@ def main() -> int:
              "floor_ms", "floor_device_ms", "bound_f32_ms", "bound_adc3_ms",
              "bound_cuda_core_pipe_ms", "flip_share",
              "service_launches", "concurrent_launches", "flow_launches",
+             "launches_by_path",
              "levels", "ms_per_level", "net_ms", "net_plain_ms",
              "net_bound_ms", "net_levels", "net_ms_per_level",
              "mesh_launches", "migration_shape", "migration_ms",

@@ -2,10 +2,10 @@
 ``reduced(name)`` returns the same-family CPU smoke-test variant.
 
 Counterpart of `repro.configs.registry`, holding only the configurations
-whose family the port builds (`PORTED`): the dense qwen2.5-3b and
-qwen3-8b, the MoE family's deepseek-v2-lite-16b (MLA) and
-arctic-480b, the VLM family's paligemma-3b and the hybrid family's
-zamba2-2.7b.  The reference's other
+whose family the port builds (`PORTED`): the dense qwen2.5-3b,
+qwen3-8b, codeqwen1.5-7b and granite-34b (learned positions), the MoE
+family's deepseek-v2-lite-16b (MLA) and arctic-480b, the VLM family's
+paligemma-3b and the hybrid family's zamba2-2.7b.  The reference's other
 ids are known here and raise `NotImplementedError`; an unknown id raises
 `KeyError`, as in the reference.
 """
@@ -25,8 +25,9 @@ ARCH_IDS = (
     "zamba2_2_7b",
     "paligemma_3b",
 )
-PORTED = ("qwen2_5_3b", "qwen3_8b", "deepseek_v2_lite_16b", "arctic_480b",
-          "paligemma_3b", "zamba2_2_7b")
+PORTED = ("qwen2_5_3b", "qwen3_8b", "codeqwen1_5_7b", "granite_34b",
+          "deepseek_v2_lite_16b", "arctic_480b", "paligemma_3b",
+          "zamba2_2_7b")
 
 
 def canonical(name: str) -> str:

@@ -1,6 +1,5 @@
 """Step builders: the train step, the prefill forward and the decode step
-of the LM (the dense, MoE, VLM and hybrid families; the hybrid family's
-train step is not ported).
+of the LM (the dense, MoE, VLM and hybrid families).
 
 Counterpart of `repro.launch.steps` on one device.  The reference jits
 each step with the sharding policy of a mesh; the port runs eagerly on
@@ -91,7 +90,8 @@ def make_train_step(cfg: ArchConfig, *,
     "step": int32 0-dim tensor}` (`train.trainer.init_state`) and a batch
     of `inputs` / `targets` (B, S) (the VLM's also `patches` (B, P, D));
     it runs the model's loss (`lm_loss`, or `paligemma_loss` for the VLM:
-    dense attention, bf16 products, remat per block when `remat`),
+    dense attention, bf16 products, remat per block when `remat`, for
+    the hybrid family per group with each Mamba2 layer inside it),
     backward and AdamW,
     writes the parameters and moments in place (the reference donates
     its state) and returns (state, metrics): `lm_loss`'s metrics, AdamW's
@@ -102,16 +102,7 @@ def make_train_step(cfg: ArchConfig, *,
     dense configs' `accum_dtype`, from zero as the reference's `gacc`)
     and divided by the count, the loss is their mean and the other
     metrics are the last microbatch's.  `cast_bf16` runs the loss on a
-    bf16 cast of the float32 leaves of stacked rank >= 2.
-
-    The hybrid family raises `NotImplementedError`: its train step (the
-    reference's group-level remat, `jax.checkpoint` of a group over
-    `jax.checkpoint` of each layer) is not ported."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"the train step of {cfg.name!r} (hybrid family) is not ported: "
-            f"ROADMAP queue 1 item 6.11 (training of the hybrid family on "
-            f"the card)")
+    bf16 cast of the float32 leaves of stacked rank >= 2."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or default_opt_cfg(cfg)
     api = build_model(cfg, remat=remat)

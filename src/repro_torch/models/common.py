@@ -16,6 +16,9 @@ from torch import nn
 
 NEG_INF = -1e9
 
+# learned-position table size: covers the 32k prefill/decode shapes
+MAX_LEARNED_POS = 32768
+
 
 # ---------------------------------------------------------------------------
 # initializers

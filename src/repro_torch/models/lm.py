@@ -3,14 +3,15 @@ MoE family (deepseek-v2-lite with MLA, arctic with GQA), the decoder
 of the VLM family (paligemma: image patches prepended as a prefix,
 `repro_torch.models.paligemma`) and the hybrid family (zamba2: Mamba2
 layers in groups, one weight-shared attention + FFN block at the start
-of every group).
+of every group), with RoPE or learned absolute positions (granite:
+`pos_emb`, added to the embedding).
 
 Counterpart of the dense, MoE and hybrid families of `repro.models.lm`:
 `init_lm` builds the parameters as `nn.Module`s whose state-dict names
 follow the reference's pytree (`emb`, `blocks.<i>.ln1.scale`,
 `blocks.<i>.attn.wq`, `blocks.<i>.ffn.router`, ..., `final_norm.scale`,
-`head`; the hybrid family's `blocks.<i>.mamba.in_proj`, ... and its
-shared block's `shared.attn.wq`, ...), with the reference's stacked
+`head`, `pos_emb`; the hybrid family's `blocks.<i>.mamba.in_proj`, ...
+and its shared block's `shared.attn.wq`, ...), with the reference's stacked
 `blocks` axis unrolled into a `ModuleList`.  MoE layers add their
 router aux loss, which `lm_hidden` sums over the layers and `lm_loss`
 adds to the loss.  `lm_hidden` / `lm_logits`
@@ -35,9 +36,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mlp
-from repro_torch.models.common import (apply_norm, causal_mask, dense_init,
-                                       embed_init, init_norm,
-                                       softmax_cross_entropy)
+from repro_torch.models.common import (MAX_LEARNED_POS, apply_norm,
+                                       causal_mask, dense_init, embed_init,
+                                       init_norm, softmax_cross_entropy)
 
 
 # Where each family the port does not build stands in ROADMAP queue 1.
@@ -54,8 +55,8 @@ def check_dense(cfg: ArchConfig) -> None:
     """Raise unless the port builds `cfg`: the dense decoder, the MoE
     family and the VLM family's decoder, each with GQA or MLA attention,
     and the hybrid family (Mamba2 with a shared attention block), with
-    RoPE (no learned positions).  The message names the ROADMAP item
-    that brings what is missing; a hybrid config without its `ssm` and
+    RoPE or learned positions.  The message names the ROADMAP item that
+    brings what is missing; a hybrid config without its `ssm` and
     `hybrid` sub-configs, or whose layers do not fill whole groups,
     raises `ValueError`."""
     if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
@@ -72,10 +73,6 @@ def check_dense(cfg: ArchConfig) -> None:
             raise ValueError(f"{cfg.name!r}: {cfg.n_layers} layers are not "
                              f"whole groups of "
                              f"{cfg.hybrid.shared_attn_every}")
-    if cfg.pos == "learned":
-        raise NotImplementedError(
-            f"learned positions ({cfg.name!r}) are not ported: ROADMAP "
-            f"queue 1 item 6.7")
 
 
 class Block(nn.Module):
@@ -180,8 +177,9 @@ def _place(module: nn.Module, prefix: str, device: torch.device,
 
 class LM(nn.Module):
     """Parameters drawn from `generator` in a fixed order (embedding,
-    layer 0, ..., layer L-1, final norm, head, the hybrid family's
-    shared block), on the generator's device.  Each part is moved to
+    layer 0, ..., layer L-1, final norm, head, the learned positions'
+    table `pos_emb` (MAX_LEARNED_POS, D), the hybrid family's shared
+    block), on the generator's device.  Each part is moved to
     `device` (default: the CPU) and cast as `_serving` says right after
     it is drawn, so the drawing device holds one layer in float32 at a
     time."""
@@ -202,6 +200,9 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(_serving("head", dense_init(
                 generator, (cfg.d_model, cfg.vocab)), dev, dtype))
+        if cfg.pos == "learned":
+            self.pos_emb = nn.Parameter(_serving("pos_emb", embed_init(
+                generator, (MAX_LEARNED_POS, cfg.d_model)), dev, dtype))
         if cfg.family == "hybrid":
             self.shared = _place(SharedBlock(cfg, generator), "shared.", dev,
                                  dtype)
@@ -259,20 +260,48 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
     return x + y, aux
 
 
+def _run(checkpointed: bool, fn, *args, **kw):
+    """`fn(*args, **kw)`, under `torch.utils.checkpoint` when
+    `checkpointed`: backward keeps the call's tensor inputs and
+    recomputes the rest."""
+    if checkpointed:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return fn(*args, **kw)
+
+
+def _group_fwd(shared: SharedBlock, blocks, x: torch.Tensor,
+               cfg: ArchConfig, *, mask: torch.Tensor | None,
+               positions: torch.Tensor, attn_impl: str,
+               remat: bool) -> torch.Tensor:
+    """One group of the hybrid family: the shared block, then its
+    Mamba2 layers `blocks`, each under its own checkpoint when `remat`
+    (the reference's `jax.checkpoint(layer_step)` inside `group_step`)."""
+    x = _shared_block_fwd(shared, x, cfg, mask=mask, positions=positions,
+                          attn_impl=attn_impl)
+    for blk in blocks:
+        x, _ = _run(remat, _block_fwd, blk, x, cfg, mask=mask,
+                    positions=positions)
+    return x
+
+
 def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
               mask: torch.Tensor | None = None,
               prefix_embeds: torch.Tensor | None = None,
               remat: bool = False,
               attn_impl: str = "dense") -> tuple[torch.Tensor, torch.Tensor]:
-    """Embed -> bf16 -> blocks -> final norm.  Returns (hidden (B, S, D),
-    the MoE aux loss summed over the layers, float32; 0 for the dense
-    family).  attn_impl='blockwise' never materializes (S, S) scores
-    (32k+ prefill).  `remat` runs each block under
-    `torch.utils.checkpoint` (the reference's `jax.checkpoint
-    (layer_step)`): backward keeps one (B, S, D) input a layer and
-    recomputes the rest.  The hybrid family runs the shared block, then
-    `shared_attn_every` Mamba2 layers, group after group (the
-    reference's grouped scan), the shared block under `remat` too.
+    """Embed -> bf16 (+ the learned positions `pos_emb[:S]`) -> blocks
+    -> final norm.  Returns (hidden (B, S, D), the MoE aux loss summed
+    over the layers, float32; 0 for the dense family).
+    attn_impl='blockwise' never materializes (S, S) scores (32k+
+    prefill).  `remat` runs each block under `torch.utils.checkpoint`
+    (the reference's `jax.checkpoint(layer_step)`): backward keeps one
+    (B, S, D) input a layer and recomputes the rest.  The hybrid family
+    runs the shared block, then `shared_attn_every` Mamba2 layers, group
+    after group (the reference's grouped scan); under `remat` a group
+    runs under one checkpoint and each of its Mamba2 layers under its
+    own inside it (the reference's `jax.checkpoint(group_step)`), so
+    backward keeps one (B, S, D) input a group.
 
     `prefix_embeds` (B, P, D): modality-stub embeddings (the VLM's
     patches) cast to the backbone's dtype and prepended to the token
@@ -295,22 +324,26 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
         prefix_len = prefix_embeds.shape[1]
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
+    if cfg.pos == "learned":
+        if s > MAX_LEARNED_POS:
+            raise ValueError(f"{s} positions past the learned table's "
+                             f"{MAX_LEARNED_POS}")
+        x = x + params.pos_emb[:s].to(x.dtype)[None]
     if mask is None and attn_impl == "dense":
         mask = causal_mask(s, x.device)
 
-    def run(fn, *args, **kw):
-        if remat:
-            return checkpoint(fn, *args, use_reentrant=False,
-                              preserve_rng_state=False, **kw)
-        return fn(*args, **kw)
-
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, blk in enumerate(params.blocks):
-        if cfg.family == "hybrid" and i % cfg.hybrid.shared_attn_every == 0:
-            x = run(_shared_block_fwd, params.shared, x, cfg, mask=mask,
-                    positions=positions, attn_impl=attn_impl)
-        x, a = run(_block_fwd, blk, x, cfg, mask=mask, positions=positions,
-                   attn_impl=attn_impl, prefix_len=prefix_len)
+    if cfg.family == "hybrid":
+        per = cfg.hybrid.shared_attn_every
+        for g in range(0, len(params.blocks), per):
+            x = _run(remat, _group_fwd, params.shared,
+                     params.blocks[g:g + per], x, cfg, mask=mask,
+                     positions=positions, attn_impl=attn_impl, remat=remat)
+        return apply_norm(params.final_norm, x, cfg.norm), aux
+    for blk in params.blocks:
+        x, a = _run(remat, _block_fwd, blk, x, cfg, mask=mask,
+                    positions=positions, attn_impl=attn_impl,
+                    prefix_len=prefix_len)
         aux = aux + a
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
@@ -415,13 +448,14 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor,
                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """One decode step: tokens (B,) -> (logits (B, V) float32, new state).
 
-    The embedding goes to bf16 (`BACKBONE`), as in the reference; a
+    The embedding goes to bf16 (`BACKBONE`), as in the reference, plus
+    the learned position `pos_emb[pos]` where the config has one; a
     Python loop over the layers writes each layer's k / v (MLA: latent
     and rope key; the hybrid family: its Mamba2 state, and the shared
     block's k / v at each group's start) into the stacked caches in
     place at `state["pos"]`, so the new state holds the same cache
     tensors.  Where the reference clamps a write past the cache's end,
-    this raises."""
+    this raises, and so does a position past the learned table."""
     check_dense(cfg)
     pos = state["pos"]
     caches = state["caches"]
@@ -429,6 +463,11 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor,
         raise ValueError(f"decode position {pos} is outside the cache's "
                          f"{_cache_len(state)} positions")
     x = params.emb[tokens].to(BACKBONE)
+    if cfg.pos == "learned":
+        if pos >= MAX_LEARNED_POS:
+            raise ValueError(f"decode position {pos} is past the learned "
+                             f"table's {MAX_LEARNED_POS} positions")
+        x = x + params.pos_emb[pos].to(x.dtype)[None]
     for i, blk in enumerate(params.blocks):
         if cfg.family == "hybrid" and i % cfg.hybrid.shared_attn_every == 0:
             g = i // cfg.hybrid.shared_attn_every

@@ -236,11 +236,14 @@ def test_sample_is_gumbel_argmax():
 
 
 def test_build_model_raises_for_families_not_ported():
-    for name in ("whisper_large_v3", "xlstm_125m", "granite_34b"):
+    for name in ("whisper_large_v3", "xlstm_125m"):
         cfg = convert.arch_config_from_dict(
             dataclasses.asdict(rregistry.reduced(name)))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg)
+    granite = convert.arch_config_from_dict(    # learned positions: built
+        dataclasses.asdict(rregistry.reduced("granite_34b")))
+    assert build_model(granite).cfg == registry.reduced("granite_34b")
     api = build_model(registry.reduced(NAME))
     params = api.init(seed=0, device="cpu")
     state = api.init_decode_state(1, 4, device="cpu")

@@ -46,7 +46,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import lm as tlm
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train.trainer import TrainerConfig, init_state
-import torch_port_helpers  # noqa: F401  (one torch thread per test worker)
+from torch_port_helpers import ref_train_step  # (one torch thread per worker)
 
 NAME = "qwen2_5_3b"
 SEQ, BATCH = 32, 4
@@ -233,28 +233,11 @@ def test_adamw_update_matches_jax(setup, kind, count):
 
 
 def _ref_train_step(rcfg, rp, ropt, batch, microbatches, opt_cfg):
-    """The reference's train step unjitted: value_and_grad of `lm_loss`
-    over its microbatch loop (grads summed from zero in float32 and
-    divided by the count, loss the mean), then `adamw.update`."""
-    vg = jax.value_and_grad(lambda p, b: rlm.lm_loss(p, b, rcfg),
-                            has_aux=True)
-    batch = jax.tree.map(jnp.asarray, batch)
-    if microbatches == 1:
-        (loss, _), grads = vg(rp, batch)
-    else:
-        per = batch["inputs"].shape[0] // microbatches
-        gacc = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), rp)
-        lacc = 0.0
-        for i in range(microbatches):
-            mb = jax.tree.map(lambda a: a[i * per:(i + 1) * per], batch)
-            (l, _), g = vg(rp, mb)
-            gacc = jax.tree.map(lambda a, b: a + b.astype(jnp.float32),
-                                gacc, g)
-            lacc = lacc + l
-        grads = jax.tree.map(lambda g: g / microbatches, gacc)
-        loss = lacc / microbatches
-    new_p, new_opt, met = radamw.update(grads, ropt, rp, opt_cfg)
-    return new_p, dict(met, loss=loss)
+    """The reference's train step unjitted over `lm_loss`
+    (`torch_port_helpers.ref_train_step`)."""
+    new_p, _, met = ref_train_step(lambda p, b: rlm.lm_loss(p, b, rcfg), rp,
+                                   ropt, batch, microbatches, opt_cfg)
+    return new_p, met
 
 
 def _port_state(tcfg, rp):

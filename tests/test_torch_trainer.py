@@ -88,9 +88,13 @@ def test_failure_without_supervisor_raises(tmp_path):
             fail_at_steps=(2,)), device="cpu")
 
 
-def test_train_cli_runs_on_the_cpu(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-2.7b",
+                                  "paligemma-3b"])
+def test_train_cli_runs_on_the_cpu(tmp_path, arch):
+    """The launcher trains the dense, hybrid and VLM families' reduced
+    configs (the VLM's batches carry their patches)."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "qwen2.5-3b", "--reduced", "--device", "cpu", "--steps", "4",
+           arch, "--reduced", "--device", "cpu", "--steps", "4",
            "--seq", "32", "--batch", "2", "--ckpt-dir", str(tmp_path),
            "--ckpt-every", "2"]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
@@ -149,7 +153,8 @@ def test_shapes_match_reference():
                     str(want[k].dtype)
 
 
-@pytest.mark.parametrize("name", ["qwen2_5_3b", "qwen3_8b"])
+@pytest.mark.parametrize("name", ["qwen2_5_3b", "qwen3_8b", "codeqwen1_5_7b",
+                                  "granite_34b"])
 def test_param_counts_match_reference(name):
     for get in ("get", "reduced"):
         rc = getattr(rregistry, get)(name)

@@ -1,7 +1,8 @@
 """The port's hybrid family (`configs/zamba2_2_7b.py`, `models/mamba2.py`,
 the hybrid branches of `models/lm.py`, `models/registry.py`,
 `convert.py`, `launch/steps.py`, `launch/shapes.py`, `data/synthetic.py`,
-`serve/engine.py`) held against the JAX reference on the CPU.
+`serve/engine.py`, `optim/adamw.py`) held against the JAX reference on
+the CPU.
 
 Model: `zamba2-reduced` (4 Mamba2 layers in 2 groups of 2, d 64, vocab
 512; Mamba2 state 8, head dim 16, chunk 16; the shared block's attention
@@ -28,6 +29,21 @@ through a stand-in whose `bfloat16` is float32, the port's
   loss rtol 2e-3 (measured 3.4e-5), each grad leaf rel L2 <= 5e-2
   (measured <= 4.6e-2, the mixer's `a_log`: a sum over every position
   of bf16 products), PR 21's bounds of `lm_loss`.
+- One `make_train_step` step at 1 and 2 microbatches, with and without
+  remat, against the reference's unjitted composition
+  (`value_and_grad(lm_loss)` + `adamw.update`; its jitted step raises
+  on this JAX): the bounds of `lm_loss` above, float32 backbone loss
+  rtol 1e-5 (measured 7.0e-8), grad norm rtol 1e-4 (9.8e-8), each grad
+  leaf (AdamW's first moment, (1 - b1) g) and each updated parameter rel
+  L2 <= 1e-4 (2.9e-6, 2.0e-8); bf16 loss rtol 2e-3 (3.4e-5), grad norm
+  rtol 2e-2 (2.2e-3), each leaf rel L2 <= 5e-2 (4.6e-2, `a_log` again);
+  and the update itself as `tests/test_torch_train.py` holds it: every
+  element within 2.2 lr (measured 0.047 lr in float32, 2.03 lr in bf16),
+  >= 97 % within 0.1 lr (99.1 % in bf16).  AdamW on the same grads: rtol
+  1e-6.
+- Group remat: grads equal bit for bit with and without it, and the
+  bytes it keeps for backward grow by exactly one (B, S, D) residual a
+  group.
 - Teacher-forced `decode_step` (serving weights, bf16) against the
   reference's step by step over 12 tokens: rel L2 <= 5e-2 each step
   (measured <= 2.5e-2), argmax equal at every (step, row) whose
@@ -56,6 +72,7 @@ from repro.launch import shapes as rshapes
 from repro.launch import steps as rsteps
 from repro.models import lm as rlm
 from repro.models import registry as rmodels
+from repro.optim import adamw as radamw
 from repro.serve import engine as rengine
 from repro_torch import convert
 from repro_torch.configs import registry
@@ -65,8 +82,11 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as tmodels
+from repro_torch.optim import adamw as tadamw
 from repro_torch.serve import engine as tengine
-from torch_port_helpers import JaxGumbel  # (one torch thread per worker)
+from repro_torch.train.trainer import TrainerConfig, init_state
+from torch_port_helpers import JaxGumbel, ref_train_step  # (one torch
+#                                               thread per worker)
 
 NAME = "zamba2_2_7b"
 SEQ, BATCH, STEPS, MAX_SEQ = 32, 2, 12, 16
@@ -223,8 +243,9 @@ def test_lm_loss_and_grads_match_jax(models, backbone, monkeypatch):
 
 
 def test_lm_loss_with_remat_is_the_same(models):
-    """`remat` (each Mamba2 layer and each shared call under
-    `torch.utils.checkpoint`) changes no bit of the loss or the grads."""
+    """`remat` (each group, its shared call and Mamba2 layers, under one
+    `torch.utils.checkpoint`, each Mamba2 layer under its own inside it)
+    changes no bit of the loss or the grads."""
     _, tcfg, _, model = models
     toks = torch.from_numpy(_tokens(tcfg, seed=8))
     batch = {"inputs": toks, "targets": toks.roll(1, dims=1)}
@@ -358,8 +379,149 @@ def test_serve_step_is_the_family_decode(models):
 
 
 def test_train_step_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match="item 6.11"):
-        tsteps.make_train_step(registry.reduced(NAME), device="cpu")
+    """The family's train step, which raised naming its ROADMAP item
+    while it was not ported, builds and runs: finite loss and grad norm,
+    the step and AdamW's count advanced, every parameter moved."""
+    tcfg = registry.reduced(NAME)
+    step = tsteps.make_train_step(tcfg, device="cpu")
+    assert set(step.batch_struct) == {"inputs", "targets"}
+    state = init_state(tcfg, TrainerConfig(), device="cpu")
+    before = {n: p.detach().clone()
+              for n, p in state["params"].named_parameters()}
+    state, met = step.fn(state, synthetic.batch_for(tcfg, SEQ, BATCH, 0))
+    assert np.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    assert int(state["step"]) == 1 and int(state["opt"]["count"]) == 1
+    for n, p in state["params"].named_parameters():
+        assert not torch.equal(p, before[n]), n
+
+
+def _train_batch(cfg):
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (BATCH, SEQ + 1))
+    return {"inputs": toks[:, :-1].astype(np.int32),
+            "targets": toks[:, 1:].astype(np.int32)}
+
+
+@pytest.mark.parametrize("backbone", ["float32", "bfloat16"])
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_jax_composition(models, microbatches, remat,
+                                            backbone, monkeypatch):
+    """One `make_train_step` step against the reference's
+    `value_and_grad(lm_loss)` (with the same `remat`) and
+    `adamw.update`: loss, grad norm, every grad leaf (the first moment),
+    every updated parameter."""
+    rcfg, tcfg, rp, _ = models
+    batch = _train_batch(rcfg)
+    f32 = backbone == "float32"
+    ocfg = radamw.AdamWConfig()
+    with _f32_backbone(monkeypatch, f32):
+        want_p, want_opt, want_m = ref_train_step(
+            lambda p, b: rlm.lm_loss(p, b, rcfg, remat=remat), rp,
+            radamw.init(rp, ocfg), batch, microbatches, ocfg)
+        state = init_state(tcfg, TrainerConfig(), device="cpu")
+        state["params"].load_state_dict(convert.lm_params_from_numpy(
+            jax.tree.map(np.asarray, rp)), strict=True)
+        step = tsteps.make_train_step(tcfg, microbatches=microbatches,
+                                      remat=remat, device="cpu")
+        state, met = step.fn(state, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()})
+    assert int(state["step"]) == 1 and int(state["opt"]["count"]) == 1
+    np.testing.assert_allclose(float(met["loss"]), float(want_m["loss"]),
+                               rtol=1e-5 if f32 else 2e-3)
+    np.testing.assert_allclose(float(met["grad_norm"]),
+                               float(want_m["grad_norm"]),
+                               rtol=1e-4 if f32 else 2e-2)
+    lr = float(want_m["lr"])
+    np.testing.assert_allclose(float(met["lr"]), lr, rtol=1e-6)
+    bound = 1e-4 if f32 else 5e-2
+    got_m = _leaves(convert.opt_state_to_numpy(state["opt"])["m"])
+    want_g = _leaves(want_opt["m"])
+    got_p = _leaves(convert.lm_params_to_numpy(state["params"]))
+    want_p = _leaves(want_p)
+    assert set(got_m) == set(want_g) == set(got_p) == set(want_p)
+    assert any("shared" in k for k in want_g)
+    for k in want_g:
+        assert _rel_l2(got_m[k], want_g[k]) <= bound, (k, _rel_l2(
+            got_m[k], want_g[k]))
+        assert _rel_l2(got_p[k], want_p[k]) <= bound, k
+    diff = np.concatenate([np.abs(got_p[k] - want_p[k]).ravel()
+                           for k in want_p])
+    assert diff.max() <= 2.2 * lr, diff.max() / lr
+    assert np.mean(diff <= 0.1 * lr) >= 0.97, np.mean(diff <= 0.1 * lr)
+
+
+def test_adamw_update_matches_jax_on_the_family_tree(models):
+    """The same numpy grads into both AdamW updates at count 100 (lr 3e-4,
+    so weight decay shows at rtol 1e-6): the stacked Mamba2 vectors
+    (`a_log`, `dt_bias`, `d_skip`: stacked rank 2) decay, the unstacked
+    shared block's norm scales and `final_norm.scale` do not."""
+    rcfg, tcfg, rp, model = models
+    rng = np.random.default_rng(9)
+    g = jax.tree.map(lambda a: jnp.asarray(
+        0.1 * rng.standard_normal(a.shape).astype(np.float32)), rp)
+    rcfgo, tcfgo = radamw.AdamWConfig(), tadamw.AdamWConfig()
+    ropt = dict(radamw.init(rp, rcfgo), count=jnp.int32(99))
+    rnew, ropt2, rmet = radamw.update(g, ropt, rp, rcfgo)
+    tmodel = tlm.LM(tcfg, torch.Generator())
+    tmodel.load_state_dict(model.state_dict())
+    named = dict(tmodel.named_parameters())
+    topt = dict(tadamw.init(named, tcfgo), count=torch.tensor(
+        99, dtype=torch.int32))
+    _, topt2, tmet = tadamw.update(convert.lm_params_from_numpy(
+        jax.tree.map(np.asarray, g)), topt, named, tcfgo)
+    for k in ("grad_norm", "lr", "clip_scale"):
+        np.testing.assert_allclose(float(tmet[k]), float(rmet[k]), rtol=1e-6)
+    got, want = _leaves(convert.lm_params_to_numpy(tmodel)), _leaves(rnew)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-9,
+                                   err_msg=k)
+    for mom in ("m", "v"):
+        got = _leaves(convert.opt_state_to_numpy(topt2)[mom])
+        for k, w in _leaves(ropt2[mom]).items():
+            np.testing.assert_allclose(got[k], w, rtol=1e-6, atol=1e-9,
+                                       err_msg=k)
+    mask = tadamw._decay_mask(named)
+    for n in ("a_log", "dt_bias", "d_skip", "in_proj"):
+        assert mask[f"blocks.0.mamba.{n}"], n
+    for n in ("shared.ln1.scale", "shared.ln2.scale", "final_norm.scale"):
+        assert not mask[n], n
+    assert mask["shared.attn.wq"] and mask["shared.ffn.wi"]
+
+
+def _saved_bytes(groups: int, remat: bool) -> int:
+    """Bytes `lm_loss`'s forward saves for backward (through
+    `saved_tensors_hooks`) on the reduced config cut or grown to
+    `groups` groups."""
+    base = registry.reduced(NAME)
+    cfg = dataclasses.replace(
+        base, n_layers=groups * base.hybrid.shared_attn_every)
+    model = tlm.LM(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg))
+    seen = []
+
+    def pack(t):
+        seen.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = tlm.lm_loss(model, {"inputs": toks, "targets": toks}, cfg,
+                              remat=remat)
+    loss.backward()
+    return sum(seen)
+
+
+def test_group_remat_keeps_one_residual_a_group():
+    """Under `remat` the forward keeps each group's (B, S, D) bf16 input
+    and nothing else of it: 2 more groups add exactly 2 residuals (the
+    Mamba2 layers' own checkpoints save their inputs only while the group
+    is recomputed; a checkpoint a layer would add 3 a group here).
+    Without remat a group keeps every activation of its 3 calls."""
+    cfg = registry.reduced(NAME)
+    residual = BATCH * SEQ * cfg.d_model * 2
+    grown = _saved_bytes(4, True) - _saved_bytes(2, True)
+    assert grown == 2 * residual, (grown, residual)
+    assert _saved_bytes(4, False) - _saved_bytes(2, False) > \
+        2 * (cfg.hybrid.shared_attn_every + 1) * residual
 
 
 def test_serving_dtypes_match_to_serving_dtype():

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro.core import nsga2 as rnsga2
+from repro.optim import adamw as radamw
 from repro_torch import convert
 from repro_torch.core import nsga2 as tnsga2
 
@@ -106,3 +107,30 @@ class JaxGumbel:
         self.key, sub = jax.random.split(self.key)
         return torch.tensor(np.asarray(jax.random.gumbel(sub, (n,),
                                                          jax.numpy.float32)))
+
+
+def ref_train_step(loss_fn, rp, ropt, batch, microbatches, opt_cfg):
+    """The reference's train step unjitted (its jitted `make_train_step`
+    raises `ShardingTypeError` on this JAX): `value_and_grad(loss_fn)`
+    over its microbatch loop (grads summed from zero in float32 and
+    divided by the count, loss the mean), then `adamw.update`.  Returns
+    (new params, new AdamW state, AdamW's metrics with `loss`)."""
+    vg = jax.value_and_grad(loss_fn, has_aux=True)
+    batch = jax.tree.map(jax.numpy.asarray, batch)
+    if microbatches == 1:
+        (loss, _), grads = vg(rp, batch)
+    else:
+        per = batch["inputs"].shape[0] // microbatches
+        gacc = jax.tree.map(lambda p: jax.numpy.zeros(p.shape,
+                                                      jax.numpy.float32), rp)
+        lacc = 0.0
+        for i in range(microbatches):
+            mb = jax.tree.map(lambda a: a[i * per:(i + 1) * per], batch)
+            (l, _), g = vg(rp, mb)
+            gacc = jax.tree.map(lambda a, b: a + b.astype(jax.numpy.float32),
+                                gacc, g)
+            lacc = lacc + l
+        grads = jax.tree.map(lambda g: g / microbatches, gacc)
+        loss = lacc / microbatches
+    new_p, new_opt, met = radamw.update(grads, ropt, rp, opt_cfg)
+    return new_p, new_opt, dict(met, loss=loss)
