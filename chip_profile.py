@@ -75,12 +75,28 @@ and prints:
    the mixer is its projections and elementwise work), the shared block
    and within it the attention layer (its kernel's time from the
    profiler), and the head; then its decode at batch 4 as section 6
-   measures qwen2.5-3b's.
+   measures qwen2.5-3b's;
+12. the full-width whisper-large-v3 prefill (32 encoder and 32 decoder
+   layers, bf16 weights drawn on the card from seed 0, 1500 stub frames
+   and 1 x 32768 tokens), after one warm-up: one prefill under the
+   profiler, its device time split into the (64, 64) flash attention
+   instantiation, the GEMMs, the softmax kernels and the rest; then by
+   stage (CUDA events around the model functions): the encoder, the
+   decoder's self-attention (with its kernel), the cross-attention's K /
+   V projections, the cross-attention (its q / o projections, score and
+   P.V einsums and float32 softmax) and the MLPs;
+13. the full-width xlstm-125m prefill (6 (mLSTM, sLSTM) pairs, bf16
+   weights drawn on the card from seed 0, 1 x 2048: the sLSTM's loop
+   issues ~20 kernels a position a pair), after one warm-up: one prefill
+   under the profiler (device time, GEMMs, busy share), then the stream
+   time of the chunkwise mLSTM, of the sLSTM and of its loop over time
+   (CUDA events around the model functions, idle gaps included); then
+   its decode at batch 4 as section 6 measures qwen2.5-3b's.
 
     python3 chip_profile.py vlm moe      # only the sections named
 
 Arguments name sections to run (request, train, prefill, decode,
-lm_train, moe, islands, vlm, hybrid); none runs them all.
+lm_train, moe, islands, vlm, hybrid, audio, ssm); none runs them all.
 
 It checks nothing: `chip_smoke.py` holds the results against the
 golden rows and the trainer's losses.  It imports nothing of JAX.
@@ -98,7 +114,7 @@ ROOT = Path(__file__).resolve().parent
 ARRAY_SIZE = 16384
 NARROW_SPEC = (128, 8, 16, 3)   # the trainer's mma-route macro (N 8, B 3)
 SECTIONS = ("request", "train", "prefill", "decode", "lm_train", "moe",
-            "islands", "vlm", "hybrid")
+            "islands", "vlm", "hybrid", "audio", "ssm")
 STAGE_PREFIX = "layout."
 
 
@@ -470,6 +486,106 @@ def profile_hybrid(seq: int = 32768, batch: int = 1) -> dict:
             "decode": dec}
 
 
+AUDIO_RANGES = {"encoder": ("whisper", "encode"),
+                "self_attention": ("attention", "attention_fwd_blockwise"),
+                "cross_kv": ("whisper", "cross_kv"),
+                "cross_attention": ("whisper", "cross_attention_fwd"),
+                "mlp": ("mlp", "mlp_fwd")}
+
+
+def profile_audio(seq: int = 32768, batch: int = 1) -> dict:
+    """One full-width whisper-large-v3 prefill (bf16 weights drawn on the
+    card from seed 0, the batch's 1500 stub frames) under the profiler,
+    after a warm-up: its device time by kernel class (the (64, 64) flash
+    attention instantiation, the GEMMs, the softmax kernels, the rest);
+    then one more prefill with each model function of `AUDIO_RANGES`
+    bracketed by CUDA events (`encoder` includes its own attention and
+    MLPs, which `mlp` counts too; `self_attention` the flash kernel and
+    the projections)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, mlp, whisper
+
+    cfg = registry.get("whisper-large-v3")
+    params = whisper.init_whisper(cfg, seed=0, dtype=torch.bfloat16,
+                                  draw_on="cuda")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
+    step = make_prefill_step(cfg, shape)
+    data = batch_for(cfg, seq, batch, 0)
+    wall_s, prof_s, prof = _profiled_prefill(step, params, data)
+    stages = _stage_device_s(lambda: step.fn(params, data), AUDIO_RANGES,
+                             {"attention": attention, "mlp": mlp,
+                              "whisper": whisper})
+    kernels = _device_kernels(prof)
+    flash = sum(r[2] for r in kernels if "flash_attention" in r[0]) / 1e6
+    gemm = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e6
+    softmax = sum(r[2] for r in kernels if "softmax" in r[0].lower()) / 1e6
+    device_s = sum(r[2] for r in kernels) / 1e6
+    del params, prof, data
+    torch.cuda.empty_cache()
+    return {"tokens": batch * seq, "wall_s": wall_s, "profiled_s": prof_s,
+            "device_s": device_s, "flash_attention_s": flash,
+            "gemm_s": gemm, "softmax_s": softmax,
+            "rest_s": device_s - flash - gemm - softmax,
+            "stages_device_s": stages, "busy_share": device_s / prof_s,
+            "device_events": sum(r[1] for r in kernels),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:15]]}
+
+
+SSM_RANGES = {"mlstm": ("xlstm", "mlstm_fwd_chunked"),
+              "slstm": ("xlstm", "slstm_fwd"),
+              "slstm.loop": ("xlstm", "_slstm_scan"),
+              "head": ("lm", "lm_logits")}
+
+
+def profile_ssm(seq: int = 2048, batch: int = 1) -> dict:
+    """One full-width xlstm-125m prefill (bf16 weights drawn on the card
+    from seed 0) under the profiler, after a warm-up: device time, GEMMs,
+    busy share; then one more prefill with each model function of
+    `SSM_RANGES` bracketed by CUDA events (stream time, the idle gaps of
+    a host-bound loop included); then `profile_decode` of the same
+    weights at batch 4."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm, xlstm
+
+    name = "xlstm-125m"
+    cfg = registry.get(name)
+    params = lm.init_lm(cfg, seed=0, dtype=torch.bfloat16, draw_on="cuda")
+    step = make_prefill_step(cfg, ShapeSpec("ssm", "prefill", seq, batch))
+    data = batch_for(cfg, seq, batch, 0)
+    wall_s, prof_s, prof = _profiled_prefill(step, params, data)
+    stages = _stage_device_s(lambda: step.fn(params, data), SSM_RANGES,
+                             {"lm": lm, "xlstm": xlstm})
+    kernels = _device_kernels(prof)
+    gemm = sum(r[2] for r in kernels if any(
+        m in r[0].lower() for m in GEMM_MARKS)) / 1e6
+    device_s = sum(r[2] for r in kernels) / 1e6
+    del prof, data
+    torch.cuda.empty_cache()
+    dec = profile_decode(params, name=name)
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": batch * seq, "wall_s": wall_s, "profiled_s": prof_s,
+            "device_s": device_s, "gemm_s": gemm,
+            "rest_s": device_s - gemm, "stages_stream_s": stages,
+            "busy_share": device_s / prof_s,
+            "device_events": sum(r[1] for r in kernels),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, c, us in kernels[:10]],
+            "decode": dec}
+
+
 def profile_decode(params, batch: int = 4, steps: int = 8,
                    max_seq: int = 256, name: str = "qwen2.5-3b") -> dict:
     """`decode_step` of the full-width config `name` at `batch`: step time
@@ -646,6 +762,10 @@ def main() -> int:
         out["vlm_prefill"] = _print_vlm()
     if "hybrid" in want:
         out["hybrid"] = _print_hybrid()
+    if "audio" in want:
+        out["audio_prefill"] = _print_audio()
+    if "ssm" in want:
+        out["ssm"] = _print_ssm()
     print(json.dumps({"card": card, **out}))
     return 0
 
@@ -840,6 +960,45 @@ def _print_hybrid() -> dict:
         print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  {row['name']}")
     _print_decode(None, hy["decode"], "zamba2-2.7b")
     return hy
+
+
+def _print_audio() -> dict:
+    au = profile_audio()
+    print(f"prefill (whisper-large-v3, 32 + 32 layers, 1500 frames, 1 x "
+          f"32768): {au['wall_s']:.3f} s unprofiled, {au['profiled_s']:.3f} "
+          f"s profiled; device {au['device_s']:.3f} s over "
+          f"{au['device_events']} events: flash_attention (64, 64) "
+          f"{au['flash_attention_s']:.3f} s "
+          f"({au['flash_attention_s'] / au['device_s']:.3f}), GEMMs "
+          f"{au['gemm_s']:.3f} s ({au['gemm_s'] / au['device_s']:.3f}), "
+          f"softmax {au['softmax_s']:.3f} s "
+          f"({au['softmax_s'] / au['device_s']:.3f}), rest "
+          f"{au['rest_s']:.3f} s; busy share {au['busy_share']:.3f}",
+          flush=True)
+    for name, sec in au["stages_device_s"].items():
+        print(f"  stage {name:16s} device {sec:.4f} s "
+              f"({sec / au['device_s']:.3f})")
+    for row in au["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  "
+              f"{row['name']}")
+    return au
+
+
+def _print_ssm() -> dict:
+    ss = profile_ssm()
+    print(f"prefill (xlstm-125m, 6 (mLSTM, sLSTM) pairs, 1 x "
+          f"{ss['tokens']}): {ss['wall_s']:.3f} s unprofiled, "
+          f"{ss['profiled_s']:.3f} s profiled; device {ss['device_s']:.3f} s "
+          f"over {ss['device_events']} events (GEMMs {ss['gemm_s']:.3f} s); "
+          f"busy share {ss['busy_share']:.3f}", flush=True)
+    for name, sec in ss["stages_stream_s"].items():
+        print(f"  stage {name:12s} stream {sec:.4f} s "
+              f"({sec / ss['wall_s']:.3f} of the unprofiled wall)")
+    for row in ss["top"]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['calls']:6d}x  "
+              f"{row['name']}")
+    _print_decode(None, ss["decode"], "xlstm-125m")
+    return ss
 
 
 if __name__ == "__main__":

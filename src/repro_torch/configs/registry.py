@@ -1,13 +1,15 @@
 """Config registry: ``get(name)`` returns the exact assigned ArchConfig;
 ``reduced(name)`` returns the same-family CPU smoke-test variant.
 
-Counterpart of `repro.configs.registry`, holding only the configurations
-whose family the port builds (`PORTED`): the dense qwen2.5-3b,
-qwen3-8b, codeqwen1.5-7b and granite-34b (learned positions), the MoE
-family's deepseek-v2-lite-16b (MLA) and arctic-480b, the VLM family's
-paligemma-3b and the hybrid family's zamba2-2.7b.  The reference's other
-ids are known here and raise `NotImplementedError`; an unknown id raises
-`KeyError`, as in the reference.
+Counterpart of `repro.configs.registry`.  `PORTED` names the
+configurations whose family the port builds, which is every one of the
+reference's: the dense qwen2.5-3b, qwen3-8b, codeqwen1.5-7b and
+granite-34b (learned positions), the MoE family's deepseek-v2-lite-16b
+(MLA) and arctic-480b, the VLM family's paligemma-3b, the hybrid
+family's zamba2-2.7b, the audio family's whisper-large-v3 and the SSM
+family's xlstm-125m.  An id outside `PORTED` raises
+`NotImplementedError`; an unknown id raises `KeyError`, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ ARCH_IDS = (
 )
 PORTED = ("qwen2_5_3b", "qwen3_8b", "codeqwen1_5_7b", "granite_34b",
           "deepseek_v2_lite_16b", "arctic_480b", "paligemma_3b",
-          "zamba2_2_7b")
+          "zamba2_2_7b", "whisper_large_v3", "xlstm_125m")
+
+ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 
 def canonical(name: str) -> str:
@@ -51,3 +55,7 @@ def get(name: str):
 
 def reduced(name: str):
     return _module(name).REDUCED
+
+
+def all_configs():
+    return {n: get(n) for n in ARCH_IDS}

@@ -2,7 +2,8 @@
 
 The design flow has no weights: its state is the calibration and the
 request.  The LM substrate has weights (the reference's `init_lm`
-pytree), an optimizer state and an architecture config.  These
+pytree, or `init_whisper`'s), an optimizer state and an architecture
+config.  These
 functions take the JAX package's values in plain form (numpy arrays,
 dicts) so the two packages can compute on the same operands, and give
 the port's weights and train state back in the reference's stacked
@@ -19,6 +20,7 @@ from repro_torch.configs import base as configs
 from repro_torch.core.estimator import CalOperands
 from repro_torch.core.nsga2 import SpaceOperands
 from repro_torch.launch.shapes import TensorSpec
+from repro_torch.models.lm import STACKED
 
 
 def _tensor(x) -> torch.Tensor:
@@ -104,17 +106,18 @@ def _nest(flat: dict) -> dict:
 
 
 def _unstack(tree: dict) -> dict:
-    """A tree in the reference's layout (numpy or torch leaves; `blocks`
-    leaves stacked on a leading n_layers axis) -> {`LM` state-dict name:
-    leaf}: layer i's slice becomes `blocks.<i>.<path>`; a quantized
-    moment stays a `{"q", "s"}` dict of tensors."""
+    """A tree in the reference's layout (numpy or torch leaves; the
+    leaves of `blocks`, `enc_blocks` and `dec_blocks` (`lm.STACKED`)
+    stacked on a leading layer axis) -> {state-dict name: leaf}: layer
+    i's slice becomes `blocks.<i>.<path>` (`enc_blocks.<i>.<path>`, ...);
+    a quantized moment stays a `{"q", "s"}` dict of tensors."""
     out = {}
     for path, leaf in _paths(tree):
         items = leaf.items() if _is_quantized(leaf) else ((None, leaf),)
         for sub, x in items:
-            if path[0] == "blocks":
+            if path[0] in STACKED:
                 rest = ".".join(path[1:])
-                pieces = [(f"blocks.{i}.{rest}", x[i])
+                pieces = [(f"{path[0]}.{i}.{rest}", x[i])
                           for i in range(x.shape[0])]
             else:
                 pieces = [(".".join(path), x)]
@@ -127,18 +130,19 @@ def _unstack(tree: dict) -> dict:
 
 
 def _stack_fns(named: dict, spec: bool = False) -> dict:
-    """{`LM` state-dict name: tensor or quantized dict} -> {reference path:
-    a function of no arguments giving the stacked leaf on the CPU}, or
-    with `spec` the leaf's `TensorSpec` (nothing copied)."""
+    """{state-dict name: tensor or quantized dict} -> {reference path: a
+    function of no arguments giving the stacked leaf on the CPU}, or with
+    `spec` the leaf's `TensorSpec` (nothing copied)."""
     layers: dict = {}
     flat = {}
     for name, v in named.items():
         items = v.items() if _is_quantized(v) else ((None, v),)
         for sub, t in items:
             tail = () if sub is None else (sub,)
-            if name.startswith("blocks."):
-                _, i, rest = name.split(".", 2)
-                path = ("blocks",) + tuple(rest.split(".")) + tail
+            top, _, rest = name.partition(".")
+            if top in STACKED:
+                i, _, rest = rest.partition(".")
+                path = (top,) + tuple(rest.split(".")) + tail
                 layers.setdefault(path, {})[int(i)] = t
             else:
                 flat[tuple(name.split(".")) + tail] = (
@@ -153,18 +157,21 @@ def _stack_fns(named: dict, spec: bool = False) -> dict:
 
 
 def lm_params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
-    """The reference's `init_lm` pytree with numpy leaves -> a state dict
-    of `repro_torch.models.lm.LM` (`load_state_dict`).
+    """The reference's `init_lm` (or `init_whisper`) pytree with numpy
+    leaves -> a state dict of `repro_torch.models.lm.LM` (or
+    `repro_torch.models.whisper.Whisper`) (`load_state_dict`).
 
-    `blocks` holds every layer's leaves stacked on a leading n_layers
-    axis; layer i's slice becomes `blocks.<i>.<path>`.  Nested dicts
-    become dotted names; the leaves keep their dtype (float32)."""
+    `blocks` (whisper's `enc_blocks` and `dec_blocks`) holds every
+    layer's leaves stacked on a leading layer axis; layer i's slice
+    becomes `blocks.<i>.<path>`.  Nested dicts become dotted names; the
+    leaves keep their dtype (float32)."""
     return _unstack(tree)
 
 
 def lm_params_to_numpy(params) -> dict:
-    """The inverse of `lm_params_from_numpy`: an `LM` (or its state dict)
-    -> the reference's `init_lm` pytree, numpy leaves, `blocks` stacked.
+    """The inverse of `lm_params_from_numpy`: an `LM` or `Whisper` (or its
+    state dict) -> the reference's pytree, numpy leaves, the layer
+    subtrees stacked.
     numpy has no bfloat16: bf16 leaves are widened to float32 (the
     reference's checkpoint widens them on disk the same way)."""
     named = dict(params.named_parameters()) if isinstance(

@@ -1,7 +1,8 @@
 """Deterministic, stateless synthetic token batches.
 
-Counterpart of `repro.data.synthetic` for the dense, MoE, hybrid and
-VLM families (the VLM's batches add stub patch embeddings).  Batch t is
+Counterpart of `repro.data.synthetic` for every family (the VLM's
+batches add stub patch embeddings, the audio family's stub frame
+embeddings).  Batch t is
 a pure function of (seed, step): each batch draws from its own CPU `torch.Generator`, seeded from (seed,
 step), so there is no iterator state and every device gets the same
 tokens.  Tokens follow a Zipfian marginal
@@ -76,23 +77,26 @@ class SyntheticStream:
 
 def batch_for(cfg: ArchConfig, seq: int, global_batch_size: int, step: int,
               seed: int = 1234, device=None) -> dict:
-    """The batch of `step` for a dense-, MoE-, hybrid- or VLM-family
-    model, on `device`.  Tokens are `global_batch`'s (the hybrid family's
-    batch is tokens only, as the reference's).  The VLM's batch adds
-    `patches` (B, n_patches, D) float32 = 0.1 x standard normal (the
-    SigLIP stub), drawn from a CPU `torch.Generator` seeded from (seed +
-    7, step), as the reference keys its draw from `fold_in(key(seed + 7),
-    step)`; the values are not the reference's (torch cannot reproduce
-    `jax.random`)."""
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
-        raise NotImplementedError(
-            f"synthetic batches of the {cfg.family!r} family are not ported")
+    """The batch of `step` for a model of `cfg`'s family, on `device`.
+    Tokens are `global_batch`'s (the dense, MoE, hybrid and SSM families'
+    batches are tokens only, as the reference's).  The VLM's batch adds
+    `patches` (B, n_patches, D) (the SigLIP stub), the audio family's
+    `frames` (B, enc_frames, D) (the conv frontend's stub): float32 = 0.1
+    x standard normal, drawn from a CPU `torch.Generator` seeded from
+    (seed + 7, step), as the reference keys its draw from
+    `fold_in(key(seed + 7), step)`; the values are not the reference's
+    (torch cannot reproduce `jax.random`).  An unknown family raises
+    `ValueError`."""
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm", "audio"):
+        raise ValueError(f"{cfg.name!r}: unknown family {cfg.family!r}")
     batch = global_batch(DataConfig(cfg.vocab, seq, global_batch_size, seed),
                          step)
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "audio"):
+        name, rows = (("patches", cfg.vlm.n_patches) if cfg.family == "vlm"
+                      else ("frames", cfg.encdec.enc_frames))
         key = np.random.SeedSequence([seed + 7, step]).generate_state(1)[0]
         g = torch.Generator().manual_seed(int(key))
-        batch["patches"] = 0.1 * torch.randn(
-            (global_batch_size, cfg.vlm.n_patches, cfg.d_model),
-            generator=g, dtype=torch.float32)
+        batch[name] = 0.1 * torch.randn(
+            (global_batch_size, rows, cfg.d_model), generator=g,
+            dtype=torch.float32)
     return {k: v.to(device) for k, v in batch.items()}

@@ -1,5 +1,6 @@
 """Step builders: the train step, the prefill forward and the decode step
-of the LM (the dense, MoE, VLM and hybrid families).
+of every family of the LM substrate (dense, MoE, VLM, hybrid, SSM, and
+the audio family's encoder-decoder).
 
 Counterpart of `repro.launch.steps` on one device.  The reference jits
 each step with the sharding policy of a mesh; the port runs eagerly on
@@ -21,7 +22,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.shapes import ShapeSpec
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
 
@@ -86,12 +87,14 @@ def make_train_step(cfg: ArchConfig, *,
                     cast_bf16: bool = False, device=None) -> TrainStep:
     """The train step on `device` (CUDA when None, raising without it).
 
-    `fn(state, batch)` takes `state = {"params": LM, "opt": adamw state,
-    "step": int32 0-dim tensor}` (`train.trainer.init_state`) and a batch
-    of `inputs` / `targets` (B, S) (the VLM's also `patches` (B, P, D));
-    it runs the model's loss (`lm_loss`, or `paligemma_loss` for the VLM:
-    dense attention, bf16 products, remat per block when `remat`, for
-    the hybrid family per group with each Mamba2 layer inside it),
+    `fn(state, batch)` takes `state = {"params": the model, "opt": adamw
+    state, "step": int32 0-dim tensor}` (`train.trainer.init_state`) and
+    a batch of `inputs` / `targets` (B, S) (the VLM's also `patches` (B,
+    P, D), the audio family's `frames` (B, F, D)); it runs the model's
+    loss (`lm_loss`, `paligemma_loss` for the VLM, `whisper_loss` for the
+    audio family: dense attention, bf16 products, remat per block when
+    `remat`, for the hybrid family per group with each Mamba2 layer
+    inside it; the SSM family's mLSTM chunkwise, as the reference's),
     backward and AdamW,
     writes the parameters and moments in place (the reference donates
     its state) and returns (state, metrics): `lm_loss`'s metrics, AdamW's
@@ -105,15 +108,15 @@ def make_train_step(cfg: ArchConfig, *,
     bf16 cast of the float32 leaves of stacked rank >= 2."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or default_opt_cfg(cfg)
-    api = build_model(cfg, remat=remat)
+    api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
 
-    def loss_fn(params: lm.LM, mb: dict):
+    def loss_fn(params, mb: dict):
         if cast_bf16:
             params = _cast_view(params, torch.bfloat16)
         return api.loss(params, mb)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        model: lm.LM = state["params"]
+        model = state["params"]
         named = dict(model.named_parameters())
         for p in named.values():
             p.grad = None
@@ -154,8 +157,9 @@ def make_train_step(cfg: ArchConfig, *,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class PrefillStep:
-    fn: Callable[[lm.LM, dict], torch.Tensor]
-    # the shape's batch: inputs (B, S); the VLM's also patches (B, P, D)
+    fn: Callable[[torch.nn.Module, dict], torch.Tensor]
+    # the shape's batch: inputs (B, S); the VLM's also patches (B, P, D),
+    # the audio family's frames (B, F, D)
     batch_shapes: dict[str, tuple[int, ...]]
     device: torch.device
 
@@ -170,25 +174,38 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, *,
     `torch.inference_mode()`: logits at every position, in the hidden
     dtype (bf16).  The hybrid family's prefill runs its Mamba2 layers'
     chunked SSD and the shared block's blockwise attention (zamba2-2.7b:
-    head dim 80, `flash_attention_wgmma` at (80, 80) on the card).  The
+    head dim 80, `flash_attention_wgmma` at (80, 80) on the card); the SSM
+    family's its mLSTM chunkwise and its sLSTM's loop over time.  The
     VLM family's batch also carries `patches` (B, P, D), prepended as
     `prefix_embeds` (attention bidirectional over them):
     its logits cover the P + S positions, patches included, as the
-    reference's do.  `params` is an `LM` on the step's device, as
-    `init_lm(cfg, device=..., dtype=torch.bfloat16)` gives the serving
+    reference's do.  The audio family's carries `frames` (B, F, D): the
+    encoder runs over them (dense attention), then the decoder over the
+    tokens with blockwise self-attention (whisper-large-v3: head dim 64,
+    `flash_attention_wgmma` at (64, 64) on the card) and dense
+    cross-attention.  `params` is the model on the step's device, as
+    its `init(device=..., dtype=torch.bfloat16)` gives the serving
     weights."""
     dev = resolve_device(device)
-    lm.check_dense(cfg)
+    build_model(cfg)
     shapes = {"inputs": (shape.batch, shape.seq)}
     if cfg.family == "vlm":
         shapes["patches"] = (shape.batch, cfg.vlm.n_patches, cfg.d_model)
+    if cfg.family == "audio":
+        shapes["frames"] = (shape.batch, cfg.encdec.enc_frames, cfg.d_model)
 
-    def prefill(params: lm.LM, batch: dict) -> torch.Tensor:
-        prefix = batch["patches"].to(dev) if cfg.family == "vlm" else None
+    def prefill(params, batch: dict) -> torch.Tensor:
         with torch.inference_mode():
+            if cfg.family == "audio":
+                enc = whisper.encode(params, batch["frames"].to(dev), cfg)
+                return whisper.decode_fwd(params, batch["inputs"].to(dev),
+                                          enc, cfg, attn_impl="blockwise")
+            prefix = (batch["patches"].to(dev) if cfg.family == "vlm"
+                      else None)
             hidden, _ = lm.lm_hidden(params, batch["inputs"].to(dev), cfg,
                                      prefix_embeds=prefix,
-                                     attn_impl="blockwise")
+                                     attn_impl="blockwise",
+                                     mlstm_chunked=(cfg.family == "ssm"))
             return lm.lm_logits(params, hidden, cfg)
 
     return PrefillStep(fn=prefill, batch_shapes=shapes, device=dev)
@@ -199,7 +216,8 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, *,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ServeStep:
-    fn: Callable[[lm.LM, dict, torch.Tensor], tuple[torch.Tensor, dict]]
+    fn: Callable[[torch.nn.Module, dict, torch.Tensor],
+                 tuple[torch.Tensor, dict]]
     init_state: Callable[[], dict]   # a fresh decode state of the shape
     tokens_shape: tuple[int, ...]    # (B,)
     device: torch.device

@@ -1,13 +1,16 @@
-"""Shared model building blocks: norms, RoPE, masks, losses, init.
+"""Shared model building blocks: dtype policy, norms, RoPE, sinusoidal
+positions, masks, losses, init.
 
-Counterpart of the parts of `repro.models.common` the dense decoder
-uses.  Parameters live in `nn.Module`s that keep the reference's
-parameter names (`scale`, `bias`), so the reference's pytrees map onto
-them (`repro_torch.convert.lm_params_from_numpy`).  Initializers draw
+Counterpart of `repro.models.common`.  Parameters live in `nn.Module`s
+that keep the reference's parameter names (`scale`, `bias`), so the
+reference's pytrees map onto them
+(`repro_torch.convert.lm_params_from_numpy`).  Initializers draw
 from an explicit `torch.Generator`; they keep the reference's
 distributions, not its bits.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -15,6 +18,22 @@ import torch.nn.functional as F
 from torch import nn
 
 NEG_INF = -1e9
+
+
+# ---------------------------------------------------------------------------
+# dtype policy
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    params: torch.dtype = torch.float32    # master params (the optimizer's)
+    compute: torch.dtype = torch.bfloat16  # activations / matmul inputs
+    accum: torch.dtype = torch.float32     # softmax / norms / losses
+
+    def cast_in(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute)
+
+
+DEFAULT_POLICY = DTypePolicy()
 
 # learned-position table size: covers the 32k prefill/decode shapes
 MAX_LEARNED_POS = 32768
@@ -81,8 +100,16 @@ class Norm(nn.Module):
         return apply_norm(self, x, self.kind)
 
 
+def init_rmsnorm(d: int) -> Norm:
+    return Norm(d, "rmsnorm")
+
+
+def init_layernorm(d: int) -> Norm:
+    return Norm(d, "layernorm")
+
+
 def init_norm(d: int, kind: str) -> Norm:
-    return Norm(d, kind)
+    return init_rmsnorm(d) if kind == "rmsnorm" else init_layernorm(d)
 
 
 def apply_norm(p: Norm, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -110,6 +137,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) float32: sin then cos of pos / 10000^(2 i / d), computed
+    in float64 with numpy and cast to float32 once, as the reference's."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * dim / d))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,21 @@
 """Decoder-only LM assembled from an ArchConfig: the dense family, the
 MoE family (deepseek-v2-lite with MLA, arctic with GQA), the decoder
 of the VLM family (paligemma: image patches prepended as a prefix,
-`repro_torch.models.paligemma`) and the hybrid family (zamba2: Mamba2
+`repro_torch.models.paligemma`), the hybrid family (zamba2: Mamba2
 layers in groups, one weight-shared attention + FFN block at the start
-of every group), with RoPE or learned absolute positions (granite:
-`pos_emb`, added to the embedding).
+of every group) and the SSM family (xlstm: (mLSTM, sLSTM) pairs,
+`repro_torch.models.xlstm`), with RoPE or learned absolute positions
+(granite: `pos_emb`, added to the embedding).  The audio family
+(whisper, an encoder-decoder) is `repro_torch.models.whisper`.
 
-Counterpart of the dense, MoE and hybrid families of `repro.models.lm`:
-`init_lm` builds the parameters as `nn.Module`s whose state-dict names
-follow the reference's pytree (`emb`, `blocks.<i>.ln1.scale`,
-`blocks.<i>.attn.wq`, `blocks.<i>.ffn.router`, ..., `final_norm.scale`,
-`head`, `pos_emb`; the hybrid family's `blocks.<i>.mamba.in_proj`, ...
-and its shared block's `shared.attn.wq`, ...), with the reference's stacked
-`blocks` axis unrolled into a `ModuleList`.  MoE layers add their
+Counterpart of `repro.models.lm`: `init_lm` builds the parameters as
+`nn.Module`s whose state-dict names follow the reference's pytree
+(`emb`, `blocks.<i>.ln1.scale`, `blocks.<i>.attn.wq`,
+`blocks.<i>.ffn.router`, ..., `final_norm.scale`, `head`, `pos_emb`;
+the hybrid family's `blocks.<i>.mamba.in_proj`, ... and its shared
+block's `shared.attn.wq`, ...; the SSM family's `blocks.<i>.mlstm.up`,
+`blocks.<i>.slstm.r_gates`, ...), with the reference's stacked `blocks`
+axis unrolled into a `ModuleList`.  MoE layers add their
 router aux loss, which `lm_hidden` sums over the layers and `lm_loss`
 adds to the loss.  `lm_hidden` / `lm_logits`
 are the forward of prefill (`repro_torch.launch.steps`), dense or
@@ -35,14 +38,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2, mlp
+from repro_torch.models import mamba2, mlp, xlstm
 from repro_torch.models.common import (MAX_LEARNED_POS, apply_norm,
                                        causal_mask, dense_init, embed_init,
                                        init_norm, softmax_cross_entropy)
 
-
-# Where each family the port does not build stands in ROADMAP queue 1.
-_NOT_PORTED = {"ssm": "item 6.6 (xlstm)", "audio": "item 6.6 (whisper)"}
 
 # The backbone's activation dtype: the reference casts the embeddings to
 # bf16 (`astype(jnp.bfloat16)`) whatever the parameters' dtype.  Read by
@@ -51,19 +51,37 @@ _NOT_PORTED = {"ssm": "item 6.6 (xlstm)", "audio": "item 6.6 (whisper)"}
 BACKBONE = torch.bfloat16
 
 
+# The families this module builds; the audio family's encoder-decoder is
+# `models.whisper` (`models.registry.build_model` picks it).
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+
+
 def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless the port builds `cfg`: the dense decoder, the MoE
-    family and the VLM family's decoder, each with GQA or MLA attention,
-    and the hybrid family (Mamba2 with a shared attention block), with
-    RoPE or learned positions.  The message names the ROADMAP item that
-    brings what is missing; a hybrid config without its `ssm` and
-    `hybrid` sub-configs, or whose layers do not fill whole groups,
-    raises `ValueError`."""
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
-        item = _NOT_PORTED.get(cfg.family, "item 6")
-        raise NotImplementedError(
-            f"the port builds the dense, MoE, VLM and hybrid families "
-            f"only, not {cfg.name!r} ({cfg.family}): ROADMAP queue 1 {item}")
+    """Raise `ValueError` unless this module builds `cfg`: the dense
+    decoder, the MoE family and the VLM family's decoder, each with GQA
+    or MLA attention, with RoPE or learned positions; the hybrid family
+    (Mamba2 with a shared attention block) with its `ssm` and `hybrid`
+    sub-configs and whole groups of layers; the SSM family (xLSTM) with
+    its `xlstm` sub-config and whole (mLSTM, sLSTM) pairs.  The audio
+    family is `models.whisper`'s."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name!r} is an encoder-decoder (audio): "
+                         f"models.whisper builds it, through "
+                         f"models.registry.build_model")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name!r}: unknown family {cfg.family!r}; "
+                         f"the LM builds {FAMILIES}")
+    if cfg.family == "ssm":
+        if cfg.xlstm is None:
+            raise ValueError(f"an SSM-family config needs its xlstm "
+                             f"sub-config; {cfg.name!r} has none")
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name!r}: {cfg.n_layers} layers are not "
+                             f"whole (mLSTM, sLSTM) pairs")
+        xlstm.dims(cfg)
+        if cfg.d_model % cfg.n_heads:
+            raise ValueError(f"{cfg.name!r}: d_model {cfg.d_model} is not a "
+                             f"multiple of {cfg.n_heads} sLSTM heads")
     if cfg.family == "hybrid":
         if cfg.ssm is None or cfg.hybrid is None:
             raise ValueError(f"a hybrid-family config needs its ssm and "
@@ -79,12 +97,17 @@ class Block(nn.Module):
     """One layer (the reference's `_init_block`): `ln1`, `attn` (MLA
     where the config has it), `ln2`, `ffn` (an MoE where the config has
     one); for the hybrid family `ln1` and the Mamba2 mixer `mamba`
-    only."""
+    only; for the SSM family a pair, `ln1`, `mlstm`, `ln2`, `slstm`."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator):
         super().__init__()
         d = cfg.d_model
         self.ln1 = init_norm(d, cfg.norm)
+        if cfg.family == "ssm":
+            self.mlstm = xlstm.init_mlstm(cfg, generator)
+            self.ln2 = init_norm(d, cfg.norm)
+            self.slstm = xlstm.init_slstm(cfg, generator)
+            return
         if cfg.family == "hybrid":
             self.mamba = mamba2.init_mamba2(cfg, generator)
             return
@@ -136,23 +159,30 @@ def _shared_block_fwd(p: SharedBlock, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def n_stacked_layers(cfg: ArchConfig) -> int:
-    """The length of the reference's stacked `blocks` axis: every layer
-    (the xLSTM family, which stacks (mLSTM, sLSTM) pairs, is not
-    ported)."""
+    """The length of the reference's stacked `blocks` axis: every layer,
+    or for the SSM family every (mLSTM, sLSTM) pair (n_layers / 2)."""
+    if cfg.family == "ssm":
+        return cfg.n_layers // 2
     return cfg.n_layers
+
+
+# The reference's stacked subtrees: `blocks` of the LM, whisper's
+# `enc_blocks` and `dec_blocks`, each a leading layer axis.
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def stacked_ndim(name: str, t: torch.Tensor) -> int:
     """The rank the reference gives parameter `name` (a state-dict name
-    of `LM`).  The reference stacks every layer's leaves on a leading
-    n_layers axis (`blocks.attn.wq` is (L, D, H*Dh)), so a tensor under
-    `blocks.<i>.` counts its own rank plus one: `blocks.<i>.ln1.scale`
-    has rank 2 there, `final_norm.scale` rank 1, and so has the hybrid
-    family's unstacked `shared.ln1.scale`.  The reference's rules
-    that test `ndim >= 2` read this rank: the serving cast
-    (`_to_serving_dtype`), AdamW's weight decay and the train step's
-    `cast_bf16`."""
-    return t.dim() + (1 if name.startswith("blocks.") else 0)
+    of `LM` or of `whisper.Whisper`).  The reference stacks every
+    layer's leaves on a leading layer axis (`blocks.attn.wq` is (L, D,
+    H*Dh)), so a tensor under `blocks.<i>.`, `enc_blocks.<i>.` or
+    `dec_blocks.<i>.` (`STACKED`) counts its own rank plus one:
+    `blocks.<i>.ln1.scale` has rank 2 there, `final_norm.scale` rank 1,
+    and so have the hybrid family's unstacked `shared.ln1.scale` and
+    whisper's `enc_norm.scale`.  The reference's rules that test `ndim
+    >= 2` read this rank: the serving cast (`_to_serving_dtype`),
+    AdamW's weight decay and the train step's `cast_bf16`."""
+    return t.dim() + (1 if name.split(".", 1)[0] in STACKED else 0)
 
 
 def _serving(name: str, t: torch.Tensor, device: torch.device,
@@ -194,7 +224,7 @@ class LM(nn.Module):
             generator, (cfg.vocab, cfg.d_model)), dev, dtype))
         self.blocks = nn.ModuleList(
             _place(Block(cfg, generator), f"blocks.{i}.", dev, dtype)
-            for i in range(cfg.n_layers))
+            for i in range(n_stacked_layers(cfg)))
         self.final_norm = _place(init_norm(cfg.d_model, cfg.norm),
                                  "final_norm.", dev, dtype)
         if not cfg.tie_embeddings:
@@ -228,18 +258,25 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None,
 
 def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
                mask: torch.Tensor | None, positions: torch.Tensor,
-               attn_impl: str = "dense",
-               prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+               attn_impl: str = "dense", prefix_len: int = 0,
+               mlstm_chunked: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer: (y, the MoE aux loss, float32, 0 without an MoE).
     attn_impl: 'dense' | 'blockwise' (32k+ seqs); a hybrid layer (Mamba2)
-    has no attention."""
+    and an SSM pair (mLSTM, then sLSTM; the mLSTM chunkwise when
+    `mlstm_chunked`) have no attention."""
     if attn_impl not in ("dense", "blockwise"):
         raise ValueError(f"attn_impl must be 'dense' or 'blockwise', not "
                          f"{attn_impl!r}")
     h = apply_norm(p.ln1, x, cfg.norm)
-    if cfg.family == "hybrid":
-        return x + mamba2.mamba2_fwd(p.mamba, h, cfg), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+    if cfg.family in ("hybrid", "ssm"):
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "hybrid":
+            return x + mamba2.mamba2_fwd(p.mamba, h, cfg), zero
+        fwd = xlstm.mlstm_fwd_chunked if mlstm_chunked else xlstm.mlstm_fwd
+        x = x + fwd(p.mlstm, h, cfg)
+        h = apply_norm(p.ln2, x, cfg.norm)
+        return x + xlstm.slstm_fwd(p.slstm, h, cfg), zero
     if cfg.mla is not None:
         if attn_impl == "blockwise":
             a = attn.mla_fwd_blockwise(p.attn, h, cfg, positions=positions)
@@ -288,7 +325,7 @@ def _group_fwd(shared: SharedBlock, blocks, x: torch.Tensor,
 def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
               mask: torch.Tensor | None = None,
               prefix_embeds: torch.Tensor | None = None,
-              remat: bool = False,
+              mlstm_chunked: bool = False, remat: bool = False,
               attn_impl: str = "dense") -> tuple[torch.Tensor, torch.Tensor]:
     """Embed -> bf16 (+ the learned positions `pos_emb[:S]`) -> blocks
     -> final norm.  Returns (hidden (B, S, D), the MoE aux loss summed
@@ -301,7 +338,9 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     after group (the reference's grouped scan); under `remat` a group
     runs under one checkpoint and each of its Mamba2 layers under its
     own inside it (the reference's `jax.checkpoint(group_step)`), so
-    backward keeps one (B, S, D) input a group.
+    backward keeps one (B, S, D) input a group.  The SSM family runs its
+    (mLSTM, sLSTM) pairs, the mLSTM chunkwise when `mlstm_chunked` (the
+    prefill and the train step), else as the recurrence.
 
     `prefix_embeds` (B, P, D): modality-stub embeddings (the VLM's
     patches) cast to the backbone's dtype and prepended to the token
@@ -343,7 +382,7 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     for blk in params.blocks:
         x, a = _run(remat, _block_fwd, blk, x, cfg, mask=mask,
                     positions=positions, attn_impl=attn_impl,
-                    prefix_len=prefix_len)
+                    prefix_len=prefix_len, mlstm_chunked=mlstm_chunked)
         aux = aux + a
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
@@ -355,13 +394,15 @@ def lm_logits(params: LM, hidden: torch.Tensor,
 
 
 def lm_loss(params: LM, batch: dict, cfg: ArchConfig, *,
+            mlstm_chunked: bool = False,
             remat: bool = False) -> tuple[torch.Tensor, dict]:
     """Token-mean cross-entropy (with the z-loss) of `batch["targets"]`
     under the dense attention forward, plus the MoE aux loss: `(loss +
     aux, metrics)`, metrics `nll`, `z_loss`, `ppl_proxy` and `aux_loss`
     (0 for the dense family, which has no MoE router) as 0-dim
-    tensors."""
-    hidden, aux = lm_hidden(params, batch["inputs"], cfg, remat=remat)
+    tensors.  `mlstm_chunked` as `lm_hidden`'s."""
+    hidden, aux = lm_hidden(params, batch["inputs"], cfg, remat=remat,
+                            mlstm_chunked=mlstm_chunked)
     logits = lm_logits(params, hidden, cfg)
     loss, metrics = softmax_cross_entropy(logits, batch["targets"])
     metrics["aux_loss"] = aux
@@ -371,6 +412,18 @@ def lm_loss(params: LM, batch: dict, cfg: ArchConfig, *,
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def _init_layer_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
+                      device, dtype: torch.dtype) -> dict:
+    """One layer's decode cache (`init_decode_state` stacks them)."""
+    if cfg.family == "hybrid":
+        return mamba2.init_mamba2_state(cfg, batch, device=device)
+    if cfg.family == "ssm":
+        return {"mlstm": xlstm.init_mlstm_state(cfg, batch, device=device),
+                "slstm": xlstm.init_slstm_state(cfg, batch, device=device)}
+    init = attn.init_mla_cache if cfg.mla is not None else attn.init_kv_cache
+    return init(cfg, batch, max_seq, dtype=dtype, device=device)
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int, *,
                       device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The decode state: every layer's cache stacked, zeroed on `device`
@@ -381,32 +434,54 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int, *,
     the Mamba2 states `ssm` (L, B, H, N, P) and `conv` (L, B, K - 1, D_i
     + 2 G N) in float32 (`mamba2.init_mamba2_state`'s default), and its
     `shared_caches` one k / v pair (B, KV, S, Dh) in `dtype` for each
-    group's call of the shared block, stacked to (L / per, ...)."""
+    group's call of the shared block, stacked to (L / per, ...).  The SSM
+    family's are float32 recurrent states of a size independent of
+    `max_seq`, stacked over the L / 2 pairs: `mlstm` {c (B, H, dh, dh),
+    n (B, H, dh), m (B, H) at -1e30, conv (B, K - 1, inner)} and `slstm`
+    {c, n, m at -1e30, h}, each (B, H, D / H)."""
     check_dense(cfg)
-    if cfg.family == "hybrid":
-        one = mamba2.init_mamba2_state(cfg, batch, device=device)
-    else:
-        init = (attn.init_mla_cache if cfg.mla is not None
-                else attn.init_kv_cache)
-        one = init(cfg, batch, max_seq, dtype=dtype, device=device)
-    caches = {k: v.new_zeros((cfg.n_layers,) + v.shape)
-              for k, v in one.items()}
-    state = {"caches": caches, "pos": 0}
+    one = _init_layer_cache(cfg, batch, max_seq, device=device, dtype=dtype)
+    state = {"caches": stack_state(one, n_stacked_layers(cfg)), "pos": 0}
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.hybrid.shared_attn_every
         sc = attn.init_kv_cache(_zamba_attn_cfg(cfg), batch, max_seq,
                                 dtype=dtype, device=device)
-        state["shared_caches"] = {k: v.new_zeros((groups,) + v.shape)
-                                  for k, v in sc.items()}
+        state["shared_caches"] = stack_state(sc, groups)
     return state
 
 
-def _cache_len(state: dict) -> int:
+def stack_state(one: dict, n: int) -> dict:
+    """One layer's decode state (a dict of tensors, or of such dicts)
+    repeated on a new leading axis of `n`."""
+    return {k: stack_state(v, n) if isinstance(v, dict)
+            else v.new_empty((n,) + v.shape).copy_(v)
+            for k, v in one.items()}
+
+
+def layer_state(caches: dict, i: int) -> dict:
+    """Layer `i`'s slice of a stacked decode state: views, so a write
+    into them writes the stacked tensors."""
+    return {k: layer_state(v, i) if isinstance(v, dict) else v[i]
+            for k, v in caches.items()}
+
+
+def _write(cache: dict, new: dict) -> None:
+    for k, t in new.items():
+        if isinstance(t, dict):
+            _write(cache[k], t)
+        else:
+            cache[k].copy_(t)
+
+
+def _cache_len(state: dict) -> int | None:
     """Positions of a decode state's stacked attention cache: (L, B, KV,
     S, Dh), MLA's (L, B, S, C), or the hybrid family's shared caches
-    (L / per, B, KV, S, Dh)."""
+    (L / per, B, KV, S, Dh); None for the SSM family, whose state has
+    no positions."""
     caches = state.get("shared_caches", state["caches"])
-    return caches["k"].shape[3] if "k" in caches else caches["c_kv"].shape[2]
+    if "k" in caches:
+        return caches["k"].shape[3]
+    return caches["c_kv"].shape[2] if "c_kv" in caches else None
 
 
 def _shared_decode(p: SharedBlock, x_t: torch.Tensor, cache: dict, pos: int,
@@ -422,13 +497,20 @@ def _shared_decode(p: SharedBlock, x_t: torch.Tensor, cache: dict, pos: int,
 
 def _layer_decode(p: Block, x_t: torch.Tensor, cache: dict, pos: int,
                   cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
-    """One layer's decode.  The hybrid family's Mamba2 state is written
-    back into `cache`'s tensors in place."""
+    """One layer's decode.  The hybrid family's Mamba2 state and the SSM
+    family's mLSTM and sLSTM states are written back into `cache`'s
+    tensors in place."""
     h = apply_norm(p.ln1, x_t[:, None], cfg.norm)[:, 0]
     if cfg.family == "hybrid":
         y, new = mamba2.mamba2_decode(p.mamba, h, cache, cfg)
-        for k, t in new.items():
-            cache[k].copy_(t)
+        _write(cache, new)
+        return x_t + y, cache
+    if cfg.family == "ssm":
+        y, new_m = xlstm.mlstm_decode(p.mlstm, h, cache["mlstm"], cfg)
+        x_t = x_t + y
+        h = apply_norm(p.ln2, x_t[:, None], cfg.norm)[:, 0]
+        y, new_s = xlstm.slstm_decode(p.slstm, h, cache["slstm"], cfg)
+        _write(cache, {"mlstm": new_m, "slstm": new_s})
         return x_t + y, cache
     if cfg.mla is not None:
         a, cache = attn.mla_decode(p.attn, h, cache, pos, cfg)
@@ -443,6 +525,20 @@ def _layer_decode(p: Block, x_t: torch.Tensor, cache: dict, pos: int,
     return x_t + y, cache
 
 
+def check_position(state: dict, cfg: ArchConfig) -> None:
+    """Raise `ValueError` where `state["pos"]` lies outside the state's
+    cache (no bound for the SSM family's recurrent state) or, with
+    learned positions, past the table's `MAX_LEARNED_POS` rows (the
+    reference clamps both)."""
+    pos, n = state["pos"], _cache_len(state)
+    if pos < 0 or (n is not None and pos >= n):
+        raise ValueError(f"decode position {pos} is outside the cache's "
+                         f"{n} positions")
+    if cfg.pos == "learned" and pos >= MAX_LEARNED_POS:
+        raise ValueError(f"decode position {pos} is past the learned "
+                         f"table's {MAX_LEARNED_POS} positions")
+
+
 @torch.no_grad()
 def decode_step(params: LM, state: dict, tokens: torch.Tensor,
                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
@@ -452,29 +548,24 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor,
     the learned position `pos_emb[pos]` where the config has one; a
     Python loop over the layers writes each layer's k / v (MLA: latent
     and rope key; the hybrid family: its Mamba2 state, and the shared
-    block's k / v at each group's start) into the stacked caches in
-    place at `state["pos"]`, so the new state holds the same cache
-    tensors.  Where the reference clamps a write past the cache's end,
-    this raises, and so does a position past the learned table."""
+    block's k / v at each group's start; the SSM family: its mLSTM and
+    sLSTM states) into the stacked caches in place at `state["pos"]`,
+    so the new state holds the same cache tensors.  Where the reference
+    clamps a write past the cache's end, this raises, and so does a
+    position past the learned table."""
     check_dense(cfg)
     pos = state["pos"]
-    caches = state["caches"]
-    if not 0 <= pos < _cache_len(state):
-        raise ValueError(f"decode position {pos} is outside the cache's "
-                         f"{_cache_len(state)} positions")
+    check_position(state, cfg)
     x = params.emb[tokens].to(BACKBONE)
     if cfg.pos == "learned":
-        if pos >= MAX_LEARNED_POS:
-            raise ValueError(f"decode position {pos} is past the learned "
-                             f"table's {MAX_LEARNED_POS} positions")
         x = x + params.pos_emb[pos].to(x.dtype)[None]
     for i, blk in enumerate(params.blocks):
         if cfg.family == "hybrid" and i % cfg.hybrid.shared_attn_every == 0:
             g = i // cfg.hybrid.shared_attn_every
-            x = _shared_decode(params.shared, x, {
-                k: c[g] for k, c in state["shared_caches"].items()}, pos, cfg)
-        x, _ = _layer_decode(blk, x, {k: c[i] for k, c in caches.items()},
-                             pos, cfg)
+            x = _shared_decode(params.shared, x, layer_state(
+                state["shared_caches"], g), pos, cfg)
+        x, _ = _layer_decode(blk, x, layer_state(state["caches"], i), pos,
+                             cfg)
     x = apply_norm(params.final_norm, x[:, None], cfg.norm)[:, 0]
     return lm_logits(params, x, cfg).to(torch.float32), \
         dict(state, pos=pos + 1)

@@ -6,8 +6,10 @@ independent sequences; finished slots are refilled from the request
 queue without stopping the decode loop (lightweight continuous
 batching).  Per-slot position/active bookkeeping lives on the host; the
 cache is the decode state's stacked tensors (the hybrid family's also
-its Mamba2 states and its shared block's caches), written in place each
-step.
+its Mamba2 states and its shared block's caches, the SSM family's its
+mLSTM and sLSTM states, the audio family's its self-attention caches
+beside cross K / V that stay zero, as in the reference's engine),
+written in place each step.
 Sampling: greedy, or at temperature T > 0 `argmax(logits / T + g)` with
 g standard Gumbel noise (the Gumbel-max form of `jax.random.categorical`,
 which the reference calls).  The noise is an explicit tensor from
@@ -53,8 +55,8 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: Any, *, slots: int = 4,
                  max_seq: int = 256, seed: int = 0, device=None,
                  noise: Callable[[int], torch.Tensor] | None = None):
-        """`params` is an `LM` on `device` (CUDA when None, raising
-        without it).  `noise(n)` returns n float32 standard Gumbel draws
+        """`params` is the model (`build_model(cfg).init`) on `device`
+        (CUDA when None, raising without it).  `noise(n)` returns n float32 standard Gumbel draws
         on the CPU, one call per sampled token."""
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -1,4 +1,4 @@
-"""Fault-tolerant training loop of the dense LM.
+"""Fault-tolerant training loop of the LM substrate (every family).
 
 Counterpart of `repro.train.trainer`: the train step
 (`launch.steps.make_train_step`), the stateless data pipeline
@@ -25,7 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.synthetic import batch_for
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models import lm
+from repro_torch.models import registry
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import (RESTART_EXIT_CODE,
                                                  FailureInjector,
@@ -57,10 +57,11 @@ class TrainResult:
 
 def init_state(cfg: ArchConfig, tcfg: TrainerConfig, device=None) -> dict:
     """A fresh train state on `device` (CUDA when None, raising without
-    it): float32 parameters from `init_lm(seed=tcfg.seed)`, zero AdamW
-    moments, step 0."""
+    it): float32 parameters from the model's `init(seed=tcfg.seed)`
+    (`registry.build_model`: the LM, or whisper's encoder-decoder), zero
+    AdamW moments, step 0."""
     dev = resolve_device(device)
-    params = lm.init_lm(cfg, seed=tcfg.seed, device=dev)
+    params = registry.build_model(cfg).init(seed=tcfg.seed, device=dev)
     opt_cfg = tcfg.opt or steps_mod.default_opt_cfg(cfg)
     opt = adamw.init(dict(params.named_parameters()), opt_cfg)
     return {"params": params, "opt": opt,
@@ -71,9 +72,7 @@ def _empty_state(cfg: ArchConfig, tcfg: TrainerConfig,
                  dev: torch.device) -> dict:
     """A train state of the right shapes and dtypes on `dev` with nothing
     drawn (a checkpoint is about to be loaded into it)."""
-    with torch.device("meta"):
-        params = lm.LM(cfg, torch.Generator(), device="meta")
-    params = params.to_empty(device=dev)
+    params = registry.meta_model(cfg).to_empty(device=dev)
     opt_cfg = tcfg.opt or steps_mod.default_opt_cfg(cfg)
     opt = adamw.init(dict(params.named_parameters()), opt_cfg)
     return {"params": params, "opt": opt,

@@ -151,7 +151,7 @@ def test_configs_equal_reference(name):
         assert tsteps.default_opt_cfg(tcfg) == tadamw.AdamWConfig(
             moment_dtype=torch.bfloat16 if bf16 else torch.float32)
     assert name in registry.PORTED
-    assert len(registry.PORTED) == 8
+    assert len(registry.PORTED) == 10
 
 
 @pytest.mark.parametrize("backbone", ["float32", "bfloat16"])

@@ -103,3 +103,37 @@ def test_train_step_without_cuda_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     assert make_train_step(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "xlstm-125m"])
+def test_audio_and_ssm_entry_points_without_cuda_raise(arch, monkeypatch):
+    """The audio and SSM families' entry points run on the card unless
+    given a device: each raises without one, and runs on `cpu`."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import whisper, xlstm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.reduced(arch)
+    api = build_model(cfg)
+    builds = [lambda: api.init(),
+              lambda: api.init_decode_state(2, 8),
+              lambda: make_prefill_step(cfg, SHAPES["prefill_32k"]),
+              lambda: make_serve_step(cfg, SHAPES["decode_32k"]),
+              lambda: ServeEngine(cfg, None)]
+    if cfg.family == "audio":
+        builds.append(lambda: whisper.init_whisper_decode_state(cfg, 1, 8))
+    else:
+        builds += [lambda: xlstm.init_mlstm_state(cfg, 1),
+                   lambda: xlstm.init_slstm_state(cfg, 1)]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    params = api.init(device="cpu", dtype=torch.bfloat16)
+    state = api.init_decode_state(2, 8, device="cpu")
+    logits, state = api.decode_step(params, state,
+                                    torch.zeros(2, dtype=torch.long))
+    assert tuple(logits.shape) == (2, cfg.vocab) and state["pos"] == 1

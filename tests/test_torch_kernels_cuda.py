@@ -34,6 +34,7 @@ from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import lm
 from repro_torch.models.lm import init_lm
+from repro_torch.models.registry import build_model
 from repro_torch.parallel import distributed_explorer as dx
 from repro_torch.quant.cim_linear import CIMConfig
 from repro_torch.serve.design_service import DesignService
@@ -1513,3 +1514,46 @@ def test_hybrid_decode_on_cuda_matches_cpu(dev):
         want, st_cpu = lm.decode_step(cpu, st_cpu, toks[:, t], cfg)
         got, st_card = lm.decode_step(card, st_card, toks[:, t].to(dev), cfg)
         assert float((got.cpu() - want).norm() / want.norm()) <= 5e-2, t
+
+
+def test_flash_attention_64_64_mha_matches_tc_plain(dev):
+    """The (64, 64) instantiation at whisper-large-v3's decoder shape,
+    20 heads over 20 KV heads (MHA, a GQA group of 1), (1, 4096) causal:
+    its launch counts, `flash_attention_tc_ref` as `_assert_tc_close`
+    holds it, and rel L2 against the float32-P `flash_attention_ref` at
+    most 1e-2, as at Dh 128."""
+    g = torch.Generator(device=dev).manual_seed(64)
+    q, k, v = (torch.randn((1, 4096, 20, 64), generator=g,
+                           device=dev).bfloat16() for _ in range(3))
+    n0 = dict(LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    for key in ("flash_attention", "flash_attention_wgmma",
+                "flash_attention_wgmma_64_64"):
+        assert LAUNCHES[key] == n0.get(key, 0) + 1, key
+    assert tuple(got.shape) == (1, 4096, 20, 64) and got.is_contiguous()
+    _assert_tc_close(got, q, k, v, causal=True, prefix_len=0)
+    f32p = fa_ref.flash_attention_ref(q, k, v, causal=True).float()
+    assert float((got.float() - f32p).norm() / f32p.norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("name", ["whisper_large_v3", "xlstm_125m"])
+def test_audio_and_ssm_prefill_on_cuda_matches_cpu(name, dev):
+    """The reduced whisper (head dim 16: one 3xTF32 launch a decoder
+    layer) and xlstm (no kernel of ours) prefills on the card against
+    the CPU run of the same weights: rel L2 5e-2."""
+    cfg = registry.reduced(name)
+    api = build_model(cfg)
+    cpu = api.init(seed=0, device="cpu", dtype=torch.bfloat16)
+    card = api.init(seed=0, device=dev, dtype=torch.bfloat16)
+    batch = batch_for(cfg, 256, 2, 0)
+    shape = ShapeSpec("t", "prefill", 256, 2)
+    n0 = dict(LAUNCHES)
+    got = make_prefill_step(cfg, shape).fn(card, batch)
+    calls = cfg.n_layers if cfg.family == "audio" else 0
+    new = {k: n - n0.get(k, 0) for k, n in LAUNCHES.items()
+           if n != n0.get(k, 0)}
+    assert new == ({"flash_attention": calls,
+                    "flash_attention_tf32x3": calls} if calls else {})
+    want = make_prefill_step(cfg, shape, device="cpu").fn(cpu, batch)
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).norm() / want.norm()) <= 5e-2

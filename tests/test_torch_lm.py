@@ -251,8 +251,8 @@ def test_batch_for_is_deterministic_zipf_with_copy_structure():
     # (a copy of a token that was not itself copied) plus Zipf collisions
     same = float((toks[:, 64:] == toks[:, :-64]).float().mean())
     assert 0.25 < same < 0.5, same
-    with pytest.raises(NotImplementedError):
-        synthetic.batch_for(_cfgs(family="audio")[1], 8, 2, 0)
+    with pytest.raises(ValueError, match="unknown family"):
+        synthetic.batch_for(_cfgs(family="encoder")[1], 8, 2, 0)
 
 
 def test_trainer_runs_on_cpu_and_learns():

@@ -362,8 +362,12 @@ def test_check_dense_admits_moe_and_names_the_item():
         tlm.check_dense(get("zamba2_2_7b"))
         assert tmodels.build_model(get("zamba2_2_7b")).cfg == get(
             "zamba2_2_7b")
-    for family, item in (("ssm", "6.6"), ("audio", "6.6")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    # the SSM family needs its xlstm sub-config; the audio family is
+    # models.whisper's; an unknown family names the ones the LM builds
+    for family, what in (("ssm", "xlstm sub-config"),
+                         ("audio", "models.whisper"),
+                         ("encoder", "unknown family")):
+        with pytest.raises(ValueError, match=what):
             tlm.check_dense(dataclasses.replace(cfg, family=family))
     tlm.check_dense(dataclasses.replace(cfg, pos="learned"))  # granite's
 

@@ -248,8 +248,10 @@ def test_lm_hidden_refuses_what_is_not_ported(models):
     with pytest.raises(ValueError, match="prefix_embeds"):  # not (B, P, D)
         tlm.lm_hidden(model, toks, tcfg, prefix_embeds=torch.zeros(
             (1, 2, tcfg.d_model + 1)))
-    with pytest.raises(NotImplementedError, match="dense"):
+    with pytest.raises(ValueError, match="xlstm sub-config"):
         tlm.lm_hidden(model, toks, dataclasses.replace(tcfg, family="ssm"))
+    with pytest.raises(ValueError, match="models.whisper"):
+        tlm.lm_hidden(model, toks, dataclasses.replace(tcfg, family="audio"))
     with pytest.raises(ValueError, match="attn_impl"):
         tlm.lm_hidden(model, toks, tcfg, attn_impl="paged")
     with pytest.raises(ValueError, match="ssm and hybrid sub-configs"):

@@ -179,7 +179,7 @@ def test_build_model_loss_matches_lm_loss():
     want, _ = lm_loss(params, batch, cfg)
     assert torch.equal(loss.detach(), want.detach())
     assert float(met["aux_loss"]) == 0.0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="xlstm sub-config"):
         tmodels.build_model(dataclasses.replace(cfg, family="ssm"))
 
 

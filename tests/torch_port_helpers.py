@@ -109,13 +109,18 @@ class JaxGumbel:
                                                          jax.numpy.float32)))
 
 
-def ref_train_step(loss_fn, rp, ropt, batch, microbatches, opt_cfg):
+def ref_train_step(loss_fn, rp, ropt, batch, microbatches, opt_cfg,
+                   jit: bool = False):
     """The reference's train step unjitted (its jitted `make_train_step`
     raises `ShardingTypeError` on this JAX): `value_and_grad(loss_fn)`
     over its microbatch loop (grads summed from zero in float32 and
-    divided by the count, loss the mean), then `adamw.update`.  Returns
-    (new params, new AdamW state, AdamW's metrics with `loss`)."""
+    divided by the count, loss the mean), then `adamw.update`.  With
+    `jit`, `value_and_grad(loss_fn)` alone is jitted (one compile in
+    place of many eager ones).  Returns (new params, new AdamW state,
+    AdamW's metrics with `loss`)."""
     vg = jax.value_and_grad(loss_fn, has_aux=True)
+    if jit:
+        vg = jax.jit(vg)
     batch = jax.tree.map(jax.numpy.asarray, batch)
     if microbatches == 1:
         (loss, _), grads = vg(rp, batch)
@@ -134,3 +139,42 @@ def ref_train_step(loss_fn, rp, ropt, batch, microbatches, opt_cfg):
         loss = lacc / microbatches
     new_p, new_opt, met = radamw.update(grads, ropt, rp, opt_cfg)
     return new_p, new_opt, dict(met, loss=loss)
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| of two numpy arrays."""
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def leaves(tree) -> dict:
+    """{keystr: numpy leaf} of a nested dict."""
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def perturbed(tree, suffixes: tuple, seed: int):
+    """`tree` with every leaf whose key path ends in one of `suffixes`
+    moved off its initial value by 0.1 x standard normal numpy draws."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: a + jax.numpy.asarray(0.1 * rng.standard_normal(
+            a.shape).astype(np.float32))
+        if jax.tree_util.keystr(path).endswith(suffixes) else a, tree)
+
+
+def serving_tree(tree):
+    """The reference's `_to_serving_dtype` rule on a stacked tree: float32
+    leaves of rank >= 2 to bf16."""
+    return jax.tree.map(lambda a: a.astype(jax.numpy.bfloat16)
+                        if a.dtype == jax.numpy.float32 and a.ndim >= 2
+                        else a, tree)
+
+
+class F32Jnp:
+    """`jax.numpy` with `bfloat16` read as float32: the reference's model
+    modules cast the backbone with `astype(jnp.bfloat16)`."""
+    bfloat16 = jax.numpy.float32
+
+    def __getattr__(self, name):
+        return getattr(jax.numpy, name)
