@@ -405,7 +405,41 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              kernel of ours, step 0's loss within 1e-3 of its batch's CE
              through the prefill path.
              The script's wall time is printed after phase 16.
-17. report — one JSON line of per-kernel numbers (the `wavefront` row's
+17. mesh train — training over a mesh (every earlier phase's weights
+             freed first).  (a) qwen2.5-3b at full width and depth,
+             float32 masters drawn on the card from seed 0 and copied to
+             the host, under its PERF_TRAIN_OVERRIDES (ZeRO-3: the model
+             axis joins the FSDP axis, parameters cast to bf16 before the
+             gathers; one microbatch), remat, 8 x 256: two steps on a 1x1
+             mesh, the first with every reduced grad copied to the host,
+             then two from the same masters on a 2x2 mesh of four cuda:0
+             positions, the first with every gathered grad held to the
+             1x1 step's: loss within MESH_LOSS_RTOL, grad norm within
+             MESH_GNORM_RTOL, each leaf's grad within rel L2
+             MESH_GRAD_REL_L2; every piece held by several positions
+             bitwise equal on each after each step; no launch of a kernel
+             of ours; each position's state bytes equal to the dry-run's
+             `position_bytes` for that mesh, to the byte.  The second
+             step of each mesh is the timed one; the peak memory is
+             printed.  (b) `launch.train.main` on the reduced config with
+             `--mesh 2x2 --perf`, 3 steps: exit 0, finite losses (read
+             from each step's checkpoint).  (c) `pipeline_apply` over four
+             cuda:0 positions (S 4, M 8, B 2, D 2048, tanh(x @ w), TF32
+             off) against the sequential model: outputs within 1e-5,
+             grads within 1e-4.  (d) `compress_decompress` on the largest
+             leaf's 2x2 grad, two rounds with error feedback, and
+             `cross_pod_allreduce_compressed` over a 2 x 1 x 1 ("pod",
+             "data", "model") mesh (the pods' grads the 2x2 and 1x1
+             steps' of that leaf), two rounds: card and CPU bit-equal.
+             (e) `dryrun.main(["--all"])` over both production meshes,
+             64 ok and 16 skip, and with `--variant perf` (the ZeRO-3
+             train cells run `train_collectives`), 59 ok, 16 skip and 5
+             errors (the multi-pod ZeRO-3 train batch does not divide 512
+             positions); qwen2.5-3b train_4k's GB a position, dominant
+             term (of compute and memory only: links between nodes are
+             not modeled, `collective_s` null) and collective bytes.
+             The phase's and the script's wall times are printed.
+18. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time; the (128, 128) flash row its
@@ -662,6 +696,22 @@ SSM_CPU_LAYERS = 2         # one (mLSTM, sLSTM) pair
 FAMILY16_TRAIN = ((AUDIO_CONFIG, AUDIO_INST), (SSM_CONFIG, "flash_attention"))
 FAMILY16_STEPS = 2         # the first also warms up: its ms is the second's
 FAMILY16_CE_RTOL = 1e-3    # step 0's loss vs the prefill path's CE
+
+# Phase 17: training over a mesh.  qwen2.5-3b at full width and depth
+# (float32 masters drawn on the card from seed 0) under its
+# PERF_TRAIN_OVERRIDES (ZeRO-3, one microbatch), one step on a 1x1 mesh,
+# then one from the same masters on a 2x2 mesh of four cuda:0 positions.
+MESH_TRAIN_CONFIG = "qwen2.5-3b"
+MESH_TRAIN_SHAPE = (8, 256)         # batch, seq
+MESH_TRAIN_LAYERS = None            # depth cut (None: full depth)
+MESH_LOSS_RTOL = 1e-3               # 2x2 vs 1x1 step: loss
+MESH_GNORM_RTOL = 1e-2              # ... grad norm
+MESH_GRAD_REL_L2 = 5e-2             # ... every leaf's grad (bf16 step)
+MESH_CLI = ["--arch", "qwen2.5-3b", "--reduced", "--mesh", "2x2", "--perf",
+            "--steps", "3", "--seq", "64", "--batch", "8", "--ckpt-every",
+            "1"]
+PIPE = dict(stages=4, microbatches=8, batch=2, dim=2048)
+PIPE_OUT_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -4989,6 +5039,296 @@ def audio_ssm_phase(card: str) -> tuple[dict, dict]:
     return row, {AUDIO_INST: launches}
 
 
+# ----------------------------------------------------------------------
+# Phase 17: training over a mesh (the sharded step, the CLI, GPipe, int8
+# compression, the dry-run)
+# ----------------------------------------------------------------------
+def _mesh_step(cfg, shape, named, on_grad):
+    """Two PERF_TRAIN_OVERRIDES steps of `cfg` on a ("data", "model") mesh
+    of `shape` cuda:0 positions from the masters `named` (on the host;
+    each position's shards are copied to the card): the first calls
+    `on_grad` with each reduced grad (the checks, host copies included in
+    its time), the second runs without it and is the step's time.
+    Returns (the state after both, the first's metrics, its ms, the
+    second's ms, the peak GB over both, their launches, the dry-run's
+    state bytes a position, the replicated pieces found bitwise equal
+    after the first)."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import (PERF_TRAIN_OVERRIDES,
+                                          make_train_step, shard_params)
+
+    perf = PERF_TRAIN_OVERRIDES[MESH_TRAIN_CONFIG]
+    mesh = make_mesh(shape, ("data", "model"),
+                     ["cuda:0"] * (shape[0] * shape[1]))
+    checked = make_train_step(cfg, mesh, remat=True, on_grad=on_grad, **perf)
+    plain = make_train_step(cfg, mesh, remat=True, **perf)
+    state = shard_params(named, checked.policy, checked.opt_cfg)
+    b, s = MESH_TRAIN_SHAPE
+    batches = [batch_for(cfg, s, b, i, seed=0, device="cuda")
+               for i in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    ((state, met), ms_checked), l1 = _counted(
+        lambda: _sync_ms(lambda: checked.fn(state, batches[0])))
+    met = {k: float(v) for k, v in met.items()}
+    pieces = _replicas_equal(state)
+    ((state, _), ms), l2 = _counted(
+        lambda: _sync_ms(lambda: plain.fn(state, batches[1])))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dryrun.position_bytes(
+        cfg, ShapeSpec("mesh_smoke", "train", s, b), mesh,
+        model_strategy=perf["model_strategy"])["state_bytes"]
+    launches = {k: l1.get(k, 0) + l2.get(k, 0) for k in {**l1, **l2}}
+    return state, met, ms_checked, ms, peak, launches, want, pieces
+
+
+def _replicas_equal(state) -> int:
+    """Check that every piece held by several positions has the same bits
+    on each (parameters and moments); returns how many such pieces."""
+    import torch
+
+    from repro_torch.parallel.sharding import holders
+
+    n = 0
+    for name, spec in state.specs.items():
+        for owners in holders(state.mesh, spec).values():
+            if len(owners) < 2:
+                continue
+            n += 1
+            first = state.shards[owners[0]]
+            for f in owners[1:]:
+                other = state.shards[f]
+                for a, b in ((first["params"][name], other["params"][name]),
+                             (first["opt"]["m"][name], other["opt"]["m"][name]),
+                             (first["opt"]["v"][name], other["opt"]["v"][name])):
+                    check(torch.equal(a, b),
+                          f"mesh train: replicas of {name} differ")
+    return n
+
+
+def mesh_train_phase(card: str) -> dict:
+    """Phase 17: (a) the sharded step 1x1 vs 2x2, (b) the CLI on a 2x2
+    mesh, (c) GPipe, (d) int8 compression card vs CPU, (e) the dry-run."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.runtime.compression import (
+        compress_decompress, cross_pod_allreduce_compressed)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # -- (a) one step on 1x1, then from the same masters on 2x2
+    cfg = registry.get(MESH_TRAIN_CONFIG)
+    if MESH_TRAIN_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
+    card_named = dict(build_model(cfg).init(seed=0, draw_on="cuda")
+                      .named_parameters())
+    host = {n: p.detach().cpu() for n, p in card_named.items()}
+    n_params = sum(p.numel() for p in host.values())
+    grads1: dict = {}
+
+    def keep(name, g):
+        grads1[name] = g.cpu()
+
+    del card_named
+    torch.cuda.empty_cache()
+    st1, m1, ck1, ms1, peak1, l1, want1, _ = _mesh_step(cfg, (1, 1), host,
+                                                        keep)
+    bytes1 = st1.position_bytes(0)
+    del st1
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = {"rel_l2": 0.0, "name": None}
+    largest = max(host, key=lambda n: host[n].numel())
+    kept = {}
+
+    def compare(name, g):
+        h1 = grads1.pop(name)
+        h = h1.to(g.device)
+        rel = float(torch.linalg.vector_norm((g - h).float())
+                    / torch.linalg.vector_norm(h.float()).clamp_min(1e-30))
+        if rel >= worst["rel_l2"]:
+            worst.update(rel_l2=rel, name=name)
+        if name == largest:
+            kept.update(grad=g.cpu(), grad1=h1)
+
+    st2, m2, ck2, ms2, peak2, l2, want2, pieces = _mesh_step(
+        cfg, (2, 2), host, compare)
+    del host
+    bytes2 = [st2.position_bytes(f) for f in range(st2.mesh.size)]
+    check(_replicas_equal(st2) == pieces, "mesh train: replicated pieces")
+    del st2
+    gc.collect()
+    torch.cuda.empty_cache()
+    la, lb = m2["loss"], m1["loss"]
+    ga, gb = m2["grad_norm"], m1["grad_norm"]
+    check(not l1 and not l2,
+          f"mesh train: the steps launched kernels of ours {l1} {l2}")
+    check(abs(la - lb) <= MESH_LOSS_RTOL * abs(lb),
+          f"mesh train: 2x2 loss {la} vs 1x1 {lb}")
+    check(abs(ga - gb) <= MESH_GNORM_RTOL * abs(gb),
+          f"mesh train: 2x2 grad norm {ga} vs 1x1 {gb}")
+    check(not grads1 and worst["rel_l2"] <= MESH_GRAD_REL_L2,
+          f"mesh train: grad {worst['name']} rel L2 {worst['rel_l2']} "
+          f"(leaves not compared: {len(grads1)})")
+    check(bytes1 == want1 and all(b == want2 for b in bytes2),
+          f"mesh train: state bytes a position 1x1 {bytes1} (dry-run "
+          f"{want1}), 2x2 {bytes2} (dry-run {want2})")
+    b, s = MESH_TRAIN_SHAPE
+    print(f"mesh train ({card}): {cfg.name} at {cfg.n_layers} layers, "
+          f"{n_params} float32 masters from seed 0, ZeRO-3 (bf16 gathers), "
+          f"{b} x {s}, remat; two steps on each mesh, the first with the "
+          f"grads read out (1x1: to the host; 2x2: held to them), the "
+          f"second timed alone: 1x1 {ms1:.2f} ms ({ck1:.2f} with the "
+          f"read-out; peak {peak1:.2f} GB, state {bytes1} bytes, dry-run "
+          f"{want1}); 2x2 of four cuda:0 positions {ms2:.2f} ms ({ck2:.2f}; "
+          f"peak {peak2:.2f} GB, state a position {bytes2[0]} bytes = "
+          f"{bytes2[0] / 1e9:.4f} GB, dry-run {want2}); first step loss "
+          f"{la:.6f} vs {lb:.6f} (rel {abs(la - lb) / lb:.3e}, tolerance "
+          f"{MESH_LOSS_RTOL}), grad norm {ga:.5f} vs {gb:.5f} (rel "
+          f"{abs(ga - gb) / gb:.3e}, tolerance {MESH_GNORM_RTOL}); worst "
+          f"leaf grad rel L2 {worst['rel_l2']:.3e} ({worst['name']}, "
+          f"tolerance {MESH_GRAD_REL_L2}); {pieces} replicated pieces "
+          f"bitwise equal on their positions after each step; no launch of "
+          f"a kernel of ours", flush=True)
+
+    # -- (b) the CLI on a 2x2 mesh of the card
+    ck = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = train_main(MESH_CLI + ["--ckpt-dir", str(ck)])
+    cli_s = time.perf_counter() - t0
+    losses = [json.loads((ck / f"step_{i:08d}" / "manifest.json")
+                         .read_text())["extra"]["loss"] for i in (1, 2, 3)]
+    shutil.rmtree(ck, ignore_errors=True)
+    check(rc == 0 and all(math.isfinite(x) for x in losses),
+          f"mesh train CLI: exit {rc}, losses {losses}")
+    print(f"mesh train CLI ({card}): {' '.join(MESH_CLI)}: exit {rc} in "
+          f"{cli_s:.2f} s, losses {losses}", flush=True)
+
+    # -- (c) GPipe over four cuda:0 positions against the sequential model
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        st, m_, bb, d = (PIPE[k] for k in ("stages", "microbatches",
+                                           "batch", "dim"))
+        g = torch.Generator(device="cuda").manual_seed(0)
+        w = torch.randn((st, d, d), generator=g, device="cuda") / d ** 0.5
+        xs = torch.randn((m_, bb, d), generator=g, device="cuda")
+        mesh = make_mesh((st,), ("stage",), ["cuda:0"] * st)
+
+        def stage_fn(wi, x):
+            return torch.tanh(x @ wi)
+
+        wp = w.clone().requires_grad_(True)
+        (out, pipe_ms), _ = _counted(lambda: _sync_ms(
+            lambda: pipeline_apply(mesh, "stage", stage_fn, wp, xs)))
+        (out ** 2).sum().backward()
+        ws = w.clone().requires_grad_(True)
+        ref = xs
+        for i in range(st):
+            ref = torch.tanh(ref @ ws[i])
+        (ref ** 2).sum().backward()
+        out_err = float((out - ref).detach().abs().max())
+        grad_err = float((wp.grad - ws.grad).abs().max())
+        check(out_err <= PIPE_OUT_TOL and grad_err <= PIPE_GRAD_TOL,
+              f"pipeline: outputs {out_err}, grads {grad_err} apart")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"pipeline ({card}): S {st}, M {m_}, B {bb}, D {d} on four cuda:0 "
+          f"positions, TF32 off: outputs within {out_err:.3e} (tolerance "
+          f"{PIPE_OUT_TOL}), grads within {grad_err:.3e} ({PIPE_GRAD_TOL}) "
+          f"of the sequential model; {pipe_ms:.2f} ms forward; bubble "
+          f"fraction {bubble_fraction(st, m_):.4f}", flush=True)
+
+    # -- (d) int8 error-feedback compression: card vs CPU on the largest
+    # leaf's grad (2x2 step), twice (the second with the first's feedback)
+    gl = kept.pop("grad")
+    ef_c, ef_g = torch.zeros_like(gl), torch.zeros_like(gl, device="cuda")
+    for _ in range(2):
+        dc, ef_c = compress_decompress(gl, ef_c)
+        dg, ef_g = compress_decompress(gl.cuda(), ef_g)
+        check(torch.equal(dc, dg.cpu()) and torch.equal(ef_c, ef_g.cpu()),
+              f"compression: {largest} card vs CPU differ")
+    del ef_c, ef_g, dc, dg
+    # the cross-pod mean over a ("pod", "data", "model") mesh of 2 x 1 x 1
+    # positions, the pods' grads the 2x2 and the 1x1 step's: card (two
+    # cuda:0 positions) vs CPU (two cpu positions), two rounds
+    t0 = time.perf_counter()
+    pods = [gl, kept.pop("grad1")]
+    meshes = {d: make_mesh((2, 1, 1), ("pod", "data", "model"), [d] * 2)
+              for d in ("cpu", "cuda:0")}
+    ef = {d: [torch.zeros_like(g, device=d) for g in pods] for d in meshes}
+    for _ in range(2):
+        out = {}
+        for d, m in meshes.items():
+            out[d], ef[d] = cross_pod_allreduce_compressed(
+                [g.to(d) for g in pods], ef[d], m)
+        check(all(torch.equal(a, b.cpu()) for a, b in
+                  zip(out["cpu"] + ef["cpu"], out["cuda:0"] + ef["cuda:0"])),
+              f"compression: the cross-pod mean of {largest} card vs CPU "
+              f"differ")
+    pod_s = time.perf_counter() - t0
+    print(f"compression ({card}): compress_decompress on {largest}'s grad "
+          f"{tuple(gl.shape)}, two rounds with error feedback: card and CPU "
+          f"bit-equal (dequantized and feedback); "
+          f"cross_pod_allreduce_compressed over 2 pods (the 2x2 and 1x1 "
+          f"steps' grads of it), two rounds, card (cuda:0 positions) and CPU "
+          f"bit-equal (each pod's mean and feedback), {pod_s:.2f} s",
+          flush=True)
+    del gl, pods, ef, out
+
+    # -- (e) the dry-run over both production meshes, as the reference's
+    # cells and under PERF_TRAIN_OVERRIDES (its ZeRO-3 train cells run
+    # `train_collectives`; on 2 x 16 x 16 their batch of 256 does not
+    # divide the 512 dp positions: five errors, as the reference's)
+    for variant, want in (("", dict(ok=64, skip=16, error=0)),
+                          ("perf", dict(ok=59, skip=16, error=5))):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(None):
+            rows = dryrun.main(["--all", "--variant", variant])
+        dry_s = time.perf_counter() - t0
+        count = {k: sum(r["status"] == k for r in rows) for k in want}
+        check(count == want, f"dry-run --variant '{variant}': {count}, "
+                             f"expected {want}")
+        q = next(r for r in rows if r["arch"] == MESH_TRAIN_CONFIG
+                 and r["shape"] == "train_4k" and r["mesh"] == "pod16x16")
+        roof, sent = q["roofline"], q["collectives"]
+        check(roof["collective_s"] is None
+              and roof["dominant_over"] == ["compute_s", "memory_s"]
+              and (sent is not None) == (variant == "perf"),
+              f"dry-run --variant '{variant}': {MESH_TRAIN_CONFIG} "
+              f"train_4k's collectives {sent}, roofline {roof}")
+        sent_txt = ("none (tensor parallelism over model 16 is not "
+                    "executed)" if sent is None else
+                    f"{sent['total_bytes'] / 1e9:.3f} GB a position a step "
+                    f"(links between nodes not modeled: collective_s null)")
+        print(f"dry-run: --all --variant '{variant}' over both production "
+              f"meshes in {dry_s:.2f} s: {count['ok']} ok, {count['skip']} "
+              f"skip, {count['error']} error; {MESH_TRAIN_CONFIG} train_4k "
+              f"on 16 x 16: {q['memory']['total_bytes'] / 1e9:.3f} GB a "
+              f"position, dominant {roof['dominant']} of compute and memory "
+              f"only, collectives {sent_txt}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh train phase: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return dict(ms_1x1=ms1, ms_2x2=ms2, peak_gb=max(peak1, peak2))
+
+
 def main() -> int:
     import torch
 
@@ -5047,6 +5387,9 @@ def main() -> int:
     rows.append(audio_row)
     launches.update(audio_launches)
     print(f"chip_smoke wall after phase 16: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    mesh_train_phase(card)
+    print(f"chip_smoke wall after phase 17: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a

@@ -237,9 +237,12 @@ def train_state_tree(state: dict, *, lazy: bool = False,
 def load_train_state(tree: dict, state: dict) -> dict:
     """Copy a train-state pytree in the reference's layout (numpy or
     tensor leaves, as `checkpoint.ckpt.restore` gives it) into the port's
-    `state` in place: parameters, moments, count and step.  Shapes must
-    match; values are cast to the state's dtypes."""
-    named = dict(state["params"].named_parameters())
+    `state` in place: parameters (a module, or a dict of tensors keyed
+    by state-dict names), moments, count and step.  Shapes must match;
+    values are cast to the state's dtypes."""
+    params = state["params"]
+    named = dict(params.named_parameters()) if isinstance(
+        params, torch.nn.Module) else params
     src = _unstack(tree["params"])
     if set(src) != set(named):
         raise ValueError(f"parameters differ: {sorted(set(src) ^ set(named))}")

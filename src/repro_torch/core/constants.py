@@ -117,3 +117,12 @@ class CalibConstants:
 
 
 CAL28 = CalibConstants()
+
+
+# NVIDIA H100 80GB HBM3 (SXM5) peaks at 700 W, from NVIDIA's data sheet:
+# the dense bf16 tensor-core rate, the HBM3 bandwidth and the NVLink 4
+# bandwidth a direction (900 GB/s both ways).  The roofline model's
+# analytic terms (`launch/dryrun.analytic_terms`) divide by them.
+H100_PEAK_BF16_FLOPS = 989.4e12   # FLOP/s
+H100_HBM_BW = 3.35e12             # B/s
+H100_NVLINK_BW = 450e9            # B/s a direction

@@ -2,29 +2,47 @@
 of every family of the LM substrate (dense, MoE, VLM, hybrid, SSM, and
 the audio family's encoder-decoder).
 
-Counterpart of `repro.launch.steps` on one device.  The reference jits
-each step with the sharding policy of a mesh; the port runs eagerly on
-one device and has no mesh (the sharding rules have no counterpart
-until `parallel/*` is ported).  The train step reaches no kernel of
-ours: the reference's train step reaches no Pallas kernel either (dense
-attention, products outside any kernel), so it is PyTorch and cuBLAS.
+Counterpart of `repro.launch.steps`.  The reference jits each step with
+the sharding policy of a mesh; the port runs eagerly.  Its prefill and
+decode run on one device.  Its train step runs on one device
+(`make_train_step(cfg)`) or over a mesh (`make_train_step(cfg, mesh)`,
+`launch.mesh.Mesh`: positions of this one process, repeats allowed):
+each position holds its shards of the parameters and AdamW moments
+under the policy's specs (`parallel.sharding`), takes its rows of every
+microbatch, gathers the whole parameters (ZeRO-3: cast to bf16 before
+the gather), runs the loss and the backward, and reduce-scatters each
+grad into the owning shards as it lands; AdamW then runs on each
+position's shards under the global grad norm.  Tensor parallelism over
+"model" is not executed yet (ROADMAP item 6.10): `model_strategy="tp"`
+on a "model" axis larger than 1 raises.  The train step reaches no
+kernel of ours: the reference's train step reaches no Pallas kernel
+either (dense attention, products outside any kernel), so it is
+PyTorch and cuBLAS.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import types
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import convert
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import shapes as shp
-from repro_torch.launch.shapes import ShapeSpec
+from repro_torch.launch.shapes import ShapeSpec, TensorSpec
 from repro_torch.models import lm, whisper
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, meta_model
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (ShardingPolicy, full_shape,
+                                           gather_shards, holders,
+                                           make_policy, shard_count,
+                                           shard_key, shard_slices,
+                                           shard_tensor)
 
 
 def default_opt_cfg(cfg: ArchConfig) -> adamw.AdamWConfig:
@@ -38,12 +56,39 @@ def default_opt_cfg(cfg: ArchConfig) -> adamw.AdamWConfig:
 
 
 # master-parameter dtype of a config's leaves of stacked rank >= 2, where
-# it is not float32 (the reference's).  Only arctic has one.  The port
-# builds and serves the MoE family, but its training waits for the
-# sharded mesh (ROADMAP queue 1, "training of the MoE family on the
-# card"): nothing here reads this yet, and every master trained on one
-# card is float32.
+# it is not float32 (the reference's: bf16 for the 480B config, which
+# with int8 moments is what fits its sharded state).  Read by the state
+# of a mesh (`make_train_state_struct`, `shard_params`); the one-device
+# step keeps float32 masters for every config.
 PARAM_DTYPE = {"arctic-480b": torch.bfloat16}
+
+# The reference's per-arch logical-rule overrides for training.  Data
+# only: the port's step places activations by construction and reads no
+# activation rules; they take effect with tensor parallelism over
+# "model" (ROADMAP item 6.10).
+ARCH_TRAIN_RULES = {
+    "arctic-480b": {"embed_carry": "model"},
+    "granite-34b": {"embed_carry": "model"},
+}
+
+# The reference's per-cell train overrides: ZeRO-3 (the model axis joins
+# the FSDP axis, bf16 gathers) and fewer microbatches for the <= 3B
+# configs, bf16 parameter casts for arctic.  `launch.train --perf` and
+# the dry-run's `variant="perf"` apply them.
+PERF_TRAIN_OVERRIDES = {
+    "arctic-480b": dict(microbatches=1, cast_bf16=True),
+    "qwen2.5-3b": dict(microbatches=1, model_strategy="fsdp"),
+    "xlstm-125m": dict(microbatches=1, model_strategy="fsdp"),
+    "paligemma-3b": dict(microbatches=1, model_strategy="fsdp"),
+    "zamba2-2.7b": dict(microbatches=2, model_strategy="fsdp"),
+    "whisper-large-v3": dict(microbatches=1, model_strategy="fsdp"),
+}
+
+# The dtype of the compute cast: ZeRO-3's (`ShardingPolicy
+# .compute_dtype_cast`, before the gathers) and `cast_bf16`'s.  Read at
+# each call, so a float32 cast can be set (with a float32 `lm.BACKBONE`)
+# to hold the sharded step's arithmetic tightly.
+COMPUTE_DTYPE = torch.bfloat16
 
 
 def accum_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -55,40 +100,247 @@ def accum_dtype(cfg: ArchConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class TrainStep:
-    fn: Callable[[dict, dict], tuple[dict, dict]]  # (state, batch) -> ...
+    fn: Callable[[object, dict], tuple[object, dict]]  # (state, batch) -> ...
     batch_struct: dict       # train_4k's batch as `shapes.TensorSpec`s
     opt_cfg: adamw.AdamWConfig
-    device: torch.device
+    device: torch.device     # the one device, or the mesh's first position
+    policy: ShardingPolicy | None = None   # a mesh's step only
 
 
-def _cast_view(module: nn.Module, dtype: torch.dtype, prefix: str = ""):
-    """`module`'s parameters as a tree of namespaces that the model
-    functions read like the module (`p.attn.wq`), each float32 leaf of
-    stacked rank >= 2 cast to `dtype` (differentiable: the grads reach
-    the float32 masters through the cast).  A namespace, not the module
-    with swapped parameters, so a block recomputed under remat reads
-    the same cast tensors."""
+def _view(module: nn.Module, tensors: dict, prefix: str = ""):
+    """`module`'s structure with `tensors[name]` at each parameter: a tree
+    of namespaces that the model functions read like the module
+    (`p.attn.wq`), a `ModuleList` a list.  A namespace, not the module
+    with swapped parameters, so a block recomputed under remat reads the
+    same tensors."""
     if isinstance(module, nn.ModuleList):
-        return [_cast_view(m, dtype, f"{prefix}{i}.")
+        return [_view(m, tensors, f"{prefix}{i}.")
                 for i, m in enumerate(module)]
     out = types.SimpleNamespace()
-    for name, p in module.named_parameters(recurse=False):
-        cast = (p.dtype == torch.float32
-                and lm.stacked_ndim(prefix + name, p) >= 2)
-        setattr(out, name, p.to(dtype) if cast else p)
+    for name, _ in module.named_parameters(recurse=False):
+        setattr(out, name, tensors[prefix + name])
     for name, m in module.named_children():
-        setattr(out, name, _cast_view(m, dtype, f"{prefix}{name}."))
+        setattr(out, name, _view(m, tensors, f"{prefix}{name}."))
     return out
 
 
-def make_train_step(cfg: ArchConfig, *,
+def _casts(name: str, t) -> bool:
+    """Whether the compute cast takes this leaf: float32 of stacked rank
+    >= 2 (the reference's `p.ndim >= 2 and p.dtype == float32`)."""
+    return t.dtype == torch.float32 and lm.stacked_ndim(name, t) >= 2
+
+
+def _cast_view(module: nn.Module, dtype: torch.dtype):
+    """`module`'s parameters as a `_view`, each float32 leaf of stacked
+    rank >= 2 cast to `dtype` (differentiable: the grads reach the
+    float32 masters through the cast)."""
+    return _view(module, {n: p.to(dtype) if _casts(n, p) else p
+                          for n, p in module.named_parameters()})
+
+
+def make_train_state_struct(cfg: ArchConfig, policy: ShardingPolicy,
+                            opt_cfg: adamw.AdamWConfig) -> tuple[dict, dict]:
+    """The train state's shapes and dtypes in the reference's layout
+    (`{"opt": {"count", "m", "v"}, "params", "step"}`, every layer's
+    leaves stacked; `shapes.TensorSpec` leaves) and the spec of each
+    leaf under `policy`, from the model on the `meta` device: nothing
+    allocated.  Masters take `PARAM_DTYPE` (arctic's bf16); a quantized
+    moment is `{"q", "s"}`, "q" with its parameter's spec and "s" with
+    that spec but its last entry None."""
+    named = _master_named(cfg, meta_params(cfg))
+    struct = convert.train_state_tree(
+        {"params": named, "opt": adamw.init(named, opt_cfg), "step": 0},
+        spec=True)
+    pspecs = policy.param_specs(struct["params"])
+
+    def moment_specs(tree):
+        if isinstance(tree, dict):
+            return {k: moment_specs(v) for k, v in tree.items()}
+        if not opt_cfg.quantized_moments:
+            return tree
+        return {sub: _moment_spec(tree, sub) for sub in ("q", "s")}
+
+    mspecs = moment_specs(pspecs)
+    return struct, {"opt": {"count": (), "m": mspecs, "v": mspecs},
+                    "params": pspecs, "step": ()}
+
+
+@functools.lru_cache(maxsize=None)
+def _meta_params(cfg: ArchConfig) -> tuple:
+    return tuple(meta_model(cfg).named_parameters())
+
+
+def meta_params(cfg: ArchConfig) -> dict:
+    """{state-dict name: parameter on `meta`} of `cfg`'s model (kept per
+    config: arctic's meta model takes seconds to build)."""
+    return dict(_meta_params(cfg))
+
+
+def _master_named(cfg: ArchConfig, named: dict) -> dict:
+    """The masters of a mesh's state: `named` with `PARAM_DTYPE` applied
+    to the float32 leaves of stacked rank >= 2."""
+    pdt = PARAM_DTYPE.get(cfg.name)
+    if pdt is None:
+        return named
+    return {n: p.to(pdt) if _casts(n, p) else p for n, p in named.items()}
+
+
+# ---------------------------------------------------------------------------
+# the train state of a mesh
+# ---------------------------------------------------------------------------
+class _Gathered:
+    """A leaf of a `MeshState`, gathered onto the CPU when read: the
+    tensor-like leaf `convert.train_state_tree(lazy=True)` takes, so a
+    checkpoint holds one whole leaf in host memory at a time."""
+
+    def __init__(self, shards: list, mesh, spec: tuple):
+        self.shards, self.mesh, self.spec = shards, mesh, spec
+        self.dtype = shards[0].dtype
+        self.shape = torch.Size(full_shape(mesh, spec, tuple(shards[0].shape)))
+
+    def detach(self):
+        return self
+
+    def cpu(self) -> torch.Tensor:
+        return gather_shards(self.shards, self.mesh, self.spec, "cpu")
+
+
+def _moment_spec(spec: tuple, sub: str | None) -> tuple:
+    return spec[:-1] + (None,) if sub == "s" and spec else spec
+
+
+@dataclasses.dataclass
+class MeshState:
+    """A train state split over a mesh: `shards[f]` is position f's
+    (flat, row-major) `{"params": {name: shard}, "opt": AdamW state of
+    its shards, "step": int32 0-dim}` on its device, names the `LM`'s
+    (or `Whisper`'s) state-dict names, `specs` each parameter's spec
+    under `policy` (`ShardingPolicy.named_param_specs`).  A replicated
+    piece is held by every position that holds it."""
+    policy: ShardingPolicy
+    specs: dict
+    shards: list
+
+    @property
+    def mesh(self):
+        return self.policy.mesh
+
+    def full(self) -> dict:
+        """The state in the one-device layout with `_Gathered` leaves
+        (`convert.train_state_tree(state.full(), lazy=True)` writes a
+        checkpoint in the reference's layout); count and step are the
+        first position's."""
+        sh = self.shards
+
+        def leaves(get):
+            return {n: _Gathered([get(s, n) for s in sh], self.mesh, spec)
+                    for n, spec in self.specs.items()}
+
+        opt = {"count": sh[0]["opt"]["count"]}
+        for k in ("m", "v"):
+            if _quantized(sh[0]["opt"][k]):
+                opt[k] = {n: {sub: _Gathered(
+                    [s["opt"][k][n][sub] for s in sh], self.mesh,
+                    _moment_spec(spec, sub)) for sub in ("q", "s")}
+                    for n, spec in self.specs.items()}
+            else:
+                opt[k] = leaves(lambda s, n, k=k: s["opt"][k][n])
+        return {"params": leaves(lambda s, n: s["params"][n]), "opt": opt,
+                "step": sh[0]["step"]}
+
+    def position_bytes(self, flat: int) -> int:
+        """Bytes of position `flat`'s shards: parameters, moments, count
+        and step."""
+        s = self.shards[flat]
+        ts = list(s["params"].values()) + [s["opt"]["count"], s["step"]]
+        for k in ("m", "v"):
+            for t in s["opt"][k].values():
+                ts += list(t.values()) if isinstance(t, dict) else [t]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _quantized(moments: dict) -> bool:
+    return isinstance(next(iter(moments.values())), dict)
+
+
+def _check_quantized_split(specs: dict, opt_cfg: adamw.AdamWConfig,
+                           mesh) -> None:
+    bad = [n for n, s in specs.items()
+           if s and shard_count(mesh, s[-1:]) > 1]
+    if opt_cfg.quantized_moments and bad:
+        raise NotImplementedError(
+            f"int8 moments of leaves split on their last dimension ({bad[0]}"
+            f", ...): their block scales would need an all-gather after each "
+            f"update (ROADMAP item 6.10)")
+
+
+def shard_params(named: dict, policy: ShardingPolicy,
+                 opt_cfg: adamw.AdamWConfig) -> MeshState:
+    """A fresh train state on `policy`'s mesh: the parameters `named` (a
+    dict of tensors, state-dict names; `PARAM_DTYPE` applied) split by
+    their specs, a copy of each piece on each of its positions, zero
+    AdamW moments like each position's shards, step 0."""
+    mesh = policy.mesh
+    named = _master_named(policy.cfg, named)
+    specs = policy.named_param_specs(named)
+    _check_quantized_split(specs, opt_cfg, mesh)
+    shards = [{"params": {}} for _ in range(mesh.size)]
+    with torch.no_grad():
+        for n, p in named.items():
+            for f, t in enumerate(shard_tensor(p.detach(), mesh, specs[n])):
+                shards[f]["params"][n] = t
+    for f, s in enumerate(shards):
+        s["opt"] = adamw.init(s["params"], opt_cfg)
+        s["step"] = torch.zeros((), dtype=torch.int32, device=mesh.device(f))
+    return MeshState(policy, specs, shards)
+
+
+def shard_state(state: dict, policy: ShardingPolicy) -> MeshState:
+    """A one-device train state (`train.trainer.init_state`'s layout,
+    e.g. loaded from a checkpoint) split onto `policy`'s mesh: parameters
+    and moments by their specs, count and step on every position."""
+    mesh = policy.mesh
+    params = state["params"]
+    named = dict(params.named_parameters()) if isinstance(
+        params, nn.Module) else params
+    specs = policy.named_param_specs(named)
+    shards = [{"params": {}, "opt": {"m": {}, "v": {}}}
+              for _ in range(mesh.size)]
+    with torch.no_grad():
+        for n, p in named.items():
+            for f, t in enumerate(shard_tensor(p.detach(), mesh, specs[n])):
+                shards[f]["params"][n] = t
+            for k in ("m", "v"):
+                mom = state["opt"][k][n]
+                subs = mom.items() if isinstance(mom, dict) else [(None, mom)]
+                for sub, t in subs:
+                    pieces = shard_tensor(t, mesh, _moment_spec(specs[n], sub))
+                    for f, piece in enumerate(pieces):
+                        if sub is None:
+                            shards[f]["opt"][k][n] = piece
+                        else:
+                            shards[f]["opt"][k].setdefault(n, {})[sub] = piece
+    for f, s in enumerate(shards):
+        dev = mesh.device(f)
+        s["opt"]["count"] = state["opt"]["count"].to(dev, copy=True)
+        s["step"] = torch.as_tensor(state["step"]).to(
+            dev, torch.int32, copy=True)
+    return MeshState(policy, specs, shards)
+
+
+def make_train_step(cfg: ArchConfig, mesh=None, *,
                     opt_cfg: adamw.AdamWConfig | None = None,
                     microbatches: int = 1, remat: bool = True,
-                    cast_bf16: bool = False, device=None) -> TrainStep:
-    """The train step on `device` (CUDA when None, raising without it).
+                    cast_bf16: bool = False, device=None,
+                    model_strategy: str = "tp",
+                    on_grad: Callable[[str, torch.Tensor], None] | None = None
+                    ) -> TrainStep:
+    """The train step on `device` (CUDA when None, raising without it),
+    or over `mesh` (`launch.mesh.Mesh`; then `device` is unused).
 
     `fn(state, batch)` takes `state = {"params": the model, "opt": adamw
-    state, "step": int32 0-dim tensor}` (`train.trainer.init_state`) and
+    state, "step": int32 0-dim tensor}` (`train.trainer.init_state`; on
+    a mesh a `MeshState`, `init_state(..., mesh=)` / `shard_params`) and
     a batch of `inputs` / `targets` (B, S) (the VLM's also `patches` (B,
     P, D), the audio family's `frames` (B, F, D)); it runs the model's
     loss (`lm_loss`, `paligemma_loss` for the VLM, `whisper_loss` for the
@@ -104,15 +356,31 @@ def make_train_step(cfg: ArchConfig, *,
     consecutive slices; their grads are summed in `.grad` (float32, the
     dense configs' `accum_dtype`, from zero as the reference's `gacc`)
     and divided by the count, the loss is their mean and the other
-    metrics are the last microbatch's.  `cast_bf16` runs the loss on a
-    bf16 cast of the float32 leaves of stacked rank >= 2."""
-    dev = resolve_device(device)
+    metrics are the last microbatch's.  `cast_bf16` (and
+    `model_strategy="fsdp"`, ZeRO-3's cast) runs the loss on a
+    `COMPUTE_DTYPE` (bf16) cast of the float32 leaves of stacked rank >=
+    2.  On a mesh see `_mesh_train_step`; `on_grad(name, grad)` is
+    called there with each parameter's whole reduced grad before AdamW
+    (one device raises on it).
+
+    One device and a 1x1 mesh are two code paths for one step (equal bit
+    for bit, `tests/test_torch_sharded_train.py`); running the first as
+    the second waits for ROADMAP item 6.10."""
     opt_cfg = opt_cfg or default_opt_cfg(cfg)
+    if mesh is not None:
+        return _mesh_train_step(
+            cfg, mesh, opt_cfg=opt_cfg, microbatches=microbatches,
+            remat=remat, cast=cast_bf16, model_strategy=model_strategy,
+            on_grad=on_grad)
+    if on_grad is not None:
+        raise ValueError("on_grad is read by a mesh's step only")
+    dev = resolve_device(device)
     api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
+    cast = cast_bf16 or model_strategy == "fsdp"
 
     def loss_fn(params, mb: dict):
-        if cast_bf16:
-            params = _cast_view(params, torch.bfloat16)
+        if cast:
+            params = _cast_view(params, COMPUTE_DTYPE)
         return api.loss(params, mb)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
@@ -150,6 +418,145 @@ def make_train_step(cfg: ArchConfig, *,
     return TrainStep(fn=train_step,
                      batch_struct=shp.batch_struct(cfg, shp.SHAPES["train_4k"]),
                      opt_cfg=opt_cfg, device=dev)
+
+
+def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
+                     microbatches: int, remat: bool, cast: bool,
+                     model_strategy: str, on_grad) -> TrainStep:
+    """The train step over `mesh`, the reference's jitted step executed
+    position by position from this thread.
+
+    Each position f takes rows [i per + k r, i per + (k + 1) r) of
+    microbatch i (per = B / microbatches, r = per / dp, k its index over
+    the dp axes, first axis major: how `jax.jit` cuts a batch sharded
+    over `dp_axes`), gathers every parameter whole onto its device (each
+    piece from its first holder; under ZeRO-3's `compute_dtype_cast`
+    cast to `COMPUTE_DTYPE` before the move), runs the loss and the
+    backward, and as each parameter's grad lands
+    (`register_post_accumulate_grad_hook`) adds its pieces into one sum
+    a distinct piece, on the piece's first holder, in `accum_dtype`, and
+    frees it: one parameter's whole grad lives at a time.  The sums are
+    divided by dp x microbatches; AdamW's clip reads the global grad
+    norm, each distinct piece's squares summed once; then every position
+    updates its own shards with the grads of its pieces (replicas of a
+    piece get the same bits, so they stay equal).  The loss is the mean
+    of every position's microbatch losses, the other metrics the last
+    microbatch's averaged over the dp positions (`ppl_proxy` from the
+    mean `nll`).  Raises `NotImplementedError` for tensor parallelism
+    over a "model" axis larger than 1 and for the MoE family on more
+    than one position (its aux loss would be each position's, not the
+    batch's): both wait for ROADMAP item 6.10."""
+    policy = make_policy(mesh, cfg, model_strategy=model_strategy)
+    if policy.tp is not None and mesh.shape[policy.tp] > 1:
+        raise NotImplementedError(
+            f"model_strategy='tp' over a 'model' axis of "
+            f"{mesh.shape[policy.tp]}: tensor parallelism (heads and FFN "
+            f"split, partial sums all-reduced) is not executed yet, ROADMAP "
+            f"item 6.10; model_strategy='fsdp' trains on any mesh")
+    if cfg.moe is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE family on {mesh.size} positions (expert "
+            f"parallelism, the batch's aux loss) waits for ROADMAP item 6.10")
+    api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
+    cast = cast or policy.compute_dtype_cast
+    structure = meta_model(cfg)
+    masters = _master_named(cfg, meta_params(cfg))
+    specs = policy.named_param_specs(masters)
+    _check_quantized_split(specs, opt_cfg, mesh)
+    pieces = {n: list(holders(mesh, s).items()) for n, s in specs.items()}
+    dp = int(np.prod([mesh.shape[a] for a in policy.dp_axes]))
+    acc_dt = accum_dtype(cfg)
+    dev0 = mesh.device(0)
+
+    def dp_index(f: int) -> int:
+        c, k = mesh.coords(f), 0
+        for a in policy.dp_axes:
+            k = k * mesh.shape[a] + c[a]
+        return k
+
+    def train_step(state: MeshState, batch: dict) -> tuple[MeshState, dict]:
+        if state.specs != specs or state.mesh is not mesh:
+            raise ValueError("the state was sharded for another mesh or "
+                             "policy than this step's")
+        rows = batch["inputs"].shape[0]
+        if rows % (microbatches * dp):
+            raise ValueError(f"batch of {rows} rows in {microbatches} "
+                             f"microbatches over {dp} dp positions")
+        per = rows // microbatches
+        r = per // dp
+        sums: dict = {n: {} for n in specs}
+
+        def reducer(name: str):
+            def hook(t: torch.Tensor) -> None:
+                g, t.grad = t.grad, None
+                for key, owners in pieces[name]:
+                    piece = g[shard_slices(mesh, specs[name], g.shape, key)]
+                    at = mesh.device(owners[0])
+                    if key in sums[name]:
+                        sums[name][key].add_(piece.to(at, acc_dt))
+                    else:
+                        sums[name][key] = piece.to(at, acc_dt, copy=True)
+            return hook
+
+        loss, last = None, []
+        for i in range(microbatches):
+            last = []
+            for f in range(mesh.size):
+                dev = mesh.device(f)
+                lo = i * per + dp_index(f) * r
+                mb = {k: v[lo:lo + r].to(dev) for k, v in batch.items()}
+                full = {}
+                with torch.no_grad():
+                    for n, spec in specs.items():
+                        owned = [s["params"][n] for s in state.shards]
+                        dt = COMPUTE_DTYPE if cast and _casts(n, owned[0]) \
+                            else None
+                        full[n] = gather_shards(owned, mesh, spec, dev, dt)
+                for n, t in full.items():
+                    t.requires_grad_(True)
+                    t.register_post_accumulate_grad_hook(reducer(n))
+                mb_loss, metrics = api.loss(_view(structure, full), mb)
+                mb_loss.backward()
+                del full
+                mb_loss = mb_loss.detach().to(dev0)
+                loss = mb_loss if loss is None else loss + mb_loss
+                last.append({k: v.detach().to(dev0) for k, v in metrics.items()})
+        n_losses = microbatches * dp
+        if n_losses > 1:
+            loss = loss / n_losses
+        for by_key in sums.values():
+            for s in by_key.values():
+                s.div_(n_losses)
+        metrics = last[0]
+        if dp > 1:
+            metrics = {k: sum(m[k] for m in last) / dp for k in metrics}
+            metrics["ppl_proxy"] = torch.exp(torch.clamp(metrics["nll"],
+                                                         max=20.0))
+        if on_grad is not None:
+            for n, spec in specs.items():
+                at = [None] * mesh.size
+                for key, owners in pieces[n]:
+                    for f in owners:
+                        at[f] = sums[n][key]
+                on_grad(n, gather_shards(at, mesh, spec, dev0))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(s.to(torch.float32)))
+                               .to(dev0) for by_key in sums.values()
+                               for s in by_key.values()))
+        opt_metrics = None
+        for f, sh in enumerate(state.shards):
+            dev = mesh.device(f)
+            coords = mesh.coords(f)
+            grads = {n: sums[n][shard_key(mesh, spec, coords)].to(dev)
+                     for n, spec in specs.items()}
+            _, sh["opt"], om = adamw.update(grads, sh["opt"], sh["params"],
+                                            opt_cfg, norm=gnorm.to(dev))
+            sh["step"] = sh["step"] + 1
+            opt_metrics = opt_metrics or {k: v.to(dev0) for k, v in om.items()}
+        return state, dict(metrics, **opt_metrics, loss=loss)
+
+    return TrainStep(fn=train_step,
+                     batch_struct=shp.batch_struct(cfg, shp.SHAPES["train_4k"]),
+                     opt_cfg=opt_cfg, device=dev0, policy=policy)
 
 
 # ---------------------------------------------------------------------------

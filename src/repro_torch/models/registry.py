@@ -11,6 +11,7 @@ frames); a config none of them builds raises `ValueError`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -81,9 +82,11 @@ def meta_model(cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 # parameter accounting (for 6*N*D roofline terms)
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Exact count from the parameters' shapes: the model is built on the
-    `meta` device (`meta_model`), so nothing is allocated or drawn.
+    `meta` device (`meta_model`), so nothing is allocated or drawn (and
+    the count is kept per config: arctic's meta model takes seconds).
     `active_only`
     counts the routed experts' `wi` / `wg` / `wo` at top_k of E (the
     shared experts and the dense residual FFN in full), the reference's

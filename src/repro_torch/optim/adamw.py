@@ -81,7 +81,11 @@ def quantize_blockwise(x: torch.Tensor,
     pad = nb * block - last
     xp = F.pad(x if shape else x[None], (0, pad))
     xb = xp.reshape(xp.shape[:-1] + (nb, block))
-    scale = torch.amax(torch.abs(xb), dim=-1) / 127.0 + 1e-12
+    # a tensor divisor: PyTorch's CUDA `div` multiplies by the reciprocal
+    # of a host scalar, which can round apart from the CPU's (and the
+    # reference's) division; a device tensor is divided exactly on both
+    scale = torch.amax(torch.abs(xb), dim=-1) / torch.full(
+        (), 127.0, device=xb.device) + 1e-12
     q = torch.round(xb / scale[..., None]).to(torch.int8)
     q = q.reshape(xp.shape[:-1] + (nb * block,))
     return (q[..., :last].reshape(shape) if pad else q.reshape(shape)), scale
@@ -131,12 +135,16 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads: dict, opt_state: dict, params: dict,
-           cfg: AdamWConfig) -> tuple[dict, dict, dict]:
+           cfg: AdamWConfig, *,
+           norm: torch.Tensor | None = None) -> tuple[dict, dict, dict]:
     """One AdamW step.  Writes `params`' tensors and `opt_state`'s moments
     in place, replaces its count, and returns (params, opt_state,
-    metrics): `grad_norm`, `lr` and `clip_scale` as 0-dim tensors."""
+    metrics): `grad_norm`, `lr` and `clip_scale` as 0-dim tensors.
+    `norm` is the global grad norm where `grads` are one position's
+    shards of a mesh (the clip reads the whole tree's norm); by default
+    `global_norm(grads)`."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, count)
     bc1 = 1.0 - cfg.b1 ** count.to(torch.float32)
