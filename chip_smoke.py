@@ -686,11 +686,11 @@ AUDIO_DECODE = (4, 64)     # batch, tokens of the teacher-forced decode
 AUDIO_CPU_LAYERS = 2       # encoder and decoder layers of the CPU check
 SSM_CONFIG = "xlstm-125m"
 # 1 x 4096 first (also the warm-up), then the long prefill cut to 1 x
-# 16384: the sLSTM's loop is host-bound, 0.29-0.43 ms a position a pair
+# 8192: the sLSTM's loop is host-bound, 0.29-0.46 ms a position a pair
 # on the H100 80GB HBM3 at 700 W machines measured, so 1 x 32768 takes
-# 56-80 s (1 x 4096 predicted up to 85 s for it), past the 60 s set for
-# it beside the script's 1200 s limit
-SSM_PREFILLS = ((1, 4096), (1, 16384))
+# 56-90 s and 1 x 16384 took 24.6-44.9 s, the part of the script's time
+# that varies most with the host, beside its 1200 s limit
+SSM_PREFILLS = ((1, 4096), (1, 8192))
 SSM_LONG_STEPS = 64
 SSM_CPU_LAYERS = 2         # one (mLSTM, sLSTM) pair
 FAMILY16_TRAIN = ((AUDIO_CONFIG, AUDIO_INST), (SSM_CONFIG, "flash_attention"))
@@ -712,6 +712,22 @@ MESH_CLI = ["--arch", "qwen2.5-3b", "--reduced", "--mesh", "2x2", "--perf",
             "1"]
 PIPE = dict(stages=4, microbatches=8, batch=2, dim=2048)
 PIPE_OUT_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
+
+# Phase 18: tensor parallelism over "model".  qwen3-8b at full width (d
+# 4096, 32 / 8 heads, d_ff 12288, vocab 151936) cut to TP_TRAIN_LAYERS of
+# its 36 layers, float32 masters drawn on the card from seed 0 and kept
+# on the host; a "tp" step (bf16 backbone, remat, one microbatch) on
+# each mesh of cuda:0 positions: 1x1, 1x4 (heads, KV heads, FFN and
+# vocabulary local to each position) and 2x2 with fsdp=True (the policy
+# the reference picks for the uncut 8.2 G parameters), each from the
+# same masters, the first step with its grads read out, a second timed
+# alone.
+TP_TRAIN_CONFIG = "qwen3-8b"
+TP_TRAIN_LAYERS = 8                 # depth cut (of 36)
+TP_TRAIN_SHAPE = (8, 256)           # batch, seq
+TP_TRAIN_MESHES = (((1, 1), None), ((1, 4), None), ((2, 2), True))
+TP_LOSS_RTOL = 1e-3                 # each mesh vs 1x1: loss
+TP_GRAD_REL_L2 = 5e-2               # ... every leaf's grad (bf16 step)
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -5136,12 +5152,15 @@ def mesh_train_phase(card: str) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
     card_named = dict(build_model(cfg).init(seed=0, draw_on="cuda")
                       .named_parameters())
-    host = {n: p.detach().cpu() for n, p in card_named.items()}
+    host = _pinned_buffers(card_named)
+    for n, p in card_named.items():
+        host[n].copy_(p.detach())
     n_params = sum(p.numel() for p in host.values())
     grads1: dict = {}
+    pinned = _pinned_buffers(host)
 
     def keep(name, g):
-        grads1[name] = g.cpu()
+        grads1[name] = pinned[name].copy_(g)
 
     del card_named
     torch.cuda.empty_cache()
@@ -5292,9 +5311,10 @@ def mesh_train_phase(card: str) -> dict:
     del gl, pods, ef, out
 
     # -- (e) the dry-run over both production meshes, as the reference's
-    # cells and under PERF_TRAIN_OVERRIDES (its ZeRO-3 train cells run
-    # `train_collectives`; on 2 x 16 x 16 their batch of 256 does not
-    # divide the 512 dp positions: five errors, as the reference's)
+    # cells ("tp": the dense and VLM train cells count their model
+    # groups' all-reduces) and under PERF_TRAIN_OVERRIDES (its ZeRO-3
+    # train cells; on 2 x 16 x 16 their batch of 256 does not divide the
+    # 512 dp positions: five errors, as the reference's)
     for variant, want in (("", dict(ok=64, skip=16, error=0)),
                           ("perf", dict(ok=59, skip=16, error=5))):
         t0 = time.perf_counter()
@@ -5309,13 +5329,14 @@ def mesh_train_phase(card: str) -> dict:
         roof, sent = q["roofline"], q["collectives"]
         check(roof["collective_s"] is None
               and roof["dominant_over"] == ["compute_s", "memory_s"]
-              and (sent is not None) == (variant == "perf"),
+              and sent is not None and (sent["bytes"][
+                  "activation all-reduce"] > 0) == (variant == ""),
               f"dry-run --variant '{variant}': {MESH_TRAIN_CONFIG} "
               f"train_4k's collectives {sent}, roofline {roof}")
-        sent_txt = ("none (tensor parallelism over model 16 is not "
-                    "executed)" if sent is None else
-                    f"{sent['total_bytes'] / 1e9:.3f} GB a position a step "
-                    f"(links between nodes not modeled: collective_s null)")
+        sent_txt = (f"{sent['total_bytes'] / 1e9:.3f} GB a position a step, "
+                    f"{sent['bytes']['activation all-reduce'] / 1e9:.3f} GB "
+                    f"of it the model groups' all-reduces (links between "
+                    f"nodes not modeled: collective_s null)")
         print(f"dry-run: --all --variant '{variant}' over both production "
               f"meshes in {dry_s:.2f} s: {count['ok']} ok, {count['skip']} "
               f"skip, {count['error']} error; {MESH_TRAIN_CONFIG} train_4k "
@@ -5327,6 +5348,181 @@ def mesh_train_phase(card: str) -> dict:
     print(f"mesh train phase: {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     return dict(ms_1x1=ms1, ms_2x2=ms2, peak_gb=max(peak1, peak2))
+
+
+# ----------------------------------------------------------------------
+# Phase 18: tensor parallelism over "model" (qwen3-8b at full width)
+# ----------------------------------------------------------------------
+def _pinned_buffers(like: dict) -> dict:
+    """An empty host tensor shaped as each of `like`'s (one dtype), all
+    cut from one page-locked buffer, which the card reads and writes at
+    the link's rate (one allocation: the pinned cache rounds each up to
+    a power of two, and the next phase's buffer reuses it)."""
+    import torch
+
+    (dtype,) = {t.dtype for t in like.values()}
+    flat = torch.empty(sum(t.numel() for t in like.values()), dtype=dtype,
+                       pin_memory=True)
+    out, at = {}, 0
+    for n, t in like.items():
+        out[n] = flat[at:at + t.numel()].view(t.shape)
+        at += t.numel()
+    return out
+
+
+def _tp_step(cfg, shape, fsdp, named, on_grad):
+    """Two "tp" steps of `cfg` on a ("data", "model") mesh of `shape`
+    cuda:0 positions from the masters `named` (on the host): the first
+    calls `on_grad` with each reduced grad, the second runs without it
+    and is the step's time.  Returns (the first's metrics, its ms, the
+    second's ms, (the second's peak GB, the first's with the state's
+    upload), their launches, each position's
+    state bytes, the dry-run's, the dry-run's bytes a position sends,
+    the replicated pieces found bitwise equal after the first, the
+    state's upload s)."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import make_train_step, shard_params
+
+    mesh = make_mesh(shape, ("data", "model"),
+                     ["cuda:0"] * (shape[0] * shape[1]))
+    kw = dict(remat=True, model_strategy="tp", fsdp=fsdp)
+    checked = make_train_step(cfg, mesh, on_grad=on_grad, **kw)
+    plain = make_train_step(cfg, mesh, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    state, upload_ms = _sync_ms(
+        lambda: shard_params(named, checked.policy, checked.opt_cfg))
+    b, s = TP_TRAIN_SHAPE
+    batches = [batch_for(cfg, s, b, i, seed=0, device="cuda")
+               for i in range(2)]
+    ((state, met), ms_checked), l1 = _counted(
+        lambda: _sync_ms(lambda: checked.fn(state, batches[0])))
+    met = {k: float(v) for k, v in met.items()}
+    pieces = _replicas_equal(state)
+    peak_checked = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ((state, _), ms), l2 = _counted(
+        lambda: _sync_ms(lambda: plain.fn(state, batches[1])))
+    peak = (torch.cuda.max_memory_allocated() / 1e9, peak_checked)
+    nbytes = [state.position_bytes(f) for f in range(mesh.size)]
+    del state
+    cell = ShapeSpec("tp_smoke", "train", s, b)
+    want = dryrun.position_bytes(cfg, cell, mesh, fsdp=fsdp)["state_bytes"]
+    sent = dryrun.train_collectives(cfg, mesh, microbatches=1, shape=cell,
+                                    fsdp=fsdp)
+    launches = {k: l1.get(k, 0) + l2.get(k, 0) for k in {**l1, **l2}}
+    return (met, ms_checked, ms, peak, launches, nbytes, want, sent, pieces,
+            upload_ms / 1e3)
+
+
+def tp_train_phase(card: str) -> dict:
+    """Phase 18: the "tp" step of qwen3-8b (full width, depth cut) on 1x1,
+    1x4 and 2x2 (FSDP) meshes of the card, each against 1x1."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.registry import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(registry.get(TP_TRAIN_CONFIG),
+                              n_layers=TP_TRAIN_LAYERS)
+    card_named = dict(build_model(cfg).init(seed=0, draw_on="cuda")
+                      .named_parameters())
+    host = _pinned_buffers(card_named)
+    for n, p in card_named.items():
+        host[n].copy_(p.detach())
+    del card_named
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in host.values())
+    b, s = TP_TRAIN_SHAPE
+    # reckoned before the first run: masters and two float32 moments (12
+    # B a parameter), the float32 grad sums (4 B) and, on 2x2 with FSDP,
+    # one group's float32 gathers of its local pieces (4 B)
+    reckoned = 20 * n_params / 1e9
+    print(f"tp train ({card}): {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}), cut to {cfg.n_layers} of "
+          f"{registry.get(TP_TRAIN_CONFIG).n_layers} layers: {n_params} "
+          f"float32 masters from seed 0; 2x2 FSDP peak reckoned "
+          f"{reckoned:.1f} GB before activations; drawn and copied to "
+          f"pinned host memory in {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    grads1: dict = {}
+    pinned = _pinned_buffers(host)
+    rows, first = [], None
+    for shape, fsdp in TP_TRAIN_MESHES:
+        worst = {"rel_l2": 0.0, "name": None, "n": 0}
+
+        def on_grad(name, g):
+            if first is None:
+                grads1[name] = pinned[name].copy_(g)
+                return
+            h = grads1[name].to(g.device)
+            rel = float(torch.linalg.vector_norm((g - h).float())
+                        / torch.linalg.vector_norm(h.float()).clamp_min(1e-30))
+            worst["n"] += 1
+            if rel >= worst["rel_l2"]:
+                worst.update(rel_l2=rel, name=name)
+
+        t_mesh = time.perf_counter()
+        met, ck, ms, peak, launches, nbytes, want, sent, pieces, up = \
+            _tp_step(cfg, shape, fsdp, host, on_grad)
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"{shape[0]}x{shape[1]}" + ("-fsdp" if fsdp else "")
+        check(not launches,
+              f"tp train {name}: the steps launched kernels of ours "
+              f"{launches}")
+        check(all(n == want for n in nbytes),
+              f"tp train {name}: state bytes a position {nbytes}, dry-run "
+              f"{want}")
+        check(shape == (1, 1) or pieces > 0,
+              f"tp train {name}: no replicated piece to compare")
+        line = (f"tp train {name} ({card}): {b} x {s}, step {ms:.2f} ms "
+                f"({ck:.2f} with the grads read out), peak {peak[0]:.2f} "
+                f"GB ({peak[1]:.2f} with the read-out), "
+                f"state a position {nbytes[0]} bytes = {nbytes[0] / 1e9:.4f} "
+                f"GB (dry-run {want}), dry-run sends "
+                f"{sent['total_bytes'] / 1e9:.4f} GB a position a step "
+                f"({sent['bytes']['activation all-reduce'] / 1e9:.4f} GB "
+                f"activations' all-reduces); loss {met['loss']:.6f}, grad "
+                f"norm {met['grad_norm']:.5f}")
+        if first is None:
+            first = met
+        else:
+            la, lb = met["loss"], first["loss"]
+            check(abs(la - lb) <= TP_LOSS_RTOL * abs(lb),
+                  f"tp train {name}: loss {la} vs 1x1 {lb}")
+            check(worst["n"] == len(grads1)
+                  and worst["rel_l2"] <= TP_GRAD_REL_L2,
+                  f"tp train {name}: grad {worst['name']} rel L2 "
+                  f"{worst['rel_l2']} ({worst['n']} of {len(grads1)} leaves "
+                  f"compared)")
+            line += (f" vs 1x1 {lb:.6f} (rel {abs(la - lb) / lb:.3e}, "
+                     f"tolerance {TP_LOSS_RTOL}), grad norm rel "
+                     f"{abs(met['grad_norm'] - first['grad_norm']) / first['grad_norm']:.3e}; "
+                     f"worst leaf grad rel L2 {worst['rel_l2']:.3e} "
+                     f"({worst['name']}, tolerance {TP_GRAD_REL_L2}); "
+                     f"{pieces} replicated pieces bitwise equal")
+        print(line + f"; no launch of a kernel of ours; this mesh "
+              f"{time.perf_counter() - t_mesh:.2f} s, the state's upload "
+              f"{up:.2f} s", flush=True)
+        rows.append(dict(mesh=name, ms=ms, peak_gb=peak[0],
+                         state=nbytes[0]))
+    del host, grads1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp train phase: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return {r["mesh"]: r for r in rows}
 
 
 def main() -> int:
@@ -5390,6 +5586,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     mesh_train_phase(card)
     print(f"chip_smoke wall after phase 17: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    tp_train_phase(card)
+    print(f"chip_smoke wall after phase 18: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a

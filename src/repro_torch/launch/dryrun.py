@@ -17,19 +17,27 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
   * `collectives`: the bytes a position sends in the port's sharded
     train step (`steps.make_train_step(cfg, mesh)`), as ring collectives
     would move them: per microbatch, each parameter's all-gather ((n -
-    1) / n of its gathered bytes, n its distinct pieces), its grad's
-    reduce-scatter (the same fraction of the grad) and, among the r
-    positions holding one piece, an all-reduce (2 (r - 1) / r of the
-    piece).  `collective_s` puts them on one NVLink direction (450
-    GB/s) where the mesh fits one node (`NODE_POSITIONS`, the eight
-    cards of an H100 node); the production meshes span 32 and 64 nodes,
-    and links between nodes are not modeled (no inter-node bandwidth is
-    stated in the repo), so their `collective_s` is null while their
-    bytes are recorded.  Where the policy puts tensor parallelism on a
-    "model" axis larger than 1 (the "tp" strategy, every cell but the
-    "perf" variant's ZeRO-3 ones), the port's step raises (ROADMAP item
-    6.10), and prefill and decode have no sharded step in the port:
-    their collectives are null;
+    1) / n of its gathered bytes, n its distinct pieces, a position
+    reading the one it holds from itself; under tensor
+    parallelism a leaf split on whole units over "model" is gathered
+    over the other axes only, its "model" piece of 1 / m of it), its
+    grad's reduce-scatter (the same fraction of the grad) and, among the
+    r positions holding one piece, an all-reduce (2 (r - 1) / r of the
+    piece); and under tensor parallelism over a "model" axis of m > 1
+    the activations' all-reduces of each model group
+    (`tensor_parallel.activation_collectives`: a layer's attention and
+    MLP partials forward and backward, the attention's again in remat's
+    recompute, the embedding's and the cross-entropy's).  `collective_s` puts them on one NVLink
+    direction (450 GB/s) where the mesh fits one node (`NODE_POSITIONS`,
+    the eight cards of an H100 node); the production meshes span 32 and
+    64 nodes, and links between nodes are not modeled (no inter-node
+    bandwidth is stated in the repo), so their `collective_s` is null
+    while their bytes are recorded.  Counted where the port's step has
+    a form to count: null for the MoE family (the step raises on more
+    than one position), for the families with no local form under "tp"
+    over "model" > 1 (the hybrid, SSM and audio families: their loss
+    runs once a group on leaves gathered whole), and for prefill and
+    decode, which have no sharded step in the port;
   * `roofline`: the terms, the dominant one, the 6 N D model FLOPs, the
     useful-FLOPs ratio and the roofline fraction, under the reference's
     keys, and `dominant_over`, the terms the dominant one and the
@@ -62,7 +70,9 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.lm import stacked_ndim
 from repro_torch.models.registry import build_model, count_params, meta_model
-from repro_torch.parallel.sharding import make_policy, shard_count, shard_shape
+from repro_torch.parallel import tensor_parallel
+from repro_torch.parallel.sharding import (make_policy, model_local,
+                                           shard_count, shard_shape)
 
 RUNS = pathlib.Path(__file__).resolve().parents[3] / "runs" / "dryrun_torch"
 FITS_BYTES = 80e9         # the H100's 80 GB of HBM3
@@ -131,12 +141,11 @@ def _serving_params(cfg) -> dict:
 def position_bytes(cfg, shape: shp.ShapeSpec, mesh, **step_kw) -> dict:
     """The argument bytes one position of `mesh` holds for the cell:
     `state_bytes` (train: its shards of params, moments, count and step
-    under `make_policy(mesh, cfg, model_strategy=)`; prefill and
-    decode: of the bf16 serving weights, and decode's state),
+    under `make_policy(mesh, cfg, fsdp=, model_strategy=)`; prefill
+    and decode: of the bf16 serving weights, and decode's state),
     `batch_bytes` (train and prefill: its rows of the batch; decode: of
     the tokens) and their sum `argument_bytes`."""
-    policy = make_policy(mesh, cfg,
-                         model_strategy=step_kw.get("model_strategy", "tp"))
+    policy = _policy(cfg, mesh, step_kw)
     if shape.kind == "train":
         struct, specs = steps_mod.make_train_state_struct(
             cfg, policy, step_kw.get("opt_cfg")
@@ -164,16 +173,50 @@ def position_bytes(cfg, shape: shp.ShapeSpec, mesh, **step_kw) -> dict:
             "argument_bytes": state + batch}
 
 
-def train_collectives(cfg, mesh, *, microbatches: int, **step_kw) -> dict:
+def _policy(cfg, mesh, step_kw: dict):
+    return make_policy(mesh, cfg, fsdp=step_kw.get("fsdp"),
+                       model_strategy=step_kw.get("model_strategy", "tp"))
+
+
+def _model_group(cfg, mesh, policy):
+    """(m, the `tensor_parallel.Layout`) of the step's model groups: m
+    the positions a group, the layout None where m is 1 or the family
+    has no local form."""
+    specs = policy.named_param_specs(
+        steps_mod._master_named(cfg, steps_mod.meta_params(cfg)))
+    dp = int(np.prod([mesh.shape[a] for a in policy.dp_axes]))
+    m = mesh.size // dp
+    return m, (tensor_parallel.layout(cfg, specs, mesh) if m > 1 else None)
+
+
+def counts_collectives(cfg, mesh, **step_kw) -> bool:
+    """Whether `train_collectives` counts the step's collectives: not for
+    the MoE family on more than one position, nor for a family with no
+    local form in model groups of more than one position."""
+    if cfg.moe is not None and mesh.size > 1:
+        return False
+    m, lay = _model_group(cfg, mesh, _policy(cfg, mesh, step_kw))
+    return m == 1 or lay is not None
+
+
+def train_collectives(cfg, mesh, *, microbatches: int,
+                      shape: shp.ShapeSpec | None = None, remat: bool = True,
+                      **step_kw) -> dict:
     """The bytes a position sends in the port's sharded train step (see
-    the module's docstring), by collective kind, and how many of each a
-    step runs."""
-    policy = make_policy(mesh, cfg,
-                         model_strategy=step_kw.get("model_strategy", "tp"))
+    the module's docstring) on a batch of `shape` (needed for the
+    activations' all-reduces of model groups), by collective kind, and
+    how many of each a position runs.  Raises `ValueError` where
+    `counts_collectives` is false."""
+    if not counts_collectives(cfg, mesh, **step_kw):
+        raise ValueError(f"{cfg.name}: the step's collectives on {mesh} are "
+                         f"not counted (see counts_collectives)")
+    policy = _policy(cfg, mesh, step_kw)
     cast = policy.compute_dtype_cast or step_kw.get("cast_bf16", False)
     named = steps_mod._master_named(cfg, steps_mod.meta_params(cfg))
     specs = policy.named_param_specs(named)
-    out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    m, lay = _model_group(cfg, mesh, policy)
+    out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0,
+           "activation all-reduce": 0.0}
     count = {k: 0 for k in out}
     for name, p in named.items():
         n = shard_count(mesh, specs[name])
@@ -182,13 +225,24 @@ def train_collectives(cfg, mesh, *, microbatches: int, **step_kw) -> dict:
             cast and p.dtype == torch.float32
             and stacked_ndim(name, p) >= 2) else p.dtype
         nbytes = p.numel() * torch.empty((), dtype=dtype).element_size()
-        if n > 1:
+        gathered, pieces = nbytes, n
+        if lay is not None and model_local(mesh, cfg, name, specs[name]):
+            gathered, pieces = nbytes / m, n // m
+        if pieces > 1:
             for kind in ("all-gather", "reduce-scatter"):
-                out[kind] += microbatches * (n - 1) / n * nbytes
+                out[kind] += microbatches * (pieces - 1) / pieces * gathered
                 count[kind] += microbatches
         if r > 1:
             out["all-reduce"] += microbatches * 2 * (r - 1) / r * nbytes / n
             count["all-reduce"] += microbatches
+    if lay is not None:
+        if shape is None:
+            raise ValueError("the activations' all-reduces need the shape")
+        rows = shape.batch // (microbatches * (mesh.size // m))
+        sent, calls = tensor_parallel.activation_collectives(
+            cfg, lay, m, rows, shape.seq, remat=remat)
+        out["activation all-reduce"] = microbatches * sent
+        count["activation all-reduce"] = microbatches * calls
     return {"bytes": out, "count": count,
             "total_bytes": sum(out.values())}
 
@@ -238,11 +292,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         rec.update(status="error", error=f"ValueError: {e}")
         out_path.write_text(json.dumps(rec, indent=1))
         return rec
-    policy = make_policy(mesh, cfg, model_strategy=kw.get("model_strategy",
-                                                          "tp"))
-    runs = shape.kind == "train" and not (
-        policy.tp and mesh.shape[policy.tp] > 1)
-    coll = train_collectives(cfg, mesh, **kw) if runs else None
+    runs = shape.kind == "train" and counts_collectives(cfg, mesh, **kw)
+    coll = train_collectives(cfg, mesh, shape=shape, **kw) if runs else None
     ana = analytic_terms(cfg, shape, chips)
     terms = {"compute_s": ana["compute_s"], "memory_s": ana["memory_s"],
              "collective_s": collective_seconds(coll, mesh)}

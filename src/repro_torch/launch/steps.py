@@ -8,16 +8,23 @@ decode run on one device.  Its train step runs on one device
 (`make_train_step(cfg)`) or over a mesh (`make_train_step(cfg, mesh)`,
 `launch.mesh.Mesh`: positions of this one process, repeats allowed):
 each position holds its shards of the parameters and AdamW moments
-under the policy's specs (`parallel.sharding`), takes its rows of every
-microbatch, gathers the whole parameters (ZeRO-3: cast to bf16 before
-the gather), runs the loss and the backward, and reduce-scatters each
-grad into the owning shards as it lands; AdamW then runs on each
-position's shards under the global grad norm.  Tensor parallelism over
-"model" is not executed yet (ROADMAP item 6.10): `model_strategy="tp"`
-on a "model" axis larger than 1 raises.  The train step reaches no
-kernel of ours: the reference's train step reaches no Pallas kernel
-either (dense attention, products outside any kernel), so it is
-PyTorch and cuBLAS.
+under the policy's specs (`parallel.sharding`) and takes its rows of
+every microbatch.  Under ZeRO-3 (`model_strategy="fsdp"`) and where the
+"model" axis is 1, each position gathers the whole parameters (ZeRO-3:
+cast to bf16 before the gather) and runs the loss and the backward
+alone.  Under tensor parallelism (`model_strategy="tp"`, the default)
+over a "model" axis larger than 1, the positions of a dp index form a
+model group that runs one microbatch in lockstep: for the dense and VLM
+families each position gathers its "model" piece of the heads, FFN and
+vocabulary over the dp / FSDP axes and runs them, partial sums
+all-reduced (`parallel.tensor_parallel`); the other families run their
+loss once a group, on leaves gathered whole.  Each grad is
+reduce-scattered into the owning shards as it lands; AdamW then runs on
+each position's shards under the global grad norm.  The MoE family on
+more than one position raises (expert parallelism, ROADMAP item 6.10).
+The train step reaches no kernel of ours: the reference's train step
+reaches no Pallas kernel either (dense attention, products outside any
+kernel), so it is PyTorch and cuBLAS.
 """
 from __future__ import annotations
 
@@ -38,11 +45,13 @@ from repro_torch.launch.shapes import ShapeSpec, TensorSpec
 from repro_torch.models import lm, whisper
 from repro_torch.models.registry import build_model, meta_model
 from repro_torch.optim import adamw
+from repro_torch.parallel import tensor_parallel
 from repro_torch.parallel.sharding import (ShardingPolicy, full_shape,
-                                           gather_shards, holders,
-                                           make_policy, shard_count,
-                                           shard_key, shard_slices,
-                                           shard_tensor)
+                                           gather_over, gather_shards,
+                                           holders, make_policy,
+                                           model_local, pieces_in, region,
+                                           shard_count, shard_key,
+                                           shard_slices, shard_tensor)
 
 
 def default_opt_cfg(cfg: ArchConfig) -> adamw.AdamWConfig:
@@ -63,9 +72,14 @@ def default_opt_cfg(cfg: ArchConfig) -> adamw.AdamWConfig:
 PARAM_DTYPE = {"arctic-480b": torch.bfloat16}
 
 # The reference's per-arch logical-rule overrides for training.  Data
-# only: the port's step places activations by construction and reads no
-# activation rules; they take effect with tensor parallelism over
-# "model" (ROADMAP item 6.10).
+# only: they place activations, so they change no result, and the port's
+# mesh step places its activations by construction.  It follows the
+# policy's "batch" (rows over the dp axes), "heads", "kv_heads", "ffn"
+# and "vocab" (over "model" where the policy splits their leaves on
+# whole units, `parallel.sharding.model_local`; else the KV heads a
+# position's queries read, or the whole leaf) rules; every other rule,
+# these two's "embed_carry" among them, it does not (the residual stream
+# is whole on every position of a model group).
 ARCH_TRAIN_RULES = {
     "arctic-480b": {"embed_carry": "model"},
     "granite-34b": {"embed_carry": "model"},
@@ -331,12 +345,15 @@ def shard_state(state: dict, policy: ShardingPolicy) -> MeshState:
 def make_train_step(cfg: ArchConfig, mesh=None, *,
                     opt_cfg: adamw.AdamWConfig | None = None,
                     microbatches: int = 1, remat: bool = True,
+                    fsdp: bool | None = None, model_strategy: str = "tp",
                     cast_bf16: bool = False, device=None,
-                    model_strategy: str = "tp",
                     on_grad: Callable[[str, torch.Tensor], None] | None = None
                     ) -> TrainStep:
     """The train step on `device` (CUDA when None, raising without it),
-    or over `mesh` (`launch.mesh.Mesh`; then `device` is unused).
+    or over `mesh` (`launch.mesh.Mesh`; then `device` is unused).  The
+    reference's signature, with `device` and `on_grad` added and without
+    `extra_rules` (activation rules change no result; see
+    `ARCH_TRAIN_RULES`).
 
     `fn(state, batch)` takes `state = {"params": the model, "opt": adamw
     state, "step": int32 0-dim tensor}` (`train.trainer.init_state`; on
@@ -359,21 +376,23 @@ def make_train_step(cfg: ArchConfig, mesh=None, *,
     metrics are the last microbatch's.  `cast_bf16` (and
     `model_strategy="fsdp"`, ZeRO-3's cast) runs the loss on a
     `COMPUTE_DTYPE` (bf16) cast of the float32 leaves of stacked rank >=
-    2.  On a mesh see `_mesh_train_step`; `on_grad(name, grad)` is
-    called there with each parameter's whole reduced grad before AdamW
-    (one device raises on it).
+    2.  On a mesh see `_mesh_train_step`: `fsdp` goes to `make_policy`
+    (None: on from 6e9 parameters, as the reference's) and
+    `on_grad(name, grad)` is called with each parameter's whole reduced
+    grad before AdamW; one device raises on either.
 
     One device and a 1x1 mesh are two code paths for one step (equal bit
     for bit, `tests/test_torch_sharded_train.py`); running the first as
-    the second waits for ROADMAP item 6.10."""
+    the second waits for a measurement (ROADMAP item 6.10)."""
     opt_cfg = opt_cfg or default_opt_cfg(cfg)
     if mesh is not None:
         return _mesh_train_step(
             cfg, mesh, opt_cfg=opt_cfg, microbatches=microbatches,
             remat=remat, cast=cast_bf16, model_strategy=model_strategy,
-            on_grad=on_grad)
-    if on_grad is not None:
-        raise ValueError("on_grad is read by a mesh's step only")
+            fsdp=fsdp, on_grad=on_grad)
+    for name, v in (("on_grad", on_grad), ("fsdp", fsdp)):
+        if v is not None:
+            raise ValueError(f"{name} is read by a mesh's step only")
     dev = resolve_device(device)
     api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
     cast = cast_bf16 or model_strategy == "fsdp"
@@ -422,41 +441,46 @@ def make_train_step(cfg: ArchConfig, mesh=None, *,
 
 def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                      microbatches: int, remat: bool, cast: bool,
-                     model_strategy: str, on_grad) -> TrainStep:
+                     model_strategy: str, fsdp: bool | None,
+                     on_grad) -> TrainStep:
     """The train step over `mesh`, the reference's jitted step executed
-    position by position from this thread.
+    group by group from this thread.
 
-    Each position f takes rows [i per + k r, i per + (k + 1) r) of
-    microbatch i (per = B / microbatches, r = per / dp, k its index over
-    the dp axes, first axis major: how `jax.jit` cuts a batch sharded
-    over `dp_axes`), gathers every parameter whole onto its device (each
-    piece from its first holder; under ZeRO-3's `compute_dtype_cast`
-    cast to `COMPUTE_DTYPE` before the move), runs the loss and the
-    backward, and as each parameter's grad lands
-    (`register_post_accumulate_grad_hook`) adds its pieces into one sum
+    A group is the positions of one dp index (the dp axes: "pod" and
+    "data", and "model" under ZeRO-3): one position each, unless "tp"
+    puts a "model" axis of m > 1 outside them.  Group k takes rows [i
+    per + k r, i per + (k + 1) r) of microbatch i (per = B /
+    microbatches, r = per / dp, first axis major: how `jax.jit` cuts a
+    batch sharded over `dp_axes`), every position of it the same rows.
+    A group of one position gathers every parameter whole onto its
+    device (each piece from its first holder; under ZeRO-3's
+    `compute_dtype_cast` cast to `COMPUTE_DTYPE` before the move) and
+    runs the loss and the backward.  A group of m runs the dense and VLM
+    families' local form (`tensor_parallel.group_loss`): each position
+    gathers its "model" piece of each leaf that the policy splits on
+    whole units over the other axes (`gather_over`; its own shard where
+    nothing is to gather) and every other leaf whole, and the group's
+    graph all-reduces the partial sums; every other family runs its loss
+    once, on the group's first position, on leaves gathered whole.  As
+    each leaf's grad lands (`register_post_accumulate_grad_hook`; a local
+    leaf's grad is its "model" piece) its pieces are added into one sum
     a distinct piece, on the piece's first holder, in `accum_dtype`, and
-    frees it: one parameter's whole grad lives at a time.  The sums are
-    divided by dp x microbatches; AdamW's clip reads the global grad
-    norm, each distinct piece's squares summed once; then every position
-    updates its own shards with the grads of its pieces (replicas of a
-    piece get the same bits, so they stay equal).  The loss is the mean
-    of every position's microbatch losses, the other metrics the last
-    microbatch's averaged over the dp positions (`ppl_proxy` from the
-    mean `nll`).  Raises `NotImplementedError` for tensor parallelism
-    over a "model" axis larger than 1 and for the MoE family on more
-    than one position (its aux loss would be each position's, not the
-    batch's): both wait for ROADMAP item 6.10."""
-    policy = make_policy(mesh, cfg, model_strategy=model_strategy)
-    if policy.tp is not None and mesh.shape[policy.tp] > 1:
-        raise NotImplementedError(
-            f"model_strategy='tp' over a 'model' axis of "
-            f"{mesh.shape[policy.tp]}: tensor parallelism (heads and FFN "
-            f"split, partial sums all-reduced) is not executed yet, ROADMAP "
-            f"item 6.10; model_strategy='fsdp' trains on any mesh")
+    the grad is freed.  The sums are divided by dp x microbatches (one
+    loss a group); AdamW's clip reads the global grad norm, each
+    distinct piece's squares summed once; then every position updates
+    its own shards with the grads of its pieces (replicas of a piece get
+    the same bits, so they stay equal).  The loss is the mean of the
+    groups' microbatch losses, the other metrics the last microbatch's
+    averaged over the groups (`ppl_proxy` from the mean `nll`).  Raises
+    `NotImplementedError` for the MoE family on more than one position
+    (expert parallelism and the batch's aux loss: the expert-parallel
+    slice of ROADMAP item 6.10)."""
+    policy = make_policy(mesh, cfg, fsdp=fsdp, model_strategy=model_strategy)
     if cfg.moe is not None and mesh.size > 1:
         raise NotImplementedError(
             f"{cfg.name}: the MoE family on {mesh.size} positions (expert "
-            f"parallelism, the batch's aux loss) waits for ROADMAP item 6.10")
+            f"parallelism over 'model', the batch's aux loss) waits for the "
+            f"expert-parallel slice of ROADMAP item 6.10")
     api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
     cast = cast or policy.compute_dtype_cast
     structure = meta_model(cfg)
@@ -464,7 +488,12 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     specs = policy.named_param_specs(masters)
     _check_quantized_split(specs, opt_cfg, mesh)
     pieces = {n: list(holders(mesh, s).items()) for n, s in specs.items()}
+    shapes = {n: tuple(p.shape) for n, p in masters.items()}
     dp = int(np.prod([mesh.shape[a] for a in policy.dp_axes]))
+    m = mesh.size // dp
+    lay = tensor_parallel.layout(cfg, specs, mesh) if m > 1 else None
+    local = {n: lay is not None and model_local(mesh, cfg, n, s)
+             for n, s in specs.items()}
     acc_dt = accum_dtype(cfg)
     dev0 = mesh.device(0)
 
@@ -473,6 +502,22 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
         for a in policy.dp_axes:
             k = k * mesh.shape[a] + c[a]
         return k
+
+    groups = [[] for _ in range(dp)]
+    for f in range(mesh.size):
+        groups[dp_index(f)].append(f)
+
+    @functools.lru_cache(maxsize=None)
+    def covers(name: str, f: int) -> tuple:
+        """(key, first holder, index in the grad) of each piece of
+        `name` that position f's tensor covers: all of them for a whole
+        leaf, those inside its "model" piece for a local one."""
+        spec, shape = specs[name], shapes[name]
+        if not local[name]:
+            return tuple((key, owners[0], shard_slices(mesh, spec, shape, key))
+                         for key, owners in pieces[name])
+        return tuple((key, owners[0], at) for key, owners, at in pieces_in(
+            mesh, spec, shape, region(mesh, spec, shape, f)))
 
     def train_step(state: MeshState, batch: dict) -> tuple[MeshState, dict]:
         if state.specs != specs or state.mesh is not mesh:
@@ -486,41 +531,63 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
         r = per // dp
         sums: dict = {n: {} for n in specs}
 
-        def reducer(name: str):
+        def reducer(name: str, f: int):
+            where = covers(name, f)
+
             def hook(t: torch.Tensor) -> None:
                 g, t.grad = t.grad, None
-                for key, owners in pieces[name]:
-                    piece = g[shard_slices(mesh, specs[name], g.shape, key)]
-                    at = mesh.device(owners[0])
+                for key, owner, at in where:
+                    piece = g[at]
+                    dev = mesh.device(owner)
                     if key in sums[name]:
-                        sums[name][key].add_(piece.to(at, acc_dt))
+                        sums[name][key].add_(piece.to(dev, acc_dt))
                     else:
-                        sums[name][key] = piece.to(at, acc_dt, copy=True)
+                        sums[name][key] = piece.to(dev, acc_dt, copy=True)
             return hook
+
+        def leaves(f: int, use_local: bool) -> dict:
+            """Position f's leaves for its loss, each a leaf of the graph
+            with its grad hook."""
+            dev, held = mesh.device(f), {}
+            with torch.no_grad():
+                for n, spec in specs.items():
+                    owned = [s["params"][n] for s in state.shards]
+                    dt = COMPUTE_DTYPE if cast and _casts(n, owned[0]) \
+                        else None
+                    held[n] = (gather_over(owned, mesh, spec, f, dev, dt)
+                               if use_local and local[n] else
+                               gather_shards(owned, mesh, spec, dev, dt,
+                                             flat=f))
+            for n, t in held.items():
+                t.requires_grad_(True)
+                t.register_post_accumulate_grad_hook(reducer(n, f))
+            return held
 
         loss, last = None, []
         for i in range(microbatches):
             last = []
-            for f in range(mesh.size):
-                dev = mesh.device(f)
-                lo = i * per + dp_index(f) * r
-                mb = {k: v[lo:lo + r].to(dev) for k, v in batch.items()}
-                full = {}
-                with torch.no_grad():
-                    for n, spec in specs.items():
-                        owned = [s["params"][n] for s in state.shards]
-                        dt = COMPUTE_DTYPE if cast and _casts(n, owned[0]) \
-                            else None
-                        full[n] = gather_shards(owned, mesh, spec, dev, dt)
-                for n, t in full.items():
-                    t.requires_grad_(True)
-                    t.register_post_accumulate_grad_hook(reducer(n))
-                mb_loss, metrics = api.loss(_view(structure, full), mb)
+            for k, members in enumerate(groups):
+                lo = i * per + k * r
+                mbs = [{n: v[lo:lo + r].to(mesh.device(f))
+                        for n, v in batch.items()} for f in members]
+                if lay is not None:
+                    held = [leaves(f, True) for f in members]
+                    mb_loss, metrics = tensor_parallel.group_loss(
+                        [_view(structure, t) for t in held], mbs, cfg, lay,
+                        remat=remat)
+                else:
+                    held = leaves(members[0], False)
+                    mb_loss, metrics = api.loss(_view(structure, held),
+                                                mbs[0])
                 mb_loss.backward()
-                del full
+                # the graph's AccumulateGrad nodes hold the gathered
+                # leaves: keep no tensor of it past the backward
+                del held
                 mb_loss = mb_loss.detach().to(dev0)
                 loss = mb_loss if loss is None else loss + mb_loss
-                last.append({k: v.detach().to(dev0) for k, v in metrics.items()})
+                last.append({n: v.detach().to(dev0)
+                             for n, v in metrics.items()})
+                del metrics
         n_losses = microbatches * dp
         if n_losses > 1:
             loss = loss / n_losses

@@ -16,8 +16,11 @@ round-robin, so 2x2 on one card is four positions of it; with --device
 cpu four CPU positions); 1x1 runs the one-device step.  --perf applies
 `steps.PERF_TRAIN_OVERRIDES`, every key of it (qwen2.5-3b: ZeRO-3, one
 microbatch; arctic: the bf16 cast), as the reference's dry-run variant
-"perf" does; without it the strategy is "tp", which raises on a "model"
-axis larger than 1 (ROADMAP item 6.10).
+"perf" does; without it the strategy is "tp": tensor parallelism over
+"model" (`parallel.tensor_parallel`: the dense and VLM families' heads,
+FFN and vocabulary split, partial sums all-reduced; the other families'
+loss once a model group on leaves gathered whole; the MoE family raises
+on more than one position).
 Checkpoints are written gathered, in the reference's layout: a run
 resumes on any mesh.  --device defaults to the card (raising without
 one); the CPU tests pass --device cpu.

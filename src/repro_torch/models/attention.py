@@ -52,10 +52,19 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator) -> Attention:
     return Attention(cfg, generator)
 
 
+def _heads(p: Attention, cfg: ArchConfig) -> tuple[int, int, int]:
+    """(query heads, KV heads, head dim) of the projections as given:
+    the counts are read from the weights' widths, so the same code runs
+    a tensor-parallel position's own heads (`parallel.tensor_parallel`)
+    as it runs the whole layer."""
+    dh = cfg.resolved_head_dim
+    return p.wq.shape[1] // dh, p.wk.shape[1] // dh, dh
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor):
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, kv, dh = _heads(p, cfg)
     q = x @ p.wq.to(x.dtype)
     k = x @ p.wk.to(x.dtype)
     v = x @ p.wv.to(x.dtype)
@@ -83,9 +92,12 @@ def attention_fwd(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
 
     Scores leave the einsum in x's dtype and are scaled in float32 (the
     reference divides by a float32 scalar, which promotes); softmax runs
-    in float32 and its probabilities go back to x's dtype."""
+    in float32 and its probabilities go back to x's dtype.  The head
+    counts are the weights' (`_heads`): on a tensor-parallel position's
+    heads the result is that position's partial sum of the output
+    projection."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, kv, dh = _heads(p, cfg)
     g = h // kv
     q, k, v = _project_qkv(p, x, cfg, positions)
     qg = q.reshape(b, s, kv, g, dh)
@@ -115,7 +127,7 @@ def attention_fwd_blockwise(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     (3xTF32 below 128; bf16 tensor cores at head dim 256) or 128-key (bf16
     tensor cores) tiles."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    h, _, dh = _heads(p, cfg)
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = flash_ops.flash_attention(q, k, v, causal=True,
                                     prefix_len=prefix_len, block_k=kv_block)

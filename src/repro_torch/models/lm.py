@@ -322,6 +322,38 @@ def _group_fwd(shared: SharedBlock, blocks, x: torch.Tensor,
     return x
 
 
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings `emb[tokens]` in the backbone's dtype."""
+    return emb[tokens].to(BACKBONE)
+
+
+def embed_inputs(params: LM, x: torch.Tensor, cfg: ArchConfig,
+                 prefix_embeds: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, int]:
+    """What `lm_hidden` does between the lookup and the blocks: `x` (B,
+    S, D), the token embeddings in the backbone's dtype, with
+    `prefix_embeds` (B, P, D) cast and prepended and, for learned
+    positions, `pos_emb[:P + S]` added (raising past the table).
+    Returns (x, P)."""
+    prefix_len = 0
+    if prefix_embeds is not None:
+        if (prefix_embeds.dim() != 3 or prefix_embeds.shape[0] != x.shape[0]
+                or prefix_embeds.shape[2] != x.shape[2]):
+            raise ValueError(f"prefix_embeds must be (B, P, D) = ("
+                             f"{x.shape[0]}, P, {x.shape[2]}), got "
+                             f"{tuple(prefix_embeds.shape)}")
+        x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
+        prefix_len = prefix_embeds.shape[1]
+    s = x.shape[1]
+    if cfg.pos == "learned":
+        if s > MAX_LEARNED_POS:
+            raise ValueError(f"{s} positions past the learned table's "
+                             f"{MAX_LEARNED_POS}")
+        x = x + params.pos_emb[:s].to(x.dtype)[None]
+    return x, prefix_len
+
+
 def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
               mask: torch.Tensor | None = None,
               prefix_embeds: torch.Tensor | None = None,
@@ -350,24 +382,10 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     in the reference).  `mask` (S, S) bool is the dense attention's
     (default causal; the VLM's loss passes `prefix_lm_mask`)."""
     check_dense(cfg)
-    x = params.emb[tokens].to(BACKBONE)
-    prefix_len = 0
-    if prefix_embeds is not None:
-        if (prefix_embeds.dim() != 3 or prefix_embeds.shape[0] != x.shape[0]
-                or prefix_embeds.shape[2] != x.shape[2]):
-            raise ValueError(f"prefix_embeds must be (B, P, D) = ("
-                             f"{x.shape[0]}, P, {x.shape[2]}), got "
-                             f"{tuple(prefix_embeds.shape)}")
-        x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x],
-                      dim=1)
-        prefix_len = prefix_embeds.shape[1]
+    x, prefix_len = embed_inputs(params, embed_tokens(params.emb, tokens),
+                                 cfg, prefix_embeds)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
-    if cfg.pos == "learned":
-        if s > MAX_LEARNED_POS:
-            raise ValueError(f"{s} positions past the learned table's "
-                             f"{MAX_LEARNED_POS}")
-        x = x + params.pos_emb[:s].to(x.dtype)[None]
     if mask is None and attn_impl == "dense":
         mask = causal_mask(s, x.device)
 
@@ -378,13 +396,17 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
             x = _run(remat, _group_fwd, params.shared,
                      params.blocks[g:g + per], x, cfg, mask=mask,
                      positions=positions, attn_impl=attn_impl, remat=remat)
-        return apply_norm(params.final_norm, x, cfg.norm), aux
+        return final_norm(params, x, cfg), aux
     for blk in params.blocks:
         x, a = _run(remat, _block_fwd, blk, x, cfg, mask=mask,
                     positions=positions, attn_impl=attn_impl,
                     prefix_len=prefix_len, mlstm_chunked=mlstm_chunked)
         aux = aux + a
-    return apply_norm(params.final_norm, x, cfg.norm), aux
+    return final_norm(params, x, cfg), aux
+
+
+def final_norm(params: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return apply_norm(params.final_norm, x, cfg.norm)
 
 
 def lm_logits(params: LM, hidden: torch.Tensor,

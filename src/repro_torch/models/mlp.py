@@ -44,7 +44,11 @@ def init_mlp(d: int, ff: int, cfg: ArchConfig,
     return MLP(d, ff, cfg, generator)
 
 
-def mlp_fwd(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_fwd(p: MLP, x: torch.Tensor, cfg: ArchConfig, *,
+            out_bias: bool = True) -> torch.Tensor:
+    """The MLP on x, in x's dtype.  `out_bias=False` leaves out `bo`: a
+    tensor-parallel position's partial sum, whose group adds the bias
+    once after the all-reduce (`parallel.tensor_parallel`)."""
     act = act_fn(cfg.act)
     h = x @ p.wi.to(x.dtype)
     if cfg.mlp_bias:
@@ -54,7 +58,7 @@ def mlp_fwd(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         h = act(h)
     y = h @ p.wo.to(x.dtype)
-    if cfg.mlp_bias:
+    if cfg.mlp_bias and out_bias:
         y = y + p.bo.to(x.dtype)
     return y
 

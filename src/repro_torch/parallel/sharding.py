@@ -412,17 +412,127 @@ def shard_tensor(t: torch.Tensor, mesh, spec: tuple) -> list[torch.Tensor]:
 
 
 def gather_shards(shards: list[torch.Tensor], mesh, spec: tuple,
-                  device, dtype: torch.dtype | None = None) -> torch.Tensor:
+                  device, dtype: torch.dtype | None = None, *,
+                  flat: int | None = None) -> torch.Tensor:
     """The whole tensor from its pieces (`shards`, one a position, flat
-    order) on `device`, each piece read from its first holder and cast
-    to `dtype` (where given) before it moves, as ZeRO-3 gathers in the
-    compute dtype."""
+    order) on `device`, as `_gather` reads them: for position `flat`
+    where given (its own pieces from itself), else each from its first
+    holder."""
     first = shards[0]
     shape = full_shape(mesh, spec, tuple(first.shape))
-    out = torch.empty(shape, dtype=dtype or first.dtype, device=device)
+    return _gather(shards, mesh, spec, shape,
+                   tuple(slice(0, n) for n in shape), flat, device, dtype)
+
+
+def kept_spec(spec: tuple) -> tuple:
+    """`spec` with only its "model" split left: an entry without "model"
+    becomes None.  An entry that mixes "model" and other axes raises
+    `ValueError` (no policy of the "tp" strategy makes one)."""
+    out = []
+    for e in spec:
+        axes = _axes(e)
+        if axes == ("model",):
+            out.append(e)
+        elif "model" in axes:
+            raise ValueError(f"spec entry {e!r} mixes 'model' with other axes")
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def region(mesh, spec: tuple, shape: tuple[int, ...],
+           flat: int) -> tuple[slice, ...]:
+    """The index, in a tensor of whole `shape`, of the part position
+    `flat` holds when only the "model" axis of `spec` splits it."""
+    kept = kept_spec(spec)
+    return shard_slices(mesh, kept, shape,
+                        shard_key(mesh, kept, mesh.coords(flat)))
+
+
+def pieces_in(mesh, spec: tuple, shape: tuple[int, ...],
+              part: tuple[slice, ...]) -> list[tuple]:
+    """The pieces of a tensor of whole `shape` under `spec` that lie in
+    `part` (a `region`): (key, holders, the piece's index within
+    `part`), keys in `holders`' order."""
+    out = []
     for key, owners in holders(mesh, spec).items():
-        piece = shards[owners[0]]
+        at = shard_slices(mesh, spec, shape, key)
+        if all(p.start <= a.start and a.stop <= p.stop
+               for a, p in zip(at, part)):
+            out.append((key, owners, tuple(
+                slice(a.start - p.start, a.stop - p.start)
+                for a, p in zip(at, part))))
+    return out
+
+
+def gather_over(shards: list[torch.Tensor], mesh, spec: tuple, flat: int,
+                device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Position `flat`'s part of the tensor with only the "model" split
+    kept (`region`): gathered whole over every other axis of `spec` (the
+    dp / FSDP axes) onto `device`, its "model" piece left as it is, as
+    `_gather` reads it."""
+    first = shards[0]
+    shape = full_shape(mesh, spec, tuple(first.shape))
+    return _gather(shards, mesh, spec, shape, region(mesh, spec, shape, flat),
+                   flat, device, dtype)
+
+
+def _gather(shards: list[torch.Tensor], mesh, spec: tuple,
+            shape: tuple[int, ...], part: tuple[slice, ...],
+            flat: int | None, device,
+            dtype: torch.dtype | None) -> torch.Tensor:
+    """`part` of the tensor of whole `shape` from the pieces inside it
+    on `device`.  Each piece is read from position `flat` where it holds
+    it, else from its first holder (replicas hold the same bits), and
+    cast to `dtype` (where given) before it moves, as ZeRO-3 gathers in
+    the compute dtype.  Where the part is one piece that `flat` holds on
+    `device` and no cast applies, the result shares that shard's storage
+    (a detached alias: no copy)."""
+    inside = pieces_in(mesh, spec, shape, part)
+    if flat is not None and len(inside) == 1 and flat in inside[0][1]:
+        own = shards[flat]
+        if dtype in (None, own.dtype) and own.device == torch.device(device):
+            return own.detach()
+    out = torch.empty(tuple(s.stop - s.start for s in part),
+                      dtype=dtype or shards[0].dtype, device=device)
+    for _, owners, at in inside:
+        piece = shards[flat if flat in owners else owners[0]]
         if dtype is not None:
             piece = piece.to(dtype)
-        out[shard_slices(mesh, spec, shape, key)] = piece.to(device)
+        out[at] = piece.to(device)
     return out
+
+
+def model_local(mesh, cfg: ArchConfig, name: str, spec: tuple) -> bool:
+    """Whether parameter `name` (a state-dict name of the LM) is split
+    over "model" on whole units, so a position can use its piece as it
+    stands (tensor parallelism): the columns of `blocks.<i>.attn.wq` /
+    `bq` and the rows of `attn.wo` where the heads divide the axis, the
+    columns of `attn.wk` / `wv` / `bk` / `bv` where the KV heads do, the
+    MLP's `ffn.wi` / `wg` / `bi` columns and `ffn.wo` rows, the rows of
+    `emb` and the columns of `head` (the vocabulary).  False for every
+    other leaf, and for these where `spec` does not split them over
+    "model" (the policy's `_maybe`) or splits another dimension: e.g.
+    the single KV head of an MQA config, which the policy splits inside
+    the head dimension.  MLA and the MoE's experts are not covered."""
+    dims = [i for i, e in enumerate(spec) if "model" in _axes(e)]
+    if len(dims) != 1 or ("model",) != _axes(spec[dims[0]]):
+        return False
+    m, dim, parts = mesh.shape["model"], dims[0], name.split(".")
+    if name in ("emb", "head"):
+        return dim == (0 if name == "emb" else 1)
+    if len(parts) != 4 or parts[0] != "blocks" or cfg.mla is not None:
+        return False
+    sub, leaf = parts[2], parts[3]
+    if sub == "attn":
+        if leaf in ("wq", "bq", "wo"):
+            return cfg.n_heads % m == 0 and dim == (0 if leaf == "wo"
+                                                    else len(spec) - 1)
+        if leaf in ("wk", "wv", "bk", "bv"):
+            return cfg.n_kv_heads % m == 0 and dim == len(spec) - 1
+        return False
+    if sub == "ffn" and cfg.moe is None:
+        if leaf in ("wi", "wg", "bi"):
+            return dim == len(spec) - 1
+        return leaf == "wo" and dim == 0
+    return False

@@ -59,8 +59,8 @@ def test_run_cell_records_the_reference_keys(tmp_path, arch, shape):
     assert mem["temp_bytes"] is None and mem["total_bytes"] == \
         mem["argument_bytes"] == mem["state_bytes"] + mem["batch_bytes"]
     assert mem["fits_80gb"] == (mem["argument_bytes"] < 80e9)
-    if shape == "train_4k":
-        assert rec["collectives"] is None       # "tp" over model 16
+    if shape == "train_4k":    # "tp" over model 16: partials all-reduced
+        assert rec["collectives"]["bytes"]["activation all-reduce"] > 0
     # no collective term: the dominant one is of compute and memory
     r = rec["roofline"]
     assert r["collective_s"] is None
@@ -150,7 +150,8 @@ def test_perf_variant_cells(tmp_path, capsys):
     2 x 16 x 16 the train batch of 256 does not divide 512 positions and
     those five cells are errors (the batch specs carry no guard, as the
     reference's); the five configs' 16 x 16 train cells record their
-    collective bytes."""
+    collective bytes, and so do the other dense configs' "tp" train
+    cells on both meshes."""
     rows = dryrun.main(["--all", "--variant", "perf", "--out-dir",
                         str(tmp_path)])
     errors = [r for r in rows if r["status"] == "error"]
@@ -160,6 +161,10 @@ def test_perf_variant_cells(tmp_path, capsys):
     assert all(r["shape"] == "train_4k" and r["mesh"] == "pod2x16x16"
                and "256 over 512" in r["error"] for r in errors)
     sent = [r for r in rows if r["status"] == "ok" and r["collectives"]]
+    tp = {n for n in registry.ARCH_IDS if registry.get(n).family in
+          ("dense", "vlm") and registry.get(n).name not in zero3}
     assert {(r["arch"], r["mesh"]) for r in sent} == {
-        (n, "pod16x16") for n in zero3}
+        (n, "pod16x16") for n in zero3} | {
+        (registry.get(n).name, mesh) for n in tp
+        for mesh in ("pod16x16", "pod2x16x16")}
     assert "59 ok, 5 error, 16 skip / 80 cells" in capsys.readouterr().out

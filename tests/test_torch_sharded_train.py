@@ -211,9 +211,6 @@ def test_family_2x2_fsdp_matches_1x1(f32, arch, seq):
 
 def test_what_the_mesh_step_refuses():
     cfg = registry.reduced(NAME)
-    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
-    with pytest.raises(NotImplementedError, match="6.10"):
-        tsteps.make_train_step(cfg, mesh)                  # "tp" over 2
     with pytest.raises(NotImplementedError, match="6.10"):
         tsteps.make_train_step(registry.reduced("deepseek-v2-lite-16b"),
                                make_mesh((2, 1), ("data", "model"),
@@ -276,11 +273,13 @@ def _ckpt_leaves(path, step) -> dict:
     return leaves(jax.tree.map(np.asarray, tree))
 
 
-def test_train_cli_on_a_mesh_restarts_bitwise(tmp_path):
-    """`launch.train --mesh 2x1 --device cpu --reduced`: 2 steps then 2
-    more from the checkpoint end on the state of 4 straight steps, leaf
-    for leaf."""
-    args = ["--arch", NAME, "--reduced", "--mesh", "2x1", "--device", "cpu",
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+def test_train_cli_on_a_mesh_restarts_bitwise(tmp_path, mesh):
+    """`launch.train --mesh 2x1 --device cpu --reduced` (and 1x2: tensor
+    parallelism, "tp" over a "model" axis of 2): 2 steps then 2 more
+    from the checkpoint end on the state of 4 straight steps, leaf for
+    leaf."""
+    args = ["--arch", NAME, "--reduced", "--mesh", mesh, "--device", "cpu",
             "--seq", str(SEQ), "--batch", str(BATCH), "--ckpt-every", "2"]
     assert train_main(args + ["--steps", "4", "--ckpt-dir",
                               str(tmp_path / "a")]) == 0

@@ -103,20 +103,15 @@ def test_train_cli_runs_on_the_cpu(tmp_path, arch):
     assert out.returncode == 0, out.stderr
     assert "step     0 loss" in out.stdout
     assert (tmp_path / "LATEST").read_text() == "step_00000004"
-    # a 2 x 1 mesh of CPU positions resumes the run at step 4; tensor
-    # parallelism over a "model" axis of 2 is refused (ROADMAP item 6.10)
-    meshed = [c if c != "4" else "6" for c in cmd]
-    on_mesh = subprocess.run(meshed + ["--mesh", "2x1"], capture_output=True,
-                             text=True, timeout=300, cwd=ROOT,
-                             env={"PYTHONPATH": str(ROOT / "src"),
-                                  "PATH": "/usr/bin:/bin"})
-    assert on_mesh.returncode == 0, on_mesh.stderr
-    assert (tmp_path / "LATEST").read_text() == "step_00000006"
-    bad = subprocess.run(cmd + ["--mesh", "1x2"], capture_output=True,
-                         text=True, timeout=300, cwd=ROOT,
-                         env={"PYTHONPATH": str(ROOT / "src"),
-                              "PATH": "/usr/bin:/bin"})
-    assert bad.returncode != 0 and "6.10" in bad.stderr
+    # a 2 x 1 mesh of CPU positions resumes the run at step 4, then a 1 x
+    # 2 mesh (tensor parallelism over a "model" axis of 2) at step 6
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    for steps, mesh in (("6", "2x1"), ("8", "1x2")):
+        on_mesh = subprocess.run([c if c != "4" else steps for c in cmd]
+                                 + ["--mesh", mesh], capture_output=True,
+                                 text=True, timeout=300, cwd=ROOT, env=env)
+        assert on_mesh.returncode == 0, on_mesh.stderr
+        assert (tmp_path / "LATEST").read_text() == f"step_0000000{steps}"
 
 
 def test_trainer_without_cuda_raises(tmp_path, monkeypatch):
