@@ -439,7 +439,33 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              term (of compute and memory only: links between nodes are
              not modeled, `collective_s` null) and collective bytes.
              The phase's and the script's wall times are printed.
-18. report — one JSON line of per-kernel numbers (the `wavefront` row's
+18. tp train — tensor parallelism over "model" (every earlier phase's
+             weights freed first): qwen3-8b at full width (d 4096, 32
+             heads over 8, d_ff 12288, vocab 151936) cut to 8 of 36
+             layers, float32 masters drawn on the card from seed 0 and
+             kept in pinned host memory; a "tp" step (bf16 backbone,
+             remat, 8 x 256) on 1x1, 1x4 (heads, KV heads, FFN and
+             vocabulary local) and 2x2 with FSDP of cuda:0 positions, each
+             from the same masters, the first with every reduced grad
+             read out, a second timed alone: loss within TP_LOSS_RTOL of
+             1x1's, every leaf's grad within rel L2 TP_GRAD_REL_L2,
+             replicated pieces bitwise equal, each position's state bytes
+             the dry-run's, no launch of a kernel of ours; step ms, peaks
+             and the dry-run's bytes sent printed.
+19. ep train — expert parallelism over "model", as 18: deepseek-v2-lite-16b
+             at full width (d 2048, 16 MLA heads, 64 experts top-6 of
+             d_ff 1408 and 2 shared, vocab 102400, untied head) cut to
+             EP_TRAIN_LAYERS of 27, 8 x 256 (a row is one dispatch
+             group), on 1x1, 1x4 (16 experts, 4 heads, a quarter of the
+             shared columns and of the vocabulary a position) and 2x2
+             with FSDP (two dp groups: the load-balance loss over both):
+             18's checks, and `aux_loss` within EP_LOSS_RTOL of 1x1's,
+             the router's grad among the leaves held; the positions of a
+             model group make the same dispatch decision in the checked
+             step, bitwise; the (token, k) claims whose expert differs
+             from 1x1's are counted (bf16 near ties) and printed.
+             The phase's and the script's wall times are printed.
+20. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time; the (128, 128) flash row its
@@ -728,6 +754,22 @@ TP_TRAIN_SHAPE = (8, 256)           # batch, seq
 TP_TRAIN_MESHES = (((1, 1), None), ((1, 4), None), ((2, 2), True))
 TP_LOSS_RTOL = 1e-3                 # each mesh vs 1x1: loss
 TP_GRAD_REL_L2 = 5e-2               # ... every leaf's grad (bf16 step)
+
+# Phase 19: expert parallelism over "model".  deepseek-v2-lite-16b at full
+# width cut to EP_TRAIN_LAYERS of its 27 layers, float32 masters drawn on
+# the card from seed 0 and kept on the host; a "tp" step (bf16 backbone,
+# remat, one microbatch) on each mesh of phase 18, each from the same
+# masters.  The MoE family's step runs both dp groups' forwards before
+# the microbatch's one backward, so on 2x2 both groups' float32 gathers
+# are alive together: at 4 layers (2.76 G masters) state, grad sums and
+# the two gathers reckon 66 GB before activations, at 3 (2.17 G) 52 GB;
+# on an H100 80GB HBM3 3 layers peaked at 54.26 GB and 4 at 68.36 GB.
+EP_TRAIN_CONFIG = "deepseek-v2-lite-16b"
+EP_TRAIN_LAYERS = 4                 # depth cut (of 27)
+EP_TRAIN_SHAPE = (8, 256)           # batch, seq: a row is a dispatch group
+EP_TRAIN_MESHES = TP_TRAIN_MESHES
+EP_LOSS_RTOL = 1e-3                 # each mesh vs 1x1: loss and aux_loss
+EP_GRAD_REL_L2 = 5e-2               # ... every leaf's grad, the router's too
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -5370,16 +5412,18 @@ def _pinned_buffers(like: dict) -> dict:
     return out
 
 
-def _tp_step(cfg, shape, fsdp, named, on_grad):
+def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
+             around=contextlib.nullcontext):
     """Two "tp" steps of `cfg` on a ("data", "model") mesh of `shape`
-    cuda:0 positions from the masters `named` (on the host): the first
-    calls `on_grad` with each reduced grad, the second runs without it
-    and is the step's time.  Returns (the first's metrics, its ms, the
-    second's ms, (the second's peak GB, the first's with the state's
-    upload), their launches, each position's
-    state bytes, the dry-run's, the dry-run's bytes a position sends,
-    the replicated pieces found bitwise equal after the first, the
-    state's upload s)."""
+    cuda:0 positions from the masters `named` (on the host) at
+    `batch_shape` (batch, seq): the first calls `on_grad` with each
+    reduced grad and runs inside `around()`, the second runs without
+    either and is the step's time.  Returns (the first's metrics, its
+    ms, the second's ms, (the second's peak GB, the first's with the
+    state's upload), their launches, each position's state bytes, the
+    dry-run's, the dry-run's bytes a position sends, the replicated
+    pieces found bitwise equal after the first, the state's upload
+    s)."""
     import torch
 
     from repro_torch.data.synthetic import batch_for
@@ -5396,11 +5440,12 @@ def _tp_step(cfg, shape, fsdp, named, on_grad):
     torch.cuda.reset_peak_memory_stats()
     state, upload_ms = _sync_ms(
         lambda: shard_params(named, checked.policy, checked.opt_cfg))
-    b, s = TP_TRAIN_SHAPE
+    b, s = batch_shape
     batches = [batch_for(cfg, s, b, i, seed=0, device="cuda")
                for i in range(2)]
-    ((state, met), ms_checked), l1 = _counted(
-        lambda: _sync_ms(lambda: checked.fn(state, batches[0])))
+    with around():
+        ((state, met), ms_checked), l1 = _counted(
+            lambda: _sync_ms(lambda: checked.fn(state, batches[0])))
     met = {k: float(v) for k, v in met.items()}
     pieces = _replicas_equal(state)
     peak_checked = torch.cuda.max_memory_allocated() / 1e9
@@ -5410,7 +5455,7 @@ def _tp_step(cfg, shape, fsdp, named, on_grad):
     peak = (torch.cuda.max_memory_allocated() / 1e9, peak_checked)
     nbytes = [state.position_bytes(f) for f in range(mesh.size)]
     del state
-    cell = ShapeSpec("tp_smoke", "train", s, b)
+    cell = ShapeSpec("mesh_smoke", "train", s, b)
     want = dryrun.position_bytes(cfg, cell, mesh, fsdp=fsdp)["state_bytes"]
     sent = dryrun.train_collectives(cfg, mesh, microbatches=1, shape=cell,
                                     fsdp=fsdp)
@@ -5422,18 +5467,122 @@ def _tp_step(cfg, shape, fsdp, named, on_grad):
 def tp_train_phase(card: str) -> dict:
     """Phase 18: the "tp" step of qwen3-8b (full width, depth cut) on 1x1,
     1x4 and 2x2 (FSDP) meshes of the card, each against 1x1."""
+    from repro_torch.configs import registry
+
+    def describe(cfg):
+        return (f"d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, "
+                f"d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+
+    return _model_group_phase(
+        card, "tp train", registry.get(TP_TRAIN_CONFIG), TP_TRAIN_LAYERS,
+        TP_TRAIN_SHAPE, TP_TRAIN_MESHES, TP_LOSS_RTOL, TP_GRAD_REL_L2,
+        describe)
+
+
+def ep_train_phase(card: str) -> dict:
+    """Phase 19: the "tp" step of deepseek-v2-lite-16b (full width, depth
+    cut; experts and MLA heads over "model") on 1x1, 1x4 and 2x2 (FSDP)
+    meshes of the card, each against 1x1, the aux loss and routes too."""
+    from repro_torch.configs import registry
+
+    def describe(cfg):
+        mo, ml = cfg.moe, cfg.mla
+        return (f"d {cfg.d_model}, {cfg.n_heads} MLA heads (kv_lora "
+                f"{ml.kv_lora}, rope {ml.rope_dim}, nope {ml.nope_dim}, v "
+                f"{ml.v_dim}), {mo.n_experts} experts top-{mo.top_k} of d_ff "
+                f"{mo.d_ff_expert} and {mo.n_shared} shared, vocab "
+                f"{cfg.vocab}, untied head")
+
+    return _model_group_phase(
+        card, "ep train", registry.get(EP_TRAIN_CONFIG), EP_TRAIN_LAYERS,
+        EP_TRAIN_SHAPE, EP_TRAIN_MESHES, EP_LOSS_RTOL, EP_GRAD_REL_L2,
+        describe)
+
+
+@contextlib.contextmanager
+def _mesh_routes(dp: int, m: int, layers: int, forced=None):
+    """Record each forward call of `mlp.moe_route` in a mesh step's order
+    (dp group after group, each its layers, each layer its m positions):
+    its input and its own (top_i, slot, keep), on the host.  With
+    `forced` (1x1's (top_i, slot, keep) of each layer over the
+    microbatch), every call, remat's recompute in the backward too (a
+    call is known by its position's router leaf), takes its dp group's
+    slice of those, its gates the renormalized probabilities of the
+    forced experts: the step teacher-forced to 1x1's routes, as phase
+    11's `_routes` forces a decode."""
+    import torch
+
+    from repro_torch.models import mlp
+
+    calls, where = [], {}
+    route = mlp.moe_route
+
+    def recorded(p, xg, mo):
+        logits, probs, top_p, top_i, slot, keep = route(p, xg, mo)
+        if id(p.router) not in where:          # the forward's call
+            n = len(calls)
+            where[id(p.router)] = (n // (layers * m), n // m % layers)
+            calls.append((xg.detach().cpu(),)
+                         + tuple(t.cpu() for t in (top_i, slot, keep)))
+        if forced is not None:
+            k, i = where[id(p.router)]
+            g = top_i.shape[0]
+            top_i, slot, keep = (t[k * g:(k + 1) * g].to(xg.device)
+                                 for t in forced[i])
+            top_p = torch.gather(probs, -1, top_i)
+            top_p = top_p / top_p.sum(-1, keepdim=True)
+        return logits, probs, top_p, top_i, slot, keep
+
+    mlp.moe_route = recorded
+    try:
+        yield calls
+    finally:
+        mlp.moe_route = route
+
+
+def _group_routes(what: str, calls: list, dp: int, m: int,
+                  layers: int) -> list:
+    """Each layer's own (top_i, slot, keep) over the microbatch (the dp
+    groups' in turn) from one step's recorded calls (`_mesh_routes`),
+    checking that a model group's positions routed the same input to the
+    same slots, bitwise."""
+    import torch
+
+    check(len(calls) == dp * layers * m,
+          f"{what}: {len(calls)} router calls, not {dp} x {layers} x {m}")
+    at = [[calls[(k * layers + i) * m:(k * layers + i + 1) * m]
+           for i in range(layers)] for k in range(dp)]
+    for k in range(dp):
+        for i in range(layers):
+            check(all(torch.equal(a, b) for c in at[k][i][1:]
+                      for a, b in zip(c, at[k][i][0])),
+                  f"{what}: the positions of group {k} routed layer {i} "
+                  f"apart")
+    return [tuple(torch.cat([at[k][i][0][t] for k in range(dp)])
+                  for t in (1, 2, 3)) for i in range(layers)]
+
+
+def _model_group_phase(card: str, what: str, full, layers: int, shape,
+                       meshes, loss_rtol: float, grad_rel_l2: float,
+                       describe) -> dict:
+    """One "tp" step of `full` at full width cut to `layers` on each of
+    `meshes` of cuda:0 positions ((shape, fsdp), 1x1 first), each from
+    the same masters (drawn on the card, kept in pinned host memory),
+    the first step of each with every reduced grad held to 1x1's and a
+    second timed alone.  The MoE family's aux loss is held to 1x1's too,
+    and its routes recorded in the checked step: a model group's
+    positions alike, the claims that differ from 1x1's counted."""
     import gc
 
     import torch
 
-    from repro_torch.configs import registry
     from repro_torch.models.registry import build_model
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(registry.get(TP_TRAIN_CONFIG),
-                              n_layers=TP_TRAIN_LAYERS)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    moe = cfg.moe is not None
     card_named = dict(build_model(cfg).init(seed=0, draw_on="cuda")
                       .named_parameters())
     host = _pinned_buffers(card_named)
@@ -5442,23 +5591,22 @@ def tp_train_phase(card: str) -> dict:
     del card_named
     torch.cuda.empty_cache()
     n_params = sum(p.numel() for p in host.values())
-    b, s = TP_TRAIN_SHAPE
+    b, s = shape
     # reckoned before the first run: masters and two float32 moments (12
     # B a parameter), the float32 grad sums (4 B) and, on 2x2 with FSDP,
-    # one group's float32 gathers of its local pieces (4 B)
-    reckoned = 20 * n_params / 1e9
-    print(f"tp train ({card}): {cfg.name} at full width (d {cfg.d_model}, "
-          f"{cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}), cut to {cfg.n_layers} of "
-          f"{registry.get(TP_TRAIN_CONFIG).n_layers} layers: {n_params} "
+    # the float32 gathers of its local pieces (4 B a dp group alive: one
+    # at a time, the MoE family's two together)
+    reckoned = (16 + 4 * (2 if moe else 1)) * n_params / 1e9
+    print(f"{what} ({card}): {cfg.name} at full width ({describe(cfg)}), "
+          f"cut to {cfg.n_layers} of {full.n_layers} layers: {n_params} "
           f"float32 masters from seed 0; 2x2 FSDP peak reckoned "
           f"{reckoned:.1f} GB before activations; drawn and copied to "
           f"pinned host memory in {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     grads1: dict = {}
     pinned = _pinned_buffers(host)
-    rows, first = [], None
-    for shape, fsdp in TP_TRAIN_MESHES:
+    rows, first, routes1 = [], None, None
+    for mesh_shape, fsdp in meshes:
         worst = {"rel_l2": 0.0, "name": None, "n": 0}
 
         def on_grad(name, g):
@@ -5472,46 +5620,77 @@ def tp_train_phase(card: str) -> dict:
             if rel >= worst["rel_l2"]:
                 worst.update(rel_l2=rel, name=name)
 
+        name = f"{mesh_shape[0]}x{mesh_shape[1]}" + ("-fsdp" if fsdp else "")
+        calls = []
+
+        @contextlib.contextmanager
+        def around():
+            if not moe:
+                yield
+                return
+            with _mesh_routes(*mesh_shape, cfg.n_layers, routes1) as rec:
+                yield
+            calls.extend(rec)
+
         t_mesh = time.perf_counter()
         met, ck, ms, peak, launches, nbytes, want, sent, pieces, up = \
-            _tp_step(cfg, shape, fsdp, host, on_grad)
+            _tp_step(cfg, mesh_shape, fsdp, host, on_grad, shape, around)
         gc.collect()
         torch.cuda.empty_cache()
-        name = f"{shape[0]}x{shape[1]}" + ("-fsdp" if fsdp else "")
         check(not launches,
-              f"tp train {name}: the steps launched kernels of ours "
+              f"{what} {name}: the steps launched kernels of ours "
               f"{launches}")
         check(all(n == want for n in nbytes),
-              f"tp train {name}: state bytes a position {nbytes}, dry-run "
+              f"{what} {name}: state bytes a position {nbytes}, dry-run "
               f"{want}")
-        check(shape == (1, 1) or pieces > 0,
-              f"tp train {name}: no replicated piece to compare")
-        line = (f"tp train {name} ({card}): {b} x {s}, step {ms:.2f} ms "
+        check(mesh_shape == (1, 1) or pieces > 0,
+              f"{what} {name}: no replicated piece to compare")
+        line = (f"{what} {name} ({card}): {b} x {s}, step {ms:.2f} ms "
                 f"({ck:.2f} with the grads read out), peak {peak[0]:.2f} "
                 f"GB ({peak[1]:.2f} with the read-out), "
                 f"state a position {nbytes[0]} bytes = {nbytes[0] / 1e9:.4f} "
                 f"GB (dry-run {want}), dry-run sends "
                 f"{sent['total_bytes'] / 1e9:.4f} GB a position a step "
                 f"({sent['bytes']['activation all-reduce'] / 1e9:.4f} GB "
-                f"activations' all-reduces); loss {met['loss']:.6f}, grad "
-                f"norm {met['grad_norm']:.5f}")
+                f"activations' all-reduces")
+        if moe:
+            routes = _group_routes(f"{what} {name}", calls, *mesh_shape,
+                                   cfg.n_layers)
+            line += (f", {sent['bytes']['router all-reduce']:.0f} bytes of "
+                     f"router statistics")
+        line += (f"); loss {met['loss']:.6f}, grad norm "
+                 f"{met['grad_norm']:.5f}")
+        if moe:
+            line += f", aux_loss {met['aux_loss']:.6f}"
         if first is None:
-            first = met
+            first, routes1 = met, routes if moe else None
         else:
             la, lb = met["loss"], first["loss"]
-            check(abs(la - lb) <= TP_LOSS_RTOL * abs(lb),
-                  f"tp train {name}: loss {la} vs 1x1 {lb}")
+            check(abs(la - lb) <= loss_rtol * abs(lb),
+                  f"{what} {name}: loss {la} vs 1x1 {lb}")
             check(worst["n"] == len(grads1)
-                  and worst["rel_l2"] <= TP_GRAD_REL_L2,
-                  f"tp train {name}: grad {worst['name']} rel L2 "
+                  and worst["rel_l2"] <= grad_rel_l2,
+                  f"{what} {name}: grad {worst['name']} rel L2 "
                   f"{worst['rel_l2']} ({worst['n']} of {len(grads1)} leaves "
                   f"compared)")
             line += (f" vs 1x1 {lb:.6f} (rel {abs(la - lb) / lb:.3e}, "
-                     f"tolerance {TP_LOSS_RTOL}), grad norm rel "
+                     f"tolerance {loss_rtol}), grad norm rel "
                      f"{abs(met['grad_norm'] - first['grad_norm']) / first['grad_norm']:.3e}; "
                      f"worst leaf grad rel L2 {worst['rel_l2']:.3e} "
-                     f"({worst['name']}, tolerance {TP_GRAD_REL_L2}); "
+                     f"({worst['name']}, tolerance {grad_rel_l2}); "
                      f"{pieces} replicated pieces bitwise equal")
+            if moe:
+                xa, xb = met["aux_loss"], first["aux_loss"]
+                check(abs(xa - xb) <= loss_rtol * abs(xb),
+                      f"{what} {name}: aux_loss {xa} vs 1x1 {xb}")
+                flips = sum(int((a[0] != c[0]).sum())
+                            for a, c in zip(routes, routes1))
+                claims = sum(a[0].numel() for a in routes)
+                line += (f"; aux_loss rel {abs(xa - xb) / xb:.3e} "
+                         f"(tolerance {loss_rtol}); {flips} of {claims} "
+                         f"(token, k) claims of its own on another expert "
+                         f"than 1x1's, the checked step teacher-forced to "
+                         f"1x1's; a model group's positions routed alike")
         print(line + f"; no launch of a kernel of ours; this mesh "
               f"{time.perf_counter() - t_mesh:.2f} s, the state's upload "
               f"{up:.2f} s", flush=True)
@@ -5520,7 +5699,7 @@ def tp_train_phase(card: str) -> dict:
     del host, grads1
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"tp train phase: {time.perf_counter() - t_phase:.2f} s",
+    print(f"{what} phase: {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     return {r["mesh"]: r for r in rows}
 
@@ -5589,6 +5768,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     tp_train_phase(card)
     print(f"chip_smoke wall after phase 18: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    ep_train_phase(card)
+    print(f"chip_smoke wall after phase 19: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a

@@ -26,18 +26,22 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
     piece); and under tensor parallelism over a "model" axis of m > 1
     the activations' all-reduces of each model group
     (`tensor_parallel.activation_collectives`: a layer's attention and
-    MLP partials forward and backward, the attention's again in remat's
-    recompute, the embedding's and the cross-entropy's).  `collective_s` puts them on one NVLink
-    direction (450 GB/s) where the mesh fits one node (`NODE_POSITIONS`,
-    the eight cards of an H100 node); the production meshes span 32 and
+    MLP partials forward and backward (the MoE's combine with its
+    always-on FFNs' columns), the attention's again in remat's
+    recompute, the embedding's and the cross-entropy's); for the MoE
+    family over dp groups of more than one, each MoE layer's router
+    statistics all-reduced over the dp axes once a microbatch (2 E + 1
+    float32: the load-balance term is the whole microbatch's).
+    `collective_s` puts them on one NVLink direction (450 GB/s) where
+    the mesh fits one node (`NODE_POSITIONS`, the eight cards of an
+    H100 node); the production meshes span 32 and
     64 nodes, and links between nodes are not modeled (no inter-node
     bandwidth is stated in the repo), so their `collective_s` is null
     while their bytes are recorded.  Counted where the port's step has
-    a form to count: null for the MoE family (the step raises on more
-    than one position), for the families with no local form under "tp"
-    over "model" > 1 (the hybrid, SSM and audio families: their loss
-    runs once a group on leaves gathered whole), and for prefill and
-    decode, which have no sharded step in the port;
+    a form to count: null for the families with no local form under
+    "tp" over "model" > 1 (the hybrid, SSM and audio families: their
+    loss runs once a group on leaves gathered whole), and for prefill
+    and decode, which have no sharded step in the port;
   * `roofline`: the terms, the dominant one, the 6 N D model FLOPs, the
     useful-FLOPs ratio and the roofline fraction, under the reference's
     keys, and `dominant_over`, the terms the dominant one and the
@@ -68,7 +72,7 @@ from repro_torch.core.constants import (H100_HBM_BW, H100_NVLINK_BW,
 from repro_torch.launch import shapes as shp
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.lm import stacked_ndim
+from repro_torch.models.lm import n_stacked_layers, stacked_ndim
 from repro_torch.models.registry import build_model, count_params, meta_model
 from repro_torch.parallel import tensor_parallel
 from repro_torch.parallel.sharding import (make_policy, model_local,
@@ -191,10 +195,8 @@ def _model_group(cfg, mesh, policy):
 
 def counts_collectives(cfg, mesh, **step_kw) -> bool:
     """Whether `train_collectives` counts the step's collectives: not for
-    the MoE family on more than one position, nor for a family with no
-    local form in model groups of more than one position."""
-    if cfg.moe is not None and mesh.size > 1:
-        return False
+    a family with no local form in model groups of more than one
+    position."""
     m, lay = _model_group(cfg, mesh, _policy(cfg, mesh, step_kw))
     return m == 1 or lay is not None
 
@@ -216,7 +218,7 @@ def train_collectives(cfg, mesh, *, microbatches: int,
     specs = policy.named_param_specs(named)
     m, lay = _model_group(cfg, mesh, policy)
     out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0,
-           "activation all-reduce": 0.0}
+           "activation all-reduce": 0.0, "router all-reduce": 0.0}
     count = {k: 0 for k in out}
     for name, p in named.items():
         n = shard_count(mesh, specs[name])
@@ -243,6 +245,12 @@ def train_collectives(cfg, mesh, *, microbatches: int,
             cfg, lay, m, rows, shape.seq, remat=remat)
         out["activation all-reduce"] = microbatches * sent
         count["activation all-reduce"] = microbatches * calls
+    dp = mesh.size // m
+    if cfg.moe is not None and dp > 1:
+        layers = microbatches * n_stacked_layers(cfg)
+        out["router all-reduce"] = layers * 2 * (dp - 1) / dp * (
+            2 * cfg.moe.n_experts + 1) * 4
+        count["router all-reduce"] = layers
     return {"bytes": out, "count": count,
             "total_bytes": sum(out.values())}
 

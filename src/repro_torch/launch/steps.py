@@ -14,14 +14,16 @@ every microbatch.  Under ZeRO-3 (`model_strategy="fsdp"`) and where the
 cast to bf16 before the gather) and runs the loss and the backward
 alone.  Under tensor parallelism (`model_strategy="tp"`, the default)
 over a "model" axis larger than 1, the positions of a dp index form a
-model group that runs one microbatch in lockstep: for the dense and VLM
-families each position gathers its "model" piece of the heads, FFN and
-vocabulary over the dp / FSDP axes and runs them, partial sums
-all-reduced (`parallel.tensor_parallel`); the other families run their
-loss once a group, on leaves gathered whole.  Each grad is
-reduce-scattered into the owning shards as it lands; AdamW then runs on
-each position's shards under the global grad norm.  The MoE family on
-more than one position raises (expert parallelism, ROADMAP item 6.10).
+model group that runs one microbatch in lockstep: for the dense, VLM
+and MoE families each position gathers its "model" piece of the heads,
+FFN, experts and vocabulary over the dp / FSDP axes and runs them,
+partial sums all-reduced (`parallel.tensor_parallel`); the other
+families run their loss once a group, on leaves gathered whole.  The
+MoE family's load-balance loss is taken over the whole microbatch: its
+dp groups' router statistics are summed before the aux loss, and the
+microbatch takes one backward.  Each grad is reduce-scattered into the
+owning shards as it lands; AdamW then runs on each position's shards
+under the global grad norm.
 The train step reaches no kernel of ours: the reference's train step
 reaches no Pallas kernel either (dense attention, products outside any
 kernel), so it is PyTorch and cuBLAS.
@@ -455,13 +457,20 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     A group of one position gathers every parameter whole onto its
     device (each piece from its first holder; under ZeRO-3's
     `compute_dtype_cast` cast to `COMPUTE_DTYPE` before the move) and
-    runs the loss and the backward.  A group of m runs the dense and VLM
-    families' local form (`tensor_parallel.group_loss`): each position
-    gathers its "model" piece of each leaf that the policy splits on
-    whole units over the other axes (`gather_over`; its own shard where
-    nothing is to gather) and every other leaf whole, and the group's
-    graph all-reduces the partial sums; every other family runs its loss
-    once, on the group's first position, on leaves gathered whole.  As
+    runs the loss and the backward.  A group of m runs the dense, VLM and
+    MoE families' local form (`tensor_parallel.group_loss`): each
+    position gathers its "model" piece of each leaf that the policy
+    splits on whole units over the other axes (`gather_over`; its own
+    shard where nothing is to gather) and every other leaf whole, and
+    the group's graph all-reduces the partial sums; every other family
+    runs its loss once, on the group's first position, on leaves
+    gathered whole.  The MoE family runs every group's forward of a
+    microbatch (`lm.lm_loss_parts`, `tensor_parallel.group_parts`), then
+    one backward of the microbatch's loss: the mean of the groups'
+    cross-entropies plus `lm.router_aux` of their router statistics
+    summed layer by layer (`tensor_parallel.router_all_reduce`), the
+    reference's loss over the microbatch's whole rows; its groups'
+    gathers are alive together until that backward.  As
     each leaf's grad lands (`register_post_accumulate_grad_hook`; a local
     leaf's grad is its "model" piece) its pieces are added into one sum
     a distinct piece, on the piece's first holder, in `accum_dtype`, and
@@ -471,16 +480,15 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     its own shards with the grads of its pieces (replicas of a piece get
     the same bits, so they stay equal).  The loss is the mean of the
     groups' microbatch losses, the other metrics the last microbatch's
-    averaged over the groups (`ppl_proxy` from the mean `nll`).  Raises
-    `NotImplementedError` for the MoE family on more than one position
-    (expert parallelism and the batch's aux loss: the expert-parallel
-    slice of ROADMAP item 6.10)."""
+    averaged over the groups (`ppl_proxy` from the mean `nll`; the MoE
+    family's `aux_loss` the last microbatch's, of its whole rows).
+    Raises `ValueError` where a batch's rows do not split into the
+    microbatches and dp groups, and for the MoE family where a dp
+    group's rows x seq a microbatch are not whole dispatch groups of
+    `moe.group_size` tokens (then the groups' dispatch would differ from
+    the whole microbatch's); `NotImplementedError` for int8 moments of
+    leaves split on their last dimension (ROADMAP item 6.10)."""
     policy = make_policy(mesh, cfg, fsdp=fsdp, model_strategy=model_strategy)
-    if cfg.moe is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE family on {mesh.size} positions (expert "
-            f"parallelism over 'model', the batch's aux loss) waits for the "
-            f"expert-parallel slice of ROADMAP item 6.10")
     api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
     cast = cast or policy.compute_dtype_cast
     structure = meta_model(cfg)
@@ -496,6 +504,7 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
              for n, s in specs.items()}
     acc_dt = accum_dtype(cfg)
     dev0 = mesh.device(0)
+    moe = cfg.moe is not None
 
     def dp_index(f: int) -> int:
         c, k = mesh.coords(f), 0
@@ -523,12 +532,18 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
         if state.specs != specs or state.mesh is not mesh:
             raise ValueError("the state was sharded for another mesh or "
                              "policy than this step's")
-        rows = batch["inputs"].shape[0]
+        rows, seq = batch["inputs"].shape[:2]
         if rows % (microbatches * dp):
             raise ValueError(f"batch of {rows} rows in {microbatches} "
                              f"microbatches over {dp} dp positions")
         per = rows // microbatches
         r = per // dp
+        if moe and dp > 1 and (r * seq) % cfg.moe.group_size:
+            raise ValueError(
+                f"{cfg.name}: a dp group's {r} rows x {seq} tokens a "
+                f"microbatch are not whole dispatch groups of "
+                f"{cfg.moe.group_size} tokens (the groups would differ from "
+                f"the whole microbatch's)")
         sums: dict = {n: {} for n in specs}
 
         def reducer(name: str, f: int):
@@ -563,32 +578,65 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                 t.register_post_accumulate_grad_hook(reducer(n, f))
             return held
 
+        def forward(members: list, mbs: list) -> tuple:
+            """One group's forward: (loss, metrics, each MoE layer's
+            `RouterStats`); the MoE family's loss is its cross-entropy
+            alone, its aux loss the step's, over the whole microbatch.
+            The graph holds the group's gathered leaves until its
+            backward."""
+            if lay is not None:
+                views = [_view(structure, leaves(f, True)) for f in members]
+                if moe:
+                    return tensor_parallel.group_parts(views, mbs, cfg, lay,
+                                                       remat=remat)
+                return (*tensor_parallel.group_loss(views, mbs, cfg, lay,
+                                                    remat=remat), [])
+            view = _view(structure, leaves(members[0], False))
+            if moe:
+                return lm.lm_loss_parts(view, mbs[0], cfg, remat=remat)
+            return (*api.loss(view, mbs[0]), [])
+
         loss, last = None, []
         for i in range(microbatches):
-            last = []
+            last, outs = [], []
             for k, members in enumerate(groups):
                 lo = i * per + k * r
                 mbs = [{n: v[lo:lo + r].to(mesh.device(f))
                         for n, v in batch.items()} for f in members]
-                if lay is not None:
-                    held = [leaves(f, True) for f in members]
-                    mb_loss, metrics = tensor_parallel.group_loss(
-                        [_view(structure, t) for t in held], mbs, cfg, lay,
-                        remat=remat)
-                else:
-                    held = leaves(members[0], False)
-                    mb_loss, metrics = api.loss(_view(structure, held),
-                                                mbs[0])
+                out = forward(members, mbs)
+                if moe:
+                    outs.append(out)
+                    continue
+                # every family but the MoE: one backward a group, so a
+                # group's gathers are freed before the next group's
+                mb_loss, metrics, _ = out
+                del out
                 mb_loss.backward()
-                # the graph's AccumulateGrad nodes hold the gathered
-                # leaves: keep no tensor of it past the backward
-                del held
                 mb_loss = mb_loss.detach().to(dev0)
                 loss = mb_loss if loss is None else loss + mb_loss
                 last.append({n: v.detach().to(dev0)
                              for n, v in metrics.items()})
                 del metrics
-        n_losses = microbatches * dp
+            if moe:
+                # the MoE family: every group's forward, then one backward
+                # of the microbatch's loss, the mean of the groups'
+                # cross-entropies plus the aux loss of the whole
+                # microbatch's router statistics
+                stats = [tensor_parallel.router_all_reduce(list(layer), dev0)
+                         for layer in zip(*(o[2] for o in outs))]
+                aux = lm.router_aux(cfg, stats, dev0)
+                ce = outs[0][0].to(dev0)
+                for o in outs[1:]:
+                    ce = ce + o[0].to(dev0)
+                mb_loss = ce / dp + aux
+                last = [{n: v.detach().to(dev0) for n, v in o[1].items()}
+                        for o in outs]
+                mb_aux = aux.detach()
+                del outs, stats, ce, aux
+                mb_loss.backward()
+                mb_loss = mb_loss.detach()
+                loss = mb_loss if loss is None else loss + mb_loss
+        n_losses = microbatches if moe else microbatches * dp
         if n_losses > 1:
             loss = loss / n_losses
         for by_key in sums.values():
@@ -599,6 +647,8 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
             metrics = {k: sum(m[k] for m in last) / dp for k in metrics}
             metrics["ppl_proxy"] = torch.exp(torch.clamp(metrics["nll"],
                                                          max=20.0))
+        if moe:
+            metrics["aux_loss"] = mb_aux
         if on_grad is not None:
             for n, spec in specs.items():
                 at = [None] * mesh.size

@@ -18,9 +18,10 @@ cpu four CPU positions); 1x1 runs the one-device step.  --perf applies
 microbatch; arctic: the bf16 cast), as the reference's dry-run variant
 "perf" does; without it the strategy is "tp": tensor parallelism over
 "model" (`parallel.tensor_parallel`: the dense and VLM families' heads,
-FFN and vocabulary split, partial sums all-reduced; the other families'
-loss once a model group on leaves gathered whole; the MoE family raises
-on more than one position).
+FFN and vocabulary split, partial sums all-reduced; the MoE family's
+experts, MLA or GQA heads, always-on FFNs and vocabulary likewise, its
+load-balance loss over the whole microbatch; the other families' loss
+once a model group on leaves gathered whole).
 Checkpoints are written gathered, in the reference's layout: a run
 resumes on any mesh.  --device defaults to the card (raising without
 one); the CPU tests pass --device cpu.

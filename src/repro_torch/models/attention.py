@@ -249,10 +249,13 @@ def _mla_scale(cfg: ArchConfig) -> float:
 
 def _mla_q(p: MLA, x: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)), H read from
+    `wq`'s width: all the heads, or a tensor-parallel position's own
+    (`parallel.tensor_parallel`), as `_heads` reads them."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, cfg.n_heads,
-                                       m.nope_dim + m.rope_dim)
+    h = p.wq.shape[1] // (m.nope_dim + m.rope_dim)
+    q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, m.nope_dim + m.rope_dim)
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
     q_rope = apply_rope(q_rope.transpose(1, 2), positions,
                         cfg.rope_theta).transpose(1, 2)
@@ -262,10 +265,11 @@ def _mla_q(p: MLA, x: torch.Tensor, cfg: ArchConfig,
 def _mla_kv(p: MLA, x: torch.Tensor, cfg: ArchConfig,
             positions: torch.Tensor):
     """(k_nope (B, S, H, nope), v (B, S, H, v), k_rope (B, S, rope)): the
-    latent's up-projections and the shared rope key."""
+    latent's up-projections (H read from `w_uk`'s width, as `_mla_q`
+    reads it) and the shared rope key."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = p.w_uk.shape[1] // m.nope_dim
     c = common.rmsnorm(p.kv_norm.scale, x @ p.w_dkv.to(x.dtype))
     k_nope = (c @ p.w_uk.to(x.dtype)).reshape(b, s, h, m.nope_dim)
     v = (c @ p.w_uv.to(x.dtype)).reshape(b, s, h, m.v_dim)
@@ -278,7 +282,9 @@ def mla_fwd(p: MLA, x: torch.Tensor, cfg: ArchConfig, *, mask: torch.Tensor,
     """Full-sequence MLA with per-head keys from the latent.  mask: (S, T)
     bool.  The nope and rope scores leave their einsums in x's dtype and
     are summed there, then scaled in float32; softmax in float32, its
-    probabilities back to x's dtype for P.V."""
+    probabilities back to x's dtype for P.V.  The head count is the
+    weights' (`_mla_q`): on a tensor-parallel position's heads the
+    result is that position's partial sum of the output projection."""
     m = cfg.mla
     b, s, _ = x.shape
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
@@ -289,7 +295,7 @@ def mla_fwd(p: MLA, x: torch.Tensor, cfg: ArchConfig, *, mask: torch.Tensor,
     scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(
-        b, s, cfg.n_heads * m.v_dim)
+        b, s, q_nope.shape[2] * m.v_dim)
     return out @ p.wo.to(x.dtype)
 
 

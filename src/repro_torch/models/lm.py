@@ -15,9 +15,11 @@ Counterpart of `repro.models.lm`: `init_lm` builds the parameters as
 the hybrid family's `blocks.<i>.mamba.in_proj`, ... and its shared
 block's `shared.attn.wq`, ...; the SSM family's `blocks.<i>.mlstm.up`,
 `blocks.<i>.slstm.r_gates`, ...), with the reference's stacked `blocks`
-axis unrolled into a `ModuleList`.  MoE layers add their
-router aux loss, which `lm_hidden` sums over the layers and `lm_loss`
-adds to the loss.  `lm_hidden` / `lm_logits`
+axis unrolled into a `ModuleList`.  MoE layers yield their
+router statistics (`mlp.RouterStats`); `router_aux` turns a layer's into
+its aux loss and sums them over the layers, `lm_hidden` returns that sum
+and `lm_loss` adds it to the loss (`lm_loss_parts` leaves the statistics
+apart, for a batch split into parts).  `lm_hidden` / `lm_logits`
 are the forward of prefill (`repro_torch.launch.steps`), dense or
 blockwise, with an optional prefix of embeddings (the VLM's patches),
 and `lm_loss` the training loss (`launch.steps
@@ -260,8 +262,8 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
                mask: torch.Tensor | None, positions: torch.Tensor,
                attn_impl: str = "dense", prefix_len: int = 0,
                mlstm_chunked: bool = False
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One layer: (y, the MoE aux loss, float32, 0 without an MoE).
+               ) -> tuple[torch.Tensor, mlp.RouterStats | None]:
+    """One layer: (y, the MoE's `RouterStats`, None without an MoE).
     attn_impl: 'dense' | 'blockwise' (32k+ seqs); a hybrid layer (Mamba2)
     and an SSM pair (mLSTM, then sLSTM; the mLSTM chunkwise when
     `mlstm_chunked`) have no attention."""
@@ -270,13 +272,12 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
                          f"{attn_impl!r}")
     h = apply_norm(p.ln1, x, cfg.norm)
     if cfg.family in ("hybrid", "ssm"):
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "hybrid":
-            return x + mamba2.mamba2_fwd(p.mamba, h, cfg), zero
+            return x + mamba2.mamba2_fwd(p.mamba, h, cfg), None
         fwd = xlstm.mlstm_fwd_chunked if mlstm_chunked else xlstm.mlstm_fwd
         x = x + fwd(p.mlstm, h, cfg)
         h = apply_norm(p.ln2, x, cfg.norm)
-        return x + xlstm.slstm_fwd(p.slstm, h, cfg), zero
+        return x + xlstm.slstm_fwd(p.slstm, h, cfg), None
     if cfg.mla is not None:
         if attn_impl == "blockwise":
             a = attn.mla_fwd_blockwise(p.attn, h, cfg, positions=positions)
@@ -290,11 +291,9 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
     x = x + a
     h = apply_norm(p.ln2, x, cfg.norm)
     if cfg.moe is not None:
-        y, aux = mlp.moe_fwd(p.ffn, h, cfg)
-    else:
-        y = mlp.mlp_fwd(p.ffn, h, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+        y, stats = mlp.moe_layer(p.ffn, h, cfg)
+        return x + y, stats
+    return x + mlp.mlp_fwd(p.ffn, h, cfg), None
 
 
 def _run(checkpointed: bool, fn, *args, **kw):
@@ -361,7 +360,7 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
               attn_impl: str = "dense") -> tuple[torch.Tensor, torch.Tensor]:
     """Embed -> bf16 (+ the learned positions `pos_emb[:S]`) -> blocks
     -> final norm.  Returns (hidden (B, S, D), the MoE aux loss summed
-    over the layers, float32; 0 for the dense family).
+    over the layers, float32 (`router_aux`); 0 for the dense family).
     attn_impl='blockwise' never materializes (S, S) scores (32k+
     prefill).  `remat` runs each block under `torch.utils.checkpoint`
     (the reference's `jax.checkpoint(layer_step)`): backward keeps one
@@ -381,6 +380,21 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     the flash attention kernels; MLA's blockwise form has no prefix, as
     in the reference).  `mask` (S, S) bool is the dense attention's
     (default causal; the VLM's loss passes `prefix_lm_mask`)."""
+    hidden, stats = hidden_and_stats(
+        params, tokens, cfg, mask=mask, prefix_embeds=prefix_embeds,
+        mlstm_chunked=mlstm_chunked, remat=remat, attn_impl=attn_impl)
+    return hidden, router_aux(cfg, stats, hidden.device)
+
+
+def hidden_and_stats(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
+                     mask: torch.Tensor | None = None,
+                     prefix_embeds: torch.Tensor | None = None,
+                     mlstm_chunked: bool = False, remat: bool = False,
+                     attn_impl: str = "dense"
+                     ) -> tuple[torch.Tensor, list]:
+    """`lm_hidden` with each MoE layer's `mlp.RouterStats` in a list, in
+    layer order, in place of their aux loss (an empty list without an
+    MoE)."""
     check_dense(cfg)
     x, prefix_len = embed_inputs(params, embed_tokens(params.emb, tokens),
                                  cfg, prefix_embeds)
@@ -389,20 +403,35 @@ def lm_hidden(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     if mask is None and attn_impl == "dense":
         mask = causal_mask(s, x.device)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         per = cfg.hybrid.shared_attn_every
         for g in range(0, len(params.blocks), per):
             x = _run(remat, _group_fwd, params.shared,
                      params.blocks[g:g + per], x, cfg, mask=mask,
                      positions=positions, attn_impl=attn_impl, remat=remat)
-        return final_norm(params, x, cfg), aux
+        return final_norm(params, x, cfg), []
+    stats = []
     for blk in params.blocks:
-        x, a = _run(remat, _block_fwd, blk, x, cfg, mask=mask,
-                    positions=positions, attn_impl=attn_impl,
-                    prefix_len=prefix_len, mlstm_chunked=mlstm_chunked)
-        aux = aux + a
-    return final_norm(params, x, cfg), aux
+        x, st = _run(remat, _block_fwd, blk, x, cfg, mask=mask,
+                     positions=positions, attn_impl=attn_impl,
+                     prefix_len=prefix_len, mlstm_chunked=mlstm_chunked)
+        if st is not None:
+            stats.append(st)
+    return final_norm(params, x, cfg), stats
+
+
+def router_aux(cfg: ArchConfig, stats: list,
+               device: torch.device) -> torch.Tensor:
+    """The MoE aux loss from each MoE layer's `mlp.RouterStats` (`stats`,
+    in layer order): each layer's `mlp.aux_loss`, summed over the layers
+    from 0, float32 on `device` (0 without an MoE).  A batch's own
+    statistics give its aux loss; the mesh step passes those of every
+    part of a microbatch, summed layer by layer, so each layer's
+    load-balance term is the whole microbatch's."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for st in stats:
+        aux = aux + mlp.aux_loss(cfg.moe, st)
+    return aux
 
 
 def final_norm(params: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -423,12 +452,24 @@ def lm_loss(params: LM, batch: dict, cfg: ArchConfig, *,
     aux, metrics)`, metrics `nll`, `z_loss`, `ppl_proxy` and `aux_loss`
     (0 for the dense family, which has no MoE router) as 0-dim
     tensors.  `mlstm_chunked` as `lm_hidden`'s."""
-    hidden, aux = lm_hidden(params, batch["inputs"], cfg, remat=remat,
-                            mlstm_chunked=mlstm_chunked)
-    logits = lm_logits(params, hidden, cfg)
-    loss, metrics = softmax_cross_entropy(logits, batch["targets"])
+    loss, metrics, stats = lm_loss_parts(params, batch, cfg, remat=remat,
+                                         mlstm_chunked=mlstm_chunked)
+    aux = router_aux(cfg, stats, loss.device)
     metrics["aux_loss"] = aux
     return loss + aux, metrics
+
+
+def lm_loss_parts(params: LM, batch: dict, cfg: ArchConfig, *,
+                  mlstm_chunked: bool = False,
+                  remat: bool = False) -> tuple[torch.Tensor, dict, list]:
+    """`lm_loss` without the aux loss: (the cross-entropy with its
+    z-loss, its metrics `nll`, `z_loss` and `ppl_proxy`, each MoE layer's
+    `mlp.RouterStats`)."""
+    hidden, stats = hidden_and_stats(params, batch["inputs"], cfg,
+                                     remat=remat, mlstm_chunked=mlstm_chunked)
+    logits = lm_logits(params, hidden, cfg)
+    loss, metrics = softmax_cross_entropy(logits, batch["targets"])
+    return loss, metrics, stats
 
 
 # ---------------------------------------------------------------------------

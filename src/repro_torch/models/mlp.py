@@ -10,10 +10,17 @@ router and its aux losses are float32; everything else runs in x's
 dtype.  The reference computes all of it with einsums outside any
 Pallas kernel, so this is PyTorch and cuBLAS.  The all-to-all variant
 over a mesh of devices is `repro_torch.parallel.moe_a2a`.
+
+A layer yields its router statistics (`RouterStats`: sums over the
+tokens it saw) rather than a finished aux loss: the load-balance term is
+a product of two means over the batch, so the aux loss of a batch split
+into parts (the mesh step's dp groups) is `aux_loss` of the parts'
+statistics summed, not a mean of the parts' losses.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -126,16 +133,38 @@ def router_probs(p, x: torch.Tensor, m: MoEConfig):
     return logits, probs, top_p, top_i
 
 
-def _aux_losses(logits: torch.Tensor, probs: torch.Tensor,
-                top_i: torch.Tensor, m: MoEConfig) -> torch.Tensor:
-    """Switch-style load-balance loss plus the router z-loss, float32."""
-    e = m.n_experts
-    onehot = F.one_hot(top_i, e).to(torch.float32)             # (..., k, E)
-    frac_tokens = onehot.sum(-2).mean(tuple(range(onehot.dim() - 2)))
-    frac_probs = probs.mean(tuple(range(probs.dim() - 1)))
-    lb = e * torch.sum(frac_tokens * frac_probs) / m.top_k
-    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    return m.router_aux_weight * lb + m.router_z_weight * z
+class RouterStats(NamedTuple):
+    """One MoE layer's router statistics over the tokens it saw, float32:
+    `claims` (E,) the (token, k) claims of each expert (detached: whole
+    numbers, exact), `probs` (E,) each expert's router probability
+    summed over the tokens, `z` () the squared logsumexp of the router
+    logits summed over the tokens, and `tokens` their count."""
+    claims: torch.Tensor
+    probs: torch.Tensor
+    z: torch.Tensor
+    tokens: int
+
+
+def router_stats(logits: torch.Tensor, probs: torch.Tensor,
+                 top_i: torch.Tensor, m: MoEConfig) -> RouterStats:
+    """The `RouterStats` of the tokens of `logits` / `probs` (..., E) and
+    their top-k choices `top_i` (..., k)."""
+    lead = tuple(range(probs.dim() - 1))
+    onehot = F.one_hot(top_i, m.n_experts).to(torch.float32)   # (..., k, E)
+    return RouterStats(
+        claims=onehot.sum(-2).sum(lead).detach(), probs=probs.sum(lead),
+        z=torch.square(torch.logsumexp(logits, dim=-1)).sum(),
+        tokens=probs.numel() // m.n_experts)
+
+
+def aux_loss(m: MoEConfig, st: RouterStats) -> torch.Tensor:
+    """Switch-style load-balance loss plus the router z-loss of the
+    tokens `st` sums over, float32: E / k * sum_e (claims_e / T) (probs_e
+    / T) + the mean squared logsumexp, each weighted as the config says
+    (the reference's `_aux_losses`, whose means are these sums over T)."""
+    t = st.tokens
+    lb = m.n_experts * torch.sum((st.claims / t) * (st.probs / t)) / m.top_k
+    return m.router_aux_weight * lb + m.router_z_weight * (st.z / t)
 
 
 def add_always_on(p, x: torch.Tensor, y: torch.Tensor,
@@ -206,14 +235,20 @@ def moe_combine(comb: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gsec,gecd->gsd", comb, ye)
 
 
-def moe_fwd(p: MoE, x: torch.Tensor,
-            cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Group-wise capacity MoE.  x: (B, S, D) -> (y, aux_loss float32).
+def moe_routed(p, x: torch.Tensor, cfg: ArchConfig, *,
+               experts: slice | None = None
+               ) -> tuple[torch.Tensor, RouterStats]:
+    """The routed experts' part of the MoE on x (B, S, D): (y (B, S, D),
+    the layer's `RouterStats`).
 
     Groups of min(group_size, B S) tokens dispatch independently into (E,
     C) slots: `moe_route`, `moe_dispatch`, `moe_experts`, `moe_combine`
-    (module functions, so that a profiler can wrap each), then the
-    always-on FFNs."""
+    (module functions, so that a profiler can wrap each).  The dispatch
+    decision covers every expert; `experts` (a slice of the E) runs only
+    those experts' slots through `p`'s `wi` / `wg` / `wo`, which then hold
+    just those experts, and combines with their slice of the combine
+    tensor: a tensor-parallel position's partial sum
+    (`parallel.tensor_parallel`)."""
     m = cfg.moe
     b, s, d = x.shape
     gs = min(m.group_size, b * s)
@@ -221,11 +256,29 @@ def moe_fwd(p: MoE, x: torch.Tensor,
         raise ValueError(f"{b} x {s} tokens do not split into groups of {gs}")
     xg = x.reshape((b * s) // gs, gs, d)
     logits, probs, top_p, top_i, slot, keep = moe_route(p, xg, m)
-    aux = _aux_losses(logits, probs, top_i, m)
+    stats = router_stats(logits, probs, top_i, m)
     xe, comb = moe_dispatch(xg, top_i, slot, keep, top_p * keep,
                             m.n_experts, moe_capacity(m))
-    y = moe_combine(comb, moe_experts(p, xe, cfg)).reshape(b, s, d)
-    return add_always_on(p, x, y, cfg), aux
+    if experts is not None:
+        xe, comb = xe[:, experts], comb[:, :, experts]
+    return moe_combine(comb, moe_experts(p, xe, cfg)).reshape(b, s, d), stats
+
+
+def moe_layer(p: MoE, x: torch.Tensor,
+              cfg: ArchConfig) -> tuple[torch.Tensor, RouterStats]:
+    """Group-wise capacity MoE.  x: (B, S, D) -> (y, its `RouterStats`):
+    `moe_routed`, then the always-on FFNs."""
+    y, stats = moe_routed(p, x, cfg)
+    return add_always_on(p, x, y, cfg), stats
+
+
+def moe_fwd(p: MoE, x: torch.Tensor,
+            cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise capacity MoE.  x: (B, S, D) -> (y, aux_loss float32),
+    the aux loss of x's tokens alone (`aux_loss` of `moe_layer`'s
+    statistics)."""
+    y, stats = moe_layer(p, x, cfg)
+    return y, aux_loss(cfg.moe, stats)
 
 
 def moe_fwd_dense_eval(p: MoE, x: torch.Tensor,

@@ -514,25 +514,47 @@ def model_local(mesh, cfg: ArchConfig, name: str, spec: tuple) -> bool:
     other leaf, and for these where `spec` does not split them over
     "model" (the policy's `_maybe`) or splits another dimension: e.g.
     the single KV head of an MQA config, which the policy splits inside
-    the head dimension.  MLA and the MoE's experts are not covered."""
+    the head dimension.  MLA's `attn.wq`, `w_uk` and `w_uv` columns and
+    `wo` rows are local where the heads divide the axis; its `w_dkv` and
+    `w_kr`, split inside the latent, and its `kv_norm` are not.  The
+    MoE's experts `ffn.wi` / `wg` / `wo` (E, ., .) are local where the
+    spec splits dimension 0, whole experts; the always-on `ffn.shared`
+    and `ffn.dense` split as an MLP's, local where each of them is
+    split (their partial sums share one all-reduce); `ffn.router` is
+    not."""
     dims = [i for i, e in enumerate(spec) if "model" in _axes(e)]
     if len(dims) != 1 or ("model",) != _axes(spec[dims[0]]):
         return False
     m, dim, parts = mesh.shape["model"], dims[0], name.split(".")
+    last = len(spec) - 1
     if name in ("emb", "head"):
         return dim == (0 if name == "emb" else 1)
-    if len(parts) != 4 or parts[0] != "blocks" or cfg.mla is not None:
+    if len(parts) < 4 or parts[0] != "blocks":
         return False
-    sub, leaf = parts[2], parts[3]
-    if sub == "attn":
+    sub, leaf = parts[2], parts[-1]
+    if sub == "attn" and len(parts) == 4:
+        if cfg.mla is not None:
+            return (leaf in ("wq", "w_uk", "w_uv", "wo")
+                    and cfg.n_heads % m == 0
+                    and dim == (0 if leaf == "wo" else last))
         if leaf in ("wq", "bq", "wo"):
             return cfg.n_heads % m == 0 and dim == (0 if leaf == "wo"
-                                                    else len(spec) - 1)
+                                                    else last)
         if leaf in ("wk", "wv", "bk", "bv"):
-            return cfg.n_kv_heads % m == 0 and dim == len(spec) - 1
+            return cfg.n_kv_heads % m == 0 and dim == last
         return False
-    if sub == "ffn" and cfg.moe is None:
-        if leaf in ("wi", "wg", "bi"):
-            return dim == len(spec) - 1
-        return leaf == "wo" and dim == 0
-    return False
+    if sub != "ffn":
+        return False
+    if cfg.moe is not None and len(parts) == 4:
+        return leaf in ("wi", "wg", "wo") and dim == 0
+    if cfg.moe is not None:
+        mo = cfg.moe
+        widths = [w for w in (mo.n_shared * mo.d_ff_expert, mo.dense_ff) if w]
+        if len(parts) != 5 or parts[3] not in ("shared", "dense") or not all(
+                w % m == 0 and w >= m for w in widths):
+            return False
+    elif len(parts) != 4:
+        return False
+    if leaf in ("wi", "wg", "bi"):
+        return dim == last
+    return leaf == "wo" and dim == 0

@@ -30,11 +30,31 @@ over the group with the dp groups' by the step.
 The embedding looks up each position's in-range tokens and writes zeros
 for the rest, then all-reduces (adding zeros changes no bit); the
 cross-entropy is taken over the split vocabulary (`vocab_parallel_ce`).
-The group's loss is a 0-dim tensor on its first position.  The dense
-and VLM families have this form (`FAMILIES`); the step runs every other
-family's loss once, on the group's first position, on leaves gathered
-whole.  The reference's train step reaches no Pallas kernel, and
-neither does this: PyTorch and cuBLAS.
+The group's loss is a 0-dim tensor on its first position.  The dense,
+VLM and MoE families have this form (`FAMILIES`); the step runs every
+other family's loss once, on the group's first position, on leaves
+gathered whole.  The reference's train step reaches no Pallas kernel,
+and neither does this: PyTorch and cuBLAS.
+
+The MoE family splits its experts over "model" (expert parallelism: the
+reference's policy puts the experts' axis on "model" and its activation
+rules the dispatched slots' expert axis, so GSPMD runs the dispatch and
+the experts' products locally and all-reduces only the combine).  Each
+position routes on its own copy of the residual stream; the copies are
+the same bits after every all-reduce, so every position of a group
+makes the same dispatch decision (`mlp.moe_route` over all E experts)
+and builds the same dispatch and combine tensors.  Position j runs only
+its experts [j E / m, (j + 1) E / m) on their slots, combines with their
+slice of the combine tensor, adds its columns of the always-on FFNs
+(`shared`, `dense`) and the group all-reduces once.  A group shares its
+rows, so no all-to-all is needed (`parallel.moe_a2a` stays off this
+path, as in the reference).  MLA runs its heads locally: each position
+computes the whole latent (`w_dkv`, `kv_norm`, `w_kr` whole), its heads'
+queries, keys and values from its columns of `wq`, `w_uk` and `w_uv`,
+their attention and its rows of `wo`, then the all-reduce.  The router
+statistics of a group are its first position's (`mlp.RouterStats`); the
+step sums them over the microbatch's dp groups (`router_all_reduce`),
+so the load-balance term is the whole microbatch's.
 """
 from __future__ import annotations
 
@@ -46,40 +66,47 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.models.attention import attention_fwd
+from repro_torch.models import mlp
+from repro_torch.models.attention import attention_fwd, mla_fwd
 from repro_torch.models.common import (apply_norm, prefix_lm_mask,
                                        softmax_cross_entropy)
 from repro_torch.models.mlp import mlp_fwd
 from repro_torch.parallel.sharding import model_local
 
 # the families with a local form
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Which parts of a group's forward run on each position's pieces
-    (partial sums all-reduced): the attention (heads divide the axis),
-    the MLP (the FFN width does) and the vocabulary (embedding, head
-    and cross-entropy).  The others run whole on every position."""
+    (partial sums all-reduced): the attention (heads divide the axis;
+    MLA's too), the MLP (the FFN width does; the MoE's always-on FFNs),
+    the vocabulary (embedding, head and cross-entropy) and the MoE's
+    experts (their count does).  The others run whole on every
+    position."""
     attn: bool
     mlp: bool
     vocab: bool
+    experts: bool = False
 
 
 def layout(cfg: ArchConfig, specs: dict, mesh) -> Layout | None:
     """The `Layout` of `cfg` under `specs` (`named_param_specs`) on
-    `mesh`'s "model" axis; None where the family has no local form (the
-    MoE family, MLA, and every family outside `FAMILIES`)."""
-    if cfg.family not in FAMILIES or cfg.moe is not None \
-            or cfg.mla is not None:
+    `mesh`'s "model" axis; None for every family outside `FAMILIES`."""
+    if cfg.family not in FAMILIES:
         return None
 
     def loc(name: str) -> bool:
         return model_local(mesh, cfg, name, specs[name])
 
-    return Layout(attn=loc("blocks.0.attn.wq"), mlp=loc("blocks.0.ffn.wi"),
-                  vocab=loc("emb"))
+    attn, vocab = loc("blocks.0.attn.wq"), loc("emb")
+    if cfg.moe is None:
+        return Layout(attn=attn, mlp=loc("blocks.0.ffn.wi"), vocab=vocab)
+    always = [f"blocks.0.ffn.{sub}.wi" for sub, on in (
+        ("shared", cfg.moe.n_shared), ("dense", cfg.moe.dense_ff)) if on]
+    return Layout(attn=attn, mlp=bool(always) and all(map(loc, always)),
+                  vocab=vocab, experts=loc("blocks.0.ffn.wi"))
 
 
 # ---------------------------------------------------------------------------
@@ -221,44 +248,95 @@ def _local_mlp(f, j: int):
     return types.SimpleNamespace(**dict(vars(f), bi=f.bi[j * n:(j + 1) * n]))
 
 
+def _attention(a, h, j: int, m: int, cfg: ArchConfig, lay: Layout, *,
+               mask, positions):
+    """Position j's attention on h: its heads' partial sum where
+    `lay.attn`, else the whole attention.  MLA and `attention_fwd` read
+    their head counts from the weights they are given."""
+    if cfg.mla is not None:
+        return mla_fwd(a, h, cfg, mask=mask, positions=positions)
+    return attention_fwd(_local_attention(a, j, m, cfg) if lay.attn else a,
+                         h, cfg, mask=mask, positions=positions)
+
+
+def _moe(ffns: list, hs: list, cfg: ArchConfig,
+         lay: Layout) -> tuple[list, mlp.RouterStats]:
+    """The MoE on the group (`mlp.moe_layer`): each position routes its
+    copy of h over all the experts and runs its own where `lay.experts`
+    (else all of them), the always-on FFNs on its columns where
+    `lay.mlp` (else whole); the local parts' sum is all-reduced once and
+    the whole parts are added after it, in the reference's order where
+    both are local.  Returns (each position's output, the first
+    position's `RouterStats`)."""
+    n = cfg.moe.n_experts // len(ffns)
+    routed = [mlp.moe_routed(f, h, cfg, experts=slice(j * n, (j + 1) * n)
+                             if lay.experts else None)
+              for j, (f, h) in enumerate(zip(ffns, hs))]
+    ys, stats = [y for y, _ in routed], routed[0][1]
+    if lay.experts == lay.mlp:
+        ys = [mlp.add_always_on(f, h, y, cfg) for f, h, y in zip(ffns, hs, ys)]
+        return (all_reduce(ys) if lay.experts else ys), stats
+    if lay.experts:
+        return [mlp.add_always_on(f, h, y, cfg)
+                for f, h, y in zip(ffns, hs, all_reduce(ys))], stats
+    extra = all_reduce([mlp.add_always_on(f, h, torch.zeros_like(h), cfg)
+                        for f, h in zip(ffns, hs)])
+    return [y + e for y, e in zip(ys, extra)], stats
+
+
 def _block(blocks: list, xs: list, cfg: ArchConfig, *, masks: list,
-           positions: list, lay: Layout) -> list:
-    """One layer on the group (`lm._block_fwd`'s dense branch): each
-    position's residual through its norm, its attention partial and the
-    all-reduce, then its MLP partial, the all-reduce and `bo` once."""
+           positions: list, lay: Layout) -> tuple[list, object]:
+    """One layer on the group (`lm._block_fwd`): each position's residual
+    through its norm, its attention partial and the all-reduce, then its
+    MLP partial, the all-reduce and `bo` once (the MoE: `_moe`).
+    Returns (the positions' outputs, the MoE's `RouterStats` or None)."""
     hs = [apply_norm(b.ln1, x, cfg.norm) for b, x in zip(blocks, xs)]
     m = len(blocks)
-    ys = [attention_fwd(_local_attention(b.attn, j, m, cfg) if lay.attn
-                        else b.attn, h, cfg, mask=mk, positions=ps)
+    ys = [_attention(b.attn, h, j, m, cfg, lay, mask=mk, positions=ps)
           for j, (b, h, mk, ps) in enumerate(zip(blocks, hs, masks,
                                                  positions))]
     if lay.attn:
         ys = all_reduce(ys)
     xs = [x + y for x, y in zip(xs, ys)]
     hs = [apply_norm(b.ln2, x, cfg.norm) for b, x in zip(blocks, xs)]
-    if lay.mlp:
+    stats = None
+    if cfg.moe is not None:
+        ys, stats = _moe([b.ffn for b in blocks], hs, cfg, lay)
+    elif lay.mlp:
         ys = all_reduce([mlp_fwd(_local_mlp(b.ffn, j), h, cfg, out_bias=False)
                          for j, (b, h) in enumerate(zip(blocks, hs))])
         if cfg.mlp_bias:
             ys = [y + b.ffn.bo.to(y.dtype) for b, y in zip(blocks, ys)]
     else:
         ys = [mlp_fwd(b.ffn, h, cfg) for b, h in zip(blocks, hs)]
-    return [x + y for x, y in zip(xs, ys)]
+    return [x + y for x, y in zip(xs, ys)], stats
 
 
 def group_loss(views: list, batches: list[dict], cfg: ArchConfig,
                lay: Layout, *, remat: bool) -> tuple[torch.Tensor, dict]:
-    """The loss of one group's microbatch: `lm.lm_loss` (the VLM's
-    `paligemma.paligemma_loss`: the patches prepended, `prefix_lm_mask`,
-    the cross-entropy over the text positions) with the group's
-    positions in lockstep.  `views[j]` is position j's model (the LM's
-    structure, each leaf its piece or the whole leaf on its device),
+    """The loss of one group's microbatch with its own aux loss:
+    `group_parts`' cross-entropy plus `lm.router_aux` of its statistics,
+    (loss + aux, metrics with `aux_loss`) as `lm.lm_loss` returns them."""
+    loss, metrics, stats = group_parts(views, batches, cfg, lay, remat=remat)
+    aux = lm.router_aux(cfg, stats, loss.device)
+    metrics["aux_loss"] = aux
+    return loss + aux, metrics
+
+
+def group_parts(views: list, batches: list[dict], cfg: ArchConfig,
+                lay: Layout, *, remat: bool) -> tuple[torch.Tensor, dict,
+                                                      list]:
+    """The cross-entropy of one group's microbatch: `lm.lm_loss_parts`
+    (the VLM's `paligemma.paligemma_loss`: the patches prepended,
+    `prefix_lm_mask`, the cross-entropy over the text positions) with the
+    group's positions in lockstep.  `views[j]` is position j's model (the
+    LM's structure, each leaf its piece or the whole leaf on its device),
     `batches[j]` the group's rows on its device.  What does not depend
     on the group is `lm`'s own (`embed_inputs`, `final_norm`,
     `lm_logits`); here are the split embedding, the all-reduced blocks
     and the split cross-entropy.  Remat covers a layer of the whole
-    group (`lm._run`).  Returns (loss + aux, metrics) on position 0's
-    device, as `lm_loss` does (aux 0: no MoE)."""
+    group (`lm._run`).  Returns (loss, metrics, each MoE layer's
+    `RouterStats`) on position 0's device."""
     if lay.vocab:
         xs = vocab_parallel_embed([v.emb for v in views],
                                   [b["inputs"] for b in batches])
@@ -271,9 +349,13 @@ def group_loss(views: list, batches: list[dict], cfg: ArchConfig,
     # a prefix of 0 (the dense family) is the causal mask
     masks = [prefix_lm_mask(s, prefix, x.device) for x in xs]
     positions = [torch.arange(s, device=x.device) for x in xs]
+    stats = []
     for i in range(len(views[0].blocks)):
-        xs = lm._run(remat, _block, [v.blocks[i] for v in views], list(xs),
-                     cfg, masks=masks, positions=positions, lay=lay)
+        xs, st = lm._run(remat, _block, [v.blocks[i] for v in views],
+                         list(xs), cfg, masks=masks, positions=positions,
+                         lay=lay)
+        if st is not None:
+            stats.append(st)
     # the head's columns on each position, else the whole head on the first
     ends = zip(views, xs) if lay.vocab else [(views[0], xs[0])]
     logits = [lm.lm_logits(v, lm.final_norm(v, x, cfg)[:, prefix:], cfg)
@@ -283,9 +365,23 @@ def group_loss(views: list, batches: list[dict], cfg: ArchConfig,
         loss, metrics = vocab_parallel_ce(logits, labels)
     else:
         loss, metrics = softmax_cross_entropy(logits[0], labels[0])
-    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    metrics["aux_loss"] = aux
-    return loss + aux, metrics
+    return loss, metrics, stats
+
+
+def router_all_reduce(parts: list[mlp.RouterStats],
+                      device) -> mlp.RouterStats:
+    """The sum of one MoE layer's `RouterStats` over the dp groups of a
+    microbatch (`parts`, one a group, each on its device) on `device`,
+    in group order: the statistics of the whole microbatch.  The counts
+    and sums are what an all-reduce over the dp axes sends (2 E + 1
+    float32 a layer); the token count is known to every group."""
+    out = parts[0]
+    out = mlp.RouterStats(*(t.to(device) for t in out[:3]), out.tokens)
+    for p in parts[1:]:
+        out = mlp.RouterStats(out.claims + p.claims.to(device),
+                              out.probs + p.probs.to(device),
+                              out.z + p.z.to(device), out.tokens + p.tokens)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -298,16 +394,24 @@ def activation_collectives(cfg: ArchConfig, lay: Layout, m: int, rows: int,
     in a group of `m` positions with `rows` rows of `seq` tokens, as a
     ring all-reduce moves them (2 (m - 1) / m of the tensor): a layer's
     (rows, S, D) attention and MLP partials in `lm.BACKBONE` forward and
-    their conjugates backward (S with the VLM's patches), and under
-    `remat` the attention's again in the recompute (the recompute stops
-    once every saved tensor is back, before the MLP's all-reduce, whose
-    sum nothing saves); the embedding's (rows, seq, D) forward and
-    backward; the cross-entropy's float32 (rows, seq) max forward, sum
-    of exp and target logit forward and backward.  `all_reduce` and
+    their conjugates backward (S with the VLM's patches; the MoE's
+    partial is its combine with the always-on FFNs' columns, local
+    where the experts or those columns are), and under `remat` the
+    attention's again in the recompute (the recompute stops once every
+    saved tensor is back, before the MLP's all-reduce, whose sum nothing
+    saves; the MoE's is recomputed where whole always-on FFNs run on
+    its sum); the embedding's (rows, seq, D) forward and backward; the
+    cross-entropy's float32 (rows, seq) max forward, sum of exp and
+    target logit forward and backward.  `all_reduce` and
     `all_reduce_max` make exactly these calls."""
     item = torch.empty((), dtype=lm.BACKBONE).element_size()
     prefix = cfg.vlm.n_patches if cfg.family == "vlm" else 0
-    per_layer = (2 + remat) * lay.attn + 2 * lay.mlp
+    ffn, late = lay.mlp, False
+    if cfg.moe is not None:
+        ffn = lay.experts or lay.mlp
+        late = lay.experts and not lay.mlp and bool(
+            cfg.moe.n_shared or cfg.moe.dense_ff)
+    per_layer = (2 + remat) * lay.attn + (2 + remat * late) * ffn
     sizes = [rows * (prefix + seq) * cfg.d_model * item] * (
         per_layer * lm.n_stacked_layers(cfg))
     if lay.vocab:

@@ -13,7 +13,8 @@ resumed run gives the losses of an uninterrupted one bit for bit.
 
 With a mesh (`launch.mesh.Mesh`) the state is split over its positions
 (`launch.steps.MeshState`) under `TrainerConfig.model_strategy` ("tp":
-tensor parallelism over the "model" axis; "fsdp": ZeRO-3);
+tensor parallelism over the "model" axis, the MoE family's experts
+split over it; "fsdp": ZeRO-3);
 checkpoints are written gathered, in the reference's layout, so
 a checkpoint written on one mesh loads onto another (or onto one
 device).

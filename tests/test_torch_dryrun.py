@@ -150,8 +150,8 @@ def test_perf_variant_cells(tmp_path, capsys):
     2 x 16 x 16 the train batch of 256 does not divide 512 positions and
     those five cells are errors (the batch specs carry no guard, as the
     reference's); the five configs' 16 x 16 train cells record their
-    collective bytes, and so do the other dense configs' "tp" train
-    cells on both meshes."""
+    collective bytes, and so do the other dense configs' and the MoE
+    configs' "tp" train cells on both meshes."""
     rows = dryrun.main(["--all", "--variant", "perf", "--out-dir",
                         str(tmp_path)])
     errors = [r for r in rows if r["status"] == "error"]
@@ -162,7 +162,7 @@ def test_perf_variant_cells(tmp_path, capsys):
                and "256 over 512" in r["error"] for r in errors)
     sent = [r for r in rows if r["status"] == "ok" and r["collectives"]]
     tp = {n for n in registry.ARCH_IDS if registry.get(n).family in
-          ("dense", "vlm") and registry.get(n).name not in zero3}
+          ("dense", "vlm", "moe") and registry.get(n).name not in zero3}
     assert {(r["arch"], r["mesh"]) for r in sent} == {
         (n, "pod16x16") for n in zero3} | {
         (registry.get(n).name, mesh) for n in tp

@@ -211,10 +211,12 @@ def test_family_2x2_fsdp_matches_1x1(f32, arch, seq):
 
 def test_what_the_mesh_step_refuses():
     cfg = registry.reduced(NAME)
-    with pytest.raises(NotImplementedError, match="6.10"):
-        tsteps.make_train_step(registry.reduced("deepseek-v2-lite-16b"),
-                               make_mesh((2, 1), ("data", "model"),
-                                         device="cpu"))
+    moe = registry.reduced("deepseek-v2-lite-16b")     # groups of 64 tokens
+    step = tsteps.make_train_step(moe, make_mesh((2, 1), ("data", "model"),
+                                                 device="cpu"))
+    state = tsteps.shard_params(_masters(moe), step.policy, step.opt_cfg)
+    with pytest.raises(ValueError, match="dispatch groups"):
+        step.fn(state, batch_for(moe, 16, 4, 0, seed=0))
     quant = tadamw.AdamWConfig(quantized_moments=True)
     with pytest.raises(NotImplementedError, match="last dimension"):
         tsteps.make_train_step(cfg, make_mesh((2, 2), ("data", "model"),
