@@ -465,13 +465,37 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              step, bitwise; the (token, k) claims whose expert differs
              from 1x1's are counted (bf16 near ties) and printed.
              The phase's and the script's wall times are printed.
-20. report — one JSON line of per-kernel numbers (the `wavefront` row's
+20. front door — the explorer's public API and the operator CLI on
+             cuda:0, through the calls a user makes: `explore(16384)` at
+             the default budget from a fresh default session (its
+             DeprecationWarning raised, its front inside the exhaustive
+             `full_design_space(16384)` front and covering 60 % of it,
+             one `nsga2_evolve` launch); `explore_sizes((4096, 16384,
+             65536))` in one coalesced dispatch (one launch), its fronts
+             equal to three `explore` calls' on a fresh default session;
+             `distill_and_layout(16384, min_tops=1.4, min_snr_db=20.0)`:
+             the survivors are the filtered front and every layout row
+             equals its golden row (phase 3's check), `route_slots`
+             launched; `nsga2.run(NSGA2Config(16384), seed=0)`: the
+             population feasible (`constraint_violation` 0), its front
+             the exhaustive one as above; `tools/repro_torch_ctl.py`'s
+             `main(["drain", ...])` in process over phase 6's first
+             FRONT_DOOR_TICKETS tickets with an artifact cache under
+             `build/`: every ticket lands, each cached artifact equal to
+             `DesignSession.run_many`'s, both kernels launched, and
+             `gantt --stage-totals`, `metrics` and `cache DIR stats` read
+             back the drain's trace (every stage's total positive),
+             metrics (a ticket latency for each ticket) and cache (one
+             entry for each distinct request).  The phase's wall time is
+             printed and must stay within FRONT_DOOR_LIMIT_S.
+21. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time; the (128, 128) flash row its
              launches on each prefill path, phases 5 and 14, as
              `launches_by_path`, with whisper-large-v3's (64, 64)
-             launches of phase 16), the nvidia-smi line,
+             launches of phase 16; `nsga2_evolve` and `route_slots`
+             phase 20's as `front_door_launches`), the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -781,6 +805,14 @@ EVOLVE_CASES = (((16384,), 256, 80), ((16384,), 96, 25),
                 ((4096, 16384, 65536), 256, 20), ((16384,), 100, 15),
                 ((16384, 4096), 512, 6), ((16384,), 1024, 3),
                 ((16384,) * 8, 96, 10), ((16384,) * 4, 256, 20))
+
+# Phase 20 (the front door): the sweep of `explore_sizes`, the
+# distillation of `distill_and_layout` (quickstart's requirements), the
+# drain's tickets (phase 6's first ones) and the phase's time limit.
+FRONT_DOOR_SIZES = (4096, 16384, 65536)
+FRONT_DOOR_DISTILL = dict(min_tops=1.4, min_snr_db=20.0)
+FRONT_DOOR_TICKETS = 4
+FRONT_DOOR_LIMIT_S = 30.0
 
 
 def fail(msg: str) -> None:
@@ -5704,6 +5736,241 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
     return {r["mesh"]: r for r in rows}
 
 
+# ----------------------------------------------------------------------
+# Phase 20: the front door (the explorer's public API and the operator
+# CLI)
+# ----------------------------------------------------------------------
+def _shim(fn, *args, **kw):
+    """Call a deprecated explorer shim; it must warn exactly once with
+    `repro_torch` in the text."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn(*args, **kw)
+    want = f"repro_torch.core.explorer.{fn.__name__} is deprecated"
+    hits = [w for w in caught if issubclass(w.category, DeprecationWarning)
+            and str(w.message).startswith(want)]
+    check(len(hits) == 1, f"front door: {fn.__name__} warned "
+                          f"{[str(w.message) for w in caught]}")
+    return out
+
+
+def _exhaustive_front(size: int) -> set:
+    """(h, l, b_adc) of the exhaustive `full_design_space` front."""
+    from repro_torch.core import explorer, pareto
+
+    genes, objs = explorer.full_design_space(size)
+    g = genes[pareto.non_dominated_mask(objs)].tolist()
+    return {(1 << h, 1 << l, b) for h, l, b in g}
+
+
+def _front_keys(res) -> set:
+    return {(s.h, s.l, s.b_adc) for s in res.specs}
+
+
+def _holds_front(keys: set, size: int, what: str) -> None:
+    """As `TestNSGA2.test_recovers_true_front_16kb`: inside the exhaustive
+    front and covering at least 60 % of it."""
+    true = _exhaustive_front(size)
+    check(keys <= true, f"front door: {what} has points off the exhaustive "
+                        f"front: {keys - true}")
+    check(len(keys) >= 0.6 * len(true), f"front door: {what} covers "
+                                        f"{len(keys)} of {len(true)}")
+
+
+def _ctl_run(ctl, argv) -> str:
+    """`repro_torch_ctl.main(argv)` in process: exit 0, its stdout."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ctl.main(argv)
+    check(rc == 0, f"front door: repro_torch_ctl {argv[0]} exited {rc}:\n"
+                   f"{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def front_door_phase(card: str) -> dict:
+    """The explorer's deprecated shims, `nsga2.run` and the operator CLI's
+    `drain` / `gantt` / `metrics` / `cache stats` on the card, through the
+    calls a user makes.  Returns the phase's launches of nsga2_evolve and
+    route_slots."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.api import ArtifactCache, DesignSession
+    from repro_torch.core import explorer, nsga2
+    from repro_torch.kernels import LAUNCHES
+
+    def launched(name: str, what: str, n: int | None = None) -> None:
+        got = LAUNCHES.get(name, 0)
+        check(got == n if n is not None else got > 0,
+              f"front door: {what}: {name} launched {got} times "
+              f"({dict(LAUNCHES)})")
+
+    t_phase = time.perf_counter()
+    golden = {tuple(p_["key"]): p_["row"] for p_ in golden_points()}
+    total = {"nsga2_evolve": 0, "route_slots": 0}
+
+    def tally():
+        for k in total:
+            total[k] += LAUNCHES.get(k, 0)
+
+    # (a) explore(16384) at the default budget from a fresh default session
+    api._DEFAULT_SESSION = None
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    front = _shim(explorer.explore, 16384)
+    torch.cuda.synchronize()
+    explore_s = time.perf_counter() - t0
+    _holds_front(_front_keys(front), 16384, "explore(16384)")
+    launched("nsga2_evolve", "explore", 1)
+    tally()
+    print(f"front door explore(16384): {len(front)} points, the exhaustive "
+          f"front's {len(_exhaustive_front(16384))}; {explore_s:.3f} s; "
+          f"launches {dict(LAUNCHES)}", flush=True)
+
+    # (b) explore_sizes: one coalesced dispatch, the fronts of three
+    # explore calls (each its own dispatch on a fresh default session)
+    api._DEFAULT_SESSION = None
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    swept = _shim(explorer.explore_sizes, FRONT_DOOR_SIZES)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    stats = api.default_session().stats
+    check(stats["explorer_dispatches"] == 1,
+          f"front door: explore_sizes took {stats['explorer_dispatches']} "
+          f"dispatches")
+    launched("nsga2_evolve", "explore_sizes", 1)
+    tally()
+    api._DEFAULT_SESSION = None
+    LAUNCHES.clear()
+    for size in FRONT_DOOR_SIZES:
+        one = _shim(explorer.explore, size)
+        check(one.specs == swept[size].specs,
+              f"front door: explore_sizes' {size} front differs from "
+              f"explore's")
+        _holds_front(_front_keys(one), size, f"explore({size})")
+    check(swept[16384].specs == front.specs,
+          "front door: the 16384 front differs between sessions")
+    launched("nsga2_evolve", "three explore calls", len(FRONT_DOOR_SIZES))
+    tally()
+    sizes = [len(swept[s]) for s in FRONT_DOOR_SIZES]
+    print(f"front door explore_sizes{FRONT_DOOR_SIZES}: one dispatch in "
+          f"{sweep_s:.3f} s; fronts of {sizes} points, equal to three "
+          f"explore calls'", flush=True)
+
+    # (c) distill_and_layout: the survivors' layout rows are golden rows
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    distilled, layouts = _shim(explorer.distill_and_layout, 16384,
+                               **FRONT_DOOR_DISTILL)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    check(len(distilled) > 0 and distilled.specs
+          == front.filter(**FRONT_DOOR_DISTILL).specs,
+          "front door: distill_and_layout's survivors differ from the "
+          "filtered front")
+    rows = layouts.metrics_rows()
+    check(len(rows) == len(distilled), "front door: missing layout rows")
+    for spec, row in zip(distilled.specs, rows):
+        key = (spec.h, spec.l, spec.b_adc)
+        want = golden[key]
+        check(row.keys() == want.keys(), f"front door: row keys of {key}")
+        bad = [k for k in want if not _close(row[k], want[k])]
+        check(not bad, f"front door: row {key} differs from golden in {bad}")
+    launched("route_slots", "distill_and_layout")
+    tally()
+    print(f"front door distill_and_layout(16384, {FRONT_DOOR_DISTILL}): "
+          f"{len(distilled)} survivors, rows equal to golden; "
+          f"{distill_s:.3f} s; launches {dict(LAUNCHES)}", flush=True)
+
+    # (d) nsga2.run: a feasible population holding the exhaustive front
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cfg = nsga2.NSGA2Config(16384)
+    pop = nsga2.run(cfg, seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(tuple(pop.genes.shape) == (cfg.pop_size, 3)
+          and float(nsga2.constraint_violation(pop.genes, cfg).max()) == 0,
+          "front door: nsga2.run's population is infeasible")
+    res = explorer.pareto_result_from_population(
+        16384, pop.genes.cpu().numpy(), pop.objs.cpu().numpy())
+    _holds_front(_front_keys(res), 16384, "nsga2.run")
+    launched("nsga2_evolve", "nsga2.run", 1)
+    tally()
+    print(f"front door nsga2.run(NSGA2Config(16384), seed=0): feasible, "
+          f"front of {len(res)} points; {run_s:.3f} s", flush=True)
+
+    # (e) the operator CLI: drain phase 6's first tickets, then read back
+    # the trace, the metrics and the cache it wrote
+    path = ROOT / "tools" / "repro_torch_ctl.py"
+    spec = importlib.util.spec_from_file_location("repro_torch_ctl", path)
+    ctl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ctl)
+    reqs = service_requests()[:FRONT_DOOR_TICKETS]
+    root = Path(tempfile.mkdtemp(prefix="front_door_", dir=ROOT / "build"))
+    try:
+        req_file, tel, cache = root / "requests.json", root / "tel", \
+            root / "cache"
+        req_file.write_text(json.dumps(
+            {"requests": [r.to_dict() for r in reqs]}))
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        drained = _ctl_run(ctl, ["drain", str(req_file), "--out-dir",
+                                 str(tel), "--cache-dir", str(cache),
+                                 "--max-coalesce", str(len(reqs))])
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        check(drained.startswith(f"drained {len(reqs)}/{len(reqs)} ok"),
+              f"front door: drain: {drained!r}")
+        launched("nsga2_evolve", "drain")
+        launched("route_slots", "drain")
+        tally()
+        seq = DesignSession().run_many(reqs)
+        landed = ArtifactCache(cache)
+        for r in reqs:
+            art = landed.get(r)
+            check(art is not None and art.ok
+                  and art.summary() == seq[r].summary(),
+                  f"front door: drained {r.array_size} seed {r.seed} "
+                  f"differs from run_many")
+        totals = _ctl_run(ctl, ["gantt", "--stage-totals",
+                                str(tel / "service_trace.json")])
+        stages = {ln.split()[0]: float(ln.split()[1].rstrip("s"))
+                  for ln in totals.splitlines()}
+        check(all(stages.get(k, 0.0) > 0 for k in
+                  ("explore", "distill", "layout", "finalize")),
+              f"front door: stage totals {stages}")
+        metrics = _ctl_run(ctl, ["metrics", str(tel / "service_metrics.json")])
+        check(f"histogram design_ticket_latency_seconds: count={len(reqs)} "
+              in metrics, f"front door: metrics:\n{metrics}")
+        entries = _ctl_run(ctl, ["cache", str(cache), "stats"])
+        distinct = len({r.sha() for r in reqs})
+        check(entries.startswith(f"{cache}: {distinct} entries"),
+              f"front door: cache stats {entries!r}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"front door drain ({card}): {drained.strip()}; {drain_s:.3f} s; "
+          f"equal to run_many; stage totals s "
+          f"{ {k: round(v, 4) for k, v in stages.items()} }; "
+          f"{entries.strip()}", flush=True)
+
+    wall = time.perf_counter() - t_phase
+    print(f"front door phase wall ({card}): {wall:.2f} s; launches "
+          f"{total}", flush=True)
+    check(wall <= FRONT_DOOR_LIMIT_S,
+          f"front door: phase took {wall:.2f} s, past {FRONT_DOOR_LIMIT_S} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5772,6 +6039,9 @@ def main() -> int:
     ep_train_phase(card)
     print(f"chip_smoke wall after phase 19: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    front_door = front_door_phase(card)
+    print(f"chip_smoke wall after phase 20: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a
     # round with BFS lanes) and the sequential flow (a launch a net).
@@ -5780,6 +6050,8 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         if r["name"] in service:
             r["service_launches"] = service[r["name"]]
+        if r["name"] in front_door:
+            r["front_door_launches"] = front_door[r["name"]]
         if r["name"] in mesh["launches"]:
             r["mesh_launches"] = mesh["launches"][r["name"]]
         if r["name"] == "nds_rank":
@@ -5816,7 +6088,8 @@ def main() -> int:
              "device_ms",
              "floor_ms", "floor_device_ms", "bound_f32_ms", "bound_adc3_ms",
              "bound_cuda_core_pipe_ms", "flip_share",
-             "service_launches", "concurrent_launches", "flow_launches",
+             "service_launches", "front_door_launches",
+             "concurrent_launches", "flow_launches",
              "launches_by_path",
              "levels", "ms_per_level", "net_ms", "net_plain_ms",
              "net_bound_ms", "net_levels", "net_ms_per_level",

@@ -19,12 +19,20 @@ from repro_torch.api.session import (BucketResult, DesignArtifact,
                                      ExploredBatch, LayoutBucket, Provenance)
 
 _DEFAULT_SESSION: DesignSession | None = None
+_DEVICE_SESSIONS: dict[str, DesignSession] = {}
 
 
-def default_session() -> DesignSession:
+def default_session(*, device=None) -> DesignSession:
     """The process-wide session, made on first use, on `cuda` (raises
-    without a CUDA device, like every entry point of the port)."""
+    without a CUDA device, like every entry point of the port).  With
+    `device` (as `"cpu"`), the process-wide session of that device."""
     global _DEFAULT_SESSION
+    if device is not None:
+        key = str(device)
+        if key != "cuda":
+            if key not in _DEVICE_SESSIONS:
+                _DEVICE_SESSIONS[key] = DesignSession(device=device)
+            return _DEVICE_SESSIONS[key]
     if _DEFAULT_SESSION is None:
         _DEFAULT_SESSION = DesignSession()
     return _DEFAULT_SESSION

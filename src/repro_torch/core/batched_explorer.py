@@ -24,6 +24,10 @@ def sweep_program(seeds, spaces: nsga2.SpaceOperands, *,
     return nsga2.run_cell(draws, spaces, statics=statics, n_gens=n_gens)
 
 
+# The reference's name of the stacking of per-cell operands.
+stack_spaces = nsga2.stack_spaces
+
+
 def explore_cells(cells, *, pop_size: int = 256, generations: int = 80,
                   crossover_prob: float = nsga2.DEFAULT_CROSSOVER_PROB,
                   mutation_prob: float = nsga2.DEFAULT_MUTATION_PROB,
@@ -61,3 +65,26 @@ def explore_cells(cells, *, pop_size: int = 256, generations: int = 80,
             s, genes_b[i], objs_b[i], cal=cal)
         for i, (s, sd) in enumerate(cells)
     }
+
+
+def explore_batch(sizes=(4096, 16384, 65536), seeds=(0,), *,
+                  pop_size: int = 256, generations: int = 80,
+                  crossover_prob: float = nsga2.DEFAULT_CROSSOVER_PROB,
+                  mutation_prob: float = nsga2.DEFAULT_MUTATION_PROB,
+                  cal: CalibConstants = CAL28,
+                  use_pallas_dominance: bool = False,
+                  use_pallas_rank: bool = False, device="cuda") -> dict:
+    """Sweep every (array_size, seed) cell in one batched run: a thin
+    cross-product wrapper over `explore_cells`."""
+    sizes = tuple(int(s) for s in sizes)
+    seeds = tuple(int(s) for s in seeds)
+    if not sizes or not seeds:
+        raise ValueError(
+            f"explore_batch needs at least one (size, seed) cell; got "
+            f"sizes={sizes!r}, seeds={seeds!r}")
+    return explore_cells([(s, sd) for s in sizes for sd in seeds],
+                         pop_size=pop_size, generations=generations,
+                         crossover_prob=crossover_prob,
+                         mutation_prob=mutation_prob, cal=cal,
+                         use_pallas_dominance=use_pallas_dominance,
+                         use_pallas_rank=use_pallas_rank, device=device)

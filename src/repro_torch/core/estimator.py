@@ -198,6 +198,14 @@ def area_f2_per_bit(h, l, b_adc, cal: CalibConstants = CAL28) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # Objective stack (Eq. 12): minimize [-f_SNR, -f_T, f_E, f_A]
 # ----------------------------------------------------------------------
+def objectives(h, w, l, b_adc, cal: CalibConstants = CAL28) -> torch.Tensor:
+    """Stack the four objectives, minimization orientation, shape (..., 4),
+    on the design points' device; delegates to `objectives_from_operands`
+    so the Eqs. 2-11 physics exists in one place."""
+    dev = h.device if isinstance(h, torch.Tensor) else "cpu"
+    return objectives_from_operands(h, w, l, b_adc, cal_operands(cal, dev))
+
+
 OBJECTIVE_NAMES = ("neg_snr_db", "neg_tops", "energy_fj_per_mac", "area_f2_per_bit")
 
 

@@ -1,15 +1,24 @@
-"""Pareto-front results of the MOGA explorer and the agile filter.
+"""MOGA-based design-space explorer (paper Sec. 3.2) with agile filtering.
 
-Counterpart of `repro.core.explorer` (the parts the session path uses):
-`ParetoResult` (the deduplicated Pareto set with objective metrics,
-`filter` (the paper's agile distillation), `best`, and its rows / JSON
-round trip), the distillation of a final population into one, and the
-exhaustive `full_design_space` used as ground truth.
+Counterpart of `repro.core.explorer`: `ParetoResult` (the deduplicated
+Pareto set with objective metrics, `filter` (the paper's agile
+distillation), `best`, and its rows / JSON round trip), the
+distillation of a final population into one, and the exhaustive
+`full_design_space` used as ground truth.
+
+The supported way to drive the flow is `repro_torch.api`
+(`DesignRequest` / `DesignSession` / the multi-tenant
+`repro_torch.serve.design_service.DesignService`).  `explore()`,
+`explore_sizes()` and `distill_and_layout()` below are the reference's
+deprecation shims over it, kept for source compatibility; each takes a
+keyword-only `device` (`cuda` when None) and runs on the process-wide
+`repro_torch.api.default_session` of that device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 
 import numpy as np
 import torch
@@ -114,6 +123,76 @@ def pareto_result_from_population(array_size: int, genes: np.ndarray,
                                     cal)
     metrics = {k: v.numpy() for k, v in rep.items()}
     return ParetoResult(array_size, specs, metrics)
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"repro_torch.core.explorer.{old} is deprecated; use {new} "
+        f"(see docs/api.md)", DeprecationWarning, stacklevel=3)
+
+
+def explore(array_size: int, *, pop_size: int = 256, generations: int = 80,
+            seed: int = 0, cal: CalibConstants = CAL28,
+            use_pallas_dominance: bool = False,
+            use_pallas_rank: bool = False, device=None) -> ParetoResult:
+    """Deprecated shim over `repro_torch.api`: run the MOGA explorer for
+    one array size and return the (undistilled) `ParetoResult`.
+
+    Use `DesignSession().run(DesignRequest(array_size, layout=False))`
+    instead; repeated shim calls share the default session's program and
+    front caches."""
+    from repro_torch.api import DesignRequest, default_session
+
+    _deprecated("explore", "repro_torch.api.DesignSession.run")
+    req = DesignRequest(array_size=array_size, seed=seed, pop_size=pop_size,
+                        generations=generations, cal=cal,
+                        use_pallas_dominance=use_pallas_dominance,
+                        use_pallas_rank=use_pallas_rank, layout=False)
+    return default_session(device=device).run(req).pareto
+
+
+def explore_sizes(sizes=(4096, 16384, 65536), *, seed: int = 0,
+                  device=None, **kw) -> dict[int, ParetoResult]:
+    """Deprecated shim over `repro_torch.api`: Fig. 9(a)(b)-style sweep
+    over array sizes, coalesced by a `DesignService` into one explore
+    dispatch for the whole sweep."""
+    from repro_torch.api import DesignRequest, default_session
+    from repro_torch.serve.design_service import DesignService
+
+    _deprecated("explore_sizes",
+                "repro_torch.serve.design_service.DesignService")
+    sizes = tuple(sizes)
+    svc = DesignService(session=default_session(device=device),
+                        max_coalesce=max(len(sizes), 1))
+    tickets = {int(s): svc.submit(DesignRequest(
+        array_size=int(s), seed=seed, layout=False, **kw)) for s in sizes}
+    arts = svc.run()
+    return {s: arts[tickets[int(s)]].pareto for s in sizes}
+
+
+def distill_and_layout(array_size: int, *, pop_size: int = 256,
+                       generations: int = 80, seed: int = 0,
+                       cal: CalibConstants = CAL28, coarse: int = 64,
+                       capacity: int = 4, use_pallas_dominance: bool = False,
+                       use_pallas_rank: bool = False, device=None,
+                       **filter_kw):
+    """Deprecated shim over `repro_torch.api`: MOGA sweep -> agile
+    distillation -> batched layout generation (paper Fig. 4 end to end).
+
+    `filter_kw` are `ParetoResult.filter` thresholds (the
+    `repro_torch.api.Requirements` fields).  Returns `(distilled,
+    layouts)` as `DesignSession.run(...)`'s artifact carries them."""
+    from repro_torch.api import DesignRequest, Requirements, default_session
+
+    _deprecated("distill_and_layout", "repro_torch.api.DesignSession.run")
+    req = DesignRequest(array_size=array_size, seed=seed, pop_size=pop_size,
+                        generations=generations, cal=cal,
+                        use_pallas_dominance=use_pallas_dominance,
+                        use_pallas_rank=use_pallas_rank,
+                        requirements=Requirements(**filter_kw),
+                        coarse=coarse, capacity=capacity, layout=True)
+    artifact = default_session(device=device).run(req)
+    return artifact.pareto, artifact.layouts
 
 
 def full_design_space(array_size: int, cal: CalibConstants = CAL28):

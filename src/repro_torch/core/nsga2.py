@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core import estimator, pareto
 from repro_torch.core.constants import CAL28, CalibConstants
+from repro_torch.device import resolve_device
 from repro_torch.kernels.pareto_dom import ops as dom_ops
 
 DEFAULT_CROSSOVER_PROB = 0.9
@@ -46,11 +47,20 @@ DEFAULT_MUTATION_PROB = 0.2
 
 @dataclasses.dataclass(frozen=True)
 class NSGA2Config:
-    """One cell's design space: the array size and the calibration fix
-    the gene box (`space_operands`)."""
+    """One NSGA-II run: the array size and the calibration fix the gene
+    box (`space_operands`); the rest is the budget, as the reference's
+    config (`run`, `EvolveStatics.from_config`)."""
 
     array_size: int
+    pop_size: int = 256
+    generations: int = 80
+    crossover_prob: float = DEFAULT_CROSSOVER_PROB
+    mutation_prob: float = DEFAULT_MUTATION_PROB
+    tournament_pairs: int = 2
+    seed: int = 0
     cal: CalibConstants = CAL28
+    use_pallas_dominance: bool = False  # the dominance_matrix kernel's route
+    use_pallas_rank: bool = False       # the fused rank kernel's route
 
     @property
     def log2_size(self) -> int:
@@ -99,6 +109,18 @@ class EvolveStatics(NamedTuple):
     mutation_prob: float = DEFAULT_MUTATION_PROB
     use_pallas_dominance: bool = False
     use_pallas_rank: bool = False
+
+    @classmethod
+    def from_config(cls, cfg: NSGA2Config) -> "EvolveStatics":
+        return cls(pop_size=cfg.pop_size, crossover_prob=cfg.crossover_prob,
+                   mutation_prob=cfg.mutation_prob,
+                   use_pallas_dominance=cfg.use_pallas_dominance,
+                   use_pallas_rank=cfg.use_pallas_rank)
+
+
+class Population(NamedTuple):
+    genes: torch.Tensor   # (P, 3) int32  [h_exp, l_exp, b]
+    objs: torch.Tensor    # (P, 4) float32, minimization orientation
 
 
 def space_operands(cfg: NSGA2Config) -> SpaceOperands:
@@ -353,7 +375,82 @@ def run_cell(draws, space: SpaceOperands, *, statics: EvolveStatics,
     return evolve_from(draws, genes, objs, space, statics, n_gens)
 
 
+def run(cfg: NSGA2Config, seed: int | None = None, *, draws=None,
+        device=None) -> Population:
+    """Full NSGA-II run of one cell; returns the final population
+    (feasible by repair).  The reference takes a `jax.random` key; here
+    the draws come from Philox seeded with `seed` (`cfg.seed` when None)
+    on `device` (`cuda` when None: one `nsga2_evolve` launch), or from a
+    draw source `draws` (with `init` and `generations`, as
+    `PhiloxDraws`)."""
+    dev = resolve_device(device)
+    if draws is None:
+        draws = PhiloxDraws([cfg.seed if seed is None else seed], dev)
+    genes, objs = run_cell(draws, _one_space(cfg, dev),
+                           statics=EvolveStatics.from_config(cfg),
+                           n_gens=cfg.generations)
+    return Population(genes[0], objs[0])
+
+
+# ----------------------------------------------------------------------
+# Config-static forms of one cell (the reference's compatibility
+# wrappers): (P, 3) genes, no cell dimension, on the genes' device.
+# ----------------------------------------------------------------------
+def _one_space(cfg: NSGA2Config, device) -> SpaceOperands:
+    return stack_spaces([space_operands(cfg)]).to(device)
+
+
+def repair(genes: torch.Tensor, cfg: NSGA2Config) -> torch.Tensor:
+    return repair_op(genes[None], _one_space(cfg, genes.device))[0]
+
+
+def decode(genes: torch.Tensor, cfg: NSGA2Config):
+    return tuple(x[0] for x in
+                 decode_op(genes[None], _one_space(cfg, genes.device)))
+
+
 def evaluate(genes: torch.Tensor, cfg: NSGA2Config) -> torch.Tensor:
     """Objectives of (P, 3) genes of one cell."""
-    return evaluate_op(genes[None], stack_spaces([space_operands(cfg)]))[0]
+    return evaluate_op(genes[None], _one_space(cfg, genes.device))[0]
+
+
+def init_population(draws, cfg: NSGA2Config, *, device=None) -> torch.Tensor:
+    """(pop_size, 3) repaired initial genes.  `draws` is a seed (Philox on
+    `device`, `cuda` when None) or the (pop_size, 3) `randint` columns,
+    each uniform in its gene box (the reference draws them from
+    `jax.random.split(key, 3)`)."""
+    if not isinstance(draws, torch.Tensor):
+        sp = space_operands(cfg)
+        draws = PhiloxDraws([int(draws)], resolve_device(device)).init(
+            sp.gene_lo.numpy()[None], sp.gene_hi.numpy()[None],
+            cfg.pop_size)[0]
+    return repair(draws.to(torch.int32), cfg)
+
+
+def constraint_violation(genes: torch.Tensor,
+                         cfg: NSGA2Config) -> torch.Tensor:
+    """Total violation (0 for feasible) — used by the constrained-dom path."""
+    h, l, b = genes[:, 0], genes[:, 1], genes[:, 2]
+    v1 = torch.clamp(l - h, min=0)            # H >= L
+    v2 = torch.clamp(b - (h - l), min=0)      # H/L >= 2^B
+    return (v1 + v2).to(torch.float32)
+
+
+def generation_step(draws, genes: torch.Tensor, objs: torch.Tensor,
+                    cfg: NSGA2Config):
+    """One NSGA-II generation of one cell: rank the parents, select, vary,
+    evaluate, truncate.  `draws` is a seed (Philox on the genes' device)
+    or a `GenerationDraws` (one cell's, or a batch of one).  Returns the
+    next (genes, objs)."""
+    statics = EvolveStatics.from_config(cfg)
+    p = genes.shape[0]
+    if not isinstance(draws, GenerationDraws):
+        draws = PhiloxDraws([int(draws)], genes.device).generation(
+            statics.pop_size, p, statics)
+    elif draws.pairs.dim() == 2:
+        draws = GenerationDraws(*(x[None] for x in draws))
+    ranks, crowd = rank_and_crowd(objs[None], statics)
+    out = generation_step_op(draws, genes[None], objs[None], ranks, crowd,
+                             _one_space(cfg, genes.device), statics)
+    return out[0][0], out[1][0]
 

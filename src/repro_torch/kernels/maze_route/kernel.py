@@ -116,6 +116,7 @@ def wavefront(occ: torch.Tensor, seed: torch.Tensor,
     if grids is None or b == 0:
         max_words, max_cells = words, h * w
     else:
+        # lint: disable=host-sync -- the largest grid's extent sizes the launch
         g = np.minimum(grids.cpu().numpy().astype(np.int64), [h, w])
         g = np.maximum(g, 0)
         max_words = int((g[:, 0] * ((g[:, 1] + 31) // 32)).max())
@@ -196,9 +197,11 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
     dev = _same_device(**named)
     ext = torch.minimum(grids, torch.tensor([h, w], dtype=torch.int32,
                                             device=dev))
+    # lint: disable=host-sync -- checks the grids before a launch reads them
     if bool((ext < 1).any()):
         raise ValueError("route_slots: empty grid")
     lim = ext[:, None, :]
+    # lint: disable=host-sync -- checks hubs and targets lie in their grids
     if bool(((hubs < 0) | (hubs >= lim)).any()
             | ((tgts < 0) | (tgts >= lim[:, :, None])).any()):
         raise ValueError("route_slots: a hub or target lies outside its grid")
@@ -211,8 +214,10 @@ def route_slots(occ0, hubs, tgts, tmask, nmask, grids, capacity: int,
         raise ValueError(f"route_slots: {t} targets per slot on a {h} x {w} "
                          f"plane exceed the kernel's limits (T <= "
                          f"{MAX_TARGETS}, H < {_MAX_H}, W < {_MAX_W})")
+    # lint: disable=host-sync -- the most targets a grid routes: count width
     visits = int((tmask & nmask[..., None]).sum((1, 2)).max())
     wide = 2 * visits + 1 > _COUNT_MAX
+    # lint: disable=host-sync -- each grid's extent places its state (smem)
     g = ext.cpu().numpy().astype(np.int64)
     words = g[:, 0] * ((g[:, 1] + 31) // 32)
     if int(words.max()) >= _MAX_WORDS:

@@ -36,6 +36,19 @@ NEIGHBORS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _SEG = 2 ** 32
 
 
+def relax_once(dist: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """One Jacobi wavefront step: (..., H, W) int32 -> same, each free
+    cell lowered to one more than its least 4-neighbour (`INF` beyond
+    the plane).  The reference's building block, exported so tests can
+    hold the sweeping fixed point against the plain relaxation."""
+    pad = F.pad(dist, (1, 1, 1, 1), value=INF)
+    up, down = pad[..., :-2, 1:-1], pad[..., 2:, 1:-1]
+    left, right = pad[..., 1:-1, :-2], pad[..., 1:-1, 2:]
+    best = torch.minimum(torch.minimum(up, down),
+                         torch.minimum(left, right)) + 1
+    return torch.where(free, torch.minimum(dist, best), dist)
+
+
 def outside_grids(shape, grids: torch.Tensor | None,
                   device) -> torch.Tensor | None:
     """(B, H, W) True beyond each grid's own (gh, gw) extent."""

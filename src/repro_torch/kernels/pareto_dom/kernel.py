@@ -177,6 +177,7 @@ def nsga2_evolve(draws, genes: torch.Tensor, objs: torch.Tensor, space,
         _need(fronts, torch.int32, (c,), "fronts")
     if p > MAX_POP:
         raise ValueError(f"nsga2_evolve takes pop_size <= {MAX_POP}, got {p}")
+    # lint: disable=host-sync -- checks the tournament indices before a launch
     if g and bool(((draws.pairs < 0) | (draws.pairs >= p)).any()):
         raise ValueError("nsga2_evolve: a tournament index lies outside "
                          "the population")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import pareto
 from repro_torch.kernels.pareto_dom import kernel
 
 RANK_MULTIPLE = 32     # nds_rank packs 32 dominators per word
@@ -35,6 +36,18 @@ def non_dominated_rank(f: torch.Tensor) -> torch.Tensor:
     p = f.shape[-2]
     fp = _pad_inf(f.to(torch.float32), RANK_MULTIPLE).contiguous()
     return kernel.nds_rank(fp)[..., :p]
+
+
+def rank_and_crowd(f: torch.Tensor):
+    """Fused rank-and-crowd path: (ranks, crowding) of (P, M) or (C, P, M)
+    objectives, the ranks from the `nds_rank` kernel (on CUDA) and the
+    crowding distance from `pareto.crowding_distance`.  The reference's
+    `rank_and_crowd` (the NSGA-II step's `use_pallas_rank` route)."""
+    batched = f.dim() == 3
+    fb = f if batched else f[None]
+    ranks = non_dominated_rank(fb)
+    crowd = pareto.crowding_distance(fb.to(torch.float32), ranks)
+    return (ranks, crowd) if batched else (ranks[0], crowd[0])
 
 
 def nsga2_evolve(draws, genes: torch.Tensor, objs: torch.Tensor, space,

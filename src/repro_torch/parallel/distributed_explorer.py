@@ -54,6 +54,9 @@ from repro_torch.core.constants import CAL28, CalibConstants
 from repro_torch.device import resolve_device
 
 DEFAULT_MIGRATE_EVERY = 20
+# The reference's name of the mesh's one axis.  A mesh here is a tuple of
+# device positions with no named axes; the name is kept for callers.
+MESH_AXIS = "islands"
 
 _MASK64 = (1 << 64) - 1
 

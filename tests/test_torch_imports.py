@@ -5,6 +5,7 @@ import ast
 import pathlib
 import subprocess
 import sys
+import warnings
 
 import pytest
 import torch
@@ -15,9 +16,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
 
+# The port's lint, operator CLI, docs checker and design-flow examples.
+EXTRAS = ([ROOT / "tools" / name for name in
+           ("repro_torch_lint.py", "repro_torch_ctl.py",
+            "check_docs_torch.py")]
+          + sorted((ROOT / "examples" / "torch").glob("*.py")))
+
+
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "chip_profile.py"]
+                                        ROOT / "chip_profile.py"] + EXTRAS
 
 
 def test_importing_the_port_loads_no_jax():
@@ -36,6 +44,26 @@ def test_importing_the_port_loads_no_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_tools_and_examples_load_no_jax():
+    """The port's lint, operator CLI, docs checker and design-flow
+    examples load without JAX or the JAX package."""
+    code = (
+        "import importlib.util, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('m', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    assert len(EXTRAS) == 7 and all(p.exists() for p in EXTRAS)
+    out = subprocess.run([sys.executable, "-c", code, *map(str, EXTRAS)],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -85,6 +113,38 @@ def test_training_stack_is_checked(rel):
     path = PKG / rel
     assert path in _sources()
     test_no_jax_or_reference_import(path)
+
+
+@pytest.mark.parametrize("rel", ["analysis/core.py", "analysis/callgraph.py",
+                                 "analysis/trace_purity.py",
+                                 "analysis/lock_discipline.py",
+                                 "analysis/schema_drift.py"])
+def test_analysis_is_checked(rel):
+    """The static-analysis modules are among the sources checked above
+    and import neither JAX nor the JAX package."""
+    path = PKG / rel
+    assert path in _sources()
+    test_no_jax_or_reference_import(path)
+
+
+def test_explorer_shims_without_cuda_raise(monkeypatch):
+    """Item 7's entry points run on the card unless given a device."""
+    from repro_torch import api
+    from repro_torch.core import explorer, nsga2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(api, "_DEFAULT_SESSION", None)
+    cfg = nsga2.NSGA2Config(4096, pop_size=8, generations=1)
+    for build in (lambda: explorer.explore(4096),
+                  lambda: explorer.explore_sizes((4096,)),
+                  lambda: explorer.distill_and_layout(4096),
+                  lambda: nsga2.run(cfg),
+                  lambda: nsga2.init_population(0, cfg)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
+    assert nsga2.run(cfg, device="cpu").genes.shape == (8, 3)
 
 
 def test_train_step_without_cuda_raises(monkeypatch):
