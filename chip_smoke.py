@@ -337,8 +337,9 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              positions reach 4095 in every row): finite logits, exactly
              one `flash_attention_wgmma` (128, 128) launch a layer (36, 32
              and 88) and no 3xTF32 launch; seconds, tokens/s, peak
-             memory.  (b) `ServeEngine` on the same weights, phase 9's six
-             requests.  (c) teacher-forced `decode_step` (granite's reads
+             memory.  (b) `ServeEngine` on the same weights cut to their
+             first DENSE_SERVE_LAYERS layers, phase 9's six requests.
+             (c) teacher-forced `decode_step` (granite's reads
              `pos_emb` at each step) against the prefill on 64 tokens:
              phase 9's bounds.  (d) 2 layers at full width, 512 tokens,
              the same weights on the card and on the CPU: last-position
@@ -488,7 +489,32 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              metrics (a ticket latency for each ticket) and cache (one
              entry for each distinct request).  The phase's wall time is
              printed and must stay within FRONT_DOOR_LIMIT_S.
-21. report — one JSON line of per-kernel numbers (the `wavefront` row's
+21. family tp — local tensor parallelism over "model" for the hybrid,
+             SSM and audio families, as 18 (every earlier phase's weights
+             freed first): zamba2-2.7b (d 2560, 80 SSM heads, the shared
+             block's 32 heads and d_ff 10240, vocab 32000) cut to 12 of 54
+             layers (two groups: the shared block used twice),
+             whisper-large-v3 (d 1280, 20 heads, d_ff 5120, tied vocab
+             51866, 1500 stub frames a row) cut to 8 + 8 of 32 + 32
+             layers and xlstm-125m (d 768, 4 mLSTM heads, vocab 50304)
+             cut to 4 of 12 layers (two (mLSTM, sLSTM) pairs), at full
+             width, 8 x 256, on 1x1, 1x4 (Mamba2 heads with their packed
+             `in_proj` cut, the shared block, mLSTM heads with the
+             sLSTM on the first position, whisper's encoder, self- and
+             cross-attention local; whisper's vocabulary whole: 51866
+             rows do not divide 4) and 2x2-FSDP (its vocabulary split):
+             18's checks, whisper's key-bias grads (0 but for rounding)
+             held to FAMILY_TP_ZERO_GRAD of their query biases', each
+             position's leaf bytes the dry-run's reckoning, the largest
+             position's against 1x1's printed (its layers' and all).
+             Then `examples/torch/serve_acim.py` and `train_acim_lm.py`
+             with `--smoke` in process: three completions; the pick's
+             `nsga2_evolve` and the steps' `acim_matmul` launched, finite
+             losses, a checkpoint at the last step, and a run stopped
+             after step 1 and resumed ending on the same parameters bit
+             for bit.  The phase's and the script's wall times are
+             printed.
+22. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time; the (128, 128) flash row its
@@ -709,6 +735,12 @@ HYBRID_SMALL_SEQ = 320     # (g) the reduced config's prefill (chunk 16)
 DENSE_CONFIGS = ("qwen3-8b", "codeqwen1.5-7b", "granite-34b")
 DENSE_INST = "flash_attention_wgmma_128_128"
 DENSE_SMALL_PREFILL = (4, 4096)
+# (b)'s decode engine runs on the first DENSE_SERVE_LAYERS layers of each
+# config's full-width weights (since the smoke gained phase 21): at full
+# depth the three engines took 67 s of host-bound decode (114.7, 88.8 and
+# 162.9 ms a step) for checks a depth cut keeps; phase 9 serves at full
+# depth and (c) holds the full-depth decode to the prefill.
+DENSE_SERVE_LAYERS = 8
 
 # Phase 15: the hybrid and VLM families' train steps at full width and
 # depth (float32 masters drawn on the card from seed 0), as phase 10's:
@@ -794,6 +826,32 @@ EP_TRAIN_SHAPE = (8, 256)           # batch, seq: a row is a dispatch group
 EP_TRAIN_MESHES = TP_TRAIN_MESHES
 EP_LOSS_RTOL = 1e-3                 # each mesh vs 1x1: loss and aux_loss
 EP_GRAD_REL_L2 = 5e-2               # ... every leaf's grad, the router's too
+
+# Phase 21: local tensor parallelism over "model" for the hybrid, SSM and
+# audio families, as phase 18: (config, depth cut, the encoder's cut).
+# zamba2-2.7b keeps two groups (the shared block used twice), whisper 8 +
+# 8 layers over its 1500 stub frames a row, xlstm-125m two (mLSTM, sLSTM)
+# pairs; all at full width, phase 18's shape, meshes and bf16 bounds.
+# whisper's self-attention key biases have no RoPE after them, so the
+# softmax drops them: their grads are 0 but for rounding, held to
+# FAMILY_TP_ZERO_GRAD of the largest grad element of their layer's
+# query bias on each mesh (as the CPU tests hold them absolutely).
+FAMILY_TP = (("zamba2-2.7b", 12, None), ("whisper-large-v3", 8, 8),
+             ("xlstm-125m", 4, None))
+FAMILY_TP_SHAPE = TP_TRAIN_SHAPE
+FAMILY_TP_MESHES = TP_TRAIN_MESHES
+FAMILY_TP_ZERO_GRAD = 1e-2
+# A bf16 step cannot resolve some leaves to phase 18's bound: the Mamba2
+# per-head vectors' grads (a_log, dt_bias, d_skip) are sums with heavy
+# cancellation, 2.3e-2 - 8.3e-2 rel L2 off the float32 step's at 1x1
+# alone (reduced zamba2 on the CPU), so two bf16 orderings differ by as
+# much.  Phase 21 also runs a float32 1x1 step: a leaf passes within
+# TP_GRAD_REL_L2 of 1x1's bf16 grad, or where the mesh's bf16 grad is
+# off the float32 one by at most 1x1's own bf16 error plus TP_GRAD_REL_L2.
+# the two LM examples at their smoke budgets: serving's first line, and
+# the trainer's checkpoints (under the ignored build/)
+LM_EXAMPLE_SERVED = "3 completions, 12 tokens in "
+LM_EXAMPLE_CKPT = ROOT / "build" / "train_acim_lm_smoke"
 
 # nsga2_evolve against the composite loop: (cell sizes, pop, generations).
 # The first is the 16 kb request's dispatch (timed); then the codesign
@@ -3067,6 +3125,17 @@ def mesh_phase(card: str) -> dict:
 # ----------------------------------------------------------------------
 # Phase 9: single-token decode and the serving engine
 # ----------------------------------------------------------------------
+def _first_layers(cfg, params, n: int):
+    """(`cfg` cut to n layers, a view of the LM `params` with its first
+    n blocks): the same tensors, nothing copied."""
+    import torch
+
+    view = copy.copy(params)
+    view._modules = dict(params._modules)
+    view._modules["blocks"] = torch.nn.ModuleList(list(params.blocks)[:n])
+    return dataclasses.replace(cfg, n_layers=n), view
+
+
 def _serve(card: str, cfg, params, rng) -> dict:
     """`ServeEngine` answers DECODE's requests (seeded prompts from `rng`)
     on `params`: every completion checked, ms a step and tokens/s
@@ -3100,7 +3169,8 @@ def _serve(card: str, cfg, params, rng) -> dict:
               f"decode engine: completion {c.uid} is {c.tokens}")
     new = sum(len(c.tokens) for c in done)
     fed = sum(len(r.prompt) for r in reqs)
-    print(f"decode engine ({card}): {cfg.name} full width, {len(reqs)} "
+    print(f"decode engine ({card}): {cfg.name} full width, "
+          f"{cfg.n_layers} layers, {len(reqs)} "
           f"requests through {DECODE['slots']} slots (prompts "
           f"{[len(r.prompt) for r in reqs]}, max_new {DECODE['max_new']}, "
           f"{DECODE['sampled']} at temperature {DECODE['temperature']}): "
@@ -4701,7 +4771,8 @@ def dense_configs_phase(card: str) -> dict:
         torch.cuda.empty_cache()
 
         rng = np.random.default_rng(0)
-        _serve(card, cfg, params, rng)                             # (b)
+        _serve(card, *_first_layers(cfg, params, DENSE_SERVE_LAYERS),  # (b)
+               rng)
         toks = torch.tensor(rng.integers(0, cfg.vocab,
                                          (1, DECODE_CHECK_SEQ)),
                             device="cuda")
@@ -5455,7 +5526,7 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
     state's upload), their launches, each position's state bytes, the
     dry-run's, the dry-run's bytes a position sends, the replicated
     pieces found bitwise equal after the first, the state's upload
-    s)."""
+    s, each position's {leaf: bytes} its loss read in the first)."""
     import torch
 
     from repro_torch.data.synthetic import batch_for
@@ -5478,6 +5549,7 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
     with around():
         ((state, met), ms_checked), l1 = _counted(
             lambda: _sync_ms(lambda: checked.fn(state, batches[0])))
+    held = dict(checked.held)
     met = {k: float(v) for k, v in met.items()}
     pieces = _replicas_equal(state)
     peak_checked = torch.cuda.max_memory_allocated() / 1e9
@@ -5493,7 +5565,7 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
                                     fsdp=fsdp)
     launches = {k: l1.get(k, 0) + l2.get(k, 0) for k in {**l1, **l2}}
     return (met, ms_checked, ms, peak, launches, nbytes, want, sent, pieces,
-            upload_ms / 1e3)
+            upload_ms / 1e3, held)
 
 
 def tp_train_phase(card: str) -> dict:
@@ -5529,6 +5601,117 @@ def ep_train_phase(card: str) -> dict:
         card, "ep train", registry.get(EP_TRAIN_CONFIG), EP_TRAIN_LAYERS,
         EP_TRAIN_SHAPE, EP_TRAIN_MESHES, EP_LOSS_RTOL, EP_GRAD_REL_L2,
         describe)
+
+
+def family_tp_phase(card: str) -> dict:
+    """Phase 21: the "tp" step of zamba2-2.7b, whisper-large-v3 and
+    xlstm-125m (full width, depth cut; Mamba2 heads, whisper's encoder,
+    self- and cross-attention, mLSTM heads over "model") on 1x1, 1x4
+    and 2x2 (FSDP) meshes of the card, each against 1x1; then the two
+    LM examples at their smoke budgets."""
+    from repro_torch.configs import registry
+
+    def describe(cfg):
+        if cfg.family == "hybrid":
+            s, hy = cfg.ssm, cfg.hybrid
+            return (f"d {cfg.d_model}, {s.expand * cfg.d_model // s.head_dim}"
+                    f" SSM heads of {s.head_dim}, state {s.state}, shared "
+                    f"block {hy.attn_heads} heads and d_ff {hy.shared_ff} "
+                    f"every {hy.shared_attn_every} layers, vocab {cfg.vocab}")
+        if cfg.family == "audio":
+            return (f"d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, "
+                    f"{cfg.encdec.enc_frames} stub frames a row, tied vocab "
+                    f"{cfg.vocab}")
+        return (f"d {cfg.d_model}, {cfg.n_heads} mLSTM heads, inner "
+                f"{int(cfg.xlstm.proj_factor * cfg.d_model)}, vocab "
+                f"{cfg.vocab}")
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, layers, enc in FAMILY_TP:
+        out[name] = _model_group_phase(
+            card, "family tp", registry.get(name), layers, FAMILY_TP_SHAPE,
+            FAMILY_TP_MESHES, TP_LOSS_RTOL, TP_GRAD_REL_L2, describe,
+            enc_layers=enc, f32_floor=True)
+    out["examples"] = lm_examples_check(card)
+    print(f"family tp phase: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return out
+
+
+def _example(name: str, argv: list) -> tuple[str, dict]:
+    """`examples/torch/<name>.py`'s `main(argv)` in process: (its stdout,
+    the launches it made)."""
+    import importlib.util
+    import io
+
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, launches = _counted(lambda: mod.main(argv))
+    return buf.getvalue(), launches
+
+
+def lm_examples_check(card: str) -> dict:
+    """`examples/torch/serve_acim.py` and `train_acim_lm.py` with
+    `--smoke` on the card (their default device): the serving example's
+    three completions of four tokens; the trainer's codesign pick
+    (`nsga2_evolve`), its steps on the macro (`acim_matmul`) with finite
+    losses and a checkpoint at its last step, and a run stopped after
+    step 1 and resumed that ends on the same parameters, bit for bit."""
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.acim_lm import build_cfg
+
+    t0 = time.perf_counter()
+    served, l_serve = _example("serve_acim", ["--smoke"])
+    lines = served.splitlines()
+    check(lines[0].startswith(LM_EXAMPLE_SERVED) and len(lines) == 4,
+          f"serve_acim --smoke: {served!r}")
+    serve_s = time.perf_counter() - t0
+    shutil.rmtree(LM_EXAMPLE_CKPT, ignore_errors=True)
+    whole, part = LM_EXAMPLE_CKPT / "whole", LM_EXAMPLE_CKPT / "part"
+    t1 = time.perf_counter()
+    trained, l_train = _example("train_acim_lm", ["--smoke", "--ckpt-dir",
+                                                  str(whole)])
+    train_s = time.perf_counter() - t1
+    losses = [float(ln.split()[3]) for ln in trained.splitlines()
+              if ln.startswith("step ")]
+    check("codesign pick: MacroSpec(" in trained and len(losses) == 2
+          and all(math.isfinite(x) for x in losses)
+          and ckpt.latest_step(whole) == 3
+          and l_train.get("acim_matmul", 0) > 0
+          and l_train.get("nsga2_evolve", 0) > 0,
+          f"train_acim_lm --smoke: {trained!r}, launches {l_train}")
+    _example("train_acim_lm", ["--smoke", "--steps", "2", "--ckpt-dir",
+                               str(part)])
+    resumed, _ = _example("train_acim_lm", ["--smoke", "--ckpt-dir",
+                                            str(part)])
+    check(f"resumed from step 1 in {part}" in resumed,
+          f"train_acim_lm resume: {resumed!r}")
+    like = {"params": dict(init_lm(build_cfg(64, 1), seed=0, device="cpu")
+                           .named_parameters())}
+    a = ckpt.restore(whole, 3, like)["params"]
+    b = ckpt.restore(part, ckpt.latest_step(part), like)["params"]
+    check(all(torch.equal(a[n], b[n]) for n in a),
+          "train_acim_lm: the resumed run's parameters differ from the "
+          "whole run's")
+    shutil.rmtree(LM_EXAMPLE_CKPT, ignore_errors=True)
+    print(f"lm examples ({card}): serve_acim --smoke {serve_s:.2f} s "
+          f"({lines[0]}; launches {l_serve}); train_acim_lm --smoke "
+          f"{train_s:.2f} s (losses {losses}, launches {l_train}), stopped "
+          f"after step 1 and resumed: the same parameters bit for bit; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"serve_s": serve_s, "train_s": train_s,
+            "launches": {**l_serve, **l_train}}
 
 
 @contextlib.contextmanager
@@ -5594,26 +5777,60 @@ def _group_routes(what: str, calls: list, dp: int, m: int,
                   for t in (1, 2, 3)) for i in range(layers)]
 
 
+def _layer_bytes(held: dict, cfg) -> int:
+    """The bytes of the layers' leaves in `held` ({name: bytes}): the
+    Mamba2 mixers, the mLSTMs, whisper's encoder and decoder blocks, or
+    every `blocks.` leaf."""
+    sub = {"hybrid": ".mamba.", "ssm": ".mlstm."}.get(cfg.family)
+    blocks = ("enc_blocks.", "dec_blocks.") if cfg.family == "audio" \
+        else ("blocks.",)
+    return sum(b for n, b in held.items()
+               if (sub in n if sub else n.startswith(blocks)))
+
+
+def _zero_grad_leaf(cfg, name: str) -> str | None:
+    """The query-bias leaf beside a key bias whose grad is 0 but for
+    rounding (a self-attention's `bk` with no RoPE: the softmax drops
+    it), else None."""
+    if cfg.attn_bias and cfg.pos != "rope" and name.endswith(".attn.bk"):
+        return name[:-len("bk")] + "bq"
+    return None
+
+
 def _model_group_phase(card: str, what: str, full, layers: int, shape,
                        meshes, loss_rtol: float, grad_rel_l2: float,
-                       describe) -> dict:
-    """One "tp" step of `full` at full width cut to `layers` on each of
-    `meshes` of cuda:0 positions ((shape, fsdp), 1x1 first), each from
-    the same masters (drawn on the card, kept in pinned host memory),
-    the first step of each with every reduced grad held to 1x1's and a
-    second timed alone.  The MoE family's aux loss is held to 1x1's too,
-    and its routes recorded in the checked step: a model group's
-    positions alike, the claims that differ from 1x1's counted."""
+                       describe, enc_layers: int | None = None,
+                       f32_floor: bool = False) -> dict:
+    """One "tp" step of `full` at full width cut to `layers` (and an
+    encoder-decoder's encoder to `enc_layers`) on each of `meshes` of
+    cuda:0 positions ((shape, fsdp), 1x1 first), each from the same
+    masters (drawn on the card, kept in pinned host memory), the first
+    step of each with every reduced grad held to 1x1's (a key bias whose
+    grad is 0 but for rounding, `_zero_grad_leaf`, to FAMILY_TP_ZERO_GRAD
+    of its query bias's largest) and a second timed alone.  Each
+    position's leaf bytes are the dry-run's reckoning (`held_bytes`),
+    the largest against 1x1's printed.  With `f32_floor`, a float32 1x1
+    step runs first, and a leaf past `grad_rel_l2` of 1x1's bf16 grad
+    passes where its rel L2 to the float32 grad is at most 1x1's own
+    plus `grad_rel_l2` (the bf16 step's error on it).  The MoE family's
+    aux loss is held to 1x1's too, and its routes recorded in the
+    checked step: a model group's positions alike, the claims that
+    differ from 1x1's counted."""
     import gc
 
     import torch
 
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.registry import build_model
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(full, n_layers=layers)
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, n_enc_layers=enc_layers))
     moe = cfg.moe is not None
     card_named = dict(build_model(cfg).init(seed=0, draw_on="cuda")
                       .named_parameters())
@@ -5629,25 +5846,76 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
     # the float32 gathers of its local pieces (4 B a dp group alive: one
     # at a time, the MoE family's two together)
     reckoned = (16 + 4 * (2 if moe else 1)) * n_params / 1e9
+    cut = (f"{enc_layers} + {cfg.n_layers} of {full.encdec.n_enc_layers} "
+           f"+ {full.n_layers}" if enc_layers is not None
+           else f"{cfg.n_layers} of {full.n_layers}")
     print(f"{what} ({card}): {cfg.name} at full width ({describe(cfg)}), "
-          f"cut to {cfg.n_layers} of {full.n_layers} layers: {n_params} "
+          f"cut to {cut} layers: {n_params} "
           f"float32 masters from seed 0; 2x2 FSDP peak reckoned "
           f"{reckoned:.1f} GB before activations; drawn and copied to "
           f"pinned host memory in {time.perf_counter() - t_phase:.2f} s",
           flush=True)
+    def rel_l2(g, h):
+        return float(torch.linalg.vector_norm((g - h).float())
+                     / torch.linalg.vector_norm(h.float()).clamp_min(1e-30))
+
     grads1: dict = {}
     pinned = _pinned_buffers(host)
-    rows, first, routes1 = [], None, None
+    rows, first, routes1, held1 = [], None, None, None
+    zero = {n: _zero_grad_leaf(cfg, n) for n in host}
+    grads32, floor = ({}, {}) if f32_floor else (None, None)
+    if f32_floor:
+        import repro_torch.launch.steps as steps_mod
+        from repro_torch.models import lm as lm_mod
+        from repro_torch.models import whisper as whisper_mod
+
+        pinned32 = _pinned_buffers(host)
+        keep = (lm_mod.BACKBONE, whisper_mod.BACKBONE, steps_mod.COMPUTE_DTYPE)
+        lm_mod.BACKBONE = whisper_mod.BACKBONE = torch.float32
+        steps_mod.COMPUTE_DTYPE = torch.float32
+        try:
+            met32, _, ms32, peak32, *_ = _tp_step(
+                cfg, (1, 1), None, host,
+                lambda n, g: grads32.update({n: pinned32[n].copy_(g)}), shape)
+        finally:
+            lm_mod.BACKBONE, whisper_mod.BACKBONE, steps_mod.COMPUTE_DTYPE = \
+                keep
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{what} 1x1 float32 ({card}): backbone and products in "
+              f"float32, step {ms32:.2f} ms, peak {peak32[0]:.2f} GB, loss "
+              f"{float(met32['loss']):.6f}: the reference for the bf16 "
+              f"steps' own error", flush=True)
     for mesh_shape, fsdp in meshes:
-        worst = {"rel_l2": 0.0, "name": None, "n": 0}
+        worst = {"rel_l2": 0.0, "name": None, "n": 0, "zero": 0.0,
+                 "floored": {}}
+        tops: dict = {}
 
         def on_grad(name, g):
+            tops[name] = float(g.abs().max())
             if first is None:
                 grads1[name] = pinned[name].copy_(g)
+                if f32_floor and zero[name] is None:
+                    floor[name] = rel_l2(g, grads32[name].to(g.device))
                 return
             h = grads1[name].to(g.device)
-            rel = float(torch.linalg.vector_norm((g - h).float())
-                        / torch.linalg.vector_norm(h.float()).clamp_min(1e-30))
+            if zero[name] is not None:
+                # checked once every leaf has landed
+                worst["n"] += 1
+                return
+            rel = rel_l2(g, h)
+            if f32_floor and rel > grad_rel_l2:
+                # past phase 18's bound: held to the float32 grad, at the
+                # bf16 1x1 step's own error on it plus the bound
+                to32 = rel_l2(g, grads32[name].to(g.device))
+                check(to32 <= floor[name] + grad_rel_l2,
+                      f"{what} {mesh_shape}: grad {name} rel L2 {rel} to "
+                      f"1x1's bf16, "
+                      f"{to32} to the float32 step's (1x1's bf16 "
+                      f"{floor[name]}, tolerance + {grad_rel_l2})")
+                worst["floored"][name] = (rel, to32, floor[name])
+                worst["n"] += 1
+                return
             worst["n"] += 1
             if rel >= worst["rel_l2"]:
                 worst.update(rel_l2=rel, name=name)
@@ -5665,10 +5933,25 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
             calls.extend(rec)
 
         t_mesh = time.perf_counter()
-        met, ck, ms, peak, launches, nbytes, want, sent, pieces, up = \
+        met, ck, ms, peak, launches, nbytes, want, sent, pieces, up, held = \
             _tp_step(cfg, mesh_shape, fsdp, host, on_grad, shape, around)
         gc.collect()
         torch.cuda.empty_cache()
+        for n, q in zero.items():
+            if q is not None:
+                worst["zero"] = max(worst["zero"], tops[n] / tops[q])
+        check(worst["zero"] <= FAMILY_TP_ZERO_GRAD,
+              f"{what} {name}: a key bias's grad reached {worst['zero']} of "
+              f"its query bias's (tolerance {FAMILY_TP_ZERO_GRAD})")
+        mesh = make_mesh(mesh_shape, ("data", "model"),
+                         ["cuda:0"] * (mesh_shape[0] * mesh_shape[1]))
+        for f in range(mesh.size):
+            check(held[f] == dryrun.held_bytes(cfg, mesh, position=f,
+                                               fsdp=fsdp),
+                  f"{what} {name}: position {f}'s leaf bytes are not the "
+                  f"dry-run's")
+        held1 = held1 or held[0]
+        big = max(range(mesh.size), key=lambda f: sum(held[f].values()))
         check(not launches,
               f"{what} {name}: the steps launched kernels of ours "
               f"{launches}")
@@ -5681,10 +5964,21 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
                 f"({ck:.2f} with the grads read out), peak {peak[0]:.2f} "
                 f"GB ({peak[1]:.2f} with the read-out), "
                 f"state a position {nbytes[0]} bytes = {nbytes[0] / 1e9:.4f} "
-                f"GB (dry-run {want}), dry-run sends "
+                f"GB (dry-run {want}), leaves its loss reads: position "
+                f"{big}'s {sum(held[big].values())} bytes, "
+                f"{sum(held[big].values()) / sum(held1.values()):.4f} of "
+                f"1x1's, its layers' {_layer_bytes(held[big], cfg)} "
+                f"({_layer_bytes(held[big], cfg) / _layer_bytes(held1, cfg):.4f}"
+                f" of 1x1's), each position's the dry-run's; dry-run sends "
                 f"{sent['total_bytes'] / 1e9:.4f} GB a position a step "
                 f"({sent['bytes']['activation all-reduce'] / 1e9:.4f} GB "
                 f"activations' all-reduces")
+        other = {k: v for k, v in sent["bytes"].items()
+                 if k.startswith("activation ") and v
+                 and k != "activation all-reduce"}
+        if other:
+            line += ", " + ", ".join(f"{v / 1e9:.4f} GB {k[11:]}"
+                                     for k, v in other.items())
         if moe:
             routes = _group_routes(f"{what} {name}", calls, *mesh_shape,
                                    cfg.n_layers)
@@ -5711,6 +6005,15 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
                      f"worst leaf grad rel L2 {worst['rel_l2']:.3e} "
                      f"({worst['name']}, tolerance {grad_rel_l2}); "
                      f"{pieces} replicated pieces bitwise equal")
+            if worst["floored"]:
+                n_f, (rel, to32, fl) = max(worst["floored"].items(),
+                                           key=lambda kv: kv[1][1] - kv[1][2])
+                line += (f"; {len(worst['floored'])} leaves past it held to "
+                         f"the float32 step at 1x1's bf16 error + "
+                         f"{grad_rel_l2} "
+                         f"({sorted(worst['floored'])}; closest {n_f}: rel "
+                         f"L2 {rel:.3e} to 1x1, {to32:.3e} to float32, 1x1's "
+                         f"{fl:.3e})")
             if moe:
                 xa, xb = met["aux_loss"], first["aux_loss"]
                 check(abs(xa - xb) <= loss_rtol * abs(xb),
@@ -5723,11 +6026,16 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
                          f"(token, k) claims of its own on another expert "
                          f"than 1x1's, the checked step teacher-forced to "
                          f"1x1's; a model group's positions routed alike")
+        if any(zero.values()):
+            line += (f"; key biases' largest grad at most "
+                     f"{worst['zero']:.3e} of their query biases' "
+                     f"(tolerance {FAMILY_TP_ZERO_GRAD})")
         print(line + f"; no launch of a kernel of ours; this mesh "
               f"{time.perf_counter() - t_mesh:.2f} s, the state's upload "
               f"{up:.2f} s", flush=True)
         rows.append(dict(mesh=name, ms=ms, peak_gb=peak[0],
-                         state=nbytes[0]))
+                         state=nbytes[0], held=sum(held[big].values()),
+                         layers_held=_layer_bytes(held[big], cfg)))
     del host, grads1
     gc.collect()
     torch.cuda.empty_cache()
@@ -6041,6 +6349,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     front_door = front_door_phase(card)
     print(f"chip_smoke wall after phase 20: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    family_tp_phase(card)
+    print(f"chip_smoke wall after phase 21: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a

@@ -20,15 +20,20 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
     1) / n of its gathered bytes, n its distinct pieces, a position
     reading the one it holds from itself; under tensor
     parallelism a leaf split on whole units over "model" is gathered
-    over the other axes only, its "model" piece of 1 / m of it), its
-    grad's reduce-scatter (the same fraction of the grad) and, among the
-    r positions holding one piece, an all-reduce (2 (r - 1) / r of the
-    piece); and under tensor parallelism over a "model" axis of m > 1
-    the activations' all-reduces of each model group
+    over the other axes only, its "model" piece of 1 / m of it, a packed
+    leaf's cut (`sharding.model_cut`) from the positions that hold its
+    parts, and a leaf that only a group's first position uses not at
+    all on the others), its grad's reduce-scatter (the same bytes) and,
+    among the r positions holding one piece, an all-reduce (2 (r - 1) /
+    r of the piece); and under tensor parallelism over a "model" axis of
+    m > 1 the activations' collectives of each model group
     (`tensor_parallel.activation_collectives`: a layer's attention and
-    MLP partials forward and backward (the MoE's combine with its
-    always-on FFNs' columns), the attention's again in remat's
-    recompute, the embedding's and the cross-entropy's); for the MoE
+    MLP partials all-reduced forward and backward (the MoE's combine
+    with its always-on FFNs' columns, the Mamba2 mixer's `out_proj` and
+    its norm's sum of squares, the mLSTM's `down`, whisper's
+    cross-attention), the attention's again in remat's recompute, the
+    mLSTM's all-gathers and reduce-scatters, the sLSTM's broadcast and
+    reduce, the embedding's and the cross-entropy's); for the MoE
     family over dp groups of more than one, each MoE layer's router
     statistics all-reduced over the dp axes once a microbatch (2 E + 1
     float32: the load-balance term is the whole microbatch's).
@@ -37,11 +42,8 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
     H100 node); the production meshes span 32 and
     64 nodes, and links between nodes are not modeled (no inter-node
     bandwidth is stated in the repo), so their `collective_s` is null
-    while their bytes are recorded.  Counted where the port's step has
-    a form to count: null for the families with no local form under
-    "tp" over "model" > 1 (the hybrid, SSM and audio families: their
-    loss runs once a group on leaves gathered whole), and for prefill
-    and decode, which have no sharded step in the port;
+    while their bytes are recorded.  Null for prefill and decode, which
+    have no sharded step in the port;
   * `roofline`: the terms, the dominant one, the 6 N D model FLOPs, the
     useful-FLOPs ratio and the roofline fraction, under the reference's
     keys, and `dominant_over`, the terms the dominant one and the
@@ -75,7 +77,8 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.lm import n_stacked_layers, stacked_ndim
 from repro_torch.models.registry import build_model, count_params, meta_model
 from repro_torch.parallel import tensor_parallel
-from repro_torch.parallel.sharding import (make_policy, model_local,
+from repro_torch.parallel.sharding import (cut_overlaps, make_policy,
+                                           model_cut, model_local,
                                            shard_count, shard_shape)
 
 RUNS = pathlib.Path(__file__).resolve().parents[3] / "runs" / "dryrun_torch"
@@ -193,58 +196,107 @@ def _model_group(cfg, mesh, policy):
     return m, (tensor_parallel.layout(cfg, specs, mesh) if m > 1 else None)
 
 
-def counts_collectives(cfg, mesh, **step_kw) -> bool:
-    """Whether `train_collectives` counts the step's collectives: not for
-    a family with no local form in model groups of more than one
-    position."""
-    m, lay = _model_group(cfg, mesh, _policy(cfg, mesh, step_kw))
-    return m == 1 or lay is not None
+def _group_first(mesh, policy, flat: int) -> bool:
+    """Whether position `flat` is its model group's first (its "model"
+    coordinate 0 where "model" is outside the dp axes)."""
+    return ("model" not in mesh.axis_names or "model" in policy.dp_axes
+            or mesh.coords(flat)["model"] == 0)
+
+
+def _gather_dtype(name: str, p, cast: bool) -> torch.dtype:
+    """The dtype a leaf moves in: `COMPUTE_DTYPE` where the compute cast
+    takes it (float32 of stacked rank >= 2), else its own."""
+    return steps_mod.COMPUTE_DTYPE if (
+        cast and p.dtype == torch.float32
+        and stacked_ndim(name, p) >= 2) else p.dtype
+
+
+def _held(cfg, mesh, policy, named: dict, specs: dict, m: int, lay,
+          flat: int, cast: bool) -> dict:
+    """{name: (the bytes position `flat` holds of it for its loss, the
+    bytes of it it reads from other positions)}: a whole leaf, its
+    "model" piece or its cut, in the gather's dtype; none of a leaf
+    only a group's first position uses, where `flat` is not that."""
+    first = _group_first(mesh, policy, flat)
+    out = {}
+    for name, p in named.items():
+        if lay is not None and not first and \
+                tensor_parallel.first_only(cfg, name):
+            continue
+        spec = specs[name]
+        n = shard_count(mesh, spec)
+        item = torch.empty((), dtype=_gather_dtype(name, p, cast)
+                           ).element_size()
+        nbytes = p.numel() * item
+        local = lay is not None and model_local(mesh, cfg, name, spec)
+        cut = model_cut(mesh, cfg, name, spec, tuple(p.shape), flat) \
+            if local else None
+        if cut is not None:
+            held = int(np.prod([sum(s.stop - s.start for s in segs)
+                                for segs in cut])) * item
+            read = sum(int(np.prod([s.stop - s.start for s in src])) * item
+                       for _, owners, src, _ in cut_overlaps(
+                           mesh, spec, tuple(p.shape), cut)
+                       if flat not in owners)
+        elif local:
+            pieces = n // m
+            held, read = nbytes // m, (pieces - 1) / pieces * nbytes / m
+        else:
+            held, read = nbytes, (n - 1) / n * nbytes
+        out[name] = (held, read)
+    return out
+
+
+def held_bytes(cfg, mesh, *, position: int = 0, **step_kw) -> dict:
+    """{name: bytes} of the leaves position `position` holds for its loss
+    in the step's model group (`steps.TrainStep.held` after a call)."""
+    policy = _policy(cfg, mesh, step_kw)
+    cast = policy.compute_dtype_cast or step_kw.get("cast_bf16", False)
+    named = steps_mod._master_named(cfg, steps_mod.meta_params(cfg))
+    m, lay = _model_group(cfg, mesh, policy)
+    held = _held(cfg, mesh, policy, named, policy.named_param_specs(named),
+                 m, lay, position, cast)
+    return {n: h for n, (h, _) in held.items()}
 
 
 def train_collectives(cfg, mesh, *, microbatches: int,
                       shape: shp.ShapeSpec | None = None, remat: bool = True,
-                      **step_kw) -> dict:
-    """The bytes a position sends in the port's sharded train step (see
-    the module's docstring) on a batch of `shape` (needed for the
-    activations' all-reduces of model groups), by collective kind, and
-    how many of each a position runs.  Raises `ValueError` where
-    `counts_collectives` is false."""
-    if not counts_collectives(cfg, mesh, **step_kw):
-        raise ValueError(f"{cfg.name}: the step's collectives on {mesh} are "
-                         f"not counted (see counts_collectives)")
+                      position: int = 0, **step_kw) -> dict:
+    """The bytes position `position` (default 0, a model group's first)
+    sends in the port's sharded train step (see the module's docstring)
+    on a batch of `shape` (needed for the activations' collectives of
+    model groups), by collective kind, and how many of each it runs."""
     policy = _policy(cfg, mesh, step_kw)
     cast = policy.compute_dtype_cast or step_kw.get("cast_bf16", False)
     named = steps_mod._master_named(cfg, steps_mod.meta_params(cfg))
     specs = policy.named_param_specs(named)
     m, lay = _model_group(cfg, mesh, policy)
-    out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0,
-           "activation all-reduce": 0.0, "router all-reduce": 0.0}
+    kinds = ("all-gather", "reduce-scatter", "all-reduce") + \
+        tensor_parallel.ACTIVATION_KINDS + ("router all-reduce",)
+    out = {k: 0.0 for k in kinds}
     count = {k: 0 for k in out}
+    held = _held(cfg, mesh, policy, named, specs, m, lay, position, cast)
     for name, p in named.items():
         n = shard_count(mesh, specs[name])
         r = mesh.size // n
-        dtype = steps_mod.COMPUTE_DTYPE if (
-            cast and p.dtype == torch.float32
-            and stacked_ndim(name, p) >= 2) else p.dtype
-        nbytes = p.numel() * torch.empty((), dtype=dtype).element_size()
-        gathered, pieces = nbytes, n
-        if lay is not None and model_local(mesh, cfg, name, specs[name]):
-            gathered, pieces = nbytes / m, n // m
-        if pieces > 1:
+        _, read = held.get(name, (0, 0.0))
+        if read > 0:
             for kind in ("all-gather", "reduce-scatter"):
-                out[kind] += microbatches * (pieces - 1) / pieces * gathered
+                out[kind] += microbatches * read
                 count[kind] += microbatches
         if r > 1:
+            nbytes = p.numel() * torch.empty(
+                (), dtype=_gather_dtype(name, p, cast)).element_size()
             out["all-reduce"] += microbatches * 2 * (r - 1) / r * nbytes / n
             count["all-reduce"] += microbatches
     if lay is not None:
         if shape is None:
-            raise ValueError("the activations' all-reduces need the shape")
+            raise ValueError("the activations' collectives need the shape")
         rows = shape.batch // (microbatches * (mesh.size // m))
-        sent, calls = tensor_parallel.activation_collectives(
-            cfg, lay, m, rows, shape.seq, remat=remat)
-        out["activation all-reduce"] = microbatches * sent
-        count["activation all-reduce"] = microbatches * calls
+        for kind, (sent, calls) in tensor_parallel.activation_collectives(
+                cfg, lay, m, rows, shape.seq, remat=remat).items():
+            out[kind] = microbatches * sent
+            count[kind] = microbatches * calls
     dp = mesh.size // m
     if cfg.moe is not None and dp > 1:
         layers = microbatches * n_stacked_layers(cfg)
@@ -300,8 +352,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         rec.update(status="error", error=f"ValueError: {e}")
         out_path.write_text(json.dumps(rec, indent=1))
         return rec
-    runs = shape.kind == "train" and counts_collectives(cfg, mesh, **kw)
-    coll = train_collectives(cfg, mesh, shape=shape, **kw) if runs else None
+    coll = (train_collectives(cfg, mesh, shape=shape, **kw)
+            if shape.kind == "train" else None)
     ana = analytic_terms(cfg, shape, chips)
     terms = {"compute_s": ana["compute_s"], "memory_s": ana["memory_s"],
              "collective_s": collective_seconds(coll, mesh)}

@@ -14,11 +14,11 @@ every microbatch.  Under ZeRO-3 (`model_strategy="fsdp"`) and where the
 cast to bf16 before the gather) and runs the loss and the backward
 alone.  Under tensor parallelism (`model_strategy="tp"`, the default)
 over a "model" axis larger than 1, the positions of a dp index form a
-model group that runs one microbatch in lockstep: for the dense, VLM
-and MoE families each position gathers its "model" piece of the heads,
-FFN, experts and vocabulary over the dp / FSDP axes and runs them,
-partial sums all-reduced (`parallel.tensor_parallel`); the other
-families run their loss once a group, on leaves gathered whole.  The
+model group that runs one microbatch in lockstep: each position
+gathers its "model" piece of the heads, FFN, experts, vocabulary and
+mixers over the dp / FSDP axes (a packed leaf's cut: `sharding
+.model_cut`) and runs them, partial sums all-reduced
+(`parallel.tensor_parallel`).  The
 MoE family's load-balance loss is taken over the whole microbatch: its
 dp groups' router statistics are summed before the aux loss, and the
 microbatch takes one backward.  Each grad is reduce-scattered into the
@@ -48,12 +48,14 @@ from repro_torch.models import lm, whisper
 from repro_torch.models.registry import build_model, meta_model
 from repro_torch.optim import adamw
 from repro_torch.parallel import tensor_parallel
-from repro_torch.parallel.sharding import (ShardingPolicy, full_shape,
+from repro_torch.parallel.sharding import (ShardingPolicy, cut_overlaps,
+                                           full_shape, gather_cut,
                                            gather_over, gather_shards,
-                                           holders, make_policy,
+                                           holders, make_policy, model_cut,
                                            model_local, pieces_in, region,
                                            shard_count, shard_key,
-                                           shard_slices, shard_tensor)
+                                           shard_shape, shard_slices,
+                                           shard_tensor)
 
 
 def default_opt_cfg(cfg: ArchConfig) -> adamw.AdamWConfig:
@@ -121,6 +123,9 @@ class TrainStep:
     opt_cfg: adamw.AdamWConfig
     device: torch.device     # the one device, or the mesh's first position
     policy: ShardingPolicy | None = None   # a mesh's step only
+    # a mesh's step: {position: {name: bytes of the leaf its last loss
+    # read}}, written by each call
+    held: dict = dataclasses.field(default_factory=dict)
 
 
 def _view(module: nn.Module, tensors: dict, prefix: str = ""):
@@ -457,14 +462,16 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     A group of one position gathers every parameter whole onto its
     device (each piece from its first holder; under ZeRO-3's
     `compute_dtype_cast` cast to `COMPUTE_DTYPE` before the move) and
-    runs the loss and the backward.  A group of m runs the dense, VLM and
-    MoE families' local form (`tensor_parallel.group_loss`): each
-    position gathers its "model" piece of each leaf that the policy
-    splits on whole units over the other axes (`gather_over`; its own
-    shard where nothing is to gather) and every other leaf whole, and
-    the group's graph all-reduces the partial sums; every other family
-    runs its loss once, on the group's first position, on leaves
-    gathered whole.  The MoE family runs every group's forward of a
+    runs the loss and the backward.  A group of m runs the local form
+    (`tensor_parallel.group_loss`): each position gathers its "model"
+    piece of each leaf that the policy splits on whole units over the
+    other axes (`gather_over`; its own shard where nothing is to
+    gather), its cut of a packed leaf (`gather_cut` of `model_cut`'s
+    columns, from the positions that hold them), every other leaf whole
+    and nothing of a leaf only the group's first position uses
+    (`tensor_parallel.first_only`), and the group's graph all-reduces
+    the partial sums.  `TrainStep.held` records the bytes of each
+    position's leaves.  The MoE family runs every group's forward of a
     microbatch (`lm.lm_loss_parts`, `tensor_parallel.group_parts`), then
     one backward of the microbatch's loss: the mean of the groups'
     cross-entropies plus `lm.router_aux` of their router statistics
@@ -472,11 +479,12 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     reference's loss over the microbatch's whole rows; its groups'
     gathers are alive together until that backward.  As
     each leaf's grad lands (`register_post_accumulate_grad_hook`; a local
-    leaf's grad is its "model" piece) its pieces are added into one sum
-    a distinct piece, on the piece's first holder, in `accum_dtype`, and
-    the grad is freed.  The sums are divided by dp x microbatches (one
-    loss a group); AdamW's clip reads the global grad norm, each
-    distinct piece's squares summed once; then every position updates
+    leaf's grad is its "model" piece, a cut's its parts of several
+    pieces) its pieces are added into one sum a distinct piece, on the
+    piece's first holder, in `accum_dtype`, and the grad is freed.  The
+    sums are divided by dp x microbatches (one loss a group); AdamW's
+    clip reads the global grad norm, each distinct piece's squares
+    summed once; then every position updates
     its own shards with the grads of its pieces (replicas of a piece get
     the same bits, so they stay equal).  The loss is the mean of the
     groups' microbatch losses, the other metrics the last microbatch's
@@ -517,16 +525,28 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
         groups[dp_index(f)].append(f)
 
     @functools.lru_cache(maxsize=None)
-    def covers(name: str, f: int) -> tuple:
-        """(key, first holder, index in the grad) of each piece of
-        `name` that position f's tensor covers: all of them for a whole
-        leaf, those inside its "model" piece for a local one."""
-        spec, shape = specs[name], shapes[name]
+    def cut_of(name: str, f: int):
+        """Position f's cut of a packed local leaf, else None."""
         if not local[name]:
-            return tuple((key, owners[0], shard_slices(mesh, spec, shape, key))
-                         for key, owners in pieces[name])
-        return tuple((key, owners[0], at) for key, owners, at in pieces_in(
-            mesh, spec, shape, region(mesh, spec, shape, f)))
+            return None
+        return model_cut(mesh, cfg, name, specs[name], shapes[name], f)
+
+    @functools.lru_cache(maxsize=None)
+    def covers(name: str, f: int) -> tuple:
+        """(key, first holder, index in the grad, index in the piece or
+        None for all of it) of each piece of `name` that position f's
+        tensor covers: all of them for a whole leaf, those inside its
+        "model" piece for a local one, parts of several for a cut."""
+        spec, shape = specs[name], shapes[name]
+        if cut_of(name, f) is not None:
+            return tuple((key, owners[0], dst, src) for key, owners, src, dst
+                         in cut_overlaps(mesh, spec, shape, cut_of(name, f)))
+        if not local[name]:
+            return tuple((key, owners[0], shard_slices(mesh, spec, shape, key),
+                          None) for key, owners in pieces[name])
+        return tuple((key, owners[0], at, None) for key, owners, at in
+                     pieces_in(mesh, spec, shape,
+                               region(mesh, spec, shape, f)))
 
     def train_step(state: MeshState, batch: dict) -> tuple[MeshState, dict]:
         if state.specs != specs or state.mesh is not mesh:
@@ -551,31 +571,49 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
 
             def hook(t: torch.Tensor) -> None:
                 g, t.grad = t.grad, None
-                for key, owner, at in where:
+                for key, owner, at, within in where:
                     piece = g[at]
                     dev = mesh.device(owner)
-                    if key in sums[name]:
+                    if within is not None:       # a part of the piece
+                        if key not in sums[name]:
+                            sums[name][key] = torch.zeros(
+                                shard_shape(mesh, specs[name], shapes[name]),
+                                dtype=acc_dt, device=dev)
+                        sums[name][key][within] += piece.to(dev, acc_dt)
+                    elif key in sums[name]:
                         sums[name][key].add_(piece.to(dev, acc_dt))
                     else:
                         sums[name][key] = piece.to(dev, acc_dt, copy=True)
             return hook
 
-        def leaves(f: int, use_local: bool) -> dict:
+        def leaves(f: int, use_local: bool, first: bool = True) -> dict:
             """Position f's leaves for its loss, each a leaf of the graph
-            with its grad hook."""
+            with its grad hook (None for a leaf that only a group's first
+            position uses, where f is not that)."""
             dev, held = mesh.device(f), {}
             with torch.no_grad():
                 for n, spec in specs.items():
+                    if use_local and not first and \
+                            tensor_parallel.first_only(cfg, n):
+                        held[n] = None
+                        continue
                     owned = [s["params"][n] for s in state.shards]
                     dt = COMPUTE_DTYPE if cast and _casts(n, owned[0]) \
                         else None
-                    held[n] = (gather_over(owned, mesh, spec, f, dev, dt)
-                               if use_local and local[n] else
-                               gather_shards(owned, mesh, spec, dev, dt,
-                                             flat=f))
+                    c = cut_of(n, f) if use_local else None
+                    if c is not None:
+                        held[n] = gather_cut(owned, mesh, spec, c, f, dev, dt)
+                    elif use_local and local[n]:
+                        held[n] = gather_over(owned, mesh, spec, f, dev, dt)
+                    else:
+                        held[n] = gather_shards(owned, mesh, spec, dev, dt,
+                                                flat=f)
+            step.held[f] = {n: t.numel() * t.element_size()
+                            for n, t in held.items() if t is not None}
             for n, t in held.items():
-                t.requires_grad_(True)
-                t.register_post_accumulate_grad_hook(reducer(n, f))
+                if t is not None:
+                    t.requires_grad_(True)
+                    t.register_post_accumulate_grad_hook(reducer(n, f))
             return held
 
         def forward(members: list, mbs: list) -> tuple:
@@ -585,7 +623,8 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
             The graph holds the group's gathered leaves until its
             backward."""
             if lay is not None:
-                views = [_view(structure, leaves(f, True)) for f in members]
+                views = [_view(structure, leaves(f, True, k == 0))
+                         for k, f in enumerate(members)]
                 if moe:
                     return tensor_parallel.group_parts(views, mbs, cfg, lay,
                                                        remat=remat)
@@ -671,9 +710,10 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
             opt_metrics = opt_metrics or {k: v.to(dev0) for k, v in om.items()}
         return state, dict(metrics, **opt_metrics, loss=loss)
 
-    return TrainStep(fn=train_step,
+    step = TrainStep(fn=train_step,
                      batch_struct=shp.batch_struct(cfg, shp.SHAPES["train_4k"]),
                      opt_cfg=opt_cfg, device=dev0, policy=policy)
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -65,10 +65,13 @@ def init_mamba2(cfg: ArchConfig, generator: torch.Generator) -> Mamba2:
     return Mamba2(cfg, generator)
 
 
-def _split_proj(proj: torch.Tensor, cfg: ArchConfig):
-    """proj (..., 2 D_i + 2 G N + H) -> (x_in, z, B, C, dt), views."""
+def _split_proj(proj: torch.Tensor, cfg: ArchConfig, nh: int | None = None):
+    """proj (..., 2 D_i + 2 G N + H) -> (x_in, z, B, C, dt), views; `nh`
+    heads (default the config's: a tensor-parallel position passes its
+    own, D_i then nh x head dim)."""
     s = cfg.ssm
-    d_inner, nh = dims(cfg)
+    nh = dims(cfg)[1] if nh is None else nh
+    d_inner = nh * s.head_dim
     gn = s.n_groups * s.state
     return torch.split(proj, (d_inner, d_inner, gn, gn, nh), dim=-1)
 
@@ -78,8 +81,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+# the gated RMSNorm's epsilon
+NORM_EPS = 1e-6
+
+
 def _gated_rmsnorm(p: nn.Module, x: torch.Tensor, z: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = NORM_EPS) -> torch.Tensor:
     xf = (x * F.silu(z)).to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p.scale).to(x.dtype)
@@ -159,7 +166,21 @@ def _ssd_inter(cum: torch.Tensor, cg: torch.Tensor,
 
 def mamba2_fwd(p: Mamba2, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Chunked SSD forward.  x: (B, S, D) with S % min(chunk, S) == 0
-    (raises `ValueError` otherwise).  Returns (B, S, D) in x's dtype.
+    (raises `ValueError` otherwise).  Returns (B, S, D) in x's dtype:
+    `mamba2_mix`, the gated RMSNorm over D_i and `out_proj`."""
+    y, z = mamba2_mix(p, x, cfg)
+    y = _gated_rmsnorm(p.norm, y, z)
+    return y @ p.out_proj.to(x.dtype)
+
+
+def mamba2_mix(p: Mamba2, x: torch.Tensor,
+               cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mixer up to its gated norm: (y, z), each (B, S, H P) in x's
+    dtype, the SSD output with its skip term and the gate.  The heads
+    are the weights' (H = `a_log`'s length), so the same code runs a
+    tensor-parallel position's heads (`parallel.tensor_parallel`: its
+    x, z and dt columns of `in_proj` with the whole B and C) as it runs
+    the whole mixer.
 
     Memory: the intra-chunk decay and scores are (B, S/ch, H, ch, ch),
     2.68 GB in float32 and 1.34 GB in bf16 at zamba2-2.7b's 1 x 32768
@@ -170,7 +191,8 @@ def mamba2_fwd(p: Mamba2, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     per-head einsum."""
     s = cfg.ssm
     bsz, seq, _ = x.shape
-    d_inner, nh = dims(cfg)
+    nh = p.a_log.shape[0]
+    d_inner = nh * s.head_dim
     ch = min(s.chunk, seq)
     if seq % ch:
         raise ValueError(f"mamba2_fwd: sequence length {seq} is not a "
@@ -179,7 +201,7 @@ def mamba2_fwd(p: Mamba2, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dt_ = x.dtype
 
     proj = x @ p.in_proj.to(dt_)
-    x_in, z, b, c, dt = _split_proj(proj, cfg)
+    x_in, z, b, c, dt = _split_proj(proj, cfg, nh)
     conv_in = torch.cat([x_in, b, c], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, p.conv_w.to(dt_),
                                    p.conv_b.to(dt_)))
@@ -205,8 +227,7 @@ def mamba2_fwd(p: Mamba2, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     del h_prev
     y = y.permute(0, 1, 3, 2, 4).reshape(bsz, seq, nh, hdim)
     y = y + xh * p.d_skip.to(dt_)[:, None]
-    y = _gated_rmsnorm(p.norm, y.reshape(bsz, seq, d_inner), z)
-    return y @ p.out_proj.to(dt_)
+    return y.reshape(bsz, seq, d_inner), z
 
 
 def init_mamba2_state(cfg: ArchConfig, batch: int,

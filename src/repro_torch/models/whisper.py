@@ -72,9 +72,11 @@ def init_cross_attention(cfg: ArchConfig,
 
 
 def cross_kv(p: CrossAttention, enc: torch.Tensor, cfg: ArchConfig):
-    """The encoder output's keys and values, (B, F, H, Dh) each."""
+    """The encoder output's keys and values, (B, F, H, Dh) each; H is
+    the weights' (a tensor-parallel position's own heads, or all)."""
     b, f, _ = enc.shape
-    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    dh = cfg.resolved_head_dim
+    h = p.wk.shape[1] // dh
     k = (enc @ p.wk.to(enc.dtype)).reshape(b, f, h, dh)
     v = (enc @ p.wv.to(enc.dtype)).reshape(b, f, h, dh)
     return k, v
@@ -85,9 +87,12 @@ def cross_attention_fwd(p: CrossAttention, x: torch.Tensor, k: torch.Tensor,
     """x (B, S, D) attends over every frame of k / v (B, F, H, Dh).  The
     scores leave the einsum in x's dtype and are scaled in float32 (the
     reference divides by a NumPy scalar, which promotes); softmax in
-    float32, its probabilities back to x's dtype for P.V."""
+    float32, its probabilities back to x's dtype for P.V.  The heads are
+    the weights': on a tensor-parallel position's the result is its
+    partial sum of the output projection."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    dh = cfg.resolved_head_dim
+    h = p.wq.shape[1] // dh
     q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, dh)
     scores = torch.einsum("bshd,bfhd->bhsf", q, k).float() / float(
         np.float32(np.sqrt(dh)))

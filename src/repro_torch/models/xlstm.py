@@ -77,24 +77,43 @@ def init_mlstm(cfg: ArchConfig, generator: torch.Generator) -> MLSTM:
     return MLSTM(cfg, generator)
 
 
-def _mlstm_qkvif(p: MLSTM, x: torch.Tensor, cfg: ArchConfig):
-    """q, v (B, S, H, dh) in x's dtype, k float32 (scaled by 1/sqrt(dh)),
-    the log input and log forget gates (B, S, H) float32, and the output
-    gate silu(x W_gate) in x's dtype."""
-    b, s, _ = x.shape
-    _, nh, dh = dims(cfg)
+def mlstm_inputs(p: MLSTM, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The channel-wise part: (up, the output gate silu(x W_gate), the
+    conv path silu(conv(up))), each (B, S, C) in x's dtype over the
+    inner channels the weights hold (all of them, or a tensor-parallel
+    position's own: the conv is depthwise)."""
     up = x @ p.up.to(x.dtype)
     gate = F.silu(x @ p.gate.to(x.dtype))
     conv = F.silu(_causal_conv(up, p.conv_w.to(x.dtype),
                                p.conv_b.to(x.dtype)))
-    q = (conv @ p.wq.to(x.dtype)).reshape(b, s, nh, dh)
-    k = (conv @ p.wk.to(x.dtype)).reshape(b, s, nh, dh).float() / \
-        _k_scale(dh)
-    v = (up @ p.wv.to(x.dtype)).reshape(b, s, nh, dh)
-    if_ = conv @ p.w_if.to(x.dtype) + p.b_if.to(x.dtype)
+    return up, gate, conv
+
+
+def mlstm_heads(p: MLSTM, up: torch.Tensor, conv: torch.Tensor,
+                cfg: ArchConfig) -> tuple[torch.Tensor, ...]:
+    """q, v (B, S, H, dh) in up's dtype, k float32 (scaled by 1/sqrt(dh)),
+    the log input and log forget gates (B, S, H) float32, from the whole
+    `up` and `conv` (B, S, inner).  H is the weights' (`w_if`'s width /
+    2: a tensor-parallel position's own heads, or all)."""
+    b, s, _ = up.shape
+    dh = dims(cfg)[2]
+    nh = p.w_if.shape[1] // 2
+    dt = up.dtype
+    q = (conv @ p.wq.to(dt)).reshape(b, s, nh, dh)
+    k = (conv @ p.wk.to(dt)).reshape(b, s, nh, dh).float() / _k_scale(dh)
+    v = (up @ p.wv.to(dt)).reshape(b, s, nh, dh)
+    if_ = conv @ p.w_if.to(dt) + p.b_if.to(dt)
     log_i = if_[..., :nh].float()
     log_f = F.logsigmoid(if_[..., nh:].float())
-    return q, k, v, log_i, log_f, gate
+    return q, k, v, log_i, log_f
+
+
+def _mlstm_qkvif(p: MLSTM, x: torch.Tensor, cfg: ArchConfig):
+    """q, v (B, S, H, dh) in x's dtype, k float32 (scaled by 1/sqrt(dh)),
+    the log input and log forget gates (B, S, H) float32, and the output
+    gate silu(x W_gate) in x's dtype."""
+    up, gate, conv = mlstm_inputs(p, x)
+    return (*mlstm_heads(p, up, conv, cfg), gate)
 
 
 def _mlstm_step(c, n, m, q, k, v, li, lf):
@@ -147,14 +166,22 @@ def mlstm_fwd_chunked(p: MLSTM, x: torch.Tensor,
     result.  A Python loop carries the states over the S / chunk chunk
     boundaries.  S must be a multiple of min(chunk, S), else
     `ValueError`."""
-    b, s, _ = x.shape
-    inner, nh, dh = dims(cfg)
+    q, k, v, log_i, log_f, gate = _mlstm_qkvif(p, x, cfg)
+    h = mlstm_chunkwise(q, k, v, log_i, log_f, cfg).to(x.dtype)
+    return (h * gate) @ p.down.to(x.dtype)
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_i: torch.Tensor, log_f: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """The chunkwise cell of `mlstm_fwd_chunked` on the heads given (q,
+    k, v (B, S, H, dh), the gates (B, S, H)): h (B, S, H dh) float32."""
+    b, s, nh, dh = q.shape
     ch = min(cfg.xlstm.chunk, s)
     if s % ch:
         raise ValueError(f"sequence {s} is not a multiple of the mLSTM "
                          f"chunk {ch}")
     nch = s // ch
-    q, k, v, log_i, log_f, gate = _mlstm_qkvif(p, x, cfg)
     qc = q.reshape(b, nch, ch, nh, dh).float()
     kc = k.reshape(b, nch, ch, nh, dh)
     vc = v.reshape(b, nch, ch, nh, dh).float()
@@ -166,7 +193,7 @@ def mlstm_fwd_chunked(p: MLSTM, x: torch.Tensor,
     wu = li - cum_f               # insertion weight relative to the start
     dmat = cum_f[:, :, :, None, :] + wu[:, :, None, :, :]  # (B,N,t,u,H)
     mask = torch.tril(torch.ones((ch, ch), dtype=torch.bool,
-                                 device=x.device))[None, None, :, :, None]
+                                 device=q.device))[None, None, :, :, None]
     dexp = torch.where(mask, torch.exp(dmat), 0.0)
 
     scores = torch.einsum("bntha,bnuha->bntuh", qc, kc) * dexp
@@ -180,7 +207,7 @@ def mlstm_fwd_chunked(p: MLSTM, x: torch.Tensor,
     n_in = torch.einsum("bnuha,bnuh->bnha", kc, w_in)
     in_max = (wu + seg[:, :, None, :]).amax(2)            # (B,N,H)
 
-    f32 = dict(dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
     c = torch.zeros((b, nh, dh, dh), **f32)
     n = torch.zeros((b, nh, dh), **f32)
     m = torch.full((b, nh), -torch.inf, **f32)
@@ -200,8 +227,7 @@ def mlstm_fwd_chunked(p: MLSTM, x: torch.Tensor,
     den = den_intra + den_inter
     m_abs = torch.maximum(local_max, m_prev[:, :, None, :] + cum_f)
     h = num / torch.maximum(torch.abs(den), torch.exp(m_abs))[..., None]
-    h = h.reshape(b, s, inner).to(x.dtype)
-    return (h * gate) @ p.down.to(x.dtype)
+    return h.reshape(b, s, nh * dh)
 
 
 def init_mlstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:

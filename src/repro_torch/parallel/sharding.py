@@ -29,6 +29,7 @@ leading layer entry.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any
 
 import numpy as np
@@ -504,24 +505,38 @@ def _gather(shards: list[torch.Tensor], mesh, spec: tuple,
 
 
 def model_local(mesh, cfg: ArchConfig, name: str, spec: tuple) -> bool:
-    """Whether parameter `name` (a state-dict name of the LM) is split
-    over "model" on whole units, so a position can use its piece as it
-    stands (tensor parallelism): the columns of `blocks.<i>.attn.wq` /
-    `bq` and the rows of `attn.wo` where the heads divide the axis, the
-    columns of `attn.wk` / `wv` / `bk` / `bv` where the KV heads do, the
-    MLP's `ffn.wi` / `wg` / `bi` columns and `ffn.wo` rows, the rows of
-    `emb` and the columns of `head` (the vocabulary).  False for every
-    other leaf, and for these where `spec` does not split them over
-    "model" (the policy's `_maybe`) or splits another dimension: e.g.
-    the single KV head of an MQA config, which the policy splits inside
-    the head dimension.  MLA's `attn.wq`, `w_uk` and `w_uv` columns and
-    `wo` rows are local where the heads divide the axis; its `w_dkv` and
-    `w_kr`, split inside the latent, and its `kv_norm` are not.  The
-    MoE's experts `ffn.wi` / `wg` / `wo` (E, ., .) are local where the
-    spec splits dimension 0, whole experts; the always-on `ffn.shared`
-    and `ffn.dense` split as an MLP's, local where each of them is
-    split (their partial sums share one all-reduce); `ffn.router` is
-    not."""
+    """Whether parameter `name` (a state-dict name of the LM or of
+    `whisper.Whisper`) is split over "model" on whole units, so a
+    position can use its piece (or, for a packed leaf, its cut:
+    `model_cut`) as it stands (tensor parallelism): the columns of
+    `blocks.<i>.attn.wq` / `bq` and the rows of `attn.wo` where the heads
+    divide the axis, the columns of `attn.wk` / `wv` / `bk` / `bv` where
+    the KV heads do, the MLP's `ffn.wi` / `wg` / `bi` columns and
+    `ffn.wo` rows, the rows of `emb` and the columns of `head` (the
+    vocabulary).  False for every other leaf, and for these where `spec`
+    does not split them over "model" (the policy's `_maybe`) or splits
+    another dimension: e.g. the single KV head of an MQA config, which
+    the policy splits inside the head dimension.  MLA's `attn.wq`,
+    `w_uk` and `w_uv` columns and `wo` rows are local where the heads
+    divide the axis; its `w_dkv` and `w_kr`, split inside the latent, and
+    its `kv_norm` are not.  The MoE's experts `ffn.wi` / `wg` / `wo` (E,
+    ., .) are local where the spec splits dimension 0, whole experts;
+    the always-on `ffn.shared` and `ffn.dense` split as an MLP's, local
+    where each of them is split (their partial sums share one
+    all-reduce); `ffn.router` is not.
+
+    The hybrid family's Mamba2 `mamba.in_proj` / `conv_w` / `conv_b`
+    (columns) and `out_proj` (rows) are local where its SSM heads divide
+    the axis (the policy's "ssm_heads") with one B/C group, and its
+    shared block's `shared.attn.*` / `shared.ffn.*` as a layer's
+    attention (its own head counts) and MLP.  The SSM family's mLSTM
+    `mlstm.up` / `gate` / `conv_w` / `wq` / `wk` / `wv` / `w_if`
+    (columns) and `down` (rows) are local where its heads divide the
+    axis.  whisper's `enc_blocks.<i>` and `dec_blocks.<i>` attention and
+    MLP are a layer's, its cross-attention `dec_blocks.<i>.xattn.wq` /
+    `wk` / `wv` (columns) and `wo` (rows) where the heads divide.  The
+    replicated leaves (`a_log`, `dt_bias`, `d_skip`, the norms,
+    `mlstm.b_if` / `conv_b`, the whole sLSTM, `pos_emb`) are not."""
     dims = [i for i, e in enumerate(spec) if "model" in _axes(e)]
     if len(dims) != 1 or ("model",) != _axes(spec[dims[0]]):
         return False
@@ -529,9 +544,31 @@ def model_local(mesh, cfg: ArchConfig, name: str, spec: tuple) -> bool:
     last = len(spec) - 1
     if name in ("emb", "head"):
         return dim == (0 if name == "emb" else 1)
-    if len(parts) < 4 or parts[0] != "blocks":
+    if parts[0] == "shared" and cfg.hybrid is not None:
+        # zamba2's shared block, unstacked: a layer with its own heads
+        parts = ["blocks", "shared"] + parts[1:]
+        cfg = dataclasses.replace(cfg, n_heads=cfg.hybrid.attn_heads,
+                                  n_kv_heads=cfg.hybrid.attn_kv_heads)
+    if len(parts) < 4 or parts[0] not in ("blocks", "enc_blocks",
+                                          "dec_blocks"):
         return False
     sub, leaf = parts[2], parts[-1]
+    if sub == "mamba" and len(parts) == 4:
+        s = cfg.ssm
+        if (s.expand * cfg.d_model // s.head_dim) % m or s.n_groups != 1:
+            return False
+        if leaf in ("in_proj", "conv_w", "conv_b"):
+            return dim == last
+        return leaf == "out_proj" and dim == 0
+    if sub == "mlstm" and len(parts) == 4:
+        if cfg.n_heads % m:
+            return False
+        if leaf in ("up", "gate", "conv_w", "wq", "wk", "wv", "w_if"):
+            return dim == last
+        return leaf == "down" and dim == 0
+    if sub == "xattn" and len(parts) == 4:
+        return leaf in ("wq", "wk", "wv", "wo") and cfg.n_heads % m == 0 \
+            and dim == (0 if leaf == "wo" else last)
     if sub == "attn" and len(parts) == 4:
         if cfg.mla is not None:
             return (leaf in ("wq", "w_uk", "w_uv", "wo")
@@ -558,3 +595,89 @@ def model_local(mesh, cfg: ArchConfig, name: str, spec: tuple) -> bool:
     if leaf in ("wi", "wg", "bi"):
         return dim == last
     return leaf == "wo" and dim == 0
+
+
+def model_cut(mesh, cfg: ArchConfig, name: str, spec: tuple,
+              shape: tuple[int, ...], flat: int):
+    """Position `flat`'s cut of a packed local leaf (`model_local`), whose
+    contiguous "model" piece is not its heads' columns: for each
+    dimension the segments of the whole leaf it holds, in order (every
+    dimension but the last gathered whole over the other axes, as
+    `region`).  With j its "model" coordinate of m: the Mamba2
+    `in_proj` (D, 2 D_i + 2 G N + H) packs [x, z, B, C, dt], so position
+    j holds the x, z and dt columns of its heads [j H / m, (j + 1) H / m)
+    and the whole B and C (one group, used by every head); `conv_w` /
+    `conv_b` (D_i + 2 G N) its x columns and B, C; the mLSTM's `w_if`
+    (inner, 2 H) packs [input gates, forget gates]: its heads' of each.
+    None for every other leaf (its cut is its `region`)."""
+    parts = name.split(".")
+    if (len(parts) != 4 or parts[0] != "blocks"
+            or (parts[2], parts[3]) not in (
+                ("mamba", "in_proj"), ("mamba", "conv_w"),
+                ("mamba", "conv_b"), ("mlstm", "w_if"))
+            or not model_local(mesh, cfg, name, spec)):
+        return None
+    j, m = mesh.coords(flat)["model"], mesh.shape["model"]
+
+    def own(lo: int, n: int) -> slice:
+        return slice(lo + j * n // m, lo + (j + 1) * n // m)
+
+    if parts[2] == "mlstm":
+        nh = shape[-1] // 2
+        cols = (own(0, nh), own(nh, nh))
+    else:
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        gn = s.n_groups * s.state
+        cols = (own(0, di),)
+        if parts[3] == "in_proj":
+            cols += (own(di, di), slice(2 * di, 2 * di + 2 * gn),
+                     own(2 * di + 2 * gn, di // s.head_dim))
+        else:
+            cols += (slice(di, di + 2 * gn),)
+    reg = region(mesh, spec, shape, flat)
+    return tuple((r,) for r in reg[:-1]) + (cols,)
+
+
+def cut_overlaps(mesh, spec: tuple, shape: tuple[int, ...],
+                 cut: tuple) -> list[tuple]:
+    """The parts of the pieces of a tensor of whole `shape` under `spec`
+    that lie in `cut` (`model_cut`'s segments): (key, holders, index in
+    the piece, index in the cut's tensor), keys in `holders`' order."""
+    out = []
+    for key, owners in holders(mesh, spec).items():
+        at = shard_slices(mesh, spec, shape, key)
+        per_dim = []
+        for a, segs in zip(at, cut):
+            pairs, off = [], 0
+            for sg in segs:
+                lo, hi = max(a.start, sg.start), min(a.stop, sg.stop)
+                if lo < hi:
+                    pairs.append((slice(lo - a.start, hi - a.start),
+                                  slice(off + lo - sg.start,
+                                        off + hi - sg.start)))
+                off += sg.stop - sg.start
+            per_dim.append(pairs)
+        for combo in itertools.product(*per_dim):
+            out.append((key, owners, tuple(c[0] for c in combo),
+                        tuple(c[1] for c in combo)))
+    return out
+
+
+def gather_cut(shards: list[torch.Tensor], mesh, spec: tuple, cut: tuple,
+               flat: int, device,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Position `flat`'s cut (`model_cut`) of the tensor whose pieces
+    are `shards` on `device`: each part read from `flat` where it holds
+    it, else from its first holder, cast to `dtype` (where given) before
+    it moves, as `_gather` reads them."""
+    shape = full_shape(mesh, spec, tuple(shards[0].shape))
+    out = torch.empty(tuple(sum(s.stop - s.start for s in segs)
+                            for segs in cut),
+                      dtype=dtype or shards[0].dtype, device=device)
+    for _, owners, src, dst in cut_overlaps(mesh, spec, shape, cut):
+        piece = shards[flat if flat in owners else owners[0]][src]
+        if dtype is not None:
+            piece = piece.to(dtype)
+        out[dst] = piece.to(device)
+    return out

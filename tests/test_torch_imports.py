@@ -16,7 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
 
-# The port's lint, operator CLI, docs checker and design-flow examples.
+# The port's lint, operator CLI, docs checker, design-flow examples and
+# LM examples (serving, CIM-in-the-loop training).
 EXTRAS = ([ROOT / "tools" / name for name in
            ("repro_torch_lint.py", "repro_torch_ctl.py",
             "check_docs_torch.py")]
@@ -47,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_tools_and_examples_load_no_jax():
-    """The port's lint, operator CLI, docs checker and design-flow
+    """The port's lint, operator CLI, docs checker, design-flow and LM
     examples load without JAX or the JAX package."""
     code = (
         "import importlib.util, sys\n"
@@ -57,7 +58,7 @@ def test_tools_and_examples_load_no_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n")
-    assert len(EXTRAS) == 7 and all(p.exists() for p in EXTRAS)
+    assert len(EXTRAS) == 9 and all(p.exists() for p in EXTRAS)
     out = subprocess.run([sys.executable, "-c", code, *map(str, EXTRAS)],
                          capture_output=True, text=True, cwd=ROOT,
                          timeout=300,

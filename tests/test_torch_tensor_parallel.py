@@ -13,8 +13,10 @@ KV head the policy splits inside the head dimension (granite,
 paligemma), QKV and MLP biases, learned positions and tied embeddings.
 With the bf16 backbone the 1x2 step is held to the reference's
 one-device step (`torch_port_helpers.ref_train_step`, unjitted) at
-`test_1x1_step_matches_reference`'s bounds.  The families with no local
-form run their loss once a group on leaves gathered whole.  The
+`test_1x1_step_matches_reference`'s bounds.  The hybrid, SSM and audio
+families, which ran their loss once a group on leaves gathered whole
+until they had a local form, run it on 1x2 here
+(`test_torch_family_tensor_parallel.py` holds them in full).  The
 dry-run's count of what the step sends is held to the calls the step
 makes, counted by wrapping its gather and all-reduce helpers.
 """
@@ -122,13 +124,16 @@ def test_tp_1x2_matches_reference():
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m",
                                   "whisper-large-v3"])
 def test_gathered_families_on_1x2(f32, arch):
-    """No local form: the group runs the loss once, on its first
-    position, every leaf gathered whole."""
+    """The three families that ran gathered (the loss once a group on
+    leaves whole) now run the local form on 1x2: a layout, the mixer or
+    the cross-attention local, and the step equal to 1x1's."""
     cfg, masters, batch = _inputs(arch)
     got = _mesh_step(cfg, masters, batch, (1, 2))
     want = _mesh_step(cfg, masters, batch, (1, 1))
     _assert_close(got[:2], want[:2])
-    assert tp.layout(cfg, got[2].specs, got[2].mesh) is None
+    lay = tp.layout(cfg, got[2].specs, got[2].mesh)
+    assert lay is not None and lay.vocab
+    assert lay.xattn if cfg.family == "audio" else lay.mixer
 
 
 @pytest.mark.parametrize("m", [1, 2, 4])
@@ -219,6 +224,10 @@ def test_kv_heads_of_each_position():
     assert tp.kv_heads_of(1, 2, 12, 3) == [1, 1, 2, 2, 2, 2]   # straddles
 
 
+_WHISPER_LOCAL = {"attn.wq", "attn.bq", "attn.wk", "attn.bk", "attn.wv",
+                  "attn.bv", "attn.wo", "ffn.wi", "ffn.wo"}
+
+
 @pytest.mark.parametrize("arch,m,want", [
     ("qwen3-8b", 4, {"emb", "head", "attn.wq", "attn.wk", "attn.wv",
                      "attn.wo", "ffn.wi", "ffn.wg", "ffn.wo"}),
@@ -226,21 +235,47 @@ def test_kv_heads_of_each_position():
                        "ffn.wi", "ffn.wg", "ffn.wo"}),
     ("granite-34b", 2, {"emb", "head", "attn.wq", "attn.bq", "attn.wo",
                         "ffn.wi", "ffn.wo"}),
-    ("paligemma-3b", 16, {"emb", "ffn.wi", "ffn.wg", "ffn.wo"})])
+    ("paligemma-3b", 16, {"emb", "ffn.wi", "ffn.wg", "ffn.wo"}),
+    ("zamba2-2.7b", 4, {"emb", "head", "mamba.in_proj", "mamba.conv_w",
+                        "mamba.conv_b", "mamba.out_proj", "shared.attn.wq",
+                        "shared.attn.wk", "shared.attn.wv", "shared.attn.wo",
+                        "shared.ffn.wi", "shared.ffn.wg", "shared.ffn.wo"}),
+    ("xlstm-125m", 4, {"emb", "head", "mlstm.up", "mlstm.gate",
+                       "mlstm.conv_w", "mlstm.wq", "mlstm.wk", "mlstm.wv",
+                       "mlstm.w_if", "mlstm.down"}),
+    ("xlstm-125m", 8, {"emb", "head"}),
+    ("whisper-large-v3", 2, {"emb"} | {f"{b}.{n}" for b in ("enc", "dec")
+                                       for n in _WHISPER_LOCAL}
+     | {f"dec.xattn.{n}" for n in ("wq", "wk", "wv", "wo")}),
+    ("whisper-large-v3", 4, {f"{b}.{n}" for b in ("enc", "dec")
+                             for n in _WHISPER_LOCAL}
+     | {f"dec.xattn.{n}" for n in ("wq", "wk", "wv", "wo")})])
 def test_which_leaves_are_local(arch, m, want):
     """Full configs: qwen2.5-3b's two KV heads on 4 and granite's one
     (which the policy splits inside the head dimension) stay whole, and
     so do the MLP biases the policy replicates; paligemma's eight heads
-    on 16 run whole."""
+    on 16 run whole.  zamba2's Mamba2 leaves the policy splits (80 SSM
+    heads over 4; `in_proj`, `conv_w` and `conv_b` local as cuts of
+    their packed columns) and its unstacked shared block; xlstm's mLSTM
+    but its replicated `conv_b` and `b_if` (its 4 heads do not divide 8:
+    whole there) and never the sLSTM; whisper's encoder and decoder
+    layers (its 51,866-row tied vocabulary divides 2, not 4), never the
+    norms, `pos_emb` or the replicated MLP biases."""
     cfg = registry.get(arch)
     mesh = make_mesh((1, m), ("data", "model"), device="cpu")
     specs = make_policy(mesh, cfg).named_param_specs(tsteps.meta_params(cfg))
-    got = {n.replace("blocks.0.", "") for n, s in specs.items()
-           if n.split(".")[:2] in (["blocks", "0"], ["emb"], ["head"])
-           and model_local(mesh, cfg, n, s)}
+    short = {"blocks.0.": "", "enc_blocks.0.": "enc.", "dec_blocks.0.": "dec."}
+    got = set()
+    for n, s in specs.items():
+        first = next((k for k in short if n.startswith(k)), None)
+        if (first or n in ("emb", "head") or n.startswith("shared.")) \
+                and model_local(mesh, cfg, n, s):
+            got.add(n.replace(first, short[first]) if first else n)
     assert got == want
     assert not any(model_local(mesh, cfg, n, s) for n, s in specs.items()
-                   if not n.startswith(("blocks.", "emb", "head")))
+                   if not n.startswith(("blocks.", "enc_blocks.",
+                                        "dec_blocks.", "shared.", "emb",
+                                        "head")))
 
 
 def test_gather_over_keeps_the_model_piece():
