@@ -514,14 +514,51 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
              after step 1 and resumed ending on the same parameters bit
              for bit.  The phase's and the script's wall times are
              printed.
-22. report — one JSON line of per-kernel numbers (the `wavefront` row's
+22. paper  — (a) the paper's result drivers (`repro_torch.paper`) in
+             process at their own budgets, held to
+             `src/repro_torch/_golden/paper_rows.json` (the reference's
+             drivers' outputs): Fig. 8's three 16 kb rows by the
+             sequential flow equal golden's but the clock (integers and
+             booleans exactly, floats to PAPER_RTOL), one `wavefront`
+             launch a net; Fig. 9 at 4 / 16 / 64 kb, pop 192 x 60, in
+             one `nsga2_evolve` launch: each front inside golden's
+             exhaustive front and covering ISLAND_COVER of it, the eight
+             trends golden's and all true; Fig. 10 in one launch: its
+             spans inside the exhaustive fronts' pooled spans, its flags
+             printed beside golden's and equal to the exhaustive ones
+             where its pooled front is the exhaustive one; Table 2's
+             times beside the card's name and power limit, its front
+             inside golden's 16 kb front; the SNR Monte-Carlo at its
+             five POINTS and MacroSpec(1024, 2, 2, 8): the analytic
+             column golden's to PAPER_RTOL, the noisy MC within
+             PAPER_SNR_BAND dB of it at the reference test's four
+             points, the noiseless one through `acim_matmul` (one
+             launch a point) bit-equal to `acim_matmul_ref` on the same
+             operands, and at B = 8 the noisy at most PAPER_SNR_NOISE dB
+             above the clean; the roofline over phase 17 (e)'s records
+             (a row for each, ok or not).  Each driver's seconds and
+             launches are printed.  (b) phase 18's qwen3-8b step with
+             int8 moments (`AdamWConfig(quantized_moments=True)`) on
+             1x1, 1x4 "tp" and 2x2-FSDP: loss and grads at phase 18's
+             bounds, the updated masters within the TRAIN_CHECK_* bounds
+             of 1x1's, each mesh's masters and int8 moments bit-equal to
+             one device's AdamW update of the whole leaves on its own
+             grads (a split leaf's scales its whole row's), the moments
+             against 1x1's within INT8_S_REL_L2 / INT8_Q_SHARE, the
+             scale row replicated over each leaf's column pieces, each
+             position's state bytes the dry-run's (its scale
+             all-reduces counted) and printed against phase 18's with
+             float32 moments.
+23. report — one JSON line of per-kernel numbers (the `wavefront` row's
              launches are phase 7's, by path; `nsga2_evolve` and
              `nds_rank` carry phase 8's as `mesh_launches`, `nds_rank`
              its migration-shape time; the (128, 128) flash row its
              launches on each prefill path, phases 5 and 14, as
              `launches_by_path`, with whisper-large-v3's (64, 64)
              launches of phase 16; `nsga2_evolve` and `route_slots`
-             phase 20's as `front_door_launches`), the nvidia-smi line,
+             phase 20's as `front_door_launches`; `nsga2_evolve`,
+             `wavefront` and `acim_matmul_wgmma` phase 22's under
+             `launches_by_path["paper_drivers"]`), the nvidia-smi line,
              and the contract line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -542,6 +579,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "src" / "repro_torch" / "_golden" / "layout_rows_16384.json"
+PAPER_GOLDEN = ROOT / "src" / "repro_torch" / "_golden" / "paper_rows.json"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the float32 /
 # int32 CUDA-core rate, for the roofline bound of each kernel.
@@ -871,6 +909,29 @@ FRONT_DOOR_SIZES = (4096, 16384, 65536)
 FRONT_DOOR_DISTILL = dict(min_tops=1.4, min_snr_db=20.0)
 FRONT_DOOR_TICKETS = 4
 FRONT_DOOR_LIMIT_S = 30.0
+
+
+# Phase 22 (a): the paper drivers against golden.  Floats of the
+# estimator to PAPER_RTOL (its `log10` / `pow` differ by ulps between
+# libraries and between the card and the host); the noisy SNR MC within
+# the reference test's band of the analytic column at its four points,
+# and at B = 8 at most PAPER_SNR_NOISE dB above the noiseless run.
+PAPER_SIZES = (4096, 16384, 65536)
+PAPER_RTOL = 1e-6
+PAPER_SNR_BAND = 2.0
+PAPER_SNR_NOISE = 0.5
+PAPER_SNR_EXTRA = (1024, 2, 2, 8)     # the reference test's MacroSpec
+# (b): int8 moments split on their last dimension, phase 18's config,
+# shape and meshes.  Against 1x1's, the grads differ by bf16 rounding in
+# another order (up to TP_GRAD_REL_L2 a leaf): each leaf's block scales
+# within INT8_S_REL_L2 of 1x1's (rel L2: a block of near-zero grads can
+# move its scale by several times itself) and the moments' q within one
+# step on at least INT8_Q_SHARE of the entries (measured on the H100:
+# scales 9.84e-3 / 8.41e-3 at 1x4 / 2x2-FSDP, a block's up to 4.6x; q
+# within one step on 0.99616 / 0.99700, equal on 0.916 / 0.920).
+INT8_MESHES = TP_TRAIN_MESHES
+INT8_S_REL_L2 = 2 * TP_GRAD_REL_L2
+INT8_Q_SHARE = 0.98
 
 
 def fail(msg: str) -> None:
@@ -5263,9 +5324,12 @@ def _replicas_equal(state) -> int:
             first = state.shards[owners[0]]
             for f in owners[1:]:
                 other = state.shards[f]
-                for a, b in ((first["params"][name], other["params"][name]),
-                             (first["opt"]["m"][name], other["opt"]["m"][name]),
-                             (first["opt"]["v"][name], other["opt"]["v"][name])):
+                pairs = [(first["params"][name], other["params"][name])]
+                for k in ("m", "v"):
+                    a, b = first["opt"][k][name], other["opt"][k][name]
+                    pairs += ([(a[sub], b[sub]) for sub in ("q", "s")]
+                              if isinstance(a, dict) else [(a, b)])
+                for a, b in pairs:
                     check(torch.equal(a, b),
                           f"mesh train: replicas of {name} differ")
     return n
@@ -5516,7 +5580,7 @@ def _pinned_buffers(like: dict) -> dict:
 
 
 def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
-             around=contextlib.nullcontext):
+             around=contextlib.nullcontext, opt_cfg=None, after=None):
     """Two "tp" steps of `cfg` on a ("data", "model") mesh of `shape`
     cuda:0 positions from the masters `named` (on the host) at
     `batch_shape` (batch, seq): the first calls `on_grad` with each
@@ -5526,7 +5590,9 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
     state's upload), their launches, each position's state bytes, the
     dry-run's, the dry-run's bytes a position sends, the replicated
     pieces found bitwise equal after the first, the state's upload
-    s, each position's {leaf: bytes} its loss read in the first)."""
+    s, each position's {leaf: bytes} its loss read in the first).
+    `opt_cfg` is the steps' AdamW (the config's default when None);
+    `after(state, metrics, mesh)` runs after the first step."""
     import torch
 
     from repro_torch.data.synthetic import batch_for
@@ -5537,7 +5603,7 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
 
     mesh = make_mesh(shape, ("data", "model"),
                      ["cuda:0"] * (shape[0] * shape[1]))
-    kw = dict(remat=True, model_strategy="tp", fsdp=fsdp)
+    kw = dict(remat=True, model_strategy="tp", fsdp=fsdp, opt_cfg=opt_cfg)
     checked = make_train_step(cfg, mesh, on_grad=on_grad, **kw)
     plain = make_train_step(cfg, mesh, **kw)
     torch.cuda.reset_peak_memory_stats()
@@ -5549,6 +5615,8 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
     with around():
         ((state, met), ms_checked), l1 = _counted(
             lambda: _sync_ms(lambda: checked.fn(state, batches[0])))
+    if after is not None:
+        after(state, met, mesh)
     held = dict(checked.held)
     met = {k: float(v) for k, v in met.items()}
     pieces = _replicas_equal(state)
@@ -5560,9 +5628,10 @@ def _tp_step(cfg, shape, fsdp, named, on_grad, batch_shape,
     nbytes = [state.position_bytes(f) for f in range(mesh.size)]
     del state
     cell = ShapeSpec("mesh_smoke", "train", s, b)
-    want = dryrun.position_bytes(cfg, cell, mesh, fsdp=fsdp)["state_bytes"]
+    want = dryrun.position_bytes(cfg, cell, mesh, fsdp=fsdp,
+                                 opt_cfg=opt_cfg)["state_bytes"]
     sent = dryrun.train_collectives(cfg, mesh, microbatches=1, shape=cell,
-                                    fsdp=fsdp)
+                                    fsdp=fsdp, opt_cfg=opt_cfg)
     launches = {k: l1.get(k, 0) + l2.get(k, 0) for k in {**l1, **l2}}
     return (met, ms_checked, ms, peak, launches, nbytes, want, sent, pieces,
             upload_ms / 1e3, held)
@@ -5800,7 +5869,8 @@ def _zero_grad_leaf(cfg, name: str) -> str | None:
 def _model_group_phase(card: str, what: str, full, layers: int, shape,
                        meshes, loss_rtol: float, grad_rel_l2: float,
                        describe, enc_layers: int | None = None,
-                       f32_floor: bool = False) -> dict:
+                       f32_floor: bool = False, opt_cfg=None,
+                       after=None) -> dict:
     """One "tp" step of `full` at full width cut to `layers` (and an
     encoder-decoder's encoder to `enc_layers`) on each of `meshes` of
     cuda:0 positions ((shape, fsdp), 1x1 first), each from the same
@@ -5815,7 +5885,10 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
     plus `grad_rel_l2` (the bf16 step's error on it).  The MoE family's
     aux loss is held to 1x1's too, and its routes recorded in the
     checked step: a model group's positions alike, the claims that
-    differ from 1x1's counted."""
+    differ from 1x1's counted.  `opt_cfg` is the steps' AdamW;
+    `after(mesh name, state, metrics, mesh, grads, masters)` runs after
+    each mesh's first step with its reduced grads (on the card) and the
+    masters (pinned host memory)."""
     import gc
 
     import torch
@@ -5893,6 +5966,8 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
 
         def on_grad(name, g):
             tops[name] = float(g.abs().max())
+            if after is not None:
+                kept[name] = g
             if first is None:
                 grads1[name] = pinned[name].copy_(g)
                 if f32_floor and zero[name] is None:
@@ -5933,8 +6008,13 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
             calls.extend(rec)
 
         t_mesh = time.perf_counter()
+        kept: dict = {}
+        hook = None if after is None else (
+            lambda st, mt, ms_, name=name: after(name, st, mt, ms_, kept, host))
         met, ck, ms, peak, launches, nbytes, want, sent, pieces, up, held = \
-            _tp_step(cfg, mesh_shape, fsdp, host, on_grad, shape, around)
+            _tp_step(cfg, mesh_shape, fsdp, host, on_grad, shape, around,
+                     opt_cfg=opt_cfg, after=hook)
+        kept.clear()
         gc.collect()
         torch.cuda.empty_cache()
         for n, q in zero.items():
@@ -6279,6 +6359,352 @@ def front_door_phase(card: str) -> dict:
     return total
 
 
+# ----------------------------------------------------------------------
+# Phase 22: the paper's result drivers, and int8 moments split on their
+# last dimension
+# ----------------------------------------------------------------------
+def _paper_row_diff(got: dict, want: dict) -> list:
+    """Keys where a driver's row differs from golden's: integers and
+    booleans exactly, floats beyond PAPER_RTOL."""
+    bad = [k for k in set(got) ^ set(want)]
+    for k in set(got) & set(want):
+        a, b = got[k], want[k]
+        if isinstance(b, float):
+            if not abs(a - b) <= PAPER_RTOL * abs(b):
+                bad.append(k)
+        elif a != b or type(a) is not type(b):
+            bad.append(k)
+    return sorted(bad)
+
+
+def _golden_front(golden: dict, size: int) -> set:
+    return {(r["h"], r["l"], r["b_adc"]) for r in golden["fronts"][str(size)]}
+
+
+def _nets(specs) -> int:
+    """The nets of two or more pins the sequential flow routes for
+    `specs`: one `wavefront` launch each."""
+    from repro_torch.eda import flow
+    from repro_torch.eda.placer import place
+
+    return sum(1 for s in specs
+               for _, pins in flow._top_level_nets(s, place(s))
+               if len(pins) >= 2)
+
+
+def paper_drivers_check(card: str) -> dict:
+    """(a) Each paper driver's `run()` on the card at its own budget,
+    held to the golden file; returns {kernel: launches on the drivers'
+    path}."""
+    import torch
+
+    from repro_torch.api import DesignSession
+    from repro_torch.core import acim_numerics as an
+    from repro_torch.core import estimator
+    from repro_torch.core.acim_spec import MacroSpec
+    from repro_torch.kernels.acim_matmul.ops import acim_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.paper import (fig8_layouts, fig9_design_space,
+                                   fig10_sota, roofline, snr_mc, table2_flow)
+
+    golden = json.loads(PAPER_GOLDEN.read_text())
+    total: dict = {}
+    seconds: dict = {}
+
+    def drive(what, fn):
+        t0 = time.perf_counter()
+        out, n = _counted(fn)
+        seconds[what] = time.perf_counter() - t0
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        return out, n
+
+    # Fig. 8: the sequential flow of three 16 kb specs
+    rows, n8 = drive("fig8", fig8_layouts.run)
+    specs = [spec for spec, _, _ in fig8_layouts.PAPER.values()]
+    nets = _nets(specs)
+    check(n8 == {"wavefront": nets},
+          f"paper fig8: launches {n8}, {nets} nets")
+    for r, want in zip(rows, golden["fig8"]):
+        got = {k: v for k, v in r.items() if k != "layout_seconds"}
+        bad = _paper_row_diff(got, want)
+        check(not bad, f"paper fig8 ({r['point']}): {bad} differ from golden")
+    check(len(rows) == len(golden["fig8"]) == 3, "paper fig8: rows")
+    print(f"paper fig8 ({card}): {len(rows)} rows equal to golden but the "
+          f"clock; layout s {[round(r['layout_seconds'], 3) for r in rows]}; "
+          f"{nets} wavefront launches (one a net); tops "
+          f"{[round(r['tops'], 4) for r in rows]} vs paper "
+          f"{[r['paper_tops'] for r in rows]}, estimator area "
+          f"{[round(r['est_area'], 1) for r in rows]} vs paper "
+          f"{[r['paper_area'] for r in rows]}", flush=True)
+
+    # Fig. 9 and Fig. 10: one dispatch each, on one session whose front
+    # cache then gives the fronts back
+    session = DesignSession()
+    out9, n9 = drive("fig9", lambda: fig9_design_space.run(session=session))
+    trends, _ = drive("fig9_trends", fig9_design_space.trend_checks)
+    check(n9 == {"nsga2_evolve": 1}, f"paper fig9: launches {n9}")
+    fronts = session.fronts_for(fig9_design_space.requests(PAPER_SIZES, 192,
+                                                           60))
+    cover = {}
+    for req, res in fronts.items():
+        keys = {(s.h, s.l, s.b_adc) for s in res.specs}
+        true = _golden_front(golden, req.array_size)
+        check(keys <= true, f"paper fig9 {req.array_size}: points off the "
+                            f"exhaustive front {sorted(keys - true)}")
+        check(len(keys) >= ISLAND_COVER * len(true),
+              f"paper fig9 {req.array_size}: covers {len(keys)} of "
+              f"{len(true)}")
+        cover[req.array_size] = f"{len(keys)}/{len(true)}"
+    check(trends == golden["fig9_trends"] and len(trends) == 8
+          and all(trends.values()), f"paper fig9 trends {trends}")
+    print(f"paper fig9 ({card}): fronts of {list(PAPER_SIZES)} at pop 192 x "
+          f"60 in one nsga2_evolve launch, inside the exhaustive fronts, "
+          f"covering {cover}; rows {out9}; the eight trends golden's, all "
+          f"true", flush=True)
+
+    out10, n10 = drive("fig10", lambda: fig10_sota.run(session=session))
+    check(n10 == {"nsga2_evolve": 1}, f"paper fig10: launches {n10}")
+    exh, ref = golden["fig10"]["exhaustive"], golden["fig10"]["reference_run"]
+    for k in ("ee", "area"):
+        lo, hi = out10[f"{k}_min"], out10[f"{k}_max"]
+        check(lo >= exh[f"{k}_min"] * (1 - PAPER_RTOL)
+              and hi <= exh[f"{k}_max"] * (1 + PAPER_RTOL),
+              f"paper fig10: {k} span [{lo}, {hi}] outside the exhaustive "
+              f"[{exh[f'{k}_min']}, {exh[f'{k}_max']}]")
+    pooled = {(req.array_size, s.h, s.l, s.b_adc)
+              for req, res in session.fronts_for(
+                  fig10_sota.requests(PAPER_SIZES)).items()
+              for s in res.specs}
+    whole = {(size, *key) for size in PAPER_SIZES
+             for key in _golden_front(golden, size)}
+    flags = ("ee_span_covers_paper", "area_span_covers_paper",
+             "sota_matched")
+    if pooled == whole:
+        check(all(out10[f] == exh[f] for f in flags),
+              f"paper fig10: flags {[out10[f] for f in flags]} on the "
+              f"exhaustive fronts, golden's {[exh[f] for f in flags]}")
+    print(f"paper fig10 ({card}): one nsga2_evolve launch; {out10}; golden "
+          f"(reference run) {[ref[f] for f in flags]}, golden (exhaustive) "
+          f"{[exh[f] for f in flags]}; the pooled fronts "
+          f"{'are' if pooled == whole else 'are not'} the exhaustive ones "
+          f"({len(pooled)} of {len(whole)} points)", flush=True)
+
+    # Table 2: its exploration, then two specs' sequential flow
+    out2, n2 = drive("table2", lambda: table2_flow.run(session=session))
+    front = session.run(table2_flow.REQUEST).pareto
+    sel = front.filter(min_tops=0.5).specs[:2] or front.specs[:2]
+    nets2 = _nets(sel)
+    check(n2 == {"nsga2_evolve": 1, "wavefront": nets2},
+          f"paper table2: launches {n2}, {nets2} nets")
+    keys = {(s.h, s.l, s.b_adc) for s in front.specs}
+    check(keys <= _golden_front(golden, 16384)
+          and out2["pareto_points"] == len(front),
+          f"paper table2: front off golden's 16 kb front "
+          f"{sorted(keys - _golden_front(golden, 16384))}")
+    print(f"paper table2 ({card}): explore_seconds "
+          f"{out2['explore_seconds']}, layout_seconds_per_solution "
+          f"{out2['layout_seconds_per_solution']} ({len(sel)} specs, "
+          f"{nets2} wavefront launches), {out2['pareto_points']} Pareto "
+          f"points inside golden's 16 kb front", flush=True)
+
+    # the SNR Monte-Carlo: its five points and the B = 8 spec
+    analytic = {(h, l, b): a for h, l, b, a in golden["snr_analytic"]}
+    t0 = time.perf_counter()
+    lines = []
+    for spec in ([MacroSpec(h, 64, l, b) for h, l, b in snr_mc.POINTS]
+                 + [MacroSpec(*PAPER_SNR_EXTRA)]):
+        h, l, b = spec.h, spec.l, spec.b_adc
+        ana = float(estimator.snr_total_db(h, l, b))
+        noisy, nn = drive("snr_mc", lambda: snr_mc.mc_snr_db(spec))
+        clean, nc = drive("snr_mc", lambda: snr_mc.mc_snr_db(spec,
+                                                             noisy=False))
+        check(not nn and nc == {"acim_matmul": 1, "acim_matmul_wgmma": 1},
+              f"paper snr {spec}: launches {nn} noisy, {nc} noiseless")
+        x, w = snr_mc.operands(spec, device="cuda")
+        got, want = acim_matmul(x, w, spec), an.acim_matmul_ref(x, w, spec)
+        check(torch.equal(got, want), f"paper snr {spec}: acim_matmul != "
+                                      f"acim_matmul_ref on its operands")
+        check(clean == snr_mc.snr_db(x @ w, want),
+              f"paper snr {spec}: the noiseless SNR is not the plain "
+              f"version's")
+        if spec.w == 64:
+            want_a = analytic[(h, l, b)]
+            check(abs(ana - want_a) <= PAPER_RTOL * abs(want_a),
+                  f"paper snr {spec}: analytic {ana} vs golden {want_a}")
+            if (h, l, b) in snr_mc.POINTS[:4]:
+                check(abs(noisy - ana) < PAPER_SNR_BAND,
+                      f"paper snr {spec}: MC {noisy} vs analytic {ana}")
+        else:
+            check(noisy <= clean + PAPER_SNR_NOISE,
+                  f"paper snr {spec}: noisy {noisy} above clean {clean}")
+        lines.append(f"{h},{l},{b}: analytic {ana:.4f}, MC {noisy:.4f} "
+                     f"(delta {noisy - ana:+.4f}), noiseless {clean:.4f}")
+    seconds["snr_mc"] = time.perf_counter() - t0
+    print(f"paper snr_mc ({card}): " + "; ".join(lines) + "; noiseless runs "
+          f"one acim_matmul_wgmma launch a point, bit-equal to "
+          f"acim_matmul_ref", flush=True)
+
+    # the roofline over phase 17 (e)'s records
+    records = [json.loads(f.read_text())
+               for f in sorted(dryrun.RUNS.glob("*.json"))]
+    t0 = time.perf_counter()
+    table = [ln.split(",") for mesh in ("pod16x16", "pod2x16x16")
+             for variant in ("", "perf")
+             for ln in roofline.table(mesh, variant).splitlines()[1:]]
+    with contextlib.redirect_stdout(None):
+        roofline.main([])
+    seconds["roofline"] = time.perf_counter() - t0
+    want_rows = sorted((r["arch"], r["shape"], r["status"]) for r in records)
+    check(records and sorted((t[0], t[1], t[2]) for t in table) == want_rows,
+          f"paper roofline: {len(table)} rows for {len(records)} records")
+    ok = sum(t[2] == "ok" for t in table)
+    print(f"paper roofline ({card}): {len(table)} rows for the "
+          f"{len(records)} dry-run records ({ok} ok)", flush=True)
+    print(f"paper drivers ({card}): seconds "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }, launches "
+          f"{total}", flush=True)
+    return total
+
+
+def int8_moments_check(card: str, f32_rows: dict) -> dict:
+    """(b) Phase 18's step with int8 moments on its meshes: each mesh's
+    update bit-equal to one device's on its own grads, the moments held
+    to 1x1's, the state bytes the dry-run's and printed against phase
+    18's (`f32_rows`, float32 moments)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.steps import _moment_spec, split_last
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import gather_shards
+
+    quant = adamw.AdamWConfig(quantized_moments=True)
+    ones: dict = {}
+    found: dict = {}
+
+    def gathered(state, name, k=None, sub=None):
+        spec = state.specs[name]
+        if k is None:
+            return gather_shards([s["params"][name] for s in state.shards],
+                                 state.mesh, spec, "cuda")
+        return gather_shards([s["opt"][k][name][sub] for s in state.shards],
+                             state.mesh, _moment_spec(spec, sub), "cuda")
+
+    def after(what, state, met, mesh, grads, masters):
+        split = split_last(mesh, state.specs, quant)
+        scales_replicated = 0
+        for name, groups in split.items():
+            for group in groups:
+                for k in ("m", "v"):
+                    s0 = state.shards[group[0]]["opt"][k][name]["s"]
+                    for f in group[1:]:
+                        check(torch.equal(
+                            s0, state.shards[f]["opt"][k][name]["s"]),
+                            f"int8 {what}: {name}'s {k} scales differ "
+                            f"across its column pieces")
+                        scales_replicated += 1
+        lr = float(met["lr"])
+        q_off = q_far = q_total = 0
+        s_rel = s_l2 = worst = 0.0
+        s_at = None
+        near = total = 0
+        for name in state.specs:
+            p = masters[name].to("cuda", copy=True)
+            opt = adamw.init({name: p}, quant)
+            adamw.update({name: grads[name]}, opt, {name: p}, quant,
+                         norm=met["grad_norm"])
+            got = gathered(state, name)
+            check(torch.equal(got, p), f"int8 {what}: {name}'s master is not "
+                                       f"one device's update on its grads")
+            for k in ("m", "v"):
+                for sub in ("q", "s"):
+                    check(torch.equal(gathered(state, name, k, sub),
+                                      opt[k][name][sub]),
+                          f"int8 {what}: {name}'s {k} {sub} is not one "
+                          f"device's update on its grads")
+            if what == "1x1":
+                # this update's own tensors (the state's are stepped
+                # again), the masters in host memory
+                ones[name] = (p.cpu(), {(k, sub): opt[k][name][sub]
+                                    for k in ("m", "v")
+                                    for sub in ("q", "s")})
+                continue
+            one, mom = ones[name]
+            d = (got.float() - one.to("cuda").float()).abs()
+            worst = max(worst, float(d.max()) / lr)
+            near += int((d <= TRAIN_CHECK_NEAR * lr).sum())
+            total += d.numel()
+            for k in ("m", "v"):
+                s, s1 = opt[k][name]["s"], mom[(k, "s")]
+                s_rel = max(s_rel, float(((s - s1).abs() / s1.abs().clamp_min(
+                    1e-30)).max()))
+                rel = float(torch.linalg.vector_norm(s - s1)
+                            / torch.linalg.vector_norm(s1).clamp_min(1e-30))
+                if rel >= s_l2:
+                    s_l2, s_at = rel, f"{name} {k}"
+                dq = (opt[k][name]["q"].int() - mom[(k, "q")].int()).abs()
+                q_off += int((dq > 0).sum())
+                q_far += int((dq > 1).sum())
+                q_total += dq.numel()
+        grads.clear()          # the step's grads: not kept past this check
+        line = (f"int8 moments {what} ({card}): {len(split)} leaves split on "
+                f"their last dimension, each scale row equal on its column "
+                f"pieces ({scales_replicated} compared); masters and int8 "
+                f"moments bit-equal to one device's update of the whole "
+                f"leaves on the mesh's own grads")
+        if what != "1x1":
+            share = 1 - q_far / q_total
+            check(worst <= TRAIN_CHECK_LR
+                  and near / total >= TRAIN_CHECK_SHARE,
+                  f"int8 {what}: masters {worst:.4f} lr from 1x1's at most, "
+                  f"{near / total:.5f} within {TRAIN_CHECK_NEAR} lr")
+            check(s_l2 <= INT8_S_REL_L2 and share >= INT8_Q_SHARE,
+                  f"int8 {what}: scales rel L2 {s_l2:.3e} from 1x1's "
+                  f"({s_at}), q within one step on {share:.5f} of the "
+                  f"entries")
+            line += (f"; against 1x1: masters at most {worst:.4f} lr apart "
+                     f"(tolerance {TRAIN_CHECK_LR}), {near / total:.5f} "
+                     f"within {TRAIN_CHECK_NEAR} lr; scales rel L2 at most "
+                     f"{s_l2:.3e} ({s_at}; tolerance {INT8_S_REL_L2}), a "
+                     f"block's at most {s_rel:.3e} relative; q equal on "
+                     f"{1 - q_off / q_total:.5f}, within one step on "
+                     f"{share:.5f} (tolerance {INT8_Q_SHARE})")
+            found[what] = dict(s_rel_l2=s_l2, s_rel=s_rel,
+                               q_equal=1 - q_off / q_total,
+                               q_within_1=share, lr_apart=worst)
+        print(line, flush=True)
+
+    def describe(cfg):
+        return (f"d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, "
+                f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, int8 moments")
+
+    rows = _model_group_phase(
+        card, "int8 moments", registry.get(TP_TRAIN_CONFIG),
+        TP_TRAIN_LAYERS, TP_TRAIN_SHAPE, INT8_MESHES, TP_LOSS_RTOL,
+        TP_GRAD_REL_L2, describe, opt_cfg=quant, after=after)
+    ones.clear()
+    for mesh, r in rows.items():
+        f32 = f32_rows[mesh]["state"]
+        print(f"int8 moments {mesh} ({card}): state a position "
+              f"{r['state']} bytes = {r['state'] / 1e9:.4f} GB, "
+              f"{r['state'] / f32:.4f} of phase 18's {f32} with float32 "
+              f"moments", flush=True)
+    return found
+
+
+def paper_phase(card: str, f32_rows: dict) -> dict:
+    """Phase 22: (a) the paper drivers, (b) int8 moments split on their
+    last dimension; returns the drivers' launches."""
+    t0 = time.perf_counter()
+    launches = paper_drivers_check(card)
+    t_a = time.perf_counter() - t0
+    int8_moments_check(card, f32_rows)
+    print(f"paper phase: {time.perf_counter() - t0:.2f} s ((a) {t_a:.2f} s)",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6341,7 +6767,7 @@ def main() -> int:
     mesh_train_phase(card)
     print(f"chip_smoke wall after phase 17: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
-    tp_train_phase(card)
+    tp_rows = tp_train_phase(card)
     print(f"chip_smoke wall after phase 18: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     ep_train_phase(card)
@@ -6352,6 +6778,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     family_tp_phase(card)
     print(f"chip_smoke wall after phase 21: "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    paper = paper_phase(card, tp_rows)
+    print(f"chip_smoke wall after phase 22: "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     conc, seq = engines["concurrent"], engines["flow"]
     # The wavefront kernel's paths: the concurrent engine (a launch a
@@ -6365,6 +6794,9 @@ def main() -> int:
             r["front_door_launches"] = front_door[r["name"]]
         if r["name"] in mesh["launches"]:
             r["mesh_launches"] = mesh["launches"][r["name"]]
+        if r["name"] in paper:
+            r.setdefault("launches_by_path", {})["paper_drivers"] = \
+                paper[r["name"]]
         if r["name"] == "nds_rank":
             r.update({k: v for k, v in mesh.items() if k != "launches"})
         if r["name"] == "flash_attention_wgmma":

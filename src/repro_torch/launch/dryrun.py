@@ -36,7 +36,10 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
     reduce, the embedding's and the cross-entropy's); for the MoE
     family over dp groups of more than one, each MoE layer's router
     statistics all-reduced over the dp axes once a microbatch (2 E + 1
-    float32: the load-balance term is the whole microbatch's).
+    float32: the load-balance term is the whole microbatch's); with int8
+    moments, for each leaf split on its last dimension, each moment's
+    block maxima all-reduced among its column pieces once a step (the
+    scale row a position holds, float32; `steps.split_last`).
     `collective_s` puts them on one NVLink direction (450 GB/s) where
     the mesh fits one node (`NODE_POSITIONS`, the eight cards of an
     H100 node); the production meshes span 32 and
@@ -272,7 +275,8 @@ def train_collectives(cfg, mesh, *, microbatches: int,
     specs = policy.named_param_specs(named)
     m, lay = _model_group(cfg, mesh, policy)
     kinds = ("all-gather", "reduce-scatter", "all-reduce") + \
-        tensor_parallel.ACTIVATION_KINDS + ("router all-reduce",)
+        tensor_parallel.ACTIVATION_KINDS + ("router all-reduce",
+                                            "scale all-reduce")
     out = {k: 0.0 for k in kinds}
     count = {k: 0 for k in out}
     held = _held(cfg, mesh, policy, named, specs, m, lay, position, cast)
@@ -303,6 +307,16 @@ def train_collectives(cfg, mesh, *, microbatches: int,
         out["router all-reduce"] = layers * 2 * (dp - 1) / dp * (
             2 * cfg.moe.n_experts + 1) * 4
         count["router all-reduce"] = layers
+    opt_cfg = step_kw.get("opt_cfg") or steps_mod.default_opt_cfg(cfg)
+    for name in steps_mod.split_last(mesh, specs, opt_cfg):
+        # each moment's block maxima, the scale row a position holds,
+        # all-reduced among the r column pieces once a step
+        spec, shape = specs[name], tuple(named[name].shape)
+        r = shard_count(mesh, spec[-1:])
+        row = shape[:-1] + (-(-shape[-1] // opt_cfg.quant_block),)
+        nbytes = int(np.prod(shard_shape(mesh, spec[:-1] + (None,), row))) * 4
+        out["scale all-reduce"] += 2 * 2 * (r - 1) / r * nbytes
+        count["scale all-reduce"] += 2
     return {"bytes": out, "count": count,
             "total_bytes": sum(out.values())}
 

@@ -284,15 +284,42 @@ def _quantized(moments: dict) -> bool:
     return isinstance(next(iter(moments.values())), dict)
 
 
-def _check_quantized_split(specs: dict, opt_cfg: adamw.AdamWConfig,
-                           mesh) -> None:
-    bad = [n for n, s in specs.items()
-           if s and shard_count(mesh, s[-1:]) > 1]
-    if opt_cfg.quantized_moments and bad:
-        raise NotImplementedError(
-            f"int8 moments of leaves split on their last dimension ({bad[0]}"
-            f", ...): their block scales would need an all-gather after each "
-            f"update (ROADMAP item 6.10)")
+def split_last(mesh, specs: dict, opt_cfg: adamw.AdamWConfig) -> dict:
+    """{name: its positions' groups} of the leaves whose int8 moments
+    are split on their last dimension: a group is the positions that
+    hold the same rows (coordinates equal but on the last entry's axes),
+    one a column piece, which all-reduce their block maxima (empty
+    without int8 moments)."""
+    if not opt_cfg.quantized_moments:
+        return {}
+    out = {}
+    for n, spec in specs.items():
+        if not spec or shard_count(mesh, spec[-1:]) == 1:
+            continue
+        last = spec[-1]
+        cols = set(last if isinstance(last, tuple) else (last,))
+        groups: dict = {}
+        for f in range(mesh.size):
+            c = mesh.coords(f)
+            groups.setdefault(tuple(v for a, v in c.items() if a not in cols),
+                              []).append(f)
+        out[n] = list(groups.values())
+    return out
+
+
+def column_offset(mesh, spec: tuple, width: int, flat: int) -> int:
+    """Position `flat`'s first column of a leaf `width` wide under
+    `spec` (0 where the last dimension is whole)."""
+    if not spec:
+        return 0
+    key = shard_key(mesh, spec, mesh.coords(flat))[-1]
+    return key * (width // shard_count(mesh, spec[-1:]))
+
+
+def scale_all_reduce(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The int8 moments' block maxima of one leaf's column pieces, their
+    max on each piece's position (`tensor_parallel.all_reduce_max`)."""
+    return tensor_parallel.all_reduce_max(parts)
 
 
 def shard_params(named: dict, policy: ShardingPolicy,
@@ -304,14 +331,14 @@ def shard_params(named: dict, policy: ShardingPolicy,
     mesh = policy.mesh
     named = _master_named(policy.cfg, named)
     specs = policy.named_param_specs(named)
-    _check_quantized_split(specs, opt_cfg, mesh)
     shards = [{"params": {}} for _ in range(mesh.size)]
     with torch.no_grad():
         for n, p in named.items():
             for f, t in enumerate(shard_tensor(p.detach(), mesh, specs[n])):
                 shards[f]["params"][n] = t
+    widths = {n: p.shape[-1] for n, p in named.items() if p.dim()}
     for f, s in enumerate(shards):
-        s["opt"] = adamw.init(s["params"], opt_cfg)
+        s["opt"] = adamw.init(s["params"], opt_cfg, widths=widths)
         s["step"] = torch.zeros((), dtype=torch.int32, device=mesh.device(f))
     return MeshState(policy, specs, shards)
 
@@ -494,15 +521,20 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     microbatches and dp groups, and for the MoE family where a dp
     group's rows x seq a microbatch are not whole dispatch groups of
     `moe.group_size` tokens (then the groups' dispatch would differ from
-    the whole microbatch's); `NotImplementedError` for int8 moments of
-    leaves split on their last dimension (ROADMAP item 6.10)."""
+    the whole microbatch's).  Int8 moments of a leaf split on its last
+    dimension (`split_last`) are quantized with the whole leaf's block
+    scales: each position reduces its new moments' columns to block
+    maxima, the positions holding the same rows all-reduce them
+    (`scale_all_reduce`), and each quantizes its own columns; every
+    such position then holds the leaf's whole row of scales, as the
+    reference's state does."""
     policy = make_policy(mesh, cfg, fsdp=fsdp, model_strategy=model_strategy)
     api = build_model(cfg, remat=remat, mlstm_chunked=(cfg.family == "ssm"))
     cast = cast or policy.compute_dtype_cast
     structure = meta_model(cfg)
     masters = _master_named(cfg, meta_params(cfg))
     specs = policy.named_param_specs(masters)
-    _check_quantized_split(specs, opt_cfg, mesh)
+    split = split_last(mesh, specs, opt_cfg)
     pieces = {n: list(holders(mesh, s).items()) for n, s in specs.items()}
     shapes = {n: tuple(p.shape) for n, p in masters.items()}
     dp = int(np.prod([mesh.shape[a] for a in policy.dp_axes]))
@@ -698,14 +730,38 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
         gnorm = torch.sqrt(sum(torch.sum(torch.square(s.to(torch.float32)))
                                .to(dev0) for by_key in sums.values()
                                for s in by_key.values()))
+        ups = [adamw.Update(sh["opt"], sh["params"], opt_cfg,
+                            gnorm.to(mesh.device(f)))
+               for f, sh in enumerate(state.shards)]
+        for n, spec in specs.items():
+            at = [column_offset(mesh, spec, shapes[n][-1], f)
+                  if n in split else 0 for f in range(mesh.size)]
+            new = []
+            for f, up in enumerate(ups):
+                grad = sums[n][shard_key(mesh, spec, mesh.coords(f))]
+                m2, v2 = up.leaf(n, grad.to(mesh.device(f)), offset=at[f])
+                if n in split:
+                    new.append((m2, v2))
+                else:
+                    up.store(n, "m", m2)
+                    up.store(n, "v", v2)
+                del m2, v2
+            # int8 moments split on their last dimension: each position's
+            # block maxima of its columns, all-reduced over the positions
+            # holding the same rows, then each quantizes its own columns
+            # with the leaf's scales
+            for i, which in enumerate(("m", "v")):
+                for group in split.get(n, ()):
+                    amax = scale_all_reduce([adamw.block_absmax(
+                        new[f][i], opt_cfg.quant_block, offset=at[f],
+                        width=shapes[n][-1]) for f in group])
+                    for f, a in zip(group, amax):
+                        ups[f].store(n, which, new[f][i], offset=at[f],
+                                     amax=a)
+            del new
         opt_metrics = None
-        for f, sh in enumerate(state.shards):
-            dev = mesh.device(f)
-            coords = mesh.coords(f)
-            grads = {n: sums[n][shard_key(mesh, spec, coords)].to(dev)
-                     for n, spec in specs.items()}
-            _, sh["opt"], om = adamw.update(grads, sh["opt"], sh["params"],
-                                            opt_cfg, norm=gnorm.to(dev))
+        for sh, up in zip(state.shards, ups):
+            om = up.finish()
             sh["step"] = sh["step"] + 1
             opt_metrics = opt_metrics or {k: v.to(dev0) for k, v in om.items()}
         return state, dict(metrics, **opt_metrics, loss=loss)

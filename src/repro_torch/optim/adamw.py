@@ -71,52 +71,92 @@ def _nblocks(n: int, block: int) -> int:
     return max(1, -(-n // block))
 
 
-def quantize_blockwise(x: torch.Tensor,
-                       block: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _blocks(x: torch.Tensor, block: int, offset: int):
+    """`x`, columns [offset, offset + n) of a leaf (0-d: one column), in
+    the leaf's blocks of `block` columns that they touch: (..., k, block),
+    zero-padded where a block runs past x's columns, and the index of the
+    first of those blocks in the leaf."""
+    xs = x if x.dim() else x[None]
+    lead = offset % block
+    k = _nblocks(lead + xs.shape[-1], block)
+    xp = F.pad(xs, (lead, k * block - lead - xs.shape[-1]))
+    return xp.reshape(xp.shape[:-1] + (k, block)), offset // block
+
+
+def block_absmax(x: torch.Tensor, block: int, *, offset: int = 0,
+                 width: int | None = None) -> torch.Tensor:
+    """|x|'s max in each block of `block` columns of a leaf `width`
+    columns wide (default x's own width: x is the whole leaf), x holding
+    columns [offset, offset + n) of it: (..., n_blocks) float32, 0 in the
+    blocks x does not reach and partial in a block x shares with another
+    piece (the max of the pieces' rows is the whole leaf's)."""
+    xb, b0 = _blocks(x, block, offset)
+    amax = torch.amax(torch.abs(xb), dim=-1)
+    nb = _nblocks(x.shape[-1] if width is None else width, block) \
+        if x.dim() else 1
+    k = amax.shape[-1]
+    return F.pad(amax, (b0, nb - b0 - k)) if (b0, k) != (0, nb) else amax
+
+
+def quantize_blockwise(x: torch.Tensor, block: int, *, offset: int = 0,
+                       amax: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization in blocks along the last axis: (q like
-    x, scales (..., n_blocks) float32)."""
-    shape = x.shape
-    last = shape[-1] if shape else 1
-    nb = _nblocks(last, block)
-    pad = nb * block - last
-    xp = F.pad(x if shape else x[None], (0, pad))
-    xb = xp.reshape(xp.shape[:-1] + (nb, block))
+    x, scales (..., n_blocks) float32).  `x` may be columns [offset,
+    offset + n) of a leaf split on its last dimension: then `amax` is the
+    whole leaf's `block_absmax` (its pieces' maxima all-reduced), blocks
+    are counted along the whole leaf and the scales are the leaf's whole
+    row (the reference's "scale drops the last dim's sharding")."""
+    if amax is None:
+        if offset:
+            raise ValueError("a piece of a leaf quantizes with the whole "
+                             "leaf's block maxima (amax)")
+        amax = block_absmax(x, block)
+    xb, b0 = _blocks(x, block, offset)
     # a tensor divisor: PyTorch's CUDA `div` multiplies by the reciprocal
     # of a host scalar, which can round apart from the CPU's (and the
     # reference's) division; a device tensor is divided exactly on both
-    scale = torch.amax(torch.abs(xb), dim=-1) / torch.full(
-        (), 127.0, device=xb.device) + 1e-12
-    q = torch.round(xb / scale[..., None]).to(torch.int8)
-    q = q.reshape(xp.shape[:-1] + (nb * block,))
-    return (q[..., :last].reshape(shape) if pad else q.reshape(shape)), scale
+    scale = amax / torch.full((), 127.0, device=amax.device) + 1e-12
+    k = xb.shape[-2]
+    q = torch.round(xb / scale[..., b0:b0 + k, None]).to(torch.int8)
+    return _unblock(q, x, offset % block), scale
 
 
-def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor,
-                         block: int) -> torch.Tensor:
-    shape = q.shape
-    last = shape[-1] if shape else 1
-    nb = scale.shape[-1]
-    pad = nb * block - last
-    qp = F.pad(q if shape else q[None], (0, pad))
-    xb = qp.reshape(qp.shape[:-1] + (nb, block)).to(torch.float32)
-    x = xb * scale[..., None]
-    return x.reshape(qp.shape[:-1] + (nb * block,))[..., :last].reshape(shape)
+def _unblock(xb: torch.Tensor, like: torch.Tensor, lead: int) -> torch.Tensor:
+    """The columns of `like` out of its blocks `xb` (`_blocks`)."""
+    flat = xb.reshape(xb.shape[:-2] + (-1,))
+    n = like.shape[-1] if like.dim() else 1
+    return flat[..., lead:lead + n].reshape(like.shape)
 
 
-def init(params: dict, cfg: AdamWConfig) -> dict:
+def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, block: int, *,
+                         offset: int = 0) -> torch.Tensor:
+    """float32 of `q` (columns [offset, offset + n) of a leaf) with the
+    leaf's whole row of block scales `scale`."""
+    qb, b0 = _blocks(q, block, offset)
+    x = qb.to(torch.float32) * scale[..., b0:b0 + qb.shape[-2], None]
+    return _unblock(x, q, offset % block)
+
+
+def init(params: dict, cfg: AdamWConfig, *,
+         widths: dict[str, int] | None = None) -> dict:
     """Zero moments like `params` (a dict of tensors) and count 0, on
-    the parameters' device."""
+    the parameters' device.  `widths` gives the whole leaf's last
+    dimension where a parameter is a piece of it split on that dimension:
+    its int8 moments' scales are the whole leaf's row of blocks."""
     dev = next(iter(params.values())).device
+    widths = widths or {}
     if cfg.quantized_moments:
-        def qzeros(p):
-            nb = _nblocks(p.shape[-1] if p.dim() else 1, cfg.quant_block)
+        def qzeros(n, p):
+            width = widths.get(n, p.shape[-1] if p.dim() else 1)
+            nb = _nblocks(width, cfg.quant_block)
             return {"q": torch.zeros(p.shape, dtype=torch.int8,
                                      device=p.device),
                     "s": torch.zeros(tuple(p.shape[:-1]) + (nb,),
                                      dtype=torch.float32, device=p.device)}
 
-        return {"m": {n: qzeros(p) for n, p in params.items()},
-                "v": {n: qzeros(p) for n, p in params.items()},
+        return {"m": {n: qzeros(n, p) for n, p in params.items()},
+                "v": {n: qzeros(n, p) for n, p in params.items()},
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
     zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype,  # noqa: E731
                                   device=p.device)
@@ -133,6 +173,74 @@ def global_norm(tree: dict) -> torch.Tensor:
                           for g in tree.values()))
 
 
+class Update:
+    """One AdamW step over `params` taken leaf by leaf: `leaf` updates a
+    parameter in place and returns its new float32 moments, `store`
+    writes a moment into `opt_state`, `finish` sets the count and gives
+    the metrics.  `update` runs every leaf in turn; a mesh's step takes
+    each leaf on every position before it stores the int8 moments of a
+    leaf split on its last dimension, whose block maxima its positions
+    all-reduce first.  `norm` is the global grad norm the clip reads."""
+
+    def __init__(self, opt_state: dict, params: dict, cfg: AdamWConfig,
+                 norm: torch.Tensor):
+        self.opt_state, self.params, self.cfg, self.norm = (
+            opt_state, params, cfg, norm)
+        self.count = opt_state["count"] + 1
+        self.scale = torch.clamp(cfg.clip_norm / (norm + 1e-9), max=1.0)
+        self.lr = schedule(cfg, self.count)
+        self.bc1 = 1.0 - cfg.b1 ** self.count.to(torch.float32)
+        self.bc2 = 1.0 - cfg.b2 ** self.count.to(torch.float32)
+        self.decay = _decay_mask(params)
+
+    @torch.no_grad()
+    def leaf(self, name: str, grad: torch.Tensor, *, offset: int = 0
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Update parameter `name` with `grad` in place; (m, v) new, in
+        float32.  `offset` is the parameter's first column in the whole
+        leaf, where it is a piece split on its last dimension."""
+        cfg, p = self.cfg, self.params[name]
+        m, v = self.opt_state["m"][name], self.opt_state["v"][name]
+        g = grad.to(torch.float32) * self.scale
+        if cfg.quantized_moments:
+            mf = dequantize_blockwise(m["q"], m["s"], cfg.quant_block,
+                                      offset=offset)
+            vf = dequantize_blockwise(v["q"], v["s"], cfg.quant_block,
+                                      offset=offset)
+        else:
+            mf, vf = m.to(torch.float32), v.to(torch.float32)
+        m2 = cfg.b1 * mf + (1 - cfg.b1) * g
+        v2 = cfg.b2 * vf + (1 - cfg.b2) * g * g
+        del g, mf, vf
+        step = (m2 / self.bc1) / (torch.sqrt(v2 / self.bc2) + cfg.eps)
+        pf = p.to(torch.float32)
+        if self.decay[name]:
+            step = step + cfg.weight_decay * pf
+        p.copy_(pf - self.lr * step)
+        return m2, v2
+
+    @torch.no_grad()
+    def store(self, name: str, which: str, new: torch.Tensor, *,
+              offset: int = 0, amax: torch.Tensor | None = None) -> None:
+        """Write moment `which` ("m" or "v") of `name`: int8 blocks with
+        their scales (from `amax`, the whole leaf's block maxima, where
+        the parameter is a piece at column `offset`), else a copy."""
+        mom = self.opt_state[which][name]
+        if self.cfg.quantized_moments:
+            q, s = quantize_blockwise(new, self.cfg.quant_block,
+                                      offset=offset, amax=amax)
+            mom["q"].copy_(q)
+            mom["s"].copy_(s)
+        else:
+            mom.copy_(new)
+
+    def finish(self) -> dict:
+        """Set the state's count; AdamW's metrics as 0-dim tensors."""
+        self.opt_state["count"] = self.count
+        return {"grad_norm": self.norm, "lr": self.lr,
+                "clip_scale": self.scale}
+
+
 @torch.no_grad()
 def update(grads: dict, opt_state: dict, params: dict,
            cfg: AdamWConfig, *,
@@ -143,38 +251,11 @@ def update(grads: dict, opt_state: dict, params: dict,
     `norm` is the global grad norm where `grads` are one position's
     shards of a mesh (the clip reads the whole tree's norm); by default
     `global_norm(grads)`."""
-    count = opt_state["count"] + 1
-    gnorm = global_norm(grads) if norm is None else norm
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    lr = schedule(cfg, count)
-    bc1 = 1.0 - cfg.b1 ** count.to(torch.float32)
-    bc2 = 1.0 - cfg.b2 ** count.to(torch.float32)
-    decay = _decay_mask(params)
-    for name, p in params.items():
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].to(torch.float32) * scale
-        if cfg.quantized_moments:
-            mf = dequantize_blockwise(m["q"], m["s"], cfg.quant_block)
-            vf = dequantize_blockwise(v["q"], v["s"], cfg.quant_block)
-        else:
-            mf, vf = m.to(torch.float32), v.to(torch.float32)
-        m2 = cfg.b1 * mf + (1 - cfg.b1) * g
-        v2 = cfg.b2 * vf + (1 - cfg.b2) * g * g
-        del g, mf, vf
-        step = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
-        pf = p.to(torch.float32)
-        if decay[name]:
-            step = step + cfg.weight_decay * pf
-        p.copy_(pf - lr * step)
-        del step, pf
-        if cfg.quantized_moments:
-            for mom, new in ((m, m2), (v, v2)):
-                q, s = quantize_blockwise(new, cfg.quant_block)
-                mom["q"].copy_(q)
-                mom["s"].copy_(s)
-        else:
-            m.copy_(m2)
-            v.copy_(v2)
-    opt_state["count"] = count
-    metrics = {"grad_norm": gnorm, "lr": lr, "clip_scale": scale}
-    return params, opt_state, metrics
+    up = Update(opt_state, params, cfg,
+                global_norm(grads) if norm is None else norm)
+    for name in params:
+        m2, v2 = up.leaf(name, grads[name])
+        up.store(name, "m", m2)
+        up.store(name, "v", v2)
+        del m2, v2
+    return params, opt_state, up.finish()

@@ -9,9 +9,9 @@ Configs: the reduced deepseek-v2-lite (2 layers, d 64, MLA over 4 heads,
 8 experts top-2 of width 48 plus one shared, dispatch groups of 64
 tokens) and the reduced arctic (4 heads over 2 KV heads, 8 experts top-2
 of width 96 plus a dense residual FFN of 96, groups of 64), both with
-plain AdamW moments: arctic-480b's own int8 moments, split on their last
-dimension on these meshes, are refused (`_check_quantized_split`,
-ROADMAP item 6.10).  Batches of 4 x 64 tokens: a dp group's rows a
+plain AdamW moments (the reduced arctic with arctic-480b's own int8
+moments, split on their last dimension, is held in
+`test_torch_sharded_train.py`).  Batches of 4 x 64 tokens: a dp group's rows a
 microbatch are whole dispatch groups on every mesh here.
 
 Arithmetic: with a float32 backbone and compute cast (the `f32` fixture
@@ -371,8 +371,9 @@ def test_what_the_moe_step_refuses():
     """Dispatch groups split across dp groups raise `ValueError` (2 x 16
     tokens a group a microbatch against groups of 64), on 2x1 and with 2
     microbatches on 2x2; one dp group (1x2) takes any batch the
-    one-device step takes.  Arctic's own int8 moments split on their
-    last dimension raise as every config's do."""
+    one-device step takes.  Arctic's own int8 moments, split on their
+    last dimension on 2x2-FSDP, no longer refuse: the step builds, with
+    the leaves whose block scales its positions all-reduce."""
     cfg = _cfg(DEEPSEEK)
     masters = _masters(cfg)
     for shape, micro, seq in (((2, 1), 1, 16), ((2, 2), 2, 32)):
@@ -387,10 +388,14 @@ def test_what_the_moe_step_refuses():
     state = tsteps.shard_params(masters, step.policy, step.opt_cfg)
     _, met = step.fn(state, batch_for(cfg, 16, 4, 0, seed=0))
     assert np.isfinite(float(met["loss"]))
-    with pytest.raises(NotImplementedError, match="last dimension"):
-        tsteps.make_train_step(
-            _cfg(ARCTIC), make_mesh((2, 2), ("data", "model"), device="cpu"),
-            fsdp=True, opt_cfg=tsteps.default_opt_cfg(registry.get(ARCTIC)))
+    own = tsteps.default_opt_cfg(registry.get(ARCTIC))
+    step = tsteps.make_train_step(
+        _cfg(ARCTIC), make_mesh((2, 2), ("data", "model"), device="cpu"),
+        fsdp=True, opt_cfg=own)
+    specs = step.policy.named_param_specs(tsteps._master_named(
+        _cfg(ARCTIC), tsteps.meta_params(_cfg(ARCTIC))))
+    assert own.quantized_moments and tsteps.split_last(step.policy.mesh,
+                                                       specs, own)
 
 
 @pytest.mark.parametrize("arch,shape,fsdp", [

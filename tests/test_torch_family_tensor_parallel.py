@@ -10,14 +10,16 @@ adds the same terms as the 1x1 step in another order: loss, grad norm
 and every updated master within rtol 1e-5 / atol 1e-6 of it, replicated
 pieces bit-equal on their positions.  The reduced configs: zamba2 with 8
 SSM heads and 4 attention heads, xlstm with 2 heads (at 1x4 they do not
-divide, so the mLSTM runs whole on every position), whisper with 4 heads
-and a vocabulary of 512.  With the bf16 backbone the 1x2 step is held to
+divide, so the mLSTM runs whole on every position; one case widens it
+to 4 heads at 1x2, two a position), whisper with 4 heads and a
+vocabulary of 512.  With the bf16 backbone the 1x2 step is held to
 the reference's one-device step (`torch_port_helpers.ref_train_step`,
 unjitted) at `test_tp_1x2_matches_reference`'s bounds.  Each new
 sublayer's local form is held to the whole sublayer, the packed cuts to
 their heads' columns, the bytes each position holds to the dry-run's,
 and the dry-run's count of what the step sends to the calls it makes.
 """
+import dataclasses
 import functools
 
 import jax
@@ -90,6 +92,24 @@ def test_family_tp_step_matches_1x1(f32, arch, mesh):
     assert all(int(s["step"]) == 1 for s in state.shards)
     assert tp.layout(cfg, state.specs, state.mesh) == _want_layout(
         cfg, shape[1])
+
+
+def test_xlstm_with_two_heads_a_position_matches_1x1(f32):
+    """The reduced xlstm widened to 4 heads on 1x2: two heads a position,
+    so `w_if`'s per-head [i, f] cut (`model_cut`) takes more than one
+    head's columns; the step held to 1x1's at the file's bounds."""
+    cfg = dataclasses.replace(registry.reduced("xlstm-125m"),
+                              name="xlstm-4heads", n_heads=4, n_kv_heads=4)
+    masters = _masters(cfg)
+    batch = batch_for(cfg, SEQ, BATCH, 0, seed=0)
+    met, params, state = _mesh_step(cfg, masters, batch, (1, 2))
+    ref = _mesh_step(cfg, masters, batch, (1, 1))
+    _assert_close((met, params), ref[:2])
+    assert tp.layout(cfg, state.specs, state.mesh).mixer
+    cut = model_cut(state.mesh, cfg, "blocks.0.mlstm.w_if",
+                    state.specs["blocks.0.mlstm.w_if"],
+                    tuple(masters["blocks.0.mlstm.w_if"].shape), 1)
+    assert sum(s.stop - s.start for s in cut[-1]) == 4
 
 
 def _reference(arch: str):

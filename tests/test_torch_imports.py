@@ -67,6 +67,16 @@ def test_tools_and_examples_load_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_paper_drivers_are_checked():
+    """The paper drivers (`repro_torch.paper`, the counterparts of
+    `benchmarks/`' result drivers) are among the sources checked below
+    and the modules the first test imports."""
+    names = {p.name for p in (PKG / "paper").glob("*.py")}
+    assert {"fig8_layouts.py", "fig9_design_space.py", "fig10_sota.py",
+            "snr_mc.py", "table2_flow.py", "roofline.py", "run.py"} <= names
+    assert set((PKG / "paper").glob("*.py")) <= set(_sources())
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text())

@@ -13,12 +13,15 @@ tolerances; its oracle is the reference's `value_and_grad(lm_loss)` +
 raises `ShardingTypeError` on this JAX.  Restart exactness on a mesh is
 held bitwise, and checkpoints move between meshes leaf for leaf.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import ckpt as rckpt
 from repro.configs import registry as rregistry
 from repro.models import lm as rlm
 from repro.optim import adamw as radamw
@@ -26,8 +29,10 @@ from repro_torch import convert
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import batch_for
+from repro_torch.launch import dryrun
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import lm as tlm
 from repro_torch.models import whisper as twhisper
@@ -37,7 +42,7 @@ from repro_torch.runtime.fault_tolerance import (RESTART_EXIT_CODE,
                                                  PreemptionGuard)
 from repro_torch.train import trainer
 from repro_torch.train.trainer import TrainerConfig, train
-from torch_port_helpers import leaves, ref_train_step
+from torch_port_helpers import leaves, ref_train_step, rel_l2
 
 NAME = "qwen2.5-3b"
 SEQ, BATCH = 32, 4
@@ -217,11 +222,6 @@ def test_what_the_mesh_step_refuses():
     state = tsteps.shard_params(_masters(moe), step.policy, step.opt_cfg)
     with pytest.raises(ValueError, match="dispatch groups"):
         step.fn(state, batch_for(moe, 16, 4, 0, seed=0))
-    quant = tadamw.AdamWConfig(quantized_moments=True)
-    with pytest.raises(NotImplementedError, match="last dimension"):
-        tsteps.make_train_step(cfg, make_mesh((2, 2), ("data", "model"),
-                                              device="cpu"),
-                               model_strategy="fsdp", opt_cfg=quant)
     step = tsteps.make_train_step(cfg, make_mesh((2, 1), ("data", "model"),
                                                  device="cpu"))
     state = tsteps.shard_params(_masters(cfg), step.policy, step.opt_cfg)
@@ -239,6 +239,263 @@ def test_int8_moments_on_a_replicated_mesh_match_1x1(f32):
     got = _mesh_step(cfg, masters, batch, (4, 1), opt_cfg=quant)
     want = _mesh_step(cfg, masters, batch, (1, 1), opt_cfg=quant)
     _assert_close(got[:2], want[:2])
+
+
+QUANT = tadamw.AdamWConfig(quantized_moments=True)
+# leaves of 64-512 columns: the 256 blocks straddle the pieces of 1x4's
+# 128 columns (head), and 96 blocks straddle every piece edge here
+QUANT_96 = tadamw.AdamWConfig(quantized_moments=True, quant_block=96)
+# the int8 moments of a mesh step against 1x1's, the grads' sums in
+# another order (measured on these configs: s within 6.2e-6 relative,
+# q off by one step on 11 of ~400k entries)
+S_RTOL, Q_SHARE = 2e-5, 1e-3
+SPLIT_MESHES = {"1x2": ((1, 2), {}), "1x4": ((1, 4), {}),
+                "2x2": ((2, 2), {}), "2x2-fsdp": ((2, 2), dict(fsdp=True)),
+                "2x2-zero3": ((2, 2), dict(model_strategy="fsdp")),
+                "1x4-block96": ((1, 4), dict(opt_cfg=QUANT_96))}
+
+
+def _gathered(full: dict) -> dict:
+    """A `MeshState.full()` tree with its leaves read onto the CPU."""
+    return {k: _gathered(v) if isinstance(v, dict) else
+            (v.cpu() if hasattr(v, "cpu") else v) for k, v in full.items()}
+
+
+def _assert_moments_close(got: dict, want: dict, s_rtol: float = S_RTOL,
+                          q_share: float = Q_SHARE) -> None:
+    """int8 moments {"m", "v"} of two steps: scales within `s_rtol`, q
+    within one step on at most `q_share` of the entries."""
+    off = total = 0
+    for k in ("m", "v"):
+        for n, w in want[k].items():
+            g = got[k][n]
+            assert g["s"].shape == w["s"].shape, n
+            np.testing.assert_allclose(g["s"].numpy(), w["s"].numpy(),
+                                       rtol=s_rtol, err_msg=n)
+            d = (g["q"].int() - w["q"].int()).abs()
+            assert int(d.max()) <= 1, n
+            off, total = off + int((d > 0).sum()), total + d.numel()
+    assert off <= q_share * total, (off, total)
+
+
+def _assert_quantized_update(cfg, masters, grads, met, full, opt_cfg,
+                             opt=None):
+    """The mesh's updated masters and int8 moments bit-equal to one
+    device's AdamW update of the whole leaves (`masters`, and `opt` or
+    zero moments) on the mesh's own grads (`on_grad`) and grad norm: the
+    scales of a split leaf are its whole row's, and a piece reads its
+    moments back at its columns."""
+    params = {n: t.clone() for n, t in tsteps._master_named(
+        cfg, masters).items()}
+    opt = tadamw.init(params, opt_cfg) if opt is None else {
+        "count": opt["count"].clone(),
+        **{k: {n: {sub: t.clone() for sub, t in mom.items()}
+               for n, mom in opt[k].items()} for k in ("m", "v")}}
+    tadamw.update(grads, opt, params, opt_cfg, norm=met["grad_norm"])
+    for n in params:
+        assert torch.equal(full["params"][n], params[n]), n
+        for k in ("m", "v"):
+            for sub in ("q", "s"):
+                assert torch.equal(full["opt"][k][n][sub],
+                                   opt[k][n][sub]), (n, k, sub)
+
+
+def _quant_replicas_equal(state) -> int:
+    n = 0
+    for name, spec in state.specs.items():
+        for owners in holders(state.mesh, spec).values():
+            for f in owners[1:]:
+                a, b = state.shards[owners[0]], state.shards[f]
+                assert torch.equal(a["params"][name], b["params"][name])
+                for k in ("m", "v"):
+                    for sub in ("q", "s"):
+                        assert torch.equal(a["opt"][k][name][sub],
+                                           b["opt"][k][name][sub])
+                n += 1
+    return n
+
+
+@pytest.mark.parametrize("mesh", list(SPLIT_MESHES))
+def test_int8_moments_split_on_their_last_dim_match_1x1(f32, mesh):
+    """int8 moments of leaves split on their last dimension: each
+    position quantizes its columns with the whole leaf's block scales
+    (block maxima all-reduced over the positions holding the same
+    rows).  Masters as `_assert_close` holds them and the moments within
+    `S_RTOL` / `Q_SHARE` of 1x1's; bit-equal to one device's update on
+    the mesh's own grads."""
+    cfg = registry.reduced(NAME)
+    masters = _masters(cfg)
+    batch = batch_for(cfg, SEQ, BATCH, 0, seed=0)
+    shape, kw = SPLIT_MESHES[mesh]
+    kw = dict(dict(opt_cfg=QUANT), **kw)
+    grads = {}
+    met, params, state = _mesh_step(
+        cfg, masters, batch, shape,
+        on_grad=lambda n, g: grads.update({n: g}), **kw)
+    assert tsteps.split_last(state.mesh, state.specs, kw["opt_cfg"])
+    ref_kw = {k: v for k, v in kw.items() if k != "fsdp"}
+    ref = _mesh_step(cfg, masters, batch, (1, 1), **ref_kw)
+    _assert_close((met, params), ref[:2])
+    full = _gathered(state.full())
+    _assert_moments_close(full["opt"], _gathered(ref[2].full())["opt"])
+    _assert_quantized_update(cfg, masters, grads, met, full, kw["opt_cfg"])
+    assert _quant_replicas_equal(state) > 0 or mesh.startswith("1x")
+    for f in range(state.mesh.size):
+        assert state.position_bytes(f) == dryrun.position_bytes(
+            cfg, ShapeSpec("t", "train", SEQ, BATCH), state.mesh,
+            **{k: v for k, v in kw.items()
+               if k != "microbatches"})["state_bytes"]
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2-fsdp"])
+def test_arctic_trains_with_int8_moments_on_a_mesh(f32, mesh):
+    """The reduced arctic (a MoE config; named `arctic-reduced`, so
+    `default_opt_cfg` gives it float32 moments: its own int8 moments are
+    passed here) as the reduced qwen2.5 above, at its dispatch groups'
+    64 tokens."""
+    cfg = registry.reduced("arctic-480b")
+    masters = _masters(cfg)
+    batch = batch_for(cfg, 64, BATCH, 0, seed=0)
+    shape, kw = SPLIT_MESHES[mesh]
+    grads = {}
+    met, params, state = _mesh_step(
+        cfg, masters, batch, shape, opt_cfg=QUANT,
+        on_grad=lambda n, g: grads.update({n: g}), **kw)
+    ref = _mesh_step(cfg, masters, batch, (1, 1), opt_cfg=QUANT)
+    _assert_close((met, params), ref[:2])
+    full = _gathered(state.full())
+    _assert_moments_close(full["opt"], _gathered(ref[2].full())["opt"])
+    _assert_quantized_update(cfg, masters, grads, met, full, QUANT)
+
+
+def test_arctic_int8_moments_with_bf16_masters(f32, monkeypatch):
+    """arctic-480b's whole optimizer (int8 moments and bf16 masters of
+    the leaves of stacked rank >= 2, `PARAM_DTYPE`, keyed by the config's
+    name as the reference keys it: set here for the reduced config) on
+    1x4 against 1x1: the masters within a bf16 step of 1x1's, each
+    dequantized moment within 2^-5 relative L2 of 1x1's (the grads of
+    bf16 leaves are bf16; measured 1.4e-2 at most)."""
+    cfg = registry.reduced("arctic-480b")
+    monkeypatch.setitem(tsteps.PARAM_DTYPE, cfg.name, torch.bfloat16)
+    masters = _masters(cfg)
+    batch = batch_for(cfg, 64, BATCH, 0, seed=0)
+    grads = {}
+    met, params, state = _mesh_step(
+        cfg, masters, batch, (1, 4), opt_cfg=QUANT,
+        on_grad=lambda n, g: grads.update({n: g}))
+    ref = _mesh_step(cfg, masters, batch, (1, 1), opt_cfg=QUANT)
+    assert params["blocks.0.attn.wq"].dtype == torch.bfloat16
+    np.testing.assert_allclose(float(met["loss"]), float(ref[0]["loss"]),
+                               rtol=RTOL)
+    for n, want in ref[1].items():
+        np.testing.assert_allclose(params[n].float().numpy(),
+                                   want.float().numpy(), rtol=2 ** -7,
+                                   atol=1e-6, err_msg=n)
+    full = _gathered(state.full())
+    want = _gathered(ref[2].full())["opt"]
+    for k in ("m", "v"):
+        for n, w in want[k].items():
+            got = [tadamw.dequantize_blockwise(m["q"], m["s"], 256)
+                   for m in (full["opt"][k][n], w)]
+            assert rel_l2(got[0].numpy(), got[1].numpy()) <= 2 ** -5, n
+    _assert_quantized_update(cfg, masters, grads, met, full, QUANT)
+
+
+@pytest.mark.parametrize("shape,block,pieces", [
+    ((3, 512), 256, 2), ((3, 512), 256, 4), ((2, 5, 384), 96, 4),
+    ((600,), 256, 3), ((4, 64), 256, 4), ((7,), 2, 7)])
+def test_quantize_blockwise_on_pieces_equals_the_whole_leaf(shape, block,
+                                                            pieces):
+    """Columns [i n, (i + 1) n) quantized with their offset and the
+    whole leaf's block maxima (the max of the pieces' `block_absmax`) give
+    the whole leaf's q columns and its whole scale row, and dequantize
+    to its columns; the whole leaf's equal the reference's bit for
+    bit."""
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).standard_normal(
+        shape).astype(np.float32))
+    q, s = tadamw.quantize_blockwise(x, block)
+    rq, rs = radamw.quantize_blockwise(jnp.asarray(x.numpy()), block)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
+    whole = tadamw.dequantize_blockwise(q, s, block)
+    np.testing.assert_array_equal(whole.numpy(), np.asarray(
+        radamw.dequantize_blockwise(rq, rs, block)))
+    n = shape[-1] // pieces
+    parts = [x[..., i * n:(i + 1) * n] for i in range(pieces)]
+    amax = functools.reduce(torch.maximum, [
+        tadamw.block_absmax(p, block, offset=i * n, width=shape[-1])
+        for i, p in enumerate(parts)])
+    for i, p in enumerate(parts):
+        qi, si = tadamw.quantize_blockwise(p, block, offset=i * n,
+                                           amax=amax)
+        assert torch.equal(qi, q[..., i * n:(i + 1) * n])
+        assert torch.equal(si, s)
+        assert torch.equal(tadamw.dequantize_blockwise(qi, si, block,
+                                                       offset=i * n),
+                           whole[..., i * n:(i + 1) * n])
+    with pytest.raises(ValueError, match="amax"):
+        tadamw.quantize_blockwise(parts[-1], block, offset=shape[-1] - n)
+
+
+def test_int8_moments_resharded_step_matches_1x1(f32):
+    """A second step from one 1x1 state split onto 1x4 (`shard_state`: q
+    by the parameters' specs, the scales' whole rows on each position)
+    reads the int8 moments back at each piece's columns: bit-equal to
+    one device's update of that state on the 1x4 step's grads, its loss
+    and grad norm 1x1's.  (Its masters are not held to 1x1's second
+    step: where a moment dequantizes to m != 0 and v = 0, the step is m
+    over |g|, and a grad that sums near zero in another order moves it
+    by several lr.)"""
+    cfg = registry.reduced(NAME)
+    masters = _masters(cfg)
+    batch = batch_for(cfg, SEQ, BATCH, 0, seed=0)
+    second = batch_for(cfg, SEQ, BATCH, 1, seed=0)
+    _, _, one = _mesh_step(cfg, masters, batch, (1, 1), opt_cfg=QUANT)
+    state = _gathered(one.full())
+    outs = []
+    grads = {}
+    for shape in ((1, 1), (1, 4)):
+        step = tsteps.make_train_step(
+            cfg, make_mesh(shape, ("data", "model"), device="cpu"),
+            opt_cfg=QUANT, on_grad=lambda n, g: grads.update({n: g}))
+        st, met = step.fn(tsteps.shard_state(state, step.policy), second)
+        assert all(int(s["opt"]["count"]) == 2 for s in st.shards)
+        outs.append((met, _gathered(st.full())))
+    (met, got), (rmet, _) = outs[1], outs[0]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(met[k]), float(rmet[k]), rtol=RTOL,
+                                   err_msg=k)
+    _assert_quantized_update(cfg, state["params"], grads, met, got, QUANT,
+                             opt=state["opt"])
+
+
+def test_mesh_checkpoint_with_int8_moments_loads_in_reference(tmp_path):
+    """A 1x4 state with int8 moments written through `MeshState.full()`
+    restores in the reference (its one-device layout: q whole, the scale
+    rows whole) leaf for leaf, and back onto 1x4 shard for shard."""
+    cfg = registry.reduced(NAME)
+    _, _, state = _mesh_step(cfg, _masters(cfg),
+                             batch_for(cfg, SEQ, BATCH, 0, seed=0), (1, 4),
+                             opt_cfg=QUANT)
+    ckpt.save(tmp_path, 1, convert.train_state_tree(state.full(), lazy=True))
+    rcfg = rregistry.reduced("qwen2_5_3b")
+    rquant = radamw.AdamWConfig(quantized_moments=True)
+    struct = jax.eval_shape(lambda: {
+        "params": rlm.init_lm(jax.random.key(0), rcfg),
+        "opt": radamw.init(rlm.init_lm(jax.random.key(0), rcfg), rquant),
+        "step": jnp.int32(0)})
+    back = leaves(rckpt.restore(tmp_path, 1, struct))
+    full = _gathered(state.full())
+    want = leaves(jax.tree.map(np.asarray, convert.train_state_tree(full)))
+    assert set(back) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+    again = tsteps.shard_state(full, state.policy)
+    for a, b in zip(again.shards, state.shards):
+        for k in ("m", "v"):
+            for n, mom in b["opt"][k].items():
+                for sub in ("q", "s"):
+                    assert torch.equal(a["opt"][k][n][sub], mom[sub])
 
 
 def _tcfg(path, steps, **kw):

@@ -41,6 +41,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
 from repro_torch.models.common import causal_mask, softmax_cross_entropy
+from repro_torch.optim import adamw
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import (holders, kept_spec, make_policy,
                                            model_local, region, shard_count,
@@ -340,17 +341,38 @@ def test_gathers_read_the_positions_own_pieces(spec):
                        read_for(None))
 
 
-@pytest.mark.parametrize("shape,fsdp", [((1, 2), False), ((2, 2), True),
-                                        ((2, 2), False)])
-def test_dryrun_counts_what_the_step_sends(f32, monkeypatch, shape, fsdp):
+@pytest.mark.parametrize("shape,fsdp,quant", [
+    ((1, 2), False, False), ((2, 2), True, False), ((2, 2), False, False),
+    ((1, 2), False, True), ((2, 2), True, True)],
+    ids=["shape0-False", "shape1-True", "shape2-False", "1x2-int8",
+         "2x2-fsdp-int8"])
+def test_dryrun_counts_what_the_step_sends(f32, monkeypatch, shape, fsdp,
+                                           quant):
     """`dryrun.train_collectives` on reduced qwen3-8b against the calls
     of one step: each gather (ring bytes (n - 1) / n of what it
     returns, n the pieces it joins) and each all-reduce (2 (r - 1) / r
     of a part, r the group), forward, in remat's recompute and
-    backward."""
+    backward; with int8 moments, each scale all-reduce of a leaf split
+    on its last dimension (r its column pieces; one a moment a step on
+    every position)."""
     cfg, masters, batch = _inputs("qwen3-8b")
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    opt = {"opt_cfg": adamw.AdamWConfig(quantized_moments=True)} \
+        if quant else {}
     sent = {"all-gather": [0.0, 0], "activation all-reduce": [0.0, 0]}
+    scales = [0.0, 0]       # (bytes, position calls) over every position
+    inside = []
+
+    def wrap_scales(parts):
+        r = len(parts)
+        scales[0] += r * 2 * (r - 1) / r * parts[0].numel() \
+            * parts[0].element_size()
+        scales[1] += r
+        inside.append(True)
+        try:
+            return scale_all_reduce(parts)
+        finally:
+            inside.pop()
 
     def gathered(out, n):
         if n > 1:
@@ -371,6 +393,8 @@ def test_dryrun_counts_what_the_step_sends(f32, monkeypatch, shape, fsdp):
 
     def wrap_reduce(fn):
         def inner(parts):
+            if inside:
+                return fn(parts)
             r = len(parts)
             sent["activation all-reduce"][0] += 2 * (r - 1) / r \
                 * parts[0].numel() * parts[0].element_size()
@@ -383,12 +407,19 @@ def test_dryrun_counts_what_the_step_sends(f32, monkeypatch, shape, fsdp):
     monkeypatch.setattr(tsteps, "gather_over", wrap_over)
     monkeypatch.setattr(tp, "all_reduce", wrap_reduce(tp.all_reduce))
     monkeypatch.setattr(tp, "all_reduce_max", wrap_reduce(tp.all_reduce_max))
-    step = tsteps.make_train_step(cfg, mesh, fsdp=fsdp)
+    scale_all_reduce = tsteps.scale_all_reduce
+    monkeypatch.setattr(tsteps, "scale_all_reduce", wrap_scales)
+    step = tsteps.make_train_step(cfg, mesh, fsdp=fsdp, **opt)
     state = tsteps.shard_params({n: t.clone() for n, t in masters.items()},
                                 step.policy, step.opt_cfg)
     step.fn(state, batch)
     want = dryrun.train_collectives(cfg, mesh, microbatches=1, fsdp=fsdp,
-                                    shape=ShapeSpec("t", "train", SEQ, BATCH))
+                                    shape=ShapeSpec("t", "train", SEQ, BATCH),
+                                    **opt)
+    assert want["count"]["scale all-reduce"] * mesh.size == scales[1]
+    np.testing.assert_allclose(want["bytes"]["scale all-reduce"] * mesh.size,
+                               scales[0], rtol=1e-12)
+    assert (scales[1] > 0) == quant
     dp = shape[0]
     per = {"all-gather": mesh.size, "activation all-reduce": dp}
     for kind, (nbytes, calls) in sent.items():
