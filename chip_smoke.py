@@ -854,10 +854,11 @@ TP_GRAD_REL_L2 = 5e-2               # ... every leaf's grad (bf16 step)
 # the card from seed 0 and kept on the host; a "tp" step (bf16 backbone,
 # remat, one microbatch) on each mesh of phase 18, each from the same
 # masters.  The MoE family's step runs both dp groups' forwards before
-# the microbatch's one backward, so on 2x2 both groups' float32 gathers
-# are alive together: at 4 layers (2.76 G masters) state, grad sums and
-# the two gathers reckon 66 GB before activations, at 3 (2.17 G) 52 GB;
-# on an H100 80GB HBM3 3 layers peaked at 54.26 GB and 4 at 68.36 GB.
+# the microbatch's one backward; each position gathers one layer's
+# leaves at a time (and those outside the layers), so state, grad sums
+# and those gathers are what `dryrun.card_peak_bytes` reckons before
+# activations (with every layer's gathers alive, as before, 4 layers
+# peaked at 68.36 GB on an H100 80GB HBM3).
 EP_TRAIN_CONFIG = "deepseek-v2-lite-16b"
 EP_TRAIN_LAYERS = 4                 # depth cut (of 27)
 EP_TRAIN_SHAPE = (8, 256)           # batch, seq: a row is a dispatch group
@@ -5790,10 +5791,11 @@ def _mesh_routes(dp: int, m: int, layers: int, forced=None):
     its input and its own (top_i, slot, keep), on the host.  With
     `forced` (1x1's (top_i, slot, keep) of each layer over the
     microbatch), every call, remat's recompute in the backward too (a
-    call is known by its position's router leaf), takes its dp group's
-    slice of those, its gates the renormalized probabilities of the
-    forced experts: the step teacher-forced to 1x1's routes, as phase
-    11's `_routes` forces a decode."""
+    call outside the backward is the forward's; the recompute's is known
+    by its input's sums, the same bits as the forward's), takes its dp
+    group's slice of those, its gates the renormalized probabilities of
+    the forced experts: the step teacher-forced to 1x1's routes, as
+    phase 11's `_routes` forces a decode."""
     import torch
 
     from repro_torch.models import mlp
@@ -5803,13 +5805,15 @@ def _mesh_routes(dp: int, m: int, layers: int, forced=None):
 
     def recorded(p, xg, mo):
         logits, probs, top_p, top_i, slot, keep = route(p, xg, mo)
-        if id(p.router) not in where:          # the forward's call
+        x64 = xg.detach().double()
+        key = (float(x64.sum()), float(x64.abs().sum()))
+        if torch._C._current_graph_task_id() == -1:    # the forward's call
             n = len(calls)
-            where[id(p.router)] = (n // (layers * m), n // m % layers)
+            where[key] = (n // (layers * m), n // m % layers)
             calls.append((xg.detach().cpu(),)
                          + tuple(t.cpu() for t in (top_i, slot, keep)))
         if forced is not None:
-            k, i = where[id(p.router)]
+            k, i = where[key]
             g = top_i.shape[0]
             top_i, slot, keep = (t[k * g:(k + 1) * g].to(xg.device)
                                  for t in forced[i])
@@ -5895,6 +5899,7 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
 
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
     from repro_torch.models.registry import build_model
 
     gc.collect()
@@ -5914,18 +5919,21 @@ def _model_group_phase(card: str, what: str, full, layers: int, shape,
     torch.cuda.empty_cache()
     n_params = sum(p.numel() for p in host.values())
     b, s = shape
-    # reckoned before the first run: masters and two float32 moments (12
-    # B a parameter), the float32 grad sums (4 B) and, on 2x2 with FSDP,
-    # the float32 gathers of its local pieces (4 B a dp group alive: one
-    # at a time, the MoE family's two together)
-    reckoned = (16 + 4 * (2 if moe else 1)) * n_params / 1e9
+    # reckoned before the first run (`dryrun.card_peak_bytes`): the four
+    # positions' state, grad sums and gathered leaves at once (one layer's
+    # and those outside the layers) on 2x2 with FSDP
+    reckoned = dryrun.card_peak_bytes(
+        cfg, ShapeSpec("t", "train", shape[1], shape[0]),
+        make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4), fsdp=True,
+        opt_cfg=opt_cfg)["cuda:0"] / 1e9
     cut = (f"{enc_layers} + {cfg.n_layers} of {full.encdec.n_enc_layers} "
            f"+ {full.n_layers}" if enc_layers is not None
            else f"{cfg.n_layers} of {full.n_layers}")
     print(f"{what} ({card}): {cfg.name} at full width ({describe(cfg)}), "
           f"cut to {cut} layers: {n_params} "
           f"float32 masters from seed 0; 2x2 FSDP peak reckoned "
-          f"{reckoned:.1f} GB before activations; drawn and copied to "
+          f"{reckoned:.1f} GB before activations (state, grad sums, one "
+          f"layer's gathers at a time); drawn and copied to "
           f"pinned host memory in {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     def rel_l2(g, h):

@@ -23,7 +23,10 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
     over the other axes only, its "model" piece of 1 / m of it, a packed
     leaf's cut (`sharding.model_cut`) from the positions that hold its
     parts, and a leaf that only a group's first position uses not at
-    all on the others), its grad's reduce-scatter (the same bytes) and,
+    all on the others), a layer's leaf's re-gather for its backward
+    ("re-gather": the same bytes again; the leaves outside the layers
+    are gathered once), its grad's reduce-scatter (the all-gather's
+    bytes) and,
     among the r positions holding one piece, an all-reduce (2 (r - 1) /
     r of the piece); and under tensor parallelism over a "model" axis of
     m > 1 the activations' collectives of each model group
@@ -52,6 +55,13 @@ no compiler to ask, so each cell records (JSON in `runs/dryrun_torch/`):
     keys, and `dominant_over`, the terms the dominant one and the
     roofline fraction were taken over: compute and memory only wherever
     `collective_s` is null.
+`gathered_bytes`, `grad_sum_bytes` and `card_peak_bytes` reckon what a
+position holds at once in the step, beside the state: one layer's
+gathered leaves and those outside the layers, and its grad sums; the
+peak leaves out activations and what backward keeps of them, the bf16
+copies the model makes of float32 leaves, logits and the cross-entropy's
+temporaries, AdamW's temporaries of one leaf, the batch, and what the
+allocator caches or fragments.
 The reference's `collective_bytes` parses HLO text; the port has no HLO,
 so it has no counterpart.  The reference's keys with nothing to report
 here (`lower_s`, `compile_s`, `cost`, `hlo_bytes`) are null.
@@ -77,12 +87,13 @@ from repro_torch.core.constants import (H100_HBM_BW, H100_NVLINK_BW,
 from repro_torch.launch import shapes as shp
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.lm import n_stacked_layers, stacked_ndim
+from repro_torch.models.lm import STACKED, n_stacked_layers, stacked_ndim
 from repro_torch.models.registry import build_model, count_params, meta_model
 from repro_torch.parallel import tensor_parallel
-from repro_torch.parallel.sharding import (cut_overlaps, make_policy,
-                                           model_cut, model_local,
-                                           shard_count, shard_shape)
+from repro_torch.parallel.sharding import (cut_overlaps, holders,
+                                           make_policy, model_cut,
+                                           model_local, shard_count,
+                                           shard_shape)
 
 RUNS = pathlib.Path(__file__).resolve().parents[3] / "runs" / "dryrun_torch"
 FITS_BYTES = 80e9         # the H100's 80 GB of HBM3
@@ -262,6 +273,64 @@ def held_bytes(cfg, mesh, *, position: int = 0, **step_kw) -> dict:
     return {n: h for n, (h, _) in held.items()}
 
 
+def gathered_bytes(cfg, mesh, *, position: int = 0, **step_kw) -> dict:
+    """The most bytes of gathered leaves position `position` holds at
+    once in the step: its leaves outside the blocks (`outside`: the
+    embedding, head, final norm, zamba2's shared block, whisper's
+    norms and tables), gathered for the whole forward and backward, and
+    one block's (`block`: the largest layer of `lm.STACKED`), gathered
+    where it runs and again for its backward; `alive` their sum, which
+    `steps.TrainStep.alive` stays within."""
+    out, block = 0, {}
+    for name, nbytes in held_bytes(cfg, mesh, position=position,
+                                   **step_kw).items():
+        head = name.split(".", 2)
+        if head[0] in STACKED:
+            key = (head[0], head[1])
+            block[key] = block.get(key, 0) + nbytes
+        else:
+            out += nbytes
+    most = max(block.values(), default=0)
+    return {"outside": out, "block": most, "alive": out + most}
+
+
+def grad_sum_bytes(cfg, mesh, *, position: int = 0, **step_kw) -> int:
+    """The bytes of the grad sums position `position` holds in the step
+    (`steps.TrainStep.sum_bytes`): one a distinct piece of every leaf
+    whose first holder it is, in `steps.accum_dtype`."""
+    policy = _policy(cfg, mesh, step_kw)
+    named = steps_mod._master_named(cfg, steps_mod.meta_params(cfg))
+    specs = policy.named_param_specs(named)
+    item = torch.empty((), dtype=steps_mod.accum_dtype(cfg)).element_size()
+    total = 0
+    for name, p in named.items():
+        shape = shard_shape(mesh, specs[name], tuple(p.shape))
+        firsts = sum(owners[0] == position for owners in
+                     holders(mesh, specs[name]).values())
+        total += firsts * int(np.prod(shape)) * item
+    return total
+
+
+def card_peak_bytes(cfg, shape: shp.ShapeSpec, mesh, **step_kw) -> dict:
+    """{device: the bytes the step holds on it at once, as reckoned}:
+    over the positions on that device, each one's state
+    (`position_bytes`), grad sums (`grad_sum_bytes`) and gathered
+    leaves at once (`gathered_bytes`).  Left out: activations and what
+    backward keeps of them (remat: one (B, S, D) input a layer), the
+    bf16 copies the model makes of float32 leaves, logits and the
+    cross-entropy's temporaries, AdamW's float32 temporaries of one leaf,
+    the batch, and what the allocator caches or fragments."""
+    step_kw = {k: v for k, v in step_kw.items() if k != "microbatches"}
+    state = position_bytes(cfg, shape, mesh, **step_kw)["state_bytes"]
+    out: dict = {}
+    for f in range(mesh.size):
+        dev = str(mesh.device(f))
+        out[dev] = out.get(dev, 0) + state + grad_sum_bytes(
+            cfg, mesh, position=f, **step_kw) + gathered_bytes(
+            cfg, mesh, position=f, **step_kw)["alive"]
+    return out
+
+
 def train_collectives(cfg, mesh, *, microbatches: int,
                       shape: shp.ShapeSpec | None = None, remat: bool = True,
                       position: int = 0, **step_kw) -> dict:
@@ -274,7 +343,7 @@ def train_collectives(cfg, mesh, *, microbatches: int,
     named = steps_mod._master_named(cfg, steps_mod.meta_params(cfg))
     specs = policy.named_param_specs(named)
     m, lay = _model_group(cfg, mesh, policy)
-    kinds = ("all-gather", "reduce-scatter", "all-reduce") + \
+    kinds = ("all-gather", "re-gather", "reduce-scatter", "all-reduce") + \
         tensor_parallel.ACTIVATION_KINDS + ("router all-reduce",
                                             "scale all-reduce")
     out = {k: 0.0 for k in kinds}
@@ -285,7 +354,9 @@ def train_collectives(cfg, mesh, *, microbatches: int,
         r = mesh.size // n
         _, read = held.get(name, (0, 0.0))
         if read > 0:
-            for kind in ("all-gather", "reduce-scatter"):
+            kinds = ("all-gather", "reduce-scatter") + (
+                ("re-gather",) if name.split(".", 1)[0] in STACKED else ())
+            for kind in kinds:
                 out[kind] += microbatches * read
                 count[kind] += microbatches
         if r > 1:

@@ -6,9 +6,12 @@ Counterpart of `repro.launch.mesh`.  A `Mesh` has `axis_names`, a
 each position, or None for an abstract mesh (shapes only: the dry-run's
 production meshes).  As in `parallel.distributed_explorer`, positions may
 repeat: a 2 x 2 mesh on one card is four `cuda:0` positions, on the CPU
-four `cpu` positions, and the positions run one after another from the
-calling thread.  `mesh.positions.ravel()` is the flat tuple the mesh
-explorer takes.
+four `cpu` positions.  The calling thread issues every position's work
+to its device in turn; a card runs what it was given while the thread
+issues another card's, and the train step's backward runs on autograd's
+thread of each device (`launch.steps`), so positions on four cards
+compute at once and positions sharing a device one after another.
+`mesh.positions.ravel()` is the flat tuple the mesh explorer takes.
 
 Single pod: 16 x 16 positions, axes ("data", "model"); multi-pod: 2 x 16
 x 16 with an outer "pod" axis.  The production meshes are abstract here:

@@ -21,18 +21,28 @@ mixers over the dp / FSDP axes (a packed leaf's cut: `sharding
 (`parallel.tensor_parallel`).  The
 MoE family's load-balance loss is taken over the whole microbatch: its
 dp groups' router statistics are summed before the aux loss, and the
-microbatch takes one backward.  Each grad is reduce-scattered into the
-owning shards as it lands; AdamW then runs on each position's shards
-under the global grad norm.
+microbatch takes one backward.  A position gathers a layer's leaves
+where the layer runs and again for its backward, as the reference's
+scan body does, so one layer's gathers are alive at a time beside the
+leaves outside the layers.  Each grad is reduce-scattered into the
+owning shards as it lands, in one fixed order whatever thread lands it
+(`GradSums`); AdamW then runs on each position's shards under the
+global grad norm.  The forward runs from the calling thread, which
+issues each position's work to its device in turn; a backward runs on
+autograd's thread of each device, so with one position a card the
+cards run their parts of it at once.
 The train step reaches no kernel of ours: the reference's train step
 reaches no Pallas kernel either (dense attention, products outside any
 kernel), so it is PyTorch and cuBLAS.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 import types
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -126,6 +136,12 @@ class TrainStep:
     # a mesh's step: {position: {name: bytes of the leaf its last loss
     # read}}, written by each call
     held: dict = dataclasses.field(default_factory=dict)
+    # a mesh's step: {position: the most bytes of its gathered leaves
+    # alive at once in the last call}
+    alive: dict = dataclasses.field(default_factory=dict)
+    # a mesh's step: {position: bytes of the grad sums it held in the
+    # last call (the pieces it is the first holder of, `accum_dtype`)}
+    sum_bytes: dict = dataclasses.field(default_factory=dict)
 
 
 def _view(module: nn.Module, tensors: dict, prefix: str = ""):
@@ -328,19 +344,62 @@ def shard_params(named: dict, policy: ShardingPolicy,
     dict of tensors, state-dict names; `PARAM_DTYPE` applied) split by
     their specs, a copy of each piece on each of its positions, zero
     AdamW moments like each position's shards, step 0."""
-    mesh = policy.mesh
     named = _master_named(policy.cfg, named)
     specs = policy.named_param_specs(named)
-    shards = [{"params": {}} for _ in range(mesh.size)]
+    shards = [{"params": {}} for _ in range(policy.mesh.size)]
+    for n, p in named.items():
+        _split(shards, policy.mesh, n, p, specs[n])
+    return _fresh_state(policy, opt_cfg, specs, shards, named)
+
+
+def _split(shards: list, mesh, name: str, t: torch.Tensor,
+           spec: tuple) -> None:
+    """`t`'s pieces under `spec` into each position's `params`."""
     with torch.no_grad():
-        for n, p in named.items():
-            for f, t in enumerate(shard_tensor(p.detach(), mesh, specs[n])):
-                shards[f]["params"][n] = t
+        for f, piece in enumerate(shard_tensor(t.detach(), mesh, spec)):
+            shards[f]["params"][name] = piece
+
+
+def _fresh_state(policy: ShardingPolicy, opt_cfg: adamw.AdamWConfig,
+                 specs: dict, shards: list, named: dict) -> MeshState:
+    """Each position's parameters in `specs`' order with zero AdamW
+    moments and step 0 (`named`: the masters, for the widths of int8
+    moments' scale rows)."""
     widths = {n: p.shape[-1] for n, p in named.items() if p.dim()}
     for f, s in enumerate(shards):
+        s["params"] = {n: s["params"][n] for n in specs}
         s["opt"] = adamw.init(s["params"], opt_cfg, widths=widths)
-        s["step"] = torch.zeros((), dtype=torch.int32, device=mesh.device(f))
+        s["step"] = torch.zeros((), dtype=torch.int32,
+                                device=policy.mesh.device(f))
     return MeshState(policy, specs, shards)
+
+
+def init_mesh_state(cfg: ArchConfig, policy: ShardingPolicy,
+                    opt_cfg: adamw.AdamWConfig, *, seed: int = 0,
+                    draw_on=None, place=None) -> MeshState:
+    """`shard_params` of the model's `init(seed=seed, draw_on=draw_on)`
+    (`registry.build_model`; the CPU's generator by default) without the
+    whole model on any device: each leaf is split by its spec and its
+    pieces sent to their positions as it is drawn (`lm._place`), so the
+    drawing device holds one layer's whole leaves at a time and the
+    positions their own pieces.  The same bits as `shard_params` of the
+    whole draw: every shard, moment, count and step.  `place(name,
+    tensor)`, where given, sees each whole leaf before it is split."""
+    masters = _master_named(cfg, meta_params(cfg))
+    specs = policy.named_param_specs(masters)
+    shards = [{"params": {}} for _ in range(policy.mesh.size)]
+
+    def split(name: str, t: torch.Tensor) -> torch.Tensor:
+        if place is not None:
+            place(name, t)
+        master = _master_named(cfg, {name: t})[name]
+        _split(shards, policy.mesh, name, master, specs[name])
+        return t.new_empty(0)
+
+    draw = torch.device("cpu" if draw_on is None else draw_on)
+    build_model(cfg).init(seed=seed, device=draw, draw_on=draw_on,
+                          place=split)
+    return _fresh_state(policy, opt_cfg, specs, shards, masters)
 
 
 def shard_state(state: dict, policy: ShardingPolicy) -> MeshState:
@@ -374,6 +433,296 @@ def shard_state(state: dict, policy: ShardingPolicy) -> MeshState:
         s["step"] = torch.as_tensor(state["step"]).to(
             dev, torch.int32, copy=True)
     return MeshState(policy, specs, shards)
+
+
+# ---------------------------------------------------------------------------
+# the mesh step's gathered leaves and grad sums
+# ---------------------------------------------------------------------------
+class _Leaf(torch.autograd.Function):
+    """A gathered leaf as a node of the step's graph: forward returns
+    `gather()` (made without grad; `token` only puts the node in the
+    graph), backward hands the leaf's whole grad to `hook`, laid out as
+    the leaf (as a leaf's accumulated `.grad` is), and sends nothing on.
+    The node does not hold the leaf, so a leaf dies with its last
+    user."""
+
+    @staticmethod
+    def forward(ctx, token, gather, hook):
+        out = gather()
+        ctx.hook, ctx.stride = hook, out.stride()
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        if any(n > 1 and a != b for n, a, b in
+               zip(grad.shape, grad.stride(), ctx.stride)):
+            grad = grad.new_empty_strided(grad.shape, ctx.stride).copy_(grad)
+        ctx.hook(grad)
+        return None, None, None
+
+
+class GradSums:
+    """A mesh step's grad sums: one a distinct piece of each leaf, on the
+    piece's first holder, in the step's accumulation dtype.  `add(name,
+    f, grad)` takes the whole grad of position f's copy of leaf `name`
+    and adds each piece it covers into that piece's sum.  Each backward
+    names beforehand, with `begin(order)`, the order in which each
+    piece's contributions are added (`{(name, key): [(f, j), ...]}`, j
+    the index of the part in f's cover); a contribution that lands
+    before the ones ahead of it waits, converted, until they have been
+    added, and `end()` adds whatever is left in that order.  So the sums
+    are the same bits whatever thread calls `add` and in whatever
+    interleaving (autograd runs a backward on one thread a device); one
+    lock guards the dicts and the adds."""
+
+    def __init__(self, covers, shard_shapes: dict, mesh, acc_dt):
+        self.covers, self.shard_shapes = covers, shard_shapes
+        self.mesh, self.acc_dt = mesh, acc_dt
+        self.sums: dict = {n: {} for n in shard_shapes}
+        self.lock = threading.Lock()
+        self.order: dict = {}
+        self.at: dict = {}
+        self.early: dict = {}
+        self.keys: dict = {n: {} for n in shard_shapes}
+
+    def begin(self, order: dict) -> None:
+        with self.lock:
+            self.order, self.early = order, {}
+            self.at = dict.fromkeys(order, 0)
+            for name, key in order:
+                self.keys[name].setdefault(key)
+
+    def ordered(self) -> dict:
+        """{name: {key: sum}}, each leaf's pieces in the order they first
+        get a contribution in the named orders (one thread's order)."""
+        out = {}
+        for n, by_key in self.sums.items():
+            keys = [k for k in self.keys[n] if k in by_key]
+            keys += [k for k in by_key if k not in self.keys[n]]
+            out[n] = {k: by_key[k] for k in keys}
+        return out
+
+    def add(self, name: str, f: int, grad: torch.Tensor) -> None:
+        for j, (key, owner, at, within) in enumerate(self.covers(name, f)):
+            piece, dev = grad[at], self.mesh.device(owner)
+            with self.lock:
+                k = (name, key)
+                seq = self.order.get(k)
+                if seq is not None and seq[self.at[k]:self.at[k] + 1] != [
+                        (f, j)]:
+                    self.early[(k, f, j)] = piece.to(dev, self.acc_dt,
+                                                     copy=True)
+                    continue
+                self._put(name, key, dev, within, piece)
+                if seq is not None:
+                    self._drain(k, seq)
+
+    def _drain(self, k: tuple, seq: list) -> None:
+        """Past the contribution just added to `k`: add each buffered one
+        that is now next."""
+        i = self.at[k] + 1
+        while i < len(seq) and (k, *seq[i]) in self.early:
+            f, j = seq[i]
+            _, owner, _, within = self.covers(k[0], f)[j]
+            self._put(k[0], k[1], self.mesh.device(owner), within,
+                      self.early.pop((k, f, j)))
+            i += 1
+        self.at[k] = i
+
+    def _rank(self, e: tuple) -> tuple:
+        """Where a buffered contribution comes in its piece's order (one
+        the order does not name, after those it does)."""
+        k, f, j = e
+        seq = self.order[k]
+        return (k, seq.index((f, j)) if (f, j) in seq else len(seq), f, j)
+
+    def end(self) -> None:
+        """After a backward: the contributions still buffered, each
+        piece's in its order (one whose predecessor never landed)."""
+        with self.lock:
+            for (k, f, j) in sorted(self.early, key=self._rank):
+                _, owner, _, within = self.covers(k[0], f)[j]
+                self._put(k[0], k[1], self.mesh.device(owner), within,
+                          self.early.pop((k, f, j)))
+            self.order, self.at = {}, {}
+
+    def _put(self, name: str, key: tuple, dev, within, piece) -> None:
+        by_key = self.sums[name]
+        if within is not None:       # a part of the piece
+            if key not in by_key:
+                by_key[key] = torch.zeros(self.shard_shapes[name],
+                                          dtype=self.acc_dt, device=dev)
+            by_key[key][within] += piece.to(dev, self.acc_dt)
+        elif key in by_key:
+            by_key[key].add_(piece.to(dev, self.acc_dt))
+        else:
+            by_key[key] = piece.to(dev, self.acc_dt, copy=True)
+
+
+@dataclasses.dataclass
+class _Saved:
+    """A saved tensor that views a gathered leaf, kept as where it lies
+    in the leaf (the uncheckpointed block's `keep`)."""
+    f: int
+    name: str
+    block: tuple
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+class _Gathers:
+    """One call's gathered leaves on every position: `leaf(f, name)` a
+    leaf of the graph (`_Leaf`) whose grad goes to `sums`, `view(f,
+    use_local, first)` position f's model with the leaves outside the
+    blocks gathered now and each block a `_Block` (`lm.Deferred`),
+    gathered where it runs.  Without remat a block runs under `keep()`:
+    a saved tensor that views one of its leaves is kept as a `_Saved`,
+    and the first one the backward reads gathers the block's leaves
+    again (`cache`), each dropped when its grad lands.  `held` and
+    `live` count what each position's leaves take."""
+
+    def __init__(self, state, structure, gather, use_local: bool,
+                 sums: GradSums, held: dict, alive: dict):
+        self.state, self.structure, self.gather = state, structure, gather
+        self.use_local, self.sums = use_local, sums
+        self.held, self.alive = held, alive
+        self.live = dict.fromkeys(alive, 0)
+        # reentrant: a leaf dropped under it counts itself out (`_drop`)
+        self.lock = threading.RLock()
+        self.tokens: dict = {}
+        self.scopes: list = []
+        self.cache: dict = {}
+        self.reopened: set = set()
+
+    def _count(self, f: int, t: torch.Tensor) -> torch.Tensor:
+        n = t.numel() * t.element_size()
+        with self.lock:
+            self.live[f] += n
+            self.alive[f] = max(self.alive[f], self.live[f])
+        weakref.finalize(t, self._drop, f, n)
+        return t
+
+    def _drop(self, f: int, n: int) -> None:
+        with self.lock:
+            self.live[f] -= n
+
+    def raw(self, f: int, name: str) -> torch.Tensor:
+        """Position f's gathered `name`, outside the graph."""
+        t = self.gather(self.state, f, name, self.use_local)
+        self.held[f][name] = t.numel() * t.element_size()
+        return self._count(f, t)
+
+    def leaf(self, f: int, name: str) -> torch.Tensor:
+        dev = self.state.mesh.device(f)
+        if dev not in self.tokens:
+            self.tokens[dev] = torch.zeros((), device=dev, requires_grad=True)
+
+        def hook(grad):
+            with self.lock:
+                self.cache.pop((f, name), None)
+            self.sums.add(name, f, grad)
+
+        t = _Leaf.apply(self.tokens[dev], lambda: self.raw(f, name), hook)
+        if self.scopes and t.numel():
+            self.scopes[-1][t.untyped_storage().data_ptr()] = (
+                f, name, t.dtype, t.storage_offset())
+        return t
+
+    def view(self, f: int, names: list):
+        """Position f's model: `names` (the leaves it uses), a namespace
+        like the model's (`_view`), None at a leaf it does not use; the
+        leaves outside the blocks gathered now, each block of `lm.STACKED`
+        a `_Block`."""
+        used = set(names)
+        blocks: dict = {}
+        top: dict = {}
+        self.held[f] = {}
+        for n in self.state.specs:
+            head = n.split(".", 2)
+            if head[0] in lm.STACKED:
+                blocks.setdefault((head[0], int(head[1])), []).append(n)
+            else:
+                top[n] = self.leaf(f, n) if n in used else None
+        out = types.SimpleNamespace()
+        for name, _ in self.structure.named_parameters(recurse=False):
+            setattr(out, name, top[name])
+        for child, m in self.structure.named_children():
+            if child in lm.STACKED:
+                setattr(out, child, [
+                    _Block(self, f, blocks[(child, i)], used, sub,
+                           f"{child}.{i}.") for i, sub in enumerate(m)])
+            else:
+                setattr(out, child, _view(m, top, f"{child}."))
+        return out
+
+    @contextlib.contextmanager
+    def keep(self):
+        # the saved tensors hold the hooks: the scope holds no tensor and
+        # is emptied on the way out
+        scope: dict = {}
+        self.scopes.append(scope)
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(
+                    functools.partial(self._pack, scope), self._unpack):
+                yield
+        finally:
+            self.scopes.pop()
+            scope.clear()
+
+    def _pack(self, scope: dict, t: torch.Tensor):
+        if t.device.type == "meta" or t.layout != torch.strided:
+            return t
+        hit = scope.get(t.untyped_storage().data_ptr())
+        if hit is None or hit[2] != t.dtype:
+            return t
+        f, name, _, offset = hit
+        block = tuple(n for g, n, *_ in scope.values() if g == f)
+        return _Saved(f, name, block, tuple(t.shape), t.stride(),
+                      t.storage_offset() - offset)
+
+    def _unpack(self, x):
+        if not isinstance(x, _Saved):
+            return x
+        with self.lock:
+            leaf = self.cache.get((x.f, x.name))
+            again = (x.f, x.block) not in self.reopened
+            self.reopened.add((x.f, x.block))
+        if leaf is None:
+            # the block's leaves gathered again, once, for its backward
+            # (a leaf whose grad has landed is not read again)
+            with torch.no_grad():
+                got = {n: self.raw(x.f, n)
+                       for n in (x.block if again else (x.name,))}
+            with self.lock:
+                self.cache.update({(x.f, n): t for n, t in got.items()})
+            leaf = got[x.name]
+        return leaf.as_strided(x.size, x.stride,
+                               leaf.storage_offset() + x.offset)
+
+    def clear(self) -> None:
+        """After a backward: no block's leaves kept."""
+        with self.lock:
+            self.cache.clear()
+            self.reopened.clear()
+
+
+class _Block(lm.Deferred):
+    """Block `prefix` of position f's model (its leaves `names`, None for
+    those not in `used`), gathered where it runs."""
+
+    def __init__(self, run: _Gathers, f: int, names: list, used: set,
+                 module, prefix: str):
+        self.run, self.f, self.names, self.used = run, f, names, used
+        self.module, self.prefix = module, prefix
+
+    def open(self):
+        return _view(self.module, {n: self.run.leaf(self.f, n)
+                                   if n in self.used else None
+                                   for n in self.names}, self.prefix)
+
+    def keep(self):
+        return self.run.keep()
 
 
 def make_train_step(cfg: ArchConfig, mesh=None, *,
@@ -478,7 +827,11 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                      model_strategy: str, fsdp: bool | None,
                      on_grad) -> TrainStep:
     """The train step over `mesh`, the reference's jitted step executed
-    group by group from this thread.
+    group by group: each forward from this thread, which issues every
+    position's work to its device in turn (the devices run it as it
+    comes, a card while this thread issues another's), each backward on
+    autograd's thread of each device (one thread where the positions
+    share a device).
 
     A group is the positions of one dp index (the dp axes: "pod" and
     "data", and "model" under ZeRO-3): one position each, unless "tp"
@@ -489,7 +842,16 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     A group of one position gathers every parameter whole onto its
     device (each piece from its first holder; under ZeRO-3's
     `compute_dtype_cast` cast to `COMPUTE_DTYPE` before the move) and
-    runs the loss and the backward.  A group of m runs the local form
+    runs the loss and the backward.  A leaf of a layer (`lm.STACKED`) is
+    gathered where its layer runs (`lm.Deferred`, `_Gathers`): under
+    remat inside the layer's checkpoint, so it dies with the layer's
+    forward and the recompute gathers it again for the backward;
+    without remat the layer runs under saved-tensor hooks that keep a
+    saved view of a leaf as where it lies in the leaf, and the first
+    one the backward reads gathers the layer's leaves again, each
+    dropped when its grad lands.  The values read are the same bits
+    either way.  The leaves outside the layers are gathered when the
+    loss starts and held to its backward.  A group of m runs the local form
     (`tensor_parallel.group_loss`): each position gathers its "model"
     piece of each leaf that the policy splits on whole units over the
     other axes (`gather_over`; its own shard where nothing is to
@@ -498,17 +860,23 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
     and nothing of a leaf only the group's first position uses
     (`tensor_parallel.first_only`), and the group's graph all-reduces
     the partial sums.  `TrainStep.held` records the bytes of each
-    position's leaves.  The MoE family runs every group's forward of a
+    position's leaves, `alive` the most of them alive at once, and
+    `sum_bytes` the grad sums each position holds.  The MoE family runs every group's forward of a
     microbatch (`lm.lm_loss_parts`, `tensor_parallel.group_parts`), then
     one backward of the microbatch's loss: the mean of the groups'
     cross-entropies plus `lm.router_aux` of their router statistics
     summed layer by layer (`tensor_parallel.router_all_reduce`), the
     reference's loss over the microbatch's whole rows; its groups'
-    gathers are alive together until that backward.  As
-    each leaf's grad lands (`register_post_accumulate_grad_hook`; a local
-    leaf's grad is its "model" piece, a cut's its parts of several
-    pieces) its pieces are added into one sum a distinct piece, on the
-    piece's first holder, in `accum_dtype`, and the grad is freed.  The
+    leaves outside the layers are alive together until that backward.
+    As each leaf's grad lands (`_Leaf`'s backward, on the autograd
+    thread of the leaf's device; a local leaf's grad is its "model"
+    piece, a cut's its parts of several pieces) its pieces are added
+    into one sum a distinct piece, on the piece's first holder, in
+    `accum_dtype`, and the grad is freed: `GradSums` adds each piece's
+    contributions in one order, a backward's positions from the last
+    to the first (the order one thread lands them in), microbatch by
+    microbatch, holding back one that lands early until those ahead of
+    it have been added.  The
     sums are divided by dp x microbatches (one loss a group); AdamW's
     clip reads the global grad norm, each distinct piece's squares
     summed once; then every position updates
@@ -580,6 +948,45 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                      pieces_in(mesh, spec, shape,
                                region(mesh, spec, shape, f)))
 
+    shard_shapes = {n: shard_shape(mesh, specs[n], shapes[n]) for n in specs}
+
+    def used_by(f: int, first: bool) -> list:
+        """The leaves position f's loss reads: all but, on a model
+        group's other positions, those only its first uses."""
+        return [n for n in specs if lay is None or first
+                or not tensor_parallel.first_only(cfg, n)]
+
+    @functools.lru_cache(maxsize=None)
+    def order_of(members: tuple) -> dict:
+        """The order in which a backward over `members` adds each piece's
+        contributions: position by position, the last first (the order
+        one autograd thread lands them in), each position's parts in
+        the order of its cover."""
+        first = {g[0] for g in groups}
+        order: dict = {}
+        for f in sorted(members, reverse=True):
+            for n in used_by(f, f in first):
+                for j, (key, *_) in enumerate(covers(n, f)):
+                    order.setdefault((n, key), []).append((f, j))
+        return order
+
+    def gather(state: MeshState, f: int, n: str,
+               use_local: bool) -> torch.Tensor:
+        """Position f's tensor of leaf `n`: its cut of a packed local
+        leaf, its "model" piece of a local one gathered over the other
+        axes, else the whole leaf; cast to `COMPUTE_DTYPE` before it
+        moves where the compute cast takes it."""
+        dev, spec = mesh.device(f), specs[n]
+        owned = [s["params"][n] for s in state.shards]
+        dt = COMPUTE_DTYPE if cast and _casts(n, owned[0]) else None
+        with torch.no_grad():
+            c = cut_of(n, f) if use_local else None
+            if c is not None:
+                return gather_cut(owned, mesh, spec, c, f, dev, dt)
+            if use_local and local[n]:
+                return gather_over(owned, mesh, spec, f, dev, dt)
+            return gather_shards(owned, mesh, spec, dev, dt, flat=f)
+
     def train_step(state: MeshState, batch: dict) -> tuple[MeshState, dict]:
         if state.specs != specs or state.mesh is not mesh:
             raise ValueError("the state was sharded for another mesh or "
@@ -596,76 +1003,37 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                 f"microbatch are not whole dispatch groups of "
                 f"{cfg.moe.group_size} tokens (the groups would differ from "
                 f"the whole microbatch's)")
-        sums: dict = {n: {} for n in specs}
-
-        def reducer(name: str, f: int):
-            where = covers(name, f)
-
-            def hook(t: torch.Tensor) -> None:
-                g, t.grad = t.grad, None
-                for key, owner, at, within in where:
-                    piece = g[at]
-                    dev = mesh.device(owner)
-                    if within is not None:       # a part of the piece
-                        if key not in sums[name]:
-                            sums[name][key] = torch.zeros(
-                                shard_shape(mesh, specs[name], shapes[name]),
-                                dtype=acc_dt, device=dev)
-                        sums[name][key][within] += piece.to(dev, acc_dt)
-                    elif key in sums[name]:
-                        sums[name][key].add_(piece.to(dev, acc_dt))
-                    else:
-                        sums[name][key] = piece.to(dev, acc_dt, copy=True)
-            return hook
-
-        def leaves(f: int, use_local: bool, first: bool = True) -> dict:
-            """Position f's leaves for its loss, each a leaf of the graph
-            with its grad hook (None for a leaf that only a group's first
-            position uses, where f is not that)."""
-            dev, held = mesh.device(f), {}
-            with torch.no_grad():
-                for n, spec in specs.items():
-                    if use_local and not first and \
-                            tensor_parallel.first_only(cfg, n):
-                        held[n] = None
-                        continue
-                    owned = [s["params"][n] for s in state.shards]
-                    dt = COMPUTE_DTYPE if cast and _casts(n, owned[0]) \
-                        else None
-                    c = cut_of(n, f) if use_local else None
-                    if c is not None:
-                        held[n] = gather_cut(owned, mesh, spec, c, f, dev, dt)
-                    elif use_local and local[n]:
-                        held[n] = gather_over(owned, mesh, spec, f, dev, dt)
-                    else:
-                        held[n] = gather_shards(owned, mesh, spec, dev, dt,
-                                                flat=f)
-            step.held[f] = {n: t.numel() * t.element_size()
-                            for n, t in held.items() if t is not None}
-            for n, t in held.items():
-                if t is not None:
-                    t.requires_grad_(True)
-                    t.register_post_accumulate_grad_hook(reducer(n, f))
-            return held
+        sums = GradSums(covers, shard_shapes, mesh, acc_dt)
+        step.held.clear()
+        step.alive.clear()
+        step.alive.update(dict.fromkeys(range(mesh.size), 0))
+        run = _Gathers(state, structure, gather, lay is not None, sums,
+                       step.held, step.alive)
 
         def forward(members: list, mbs: list) -> tuple:
             """One group's forward: (loss, metrics, each MoE layer's
             `RouterStats`); the MoE family's loss is its cross-entropy
             alone, its aux loss the step's, over the whole microbatch.
-            The graph holds the group's gathered leaves until its
-            backward."""
+            The graph holds the group's leaves outside the blocks until
+            its backward; a block's are gathered where it runs."""
             if lay is not None:
-                views = [_view(structure, leaves(f, True, k == 0))
+                views = [run.view(f, used_by(f, k == 0))
                          for k, f in enumerate(members)]
                 if moe:
                     return tensor_parallel.group_parts(views, mbs, cfg, lay,
                                                        remat=remat)
                 return (*tensor_parallel.group_loss(views, mbs, cfg, lay,
                                                     remat=remat), [])
-            view = _view(structure, leaves(members[0], False))
+            view = run.view(members[0], used_by(members[0], True))
             if moe:
                 return lm.lm_loss_parts(view, mbs[0], cfg, remat=remat)
             return (*api.loss(view, mbs[0]), [])
+
+        def backward(loss: torch.Tensor, members: list) -> None:
+            sums.begin(order_of(tuple(members)))
+            loss.backward()
+            sums.end()
+            run.clear()
 
         loss, last = None, []
         for i in range(microbatches):
@@ -682,7 +1050,7 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                 # group's gathers are freed before the next group's
                 mb_loss, metrics, _ = out
                 del out
-                mb_loss.backward()
+                backward(mb_loss, members)
                 mb_loss = mb_loss.detach().to(dev0)
                 loss = mb_loss if loss is None else loss + mb_loss
                 last.append({n: v.detach().to(dev0)
@@ -704,9 +1072,17 @@ def _mesh_train_step(cfg: ArchConfig, mesh, *, opt_cfg: adamw.AdamWConfig,
                         for o in outs]
                 mb_aux = aux.detach()
                 del outs, stats, ce, aux
-                mb_loss.backward()
+                backward(mb_loss, list(range(mesh.size)))
                 mb_loss = mb_loss.detach()
                 loss = mb_loss if loss is None else loss + mb_loss
+        sums = sums.ordered()
+        step.sum_bytes.clear()
+        step.sum_bytes.update(dict.fromkeys(range(mesh.size), 0))
+        for n in specs:
+            for key, owners in pieces[n]:
+                if key in sums[n]:
+                    t = sums[n][key]
+                    step.sum_bytes[owners[0]] += t.numel() * t.element_size()
         n_losses = microbatches if moe else microbatches * dp
         if n_losses > 1:
             loss = loss / n_losses

@@ -31,7 +31,9 @@ leaf, which its dtype and weight-decay rules read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -201,10 +203,23 @@ def _serving(name: str, t: torch.Tensor, device: torch.device,
 
 
 def _place(module: nn.Module, prefix: str, device: torch.device,
-           dtype: torch.dtype | None) -> nn.Module:
+           dtype: torch.dtype | None, place=None) -> nn.Module:
+    """`module`'s parameters (named `prefix` + their names) moved and
+    cast by `_serving`, then each passed to `place(name, tensor)`, where
+    given, which returns the tensor the module keeps (a mesh's state
+    takes each leaf's pieces and leaves the module's tensors empty)."""
     for name, prm in module.named_parameters():
         prm.data = _serving(prefix + name, prm.data, device, dtype)
+        if place is not None:
+            prm.data = place(prefix + name, prm.data)
     return module
+
+
+def _leaf(name: str, t: torch.Tensor, device: torch.device,
+          dtype: torch.dtype | None, place=None) -> nn.Parameter:
+    """A parameter outside the layers, as `_place` treats a layer's."""
+    t = _serving(name, t, device, dtype)
+    return nn.Parameter(t if place is None else place(name, t))
 
 
 class LM(nn.Module):
@@ -214,34 +229,35 @@ class LM(nn.Module):
     block), on the generator's device.  Each part is moved to
     `device` (default: the CPU) and cast as `_serving` says right after
     it is drawn, so the drawing device holds one layer in float32 at a
-    time."""
+    time.  `place` as `_place`'s."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  device: torch.device | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, place=None):
         super().__init__()
         check_dense(cfg)
         dev = torch.device("cpu" if device is None else device)
-        self.emb = nn.Parameter(_serving("emb", embed_init(
-            generator, (cfg.vocab, cfg.d_model)), dev, dtype))
+        self.emb = _leaf("emb", embed_init(
+            generator, (cfg.vocab, cfg.d_model)), dev, dtype, place)
         self.blocks = nn.ModuleList(
-            _place(Block(cfg, generator), f"blocks.{i}.", dev, dtype)
+            _place(Block(cfg, generator), f"blocks.{i}.", dev, dtype, place)
             for i in range(n_stacked_layers(cfg)))
         self.final_norm = _place(init_norm(cfg.d_model, cfg.norm),
-                                 "final_norm.", dev, dtype)
+                                 "final_norm.", dev, dtype, place)
         if not cfg.tie_embeddings:
-            self.head = nn.Parameter(_serving("head", dense_init(
-                generator, (cfg.d_model, cfg.vocab)), dev, dtype))
+            self.head = _leaf("head", dense_init(
+                generator, (cfg.d_model, cfg.vocab)), dev, dtype, place)
         if cfg.pos == "learned":
-            self.pos_emb = nn.Parameter(_serving("pos_emb", embed_init(
-                generator, (MAX_LEARNED_POS, cfg.d_model)), dev, dtype))
+            self.pos_emb = _leaf("pos_emb", embed_init(
+                generator, (MAX_LEARNED_POS, cfg.d_model)), dev, dtype, place)
         if cfg.family == "hybrid":
             self.shared = _place(SharedBlock(cfg, generator), "shared.", dev,
-                                 dtype)
+                                 dtype, place)
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None,
-            dtype: torch.dtype | None = None, draw_on=None) -> LM:
+            dtype: torch.dtype | None = None, draw_on=None,
+            place=None) -> LM:
     """Parameters from a `torch.Generator` seeded with `seed`, on
     `device` (CUDA when None, raising without it).  `dtype=torch.bfloat16`
     gives the serving weights.
@@ -252,10 +268,11 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None,
     layer is moved as it is drawn.  `draw_on` names another device to
     draw on (a generator of that device, seeded with `seed`): on the
     card, deepseek-v2-lite's 16.2 G draw in seconds, but the weights
-    are not the CPU draw's."""
+    are not the CPU draw's.  `place` is `_place`'s: a mesh's state
+    splits each leaf as it is drawn (`launch.steps.init_mesh_state`)."""
     dev = resolve_device(device)
     g = torch.Generator(device="cpu" if draw_on is None else draw_on)
-    return LM(cfg, g.manual_seed(seed), device=dev, dtype=dtype)
+    return LM(cfg, g.manual_seed(seed), device=dev, dtype=dtype, place=place)
 
 
 def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
@@ -296,10 +313,60 @@ def _block_fwd(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
     return x + mlp.mlp_fwd(p.ffn, h, cfg), None
 
 
+class Deferred:
+    """A block's parameters that are not at hand until the block runs (a
+    mesh step's gathered leaves, `launch.steps`): `_run` calls `open()`
+    inside the call and passes what it returns in its place.  Under
+    remat that is inside the checkpointed region, so the leaves die with
+    the block's forward and its recompute opens them again; without
+    remat the call runs under `keep()`, a context for the tensors its
+    graph saves.  A subclass defines both."""
+
+    def open(self):
+        raise NotImplementedError
+
+    def keep(self):
+        raise NotImplementedError
+
+
+class _Joined(Deferred):
+    """A list of blocks (one a position of a model group) opened
+    together."""
+
+    def __init__(self, parts: list):
+        self.parts = parts
+
+    def open(self) -> list:
+        return [p.open() if isinstance(p, Deferred) else p
+                for p in self.parts]
+
+    def keep(self):
+        return next(p for p in self.parts if isinstance(p, Deferred)).keep()
+
+
+def joined(parts: list):
+    """`parts` as one `Deferred` where any of them is one, else as they
+    are (a layer of a model group, `parallel.tensor_parallel`)."""
+    if any(isinstance(p, Deferred) for p in parts):
+        return _Joined(parts)
+    return parts
+
+
+def _opened(fn, checkpointed: bool, *args, **kw):
+    """`fn` on `args` with each `Deferred` opened (`Deferred`)."""
+    kept = next(a for a in args if isinstance(a, Deferred))
+    with contextlib.nullcontext() if checkpointed else kept.keep():
+        return fn(*(a.open() if isinstance(a, Deferred) else a
+                    for a in args), **kw)
+
+
 def _run(checkpointed: bool, fn, *args, **kw):
     """`fn(*args, **kw)`, under `torch.utils.checkpoint` when
     `checkpointed`: backward keeps the call's tensor inputs and
-    recomputes the rest."""
+    recomputes the rest.  A `Deferred` argument is opened inside the
+    call."""
+    if any(isinstance(a, Deferred) for a in args):
+        fn = functools.partial(_opened, fn, checkpointed)
     if checkpointed:
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)

@@ -26,11 +26,12 @@ from repro_torch.models.common import prefix_lm_mask, softmax_cross_entropy
 
 
 def init_paligemma(cfg: ArchConfig, *, seed: int = 0, device=None,
-                   dtype: torch.dtype | None = None, draw_on=None) -> lm.LM:
+                   dtype: torch.dtype | None = None, draw_on=None,
+                   place=None) -> lm.LM:
     """`lm.init_lm` of the VLM's decoder (CUDA when `device` is None,
     raising without it)."""
     return lm.init_lm(cfg, seed=seed, device=device, dtype=dtype,
-                      draw_on=draw_on)
+                      draw_on=draw_on, place=place)
 
 
 def paligemma_loss(params: lm.LM, batch: dict, cfg: ArchConfig, *,

@@ -140,37 +140,40 @@ class Whisper(nn.Module):
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  device: torch.device | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, place=None):
         super().__init__()
         check_audio(cfg)
         dev = torch.device("cpu" if device is None else device)
         d = cfg.d_model
         self.enc_blocks = nn.ModuleList(
             lm._place(EncBlock(cfg, generator), f"enc_blocks.{i}.", dev,
-                      dtype)
+                      dtype, place)
             for i in range(cfg.encdec.n_enc_layers))
         self.enc_norm = lm._place(init_norm(d, cfg.norm), "enc_norm.", dev,
-                                  dtype)
-        self.emb = nn.Parameter(lm._serving("emb", embed_init(
-            generator, (cfg.vocab, d)), dev, dtype))
-        self.pos_emb = nn.Parameter(lm._serving("pos_emb", embed_init(
-            generator, (MAX_LEARNED_POS, d)), dev, dtype))
+                                  dtype, place)
+        self.emb = lm._leaf("emb", embed_init(generator, (cfg.vocab, d)),
+                            dev, dtype, place)
+        self.pos_emb = lm._leaf("pos_emb", embed_init(
+            generator, (MAX_LEARNED_POS, d)), dev, dtype, place)
         self.dec_blocks = nn.ModuleList(
             lm._place(DecBlock(cfg, generator), f"dec_blocks.{i}.", dev,
-                      dtype)
+                      dtype, place)
             for i in range(cfg.n_layers))
         self.dec_norm = lm._place(init_norm(d, cfg.norm), "dec_norm.", dev,
-                                  dtype)
+                                  dtype, place)
 
 
 def init_whisper(cfg: ArchConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype | None = None, draw_on=None) -> Whisper:
+                 dtype: torch.dtype | None = None, draw_on=None,
+                 place=None) -> Whisper:
     """Parameters from a `torch.Generator` seeded with `seed` (the CPU's,
     or `draw_on`'s), on `device` (CUDA when None, raising without it);
-    `dtype=torch.bfloat16` gives the serving weights, as `lm.init_lm`."""
+    `dtype=torch.bfloat16` gives the serving weights, `place` each leaf
+    to its taker, as `lm.init_lm`."""
     dev = resolve_device(device)
     g = torch.Generator(device="cpu" if draw_on is None else draw_on)
-    return Whisper(cfg, g.manual_seed(seed), device=dev, dtype=dtype)
+    return Whisper(cfg, g.manual_seed(seed), device=dev, dtype=dtype,
+                   place=place)
 
 
 # ---------------------------------------------------------------------------

@@ -622,8 +622,9 @@ def _whisper_parts(views: list, batches: list[dict], cfg: ArchConfig,
             for x in xs]
     pos = [torch.arange(f, device=x.device) for x in xs]
     for i in range(len(views[0].enc_blocks)):
-        xs, _ = lm._run(remat, _block, [v.enc_blocks[i] for v in views], xs,
-                        cfg, masks=full, positions=pos, lay=lay)
+        layer = lm.joined([v.enc_blocks[i] for v in views])
+        xs, _ = lm._run(remat, _block, layer, xs, cfg, masks=full,
+                        positions=pos, lay=lay)
     encs = [apply_norm(v.enc_norm, x, cfg.norm) for v, x in zip(views, xs)]
     s = batches[0]["inputs"].shape[1]
     xs = [x + v.pos_emb[:s].to(x.dtype)[None]
@@ -631,8 +632,9 @@ def _whisper_parts(views: list, batches: list[dict], cfg: ArchConfig,
     masks = [causal_mask(s, x.device) for x in xs]
     pos = [torch.arange(s, device=x.device) for x in xs]
     for i in range(len(views[0].dec_blocks)):
-        xs = lm._run(remat, _dec_block, [v.dec_blocks[i] for v in views], xs,
-                     encs, cfg, masks=masks, positions=pos, lay=lay)
+        layer = lm.joined([v.dec_blocks[i] for v in views])
+        xs = lm._run(remat, _dec_block, layer, xs, encs, cfg, masks=masks,
+                     positions=pos, lay=lay)
     logits = []
     for v, x in (zip(views, xs) if lay.vocab else [(views[0], xs[0])]):
         x = apply_norm(v.dec_norm, x, cfg.norm)
@@ -679,7 +681,7 @@ def group_parts(views: list, batches: list[dict], cfg: ArchConfig,
     masks = [prefix_lm_mask(s, prefix, x.device) for x in xs]
     positions = [torch.arange(s, device=x.device) for x in xs]
     stats, xs = [], list(xs)
-    layers = [[v.blocks[i] for v in views]
+    layers = [lm.joined([v.blocks[i] for v in views])
               for i in range(len(views[0].blocks))]
     if cfg.family == "hybrid":
         per = cfg.hybrid.shared_attn_every

@@ -73,15 +73,15 @@ def init_state(cfg: ArchConfig, tcfg: TrainerConfig, device=None,
     """A fresh train state on `device` (CUDA when None, raising without
     it): float32 parameters from the model's `init(seed=tcfg.seed)`
     (`registry.build_model`: the LM, or whisper's encoder-decoder), zero
-    AdamW moments, step 0.  With `mesh`, the same parameters (drawn on
-    its first position) split over its positions, a `MeshState`."""
+    AdamW moments, step 0.  With `mesh`, the same parameters split over
+    its positions, a `MeshState` (`steps.init_mesh_state`: each leaf is
+    split as it is drawn on the CPU, so no device holds the whole
+    model)."""
     opt_cfg = tcfg.opt or steps_mod.default_opt_cfg(cfg)
     if mesh is not None:
-        params = registry.build_model(cfg).init(seed=tcfg.seed,
-                                                device=mesh.device(0))
         policy = make_policy(mesh, cfg, model_strategy=tcfg.model_strategy)
-        return steps_mod.shard_params(dict(params.named_parameters()),
-                                      policy, opt_cfg)
+        return steps_mod.init_mesh_state(cfg, policy, opt_cfg,
+                                         seed=tcfg.seed)
     dev = resolve_device(device)
     params = registry.build_model(cfg).init(seed=tcfg.seed, device=dev)
     opt = adamw.init(dict(params.named_parameters()), opt_cfg)

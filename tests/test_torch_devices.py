@@ -7,8 +7,8 @@ another device; so every wrapper's C call goes through
 `kernels._build.launch`, which makes the tensor's device current first.
 These tests hold that with no card: the guard is monkeypatched, the
 wrappers are driven with `meta` tensors (their kernel branch, with a
-stand-in library) and the wrapper sources are read.  The last test
-needs two cards and skips with fewer.
+stand-in library) and the wrapper sources are read.  The `cuda` tests
+need two or four cards and skip with fewer.
 """
 import ast
 import contextlib
@@ -195,3 +195,48 @@ def test_session_on_the_second_card():
     assert torch.cuda.current_device() == before
     assert (LAUNCHES["nsga2_evolve"], LAUNCHES["route_slots"]) == (1, 1)
     assert got.summary() == want.summary()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-lite-16b"])
+def test_mesh_step_on_four_cards_equals_one_card(arch):
+    """The reduced config's 1x4 train step with one position a card
+    (autograd runs a backward thread a card, the grad sums' order fixed
+    by `steps.GradSums`) equals the same mesh on four cuda:0 positions
+    bit for bit: loss, every reduced grad and every master after it that
+    two one-card runs agree on (all but two at most)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = registry.reduced(arch)
+    masters = {n: p.detach().cpu() for n, p in steps.build_model(cfg).init(
+        seed=0, device="cpu").named_parameters()}
+    batch = batch_for(cfg, 64, 8, 0, seed=0, device="cuda:0")
+
+    def run(positions):
+        grads = {}
+        mesh = make_mesh((1, 4), ("data", "model"), positions)
+        step = steps.make_train_step(cfg, mesh, on_grad=lambda n, g:
+                                     grads.update({n: g.cpu()}))
+        state = steps.shard_params(masters, step.policy, step.opt_cfg)
+        state, met = step.fn(state, batch)
+        return met["loss"].cpu(), grads, {
+            n: t.cpu() for n, t in state.full()["params"].items()}
+
+    one, again = run(["cuda:0"] * 4), run(["cuda:0"] * 4)
+    four = run([f"cuda:{i}" for i in range(4)])
+    assert torch.equal(one[0], four[0]) or not torch.equal(one[0], again[0])
+    agreed = 0
+    for a, b, c in zip(one[1:], again[1:], four[1:]):
+        assert list(a) == list(c)
+        for n in a:
+            # a leaf the card's own atomics leave apart between two
+            # one-card runs is not held bitwise
+            if torch.equal(a[n], b[n]):
+                agreed += 1
+                assert torch.equal(a[n], c[n]), n
+    assert agreed >= len(one[1]) + len(one[2]) - 2

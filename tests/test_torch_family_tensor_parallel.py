@@ -484,9 +484,12 @@ def test_dryrun_counts_what_the_family_step_sends(f32, monkeypatch, arch,
                                       shape=cell, position=f)
              for f in range(mesh.size)]
     dp = shape[0]
-    want_gather = sum(w["bytes"]["all-gather"] for w in wants)
-    assert sum(w["count"]["all-gather"] for w in wants) == \
-        sent["all-gather"][1]
+    # the gathers' calls: each leaf's forward all-gather and a block's
+    # re-gather for its backward (remat's recompute)
+    want_gather = sum(w["bytes"]["all-gather"] + w["bytes"]["re-gather"]
+                      for w in wants)
+    assert sum(w["count"]["all-gather"] + w["count"]["re-gather"]
+               for w in wants) == sent["all-gather"][1]
     np.testing.assert_allclose(want_gather, sent["all-gather"][0],
                                rtol=1e-12)
     want = wants[0]

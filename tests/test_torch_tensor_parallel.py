@@ -422,10 +422,16 @@ def test_dryrun_counts_what_the_step_sends(f32, monkeypatch, shape, fsdp,
     assert (scales[1] > 0) == quant
     dp = shape[0]
     per = {"all-gather": mesh.size, "activation all-reduce": dp}
+    # the gathers' calls: each leaf's forward all-gather and a block's
+    # re-gather for its backward (remat's recompute)
+    again = {"all-gather": "re-gather"}
     for kind, (nbytes, calls) in sent.items():
-        assert want["count"][kind] * per[kind] == calls, kind
-        np.testing.assert_allclose(want["bytes"][kind], nbytes / per[kind],
-                                   rtol=1e-12, err_msg=kind)
+        count = want["count"][kind] + want["count"].get(again.get(kind), 0)
+        nb = want["bytes"][kind] + want["bytes"].get(again.get(kind), 0)
+        assert count * per[kind] == calls, kind
+        np.testing.assert_allclose(nb, nbytes / per[kind], rtol=1e-12,
+                                   err_msg=kind)
     assert want["bytes"]["reduce-scatter"] == want["bytes"]["all-gather"]
     assert (want["bytes"]["all-gather"] > 0) == fsdp
+    assert (want["bytes"]["re-gather"] > 0) == fsdp
     assert want["bytes"]["activation all-reduce"] > 0

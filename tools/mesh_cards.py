@@ -21,6 +21,9 @@ island ring across cards, on a machine with two or more CUDA devices:
    and within rel L2 1e-2 of `moe_fwd_dense_eval`; each timed.
 
 It exits 1 on a mismatch and prints each card's name and power limit.
+`python3 tools/mesh_cards.py --train [...]` runs `tools/train_cards.py`
+(the mesh train step with one position a card, on four cards) instead,
+its arguments after `--train`.
 """
 import statistics
 import subprocess
@@ -80,6 +83,10 @@ def moe_a2a_across_cards(n: int) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--train"]:
+        import train_cards
+
+        return train_cards.main(sys.argv[2:])
     n = torch.cuda.device_count()
     if n < 2:
         fail(f"needs two or more CUDA devices, found {n}")
